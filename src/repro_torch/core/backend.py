@@ -1,0 +1,130 @@
+"""Backend registry for the operator layer (counterpart of
+``repro.core.backend``).
+
+Every operator hot path — advance expansion+gather, fused
+advance+filter, frontier compaction, the SpMV sweep — is registered
+here once per backend, under the reference's op names and call
+contracts:
+
+  "torch" — plain PyTorch formulations, the twin of each ``xla``
+            provider. Runs on the CPU or the card.
+  "cuda"  — the hand-written Hopper kernels of ``repro_torch.kernels``,
+            the twin of each ``pallas`` provider. CUDA tensors only.
+
+Resolution: an explicit ``backend=`` wins; otherwise the backend follows
+the device of the data — ``"cuda"`` for CUDA tensors, ``"torch"`` for CPU
+tensors. ``"cuda"`` on CPU tensors raises; ``"torch"`` on CUDA tensors
+runs only when asked for by name (the plain-vs-kernel comparison). There
+is no probe that falls back from one backend to the other, a dispatch
+miss raises ``ProviderMissError``, and there is one placement (a single
+device).
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Callable, Optional
+
+import torch
+
+TORCH = "torch"
+CUDA = "cuda"
+BACKENDS = (TORCH, CUDA)
+
+# the modules whose import registers each backend's providers — imported
+# on first dispatch, so importing the core never builds a kernel
+_PROVIDER_MODULES = {
+    TORCH: ("repro_torch.core.frontier", "repro_torch.core.operators",
+            "repro_torch.linalg.ops"),
+    CUDA: ("repro_torch.kernels.ops",),
+}
+_loaded: set[str] = set()
+
+# (op, backend) -> implementation
+_REGISTRY: dict[tuple[str, str], Callable] = {}
+
+
+class ProviderMissError(KeyError):
+    """No provider registered for an (op, backend) dispatch."""
+
+    def __init__(self, op: str, backend: str):
+        self.op = op
+        self.backend = backend
+        have = sorted(b for (o, b) in _REGISTRY if o == op)
+        self.detail = (f"no provider registered for op={op!r} "
+                       f"backend={backend!r}; registered backends for "
+                       f"this op: {have}")
+        super().__init__(self.detail)
+
+    def __str__(self) -> str:
+        return self.detail
+
+
+def _check(name: str) -> str:
+    if name not in BACKENDS:
+        raise ValueError(
+            f"unknown backend {name!r}; expected one of {BACKENDS}")
+    return name
+
+
+def resolve(backend: Optional[str] = None,
+            device: Optional[torch.device] = None) -> str:
+    """The concrete backend for data on ``device``.
+
+    ``None`` follows the device: ``"cuda"`` for a CUDA device, ``"torch"``
+    otherwise. ``"cuda"`` on a non-CUDA device raises — the kernels take
+    CUDA tensors only and nothing stands in for them."""
+    if backend is None:
+        if device is None:
+            raise ValueError("backend=None needs the data's device")
+        return CUDA if torch.device(device).type == "cuda" else TORCH
+    _check(backend)
+    if backend == CUDA and (device is None
+                            or torch.device(device).type != "cuda"):
+        raise ValueError(
+            f"backend='cuda' runs the hand-written kernels, which take "
+            f"CUDA tensors; the data lies on {device}")
+    return backend
+
+
+def register(op: str, backend: str):
+    """Decorator: register ``fn`` as the ``backend`` provider of ``op``."""
+    _check(backend)
+
+    def deco(fn: Callable) -> Callable:
+        _REGISTRY[(op, backend)] = fn
+        return fn
+
+    return deco
+
+
+def dispatch(op: str, backend: str) -> Callable:
+    """The ``backend`` provider of ``op`` (a resolved backend name)."""
+    _check(backend)
+    if backend not in _loaded:
+        for mod in _PROVIDER_MODULES[backend]:
+            importlib.import_module(mod)
+        _loaded.add(backend)
+    impl = _REGISTRY.get((op, backend))
+    if impl is None:
+        raise ProviderMissError(op, backend)
+    return impl
+
+
+def registered(op: str, backend: str) -> bool:
+    try:
+        dispatch(op, backend)
+    except ProviderMissError:
+        return False
+    return True
+
+
+def tier_plan(op: str, cap: int, *, min_tier: Optional[int] = None
+              ) -> tuple[int, ...]:
+    """Capacity ladder for ``op`` up to ``cap``. Tier choice never
+    changes results — every rung computes the same masked expansion,
+    larger rungs carry more dead lanes. The floor is ``MIN_TIER`` for
+    every op until a tuner measures the card."""
+    del op
+    from .frontier import MIN_TIER, tier_caps
+    return tier_caps(cap, min_tier=MIN_TIER if min_tier is None
+                     else min_tier)

@@ -1,0 +1,207 @@
+"""Breadth-first search (paper §6.1), counterpart of
+``repro.core.primitives.bfs``.
+
+  * LB push: one fused "advance_filter" dispatch per iteration
+    (expansion + visited test + exact first-occurrence culling +
+    compaction), run at the smallest power-of-two capacity tier holding
+    the frontier's degree sum;
+  * direction-optimized push↔pull switching with do_a / do_b; the pull
+    step's new bitmap is compacted back to a queue through "compact";
+  * predecessor recording: a push predecessor is the discoverer in the
+    smallest expansion slot, a pull predecessor the largest active
+    in-neighbour — the reference's tie rules.
+
+``bfs_batch`` runs B traversals over one topology in one batched BSP
+loop (``enactor.run_until_any``); ``bfs`` is a squeezed batch of one.
+Every output equals the reference's, bit for bit. Only the LB strategy
+is ported; ``idempotence`` selects between uniquify modes on the
+unfused TWC/THREAD path only, so it has no effect here.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .. import backend as B
+from .. import operators as ops
+from ..direction import PULL, PUSH, DirectionParams, decide_direction
+from ..enactor import run_until_any, select_lanes, tiered_step
+from ..frontier import (BatchedDenseFrontier, BatchedSparseFrontier,
+                        from_ids_batch)
+from ..graph import Graph
+
+
+class BFSState(NamedTuple):
+    labels: torch.Tensor       # (B, n) int32 depth, -1 unvisited
+    preds: torch.Tensor        # (B, n) int32 predecessor, -1 none
+    frontier: BatchedSparseFrontier  # (B, cap_v) push queue
+    dense: torch.Tensor        # (B, n) bool current frontier bitmap
+    visited: torch.Tensor      # (B, n) bool
+    n_f: torch.Tensor          # (B,) int32 frontier size
+    n_u: torch.Tensor          # (B,) int32 unvisited count
+    depth: torch.Tensor        # (B,) int32
+    mode: torch.Tensor         # (B,) int32 PUSH/PULL
+    pull_iters: torch.Tensor   # (B,) int32
+    overflow: torch.Tensor     # (B,) int32 discoveries dropped by cap_v
+
+
+class BFSResult(NamedTuple):
+    labels: torch.Tensor
+    preds: torch.Tensor
+    iterations: torch.Tensor
+    pull_iters: torch.Tensor
+    edges_visited: torch.Tensor
+    overflow: torch.Tensor
+    converged: torch.Tensor
+
+
+def _scatter_rows(target: torch.Tensor, ids: torch.Tensor,
+                  values: torch.Tensor) -> torch.Tensor:
+    """``target[b, ids[b, j]] = values[b, j]`` where ``ids >= 0``; the
+    ids of a row are distinct. -1 entries land in a junk column that is
+    sliced away (the reference's ``mode="drop"``)."""
+    b, n = target.shape
+    hit = torch.zeros((b, n + 1), dtype=torch.bool, device=target.device)
+    tgt = torch.where(ids >= 0, ids, n).long()
+    hit.scatter_(1, tgt, True)
+    buf = torch.empty((b, n + 1), dtype=target.dtype, device=target.device)
+    buf.scatter_(1, tgt, values.expand_as(ids).to(target.dtype))
+    return torch.where(hit[:, :n], buf[:, :n], target)
+
+
+def _run(graph: Graph, srcs: torch.Tensor, do_a: float, do_b: float,
+         direction: bool, record_preds: bool, backend: str,
+         tiered: bool) -> BFSResult:
+    n, m = graph.num_vertices, graph.num_edges
+    b = int(srcs.shape[0])
+    dev = graph.device
+    # vertex frontiers are post-uniquify: min(n, m) slots suffice
+    cap_v = max(min(n, m), 1)
+    cap_e = m
+    caps_e = (B.tier_plan("advance_filter", cap_e)
+              if tiered and cap_e > 0 else (max(cap_e, 1),))
+    params = DirectionParams(do_a=do_a, do_b=do_b, enabled=direction)
+    deg = graph.degrees
+
+    lane = torch.arange(b, device=dev)
+    labels = torch.full((b, n), -1, dtype=torch.int32, device=dev)
+    labels[lane, srcs.long()] = 0
+    visited = torch.zeros((b, n), dtype=torch.bool, device=dev)
+    visited[lane, srcs.long()] = True
+    zeros = torch.zeros((b,), dtype=torch.int32, device=dev)
+    state = BFSState(labels=labels,
+                     preds=torch.full((b, n), -1, dtype=torch.int32,
+                                      device=dev),
+                     frontier=from_ids_batch(srcs, cap_v), dense=visited,
+                     visited=visited, n_f=zeros + 1, n_u=zeros + (n - 1),
+                     depth=zeros, mode=zeros + PUSH, pull_iters=zeros,
+                     overflow=zeros)
+
+    def fused_push_at(cap_t: int):
+        def push_step(st: BFSState) -> BFSState:
+            depth1 = st.depth + 1
+            front, srcs_, totals = ops.advance_filter_batch(
+                graph, st.frontier, st.visited, cap_t, cap_front=cap_v,
+                backend=backend)
+            ids = front.ids
+            # one surviving slot per discovery: conflict-free scatters
+            labels = _scatter_rows(st.labels, ids, depth1[:, None])
+            preds = (_scatter_rows(st.preds, ids, srcs_) if record_preds
+                     else st.preds)
+            visited = _scatter_rows(st.visited, ids,
+                                    torch.ones((), dtype=torch.bool,
+                                               device=dev))
+            ovf = torch.clamp(totals - front.lengths, min=0)
+            return st._replace(labels=labels, preds=preds, frontier=front,
+                               dense=visited, visited=visited,
+                               n_f=front.lengths,
+                               n_u=st.n_u - front.lengths, depth=depth1,
+                               overflow=st.overflow + ovf)
+        return push_step
+
+    def push_step(st: BFSState, need: int) -> BFSState:
+        return tiered_step(need, caps_e, fused_push_at, st)
+
+    def pull_step(st: BFSState) -> BFSState:
+        depth1 = st.depth + 1
+        new_dense, pull_preds = ops.advance_pull_batch(
+            graph, BatchedDenseFrontier(~st.visited),
+            BatchedDenseFrontier(st.dense), return_preds=True)
+        flags = new_dense.flags
+        labels = torch.where(flags, depth1[:, None], st.labels)
+        preds = (torch.where(flags, pull_preds, st.preds) if record_preds
+                 else st.preds)
+        n_new = new_dense.lengths
+        sparse = new_dense.to_sparse(cap_v, backend=backend)
+        return st._replace(labels=labels, preds=preds, frontier=sparse,
+                           dense=flags, visited=st.visited | flags,
+                           n_f=n_new, n_u=st.n_u - n_new, depth=depth1,
+                           pull_iters=st.pull_iters + 1)
+
+    def next_mode(st: BFSState) -> torch.Tensor:
+        return decide_direction(st.mode, st.n_f, st.n_u, n, m, params)
+
+    def plan(st: BFSState) -> torch.Tensor:
+        # the host needs the tier's workload bound and, with direction
+        # optimization on, every lane's next direction
+        need = ops.frontier_workload(graph, st.frontier).max()[None]
+        if not direction:
+            return need
+        return torch.cat([next_mode(st), need])
+
+    def body(st: BFSState, active: list, p: list) -> BFSState:
+        need = p[-1]
+        if not direction:
+            return push_step(st, need)
+        modes = p[:b]
+        # pull needs the dense rep of the *current* frontier (push keeps
+        # `dense` = visited)
+        st = st._replace(mode=torch.tensor(modes, dtype=torch.int32,
+                                           device=dev),
+                         dense=st.frontier.to_dense(n).flags)
+        if b == 1:
+            return pull_step(st) if modes[0] == PULL else push_step(st, need)
+        # only active lanes count toward a homogeneous direction
+        live = [md for md, a in zip(modes, active) if a]
+        if all(md == PUSH for md in live):
+            return push_step(st, need)
+        if all(md == PULL for md in live):
+            return pull_step(st)
+        return select_lanes(st.mode == PULL, pull_step(st),
+                            push_step(st, need))
+
+    final, lane_iters, _ = run_until_any(lambda st: st.n_f > 0, plan, body,
+                                         state, max_iter=n + 1)
+    edges = torch.where(final.labels >= 0, deg[None, :], 0).sum(
+        dim=1, dtype=torch.int32)
+    return BFSResult(labels=final.labels, preds=final.preds,
+                     iterations=torch.tensor(lane_iters, dtype=torch.int32,
+                                             device=dev),
+                     pull_iters=final.pull_iters, edges_visited=edges,
+                     overflow=final.overflow, converged=final.n_f == 0)
+
+
+def bfs_batch(graph: Graph, srcs, *, direction: bool = True,
+              do_a: float = 0.001, do_b: float = 0.2,
+              idempotence: bool = True, strategy: str = "LB",
+              record_preds: bool = True, backend: Optional[str] = None,
+              tiered: bool = True) -> BFSResult:
+    """Multi-source BFS: one batched BSP loop over ``srcs``; lane i is
+    bit-identical to ``bfs(graph, srcs[i])``. ``tiered=False`` pins
+    every push to the top capacity tier (identical results)."""
+    del idempotence     # selects uniquify on the TWC/THREAD path only
+    ops._strategy(strategy)
+    if direction and not graph.has_csc:
+        direction = False
+    bk = B.resolve(backend, graph.device)
+    srcs = torch.as_tensor(srcs, dtype=torch.int32).reshape(-1).to(
+        graph.device)
+    return _run(graph, srcs, float(do_a), float(do_b), direction,
+                record_preds, bk, tiered)
+
+
+def bfs(graph: Graph, src: int, **kw) -> BFSResult:
+    """BFS from ``src`` — a squeezed batch-of-1 ``bfs_batch`` call."""
+    r = bfs_batch(graph, [src], **kw)
+    return BFSResult(*(t[0] for t in r))

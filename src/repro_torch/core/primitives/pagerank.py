@@ -1,0 +1,99 @@
+"""PageRank (paper §6.5), counterpart of
+``repro.core.primitives.pagerank``.
+
+Each iteration is one plus-times SpMV over the CSC transpose (rank mass
+flows along reversed edges) through the ``"spmv"`` registry op, plus the
+dangling mass and the teleport term. Two determinism rules of the
+reference are kept: the reciprocal out-degrees are computed once on the
+host (a single multiply in the loop, no division), and the dangling sum
+is a fixed pairwise halving tree (``_fixed_tree_sum``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ...linalg import semiring as SR
+from .. import backend as B
+from ..enactor import run_until
+from ..graph import Graph
+
+
+class PRState(NamedTuple):
+    rank: torch.Tensor       # (n,) float32
+    active: torch.Tensor     # (n,) bool — unconverged vertices
+    n_active: torch.Tensor   # () int32
+
+
+class PRResult(NamedTuple):
+    rank: torch.Tensor
+    iterations: int
+    converged: bool
+
+
+def _fixed_tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Float sum with a grouping fixed by construction: pad to a power of
+    two, then halve — each step one elementwise add."""
+    n = int(x.shape[0])
+    k = 1
+    while k < n:
+        k *= 2
+    x = torch.nn.functional.pad(x, (0, k - n))
+    while k > 1:
+        k //= 2
+        x = x[:k] + x[k:]
+    return x[0]
+
+
+def _inv_out_degrees(graph: Graph) -> torch.Tensor:
+    """Exact host-side reciprocal out-degrees (0 on dangling vertices),
+    computed once per graph."""
+    cached = graph.cache.get("inv_deg")
+    if cached is None:
+        deg = graph.degrees.cpu().numpy().astype(np.float32)
+        inv = np.where(deg > 0, np.float32(1.0) / np.maximum(deg, 1.0),
+                       np.float32(0.0)).astype(np.float32)
+        cached = torch.from_numpy(inv).to(graph.device)
+        graph.cache["inv_deg"] = cached
+    return cached
+
+
+def pagerank(graph: Graph, *, damping: float = 0.85, tol: float = 0.0,
+             max_iter: int = 20, backend: Optional[str] = None) -> PRResult:
+    """Power-iteration PageRank: at most ``max_iter`` sweeps, stopping
+    early only when every rank moves by ≤ ``tol``."""
+    if not graph.has_csc:
+        raise ValueError("pagerank uses the CSC transpose")
+    bk = B.resolve(backend, graph.device)
+    spmv = B.dispatch("spmv", bk)
+    n = graph.num_vertices
+    dev = graph.device
+    inv_deg = _inv_out_degrees(graph)
+    dangling_mask = inv_deg == 0
+    d = torch.tensor(damping, dtype=torch.float32, device=dev)
+    tol_t = torch.tensor(tol, dtype=torch.float32, device=dev)
+    teleport = (1.0 - d) / n
+
+    def body(st: PRState) -> PRState:
+        contrib = st.rank * inv_deg
+        acc = spmv(graph.csc_offsets, graph.csc_indices, None, contrib,
+                   SR.plus_times, graph.csc_ell_width, None,
+                   graph.csc_row_seg, graph.csc_over_pos,
+                   graph.csc_over_row)
+        dangling = _fixed_tree_sum(
+            torch.where(dangling_mask, st.rank, 0.0)) / n
+        new_rank = teleport + d * (acc + dangling)
+        still = (new_rank - st.rank).abs() > tol_t
+        return PRState(rank=new_rank, active=still,
+                       n_active=still.sum(dtype=torch.int32))
+
+    state = PRState(rank=torch.full((n,), 1.0 / n, dtype=torch.float32,
+                                    device=dev),
+                    active=torch.ones((n,), dtype=torch.bool, device=dev),
+                    n_active=torch.tensor(n, dtype=torch.int32, device=dev))
+    final, iters = run_until(lambda st: st.n_active > 0, body, state,
+                             max_iter=max_iter)
+    converged = iters >= max_iter or int(final.n_active) == 0
+    return PRResult(rank=final.rank, iterations=iters, converged=converged)

@@ -1,0 +1,195 @@
+"""Single- and multi-source shortest path (paper §6.2), counterpart of
+``repro.core.primitives.sssp``.
+
+Delta-stepping over Gunrock's two-level priority queue (§5.1.5): each
+relax step compacts the near pile ("compact"), advances it
+("advance_batch", at the smallest capacity tier holding the pile's
+degree sum), min-merges the candidate distances, records the winning
+predecessor and splits the improved vertices into near/far piles by the
+bucket threshold; when a lane's near pile drains its bucket advances and
+the far pile is re-split.
+
+Ties between equal candidates for one vertex go to the LAST winning
+expansion slot, the order in which the reference's scatter applies its
+updates, so ``preds`` match it bit for bit. ``dist[u] + w`` is a single
+float32 add on both sides. ``sssp`` is a squeezed batch of one.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .. import backend as B
+from .. import operators as ops
+from ..enactor import run_until_any, select_lanes, tiered_step
+from ..frontier import BatchedDenseFrontier
+from ..graph import Graph
+
+INF = float("inf")
+
+
+class SSSPState(NamedTuple):
+    dist: torch.Tensor         # (B, n) float32
+    preds: torch.Tensor        # (B, n) int32
+    near: torch.Tensor         # (B, n) bool near-pile membership
+    far: torch.Tensor          # (B, n) bool far-pile membership
+    bucket: torch.Tensor       # (B,) int32 current priority level
+    n_near: torch.Tensor       # (B,) int32
+    relaxations: torch.Tensor  # (B,) int32 edge relaxations per lane
+
+
+class SSSPResult(NamedTuple):
+    dist: torch.Tensor
+    preds: torch.Tensor
+    iterations: torch.Tensor
+    relaxations: torch.Tensor
+    converged: torch.Tensor
+
+
+def _last_winner_preds(preds: torch.Tensor, winner: torch.Tensor,
+                       dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``preds[b, dst] = src`` for every winning slot; among several
+    winners of one vertex the largest slot's write stands."""
+    b, n = preds.shape
+    cap = dst.shape[1]
+    slot = torch.arange(cap, dtype=torch.int64, device=dst.device)
+    last = torch.full((b, n), -1, dtype=torch.int64, device=dst.device)
+    last.scatter_reduce_(1, ops._safe_index(dst, winner, n),
+                         torch.where(winner, slot, -1), "amax")
+    won = torch.gather(src, 1, last.clamp(min=0))
+    return torch.where(last >= 0, won, preds)
+
+
+def _run(graph: Graph, srcs: torch.Tensor, delta: float, use_delta: bool,
+         backend: str, tiered: bool) -> SSSPResult:
+    n, m = graph.num_vertices, graph.num_edges
+    b = int(srcs.shape[0])
+    dev = graph.device
+    caps_e = (B.tier_plan("advance", m) if tiered and m > 0
+              else (max(m, 1),))
+    deg = graph.degrees
+    delta_t = torch.tensor(delta, dtype=torch.float32, device=dev)
+    lane = torch.arange(b, device=dev)
+    dist = torch.full((b, n), INF, dtype=torch.float32, device=dev)
+    dist[lane, srcs.long()] = 0.0
+    near = torch.zeros((b, n), dtype=torch.bool, device=dev)
+    near[lane, srcs.long()] = True
+    zeros = torch.zeros((b,), dtype=torch.int32, device=dev)
+    state = SSSPState(dist=dist,
+                      preds=torch.full((b, n), -1, dtype=torch.int32,
+                                       device=dev),
+                      near=near, far=torch.zeros_like(near), bucket=zeros,
+                      n_near=zeros + 1, relaxations=zeros)
+
+    def relax_at(cap_t: int, need: int):
+        def relax_step(st: SSSPState) -> SSSPState:
+            frontier = BatchedDenseFrontier(st.near).to_sparse(
+                n, backend=backend)
+            res, _ = ops.advance_batch(graph, frontier, cap_t,
+                                       backend=backend)
+            # every lane's live slots are a prefix no longer than the
+            # largest near-pile degree sum: the rest is dead weight (one
+            # dead slot stays when the pile has no edges, e.g. an
+            # isolated source, so the gathers below see a non-empty row)
+            k = max(min(cap_t, need), 1)
+            res = ops.AdvanceResult(*(t[:, :k] if t.dim() == 2 else t
+                                      for t in res))
+            valid = res.valid
+            w = (graph.edge_values[torch.where(valid, res.edge_id, 0).long()]
+                 if m else torch.zeros(valid.shape, device=dev))
+            safe_src = torch.where(valid, res.src, 0).long()
+            cand = torch.gather(st.dist, 1, safe_src) + w
+            # atomicMin replacement: min-merge into dist
+            new_dist = ops.scatter_min(cand, res.dst, valid, st.dist)
+            improved = new_dist < st.dist
+            safe_dst = torch.where(valid, res.dst, 0).long()
+            winner = valid & (cand <= torch.gather(new_dist, 1, safe_dst))
+            preds = _last_winner_preds(st.preds, winner, res.dst, res.src)
+            thresh = (st.bucket.to(torch.float32) + 1.0) * delta_t
+            if use_delta:
+                add_near = improved & (new_dist < thresh[:, None])
+                add_far = improved & (new_dist >= thresh[:, None])
+            else:
+                add_near = improved
+                add_far = torch.zeros_like(improved)
+            far = (st.far | add_far) & ~add_near
+            return st._replace(dist=new_dist, preds=preds, near=add_near,
+                               far=far,
+                               n_near=add_near.sum(dim=1, dtype=torch.int32),
+                               relaxations=st.relaxations + res.total)
+        return relax_step
+
+    def relax_step(st: SSSPState, need: int) -> SSSPState:
+        return tiered_step(need, caps_e,
+                           lambda cap_t: relax_at(cap_t, need), st)
+
+    def pop_far(st: SSSPState) -> SSSPState:
+        # near pile empty: advance the bucket to the smallest far distance
+        far_min = torch.where(st.far, st.dist, INF).min(dim=1).values
+        new_bucket = torch.where(torch.isfinite(far_min),
+                                 (far_min / delta_t).to(torch.int32),
+                                 st.bucket + 1)
+        thresh = (new_bucket.to(torch.float32) + 1.0) * delta_t
+        near = st.far & (st.dist < thresh[:, None])
+        return st._replace(near=near, far=st.far & ~near, bucket=new_bucket,
+                           n_near=near.sum(dim=1, dtype=torch.int32))
+
+    def cond(st: SSSPState) -> torch.Tensor:
+        return (st.n_near > 0) | st.far.any(dim=1)
+
+    def plan(st: SSSPState) -> torch.Tensor:
+        need = torch.where(st.near, deg[None, :], 0).sum(
+            dim=1, dtype=torch.int32).max()
+        return torch.cat([(st.n_near > 0).to(torch.int32), need[None]])
+
+    def body(st: SSSPState, active: list, p: list) -> SSSPState:
+        has_near, need = p[:b], p[b]
+        if all(has_near):
+            return relax_step(st, need)
+        if not any(has_near):
+            return pop_far(st)
+        # lanes disagree (relax vs bucket pop): compute both, select
+        return select_lanes(st.n_near > 0, relax_step(st, need),
+                            pop_far(st))
+
+    final, lane_iters, _ = run_until_any(cond, plan, body, state,
+                                         max_iter=4 * n + 8)
+    return SSSPResult(dist=final.dist, preds=final.preds,
+                      iterations=torch.tensor(lane_iters, dtype=torch.int32,
+                                              device=dev),
+                      relaxations=final.relaxations, converged=~cond(final))
+
+
+def _auto_delta(graph: Graph) -> float:
+    """Average weight × average degree / 2 (Davidson et al.). The mean
+    is a float32 sum whose order may differ from the reference's, so
+    parity tests pass ``delta`` explicitly."""
+    mean_w = float(graph.edge_values.mean())
+    avg_deg = max(graph.num_edges / max(graph.num_vertices, 1), 1.0)
+    return mean_w * avg_deg / 2.0
+
+
+def sssp_batch(graph: Graph, srcs, *, delta: Optional[float] = None,
+               strategy: str = "LB", backend: Optional[str] = None,
+               tiered: bool = True) -> SSSPResult:
+    """Multi-source delta-stepping in one batched loop; lane i is
+    bit-identical to ``sssp(graph, srcs[i])``. ``tiered=False`` pins
+    relax sweeps to the top capacity tier (identical results)."""
+    if not graph.weighted:
+        raise ValueError("SSSP needs edge weights")
+    ops._strategy(strategy)
+    if delta is None:
+        delta = _auto_delta(graph)
+    delta = float(delta)
+    use_delta = delta > 0 and delta != INF and delta == delta
+    bk = B.resolve(backend, graph.device)
+    srcs = torch.as_tensor(srcs, dtype=torch.int32).reshape(-1).to(
+        graph.device)
+    return _run(graph, srcs, delta, use_delta, bk, tiered)
+
+
+def sssp(graph: Graph, src: int, **kw) -> SSSPResult:
+    """Delta-stepping SSSP — a squeezed batch-of-1 ``sssp_batch``."""
+    r = sssp_batch(graph, [src], **kw)
+    return SSSPResult(*(t[0] for t in r))

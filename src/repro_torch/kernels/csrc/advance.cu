@@ -1,0 +1,182 @@
+// Load-balanced advance (K3) and fused advance+filter (K1) for Hopper.
+//
+// K3 advance_batch replaces the TPU kernel advance_fused_batch_kernel
+// (src/repro/kernels/advance_fused.py:210; its single-lane form
+// advance_fused_kernel, :134, is a launch with B = 1). One thread per
+// (lane, output slot): the LB upper-bound search over the lane's degree
+// scan, then the CSR gathers, writing (src, dst, edge_id, in_pos, rank,
+// valid). Bound by bytes: it writes 21 bytes per slot and reads ~8 (the
+// column and row-offset gathers; the search's probes hit L1/L2 because
+// neighbouring slots walk the same path). The design keeps every write
+// coalesced (slot-major rows) and skips the search on dead slots, whose
+// outputs are constants.
+//
+// K1 advance_filter_batch replaces advance_filter_fused_batch_kernel
+// (src/repro/kernels/advance_filter_fused.py:196; advance_filter_fused_
+// kernel, :117, is a launch with B = 1). The TPU kernel culls duplicates
+// exactly by walking its grid in order with the bitmap carried across
+// tiles; CUDA blocks run concurrently, so this is the reference's XLA
+// algorithm in four launches:
+//   1. af_expand: search + gathers + visited test; a kept slot does
+//      atomicMin(first[b, dst], slot) and records (dst, src);
+//   2. af_count:  a slot survives iff first[b, dst] == slot; per-block
+//      survivor counts (warp ballot + popc);
+//   3. scan_rows: exclusive scan of the block counts per lane → totals,
+//      lengths = min(total, cap_front);
+//   4. af_emit:   survivors land at block offset + in-block rank — in
+//      ascending slot order, clamped at cap_front — each survivor resets
+//      first[b, dst] to INT_MAX (work ∝ frontier, not B·n), and the tail
+//      of ids/srcs is filled with -1.
+// `first` is a (B, n) table the caller keeps filled with INT_MAX between
+// calls. Bound by bytes: ~8 bytes of gathers plus 16 bytes of scratch
+// traffic per slot, and random 4-byte atomics into `first`.
+#include "common.cuh"
+
+namespace {
+
+__global__ void adv_kernel(const int* __restrict__ offsets,
+                           const int* __restrict__ base,
+                           const int* __restrict__ row_offsets,
+                           const int* __restrict__ cols, int cap_in,
+                           int cap_out, int m, int iters,
+                           int* __restrict__ src, int* __restrict__ dst,
+                           int* __restrict__ eid, int* __restrict__ in_pos,
+                           int* __restrict__ rank,
+                           unsigned char* __restrict__ valid) {
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  if (slot >= cap_out) return;
+  const size_t b = blockIdx.y;
+  const int* offs = offsets + b * (cap_in + 1);
+  const size_t o = b * cap_out + slot;
+  const int total = offs[cap_in];
+  if (slot >= total) {
+    // every probe of a dead slot goes right: the search ends on the last
+    // input lane, and the masked outputs are constants
+    src[o] = -1;
+    dst[o] = -1;
+    eid[o] = -1;
+    in_pos[o] = max(cap_in - 1, 0);
+    rank[o] = 0;
+    valid[o] = 0;
+    return;
+  }
+  const int pos = lb_search(offs, cap_in, slot, iters);
+  const int rk = slot - offs[pos];
+  const int s = base[b * cap_in + pos];
+  const int e = row_offsets[s] + rk;
+  src[o] = s;
+  dst[o] = cols[min(max(e, 0), m - 1)];
+  eid[o] = e;
+  in_pos[o] = pos;
+  rank[o] = rk;
+  valid[o] = 1;
+}
+
+__global__ void af_expand(const int* __restrict__ offsets,
+                          const int* __restrict__ base,
+                          const int* __restrict__ row_offsets,
+                          const int* __restrict__ cols,
+                          const unsigned char* __restrict__ visited, int n,
+                          int cap_in, int cap_out, int m, int iters,
+                          int* __restrict__ first, int* __restrict__ kdst,
+                          int* __restrict__ ksrc) {
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  if (slot >= cap_out) return;
+  const size_t b = blockIdx.y;
+  const int* offs = offsets + b * (cap_in + 1);
+  int d = -1, s = -1;
+  if (slot < offs[cap_in]) {
+    const int pos = lb_search(offs, cap_in, slot, iters);
+    s = base[b * cap_in + pos];
+    const int e = row_offsets[s] + (slot - offs[pos]);
+    const int v = cols[min(max(e, 0), m - 1)];
+    if (!visited[b * n + v]) {
+      d = v;
+      atomicMin(first + b * n + v, slot);
+    }
+  }
+  kdst[b * cap_out + slot] = d;
+  ksrc[b * cap_out + slot] = s;
+}
+
+__global__ void af_count(const int* __restrict__ first, int n, int cap_out,
+                         int* __restrict__ kdst, int* __restrict__ bcount) {
+  __shared__ int warp_sums[kWarps];
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t b = blockIdx.y;
+  bool survive = false;
+  if (slot < cap_out) {
+    const size_t o = b * cap_out + slot;
+    const int d = kdst[o];
+    if (d >= 0) {
+      survive = first[b * n + d] == slot;
+      if (!survive) kdst[o] = -1;
+    }
+  }
+  int count;
+  block_rank(survive, warp_sums, &count);
+  if (threadIdx.x == 0) bcount[b * gridDim.x + blockIdx.x] = count;
+}
+
+__global__ void af_emit(const int* __restrict__ kdst,
+                        const int* __restrict__ ksrc,
+                        const int* __restrict__ boff,
+                        const int* __restrict__ lengths, int n, int cap_out,
+                        int cap_front, int* __restrict__ first,
+                        int* __restrict__ ids, int* __restrict__ srcs) {
+  __shared__ int warp_sums[kWarps];
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t b = blockIdx.y;
+  const int d = slot < cap_out ? kdst[b * cap_out + slot] : -1;
+  int count;
+  const int r = block_rank(d >= 0, warp_sums, &count);
+  if (d >= 0) {
+    const int pos = boff[b * gridDim.x + blockIdx.x] + r;
+    if (pos < cap_front) {
+      ids[b * cap_front + pos] = d;
+      srcs[b * cap_front + pos] = ksrc[b * cap_out + slot];
+    }
+    first[b * n + d] = INT_MAX;
+  }
+  const int stride = gridDim.x * blockDim.x;
+  for (int j = lengths[b] + slot; j < cap_front; j += stride) {
+    ids[b * cap_front + j] = -1;
+    srcs[b * cap_front + j] = -1;
+  }
+}
+
+}  // namespace
+
+EXPORT int advance_batch(const int* offsets, const int* base,
+                         const int* row_offsets, const int* cols, int batch,
+                         int cap_in, int cap_out, int m, int iters, int* src,
+                         int* dst, int* eid, int* in_pos, int* rank,
+                         unsigned char* valid, void* stream) {
+  const dim3 grid((cap_out + kThreads - 1) / kThreads, batch);
+  adv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      offsets, base, row_offsets, cols, cap_in, cap_out, m, iters, src, dst,
+      eid, in_pos, rank, valid);
+  return static_cast<int>(cudaGetLastError());
+}
+
+EXPORT int advance_filter_batch(const int* offsets, const int* base,
+                                const int* row_offsets, const int* cols,
+                                const unsigned char* visited, int batch,
+                                int n, int cap_in, int cap_out, int m,
+                                int iters, int cap_front, int* first,
+                                int* kdst, int* ksrc, int* bcount, int* boff,
+                                int* ids, int* srcs, int* lengths,
+                                int* totals, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nblk = (cap_out + kThreads - 1) / kThreads;
+  const dim3 grid(nblk, batch);
+  af_expand<<<grid, kThreads, 0, st>>>(offsets, base, row_offsets, cols,
+                                       visited, n, cap_in, cap_out, m, iters,
+                                       first, kdst, ksrc);
+  af_count<<<grid, kThreads, 0, st>>>(first, n, cap_out, kdst, bcount);
+  scan_rows<<<batch, 1024, 0, st>>>(bcount, nblk, boff, totals, lengths,
+                                    cap_front);
+  af_emit<<<grid, kThreads, 0, st>>>(kdst, ksrc, boff, lengths, n, cap_out,
+                                     cap_front, first, ids, srcs);
+  return static_cast<int>(cudaGetLastError());
+}

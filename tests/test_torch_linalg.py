@@ -1,0 +1,90 @@
+"""Port SpMV against the reference for all five semirings: bit for bit
+with the xla provider (both replay the same fixed-grouping fold), and
+within 1e-5 of the Pallas kernel (interpret mode), the tolerance the
+reference's own tests give its two providers (tests/test_linalg.py)."""
+import numpy as np
+import pytest
+import torch
+
+from repro import linalg as JL
+from repro.core import graph as JG
+from repro.linalg import semiring as JS
+from repro_torch import convert
+from repro_torch.core.graph import TENSOR_FIELDS
+from repro_torch.kernels import ops as K
+from repro_torch.linalg import ops as TL
+from repro_torch.linalg import semiring as TS
+
+SEMIRINGS = sorted(TS.SEMIRINGS)
+
+
+def _pair(jg):
+    return jg, convert.graph_from_arrays(
+        {f: np.asarray(getattr(jg, f)) for f in TENSOR_FIELDS},
+        ell_width=jg.ell_width, csc_ell_width=jg.csc_ell_width,
+        device="cpu")
+
+
+@pytest.fixture(scope="module", params=["rmat", "grid"])
+def pair(request):
+    return _pair(JG.rmat(9, 8, seed=7, weighted=True)
+                 if request.param == "rmat"
+                 else JG.grid2d(20, weighted=True, seed=3))
+
+
+@pytest.mark.parametrize("sr", SEMIRINGS)
+@pytest.mark.parametrize("masked", ["unmasked", "masked", "complemented"])
+def test_spmv_matches_reference_bitwise(pair, sr, masked):
+    jg, tg = pair
+    n = tg.num_vertices
+    rng = np.random.default_rng(3)
+    x = rng.random(n).astype(np.float32)
+    mask = rng.random(n) < 0.5 if masked != "unmasked" else None
+    kw = dict(mask=mask, complement=masked == "complemented")
+    # every (transpose, structural) variant unmasked; the masks on the
+    # PageRank direction
+    variants = ([(False, False), (False, True), (True, False), (True, True)]
+                if mask is None else [(True, False)])
+    for transpose, structural in variants:
+        want = np.asarray(JL.spmv(jg, x, semiring=JS.get(sr), backend="xla",
+                                  transpose=transpose,
+                                  structural=structural, **kw))
+        got = TL.spmv(tg, x, semiring=sr, transpose=transpose,
+                      structural=structural, **kw).numpy()
+        assert np.array_equal(want, got), (transpose, structural)
+
+
+def test_spmv_kernel_wrapper_on_cpu_is_the_plain_version(pair):
+    _, tg = pair
+    x = torch.from_numpy(np.random.default_rng(4).random(
+        tg.num_vertices).astype(np.float32))
+    before = K.KERNELS["spmv"].launches
+    args = (tg.csc_offsets, tg.csc_indices, None, x, TS.plus_times,
+            tg.csc_ell_width, None, tg.csc_row_seg, tg.csc_over_pos,
+            tg.csc_over_row)
+    assert torch.equal(K.spmv(*args), TL._spmv_torch(*args))
+    assert K.KERNELS["spmv"].launches == before
+
+
+@pytest.mark.parametrize("sr", SEMIRINGS)
+def test_spmv_matches_pallas_kernel(sr):
+    jg, tg = _pair(JG.rmat(6, 4, seed=1, weighted=True))
+    x = np.random.default_rng(5).random(tg.num_vertices).astype(np.float32)
+    want = np.asarray(JL.spmv(jg, x, semiring=JS.get(sr), backend="pallas",
+                              transpose=True))
+    got = TL.spmv(tg, x, semiring=sr, transpose=True).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_semiring_table_matches_reference():
+    for name, s in TS.SEMIRINGS.items():
+        r = JS.get(name)
+        assert (s.add, s.mul) == (r.add, r.mul)
+        assert np.float32(s.zero) == np.float32(r.zero)
+        assert np.float32(s.one) == np.float32(r.one)
+        assert TS.get(name) is s
+    # the codes the CUDA kernel's template instances are selected by
+    order = ("plus_times", "min_plus", "or_and", "max_min", "plus_and")
+    assert [TS.SEMIRINGS[k].code for k in order] == [0, 1, 2, 3, 4]
+    with pytest.raises(ValueError):
+        TS.get("bogus")

@@ -1,0 +1,219 @@
+"""Port operators against the reference's xla providers, bit for bit, on
+the rmat fixture at two capacity tiers: advance(_batch),
+advance_filter(_batch), advance_pull(_batch), the scatters. One case
+per kernel also runs the reference's Pallas kernel (interpret mode on
+a small graph); ints must be equal."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import frontier as JF
+from repro.core import graph as JG
+from repro.core import operators as JO
+from repro_torch import convert
+from repro_torch.core import frontier as TF
+from repro_torch.core import operators as TO
+from repro_torch.core.graph import TENSOR_FIELDS
+from repro_torch.kernels import ops as K
+
+
+def _pair(jg):
+    tg = convert.graph_from_arrays(
+        {f: np.asarray(getattr(jg, f)) for f in TENSOR_FIELDS},
+        ell_width=jg.ell_width, csc_ell_width=jg.csc_ell_width,
+        device="cpu")
+    return jg, tg
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _pair(JG.rmat(9, 8, seed=7, weighted=True))
+
+
+@pytest.fixture(scope="module")
+def small_pair():
+    return _pair(JG.rmat(6, 4, seed=1, weighted=True))
+
+
+def _frontiers(n, b, cap, seed):
+    rng = np.random.default_rng(seed)
+    ids = np.full((b, cap), -1, np.int32)
+    lengths = rng.integers(0, cap + 1, size=b).astype(np.int32)
+    for i in range(b):
+        ids[i, :lengths[i]] = rng.choice(n, size=lengths[i], replace=False)
+    return ids, lengths
+
+
+def _both(ids, lengths):
+    return (JF.BatchedSparseFrontier(jnp.asarray(ids), jnp.asarray(lengths)),
+            TF.BatchedSparseFrontier(torch.from_numpy(ids),
+                                     torch.from_numpy(lengths)))
+
+
+def _eq(a, b):
+    assert np.array_equal(np.asarray(a), b.numpy())
+
+
+TIERS = [512, None]      # a small tier and the top one (m)
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_advance_batch_matches_reference(pair, tier):
+    jg, tg = pair
+    cap = tier or tg.num_edges
+    ids, lengths = _frontiers(tg.num_vertices, 3, 40, seed=5)
+    jf, tf = _both(ids, lengths)
+    jr, _ = JO.advance_batch(jg, jf, cap, backend="xla")
+    tr, _ = TO.advance_batch(tg, tf, cap)
+    for f in jr._fields:
+        _eq(getattr(jr, f), getattr(tr, f))
+
+
+def test_advance_single_and_functor_match_reference(pair):
+    jg, tg = pair
+    ids, lengths = _frontiers(tg.num_vertices, 1, 30, seed=6)
+    jf, tf = _both(ids, lengths)
+
+    def jfun(s, d, e, r, v, data):
+        return v & (d % 3 == 0), data
+
+    def tfun(s, d, e, r, v, data):
+        return v & (d % 3 == 0), data
+
+    jr, _ = JO.advance(jg, jf.lane(0), 2048, functor=jfun, backend="xla")
+    tr, _ = TO.advance(tg, tf.lane(0), 2048, functor=tfun)
+    for f in jr._fields:
+        _eq(getattr(jr, f), getattr(tr, f))
+    # an edge frontier expands its destinations' lists
+    jr, _ = JO.advance(jg, jf.lane(0), 4096, input_kind="edge",
+                       backend="xla")
+    tr, _ = TO.advance(tg, tf.lane(0), 4096, input_kind="edge")
+    _eq(jr.dst, tr.dst)
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("cap_front", [None, 7])
+def test_advance_filter_batch_matches_reference(pair, tier, cap_front):
+    jg, tg = pair
+    n = tg.num_vertices
+    cap = tier or tg.num_edges
+    ids, lengths = _frontiers(n, 4, 60, seed=7)
+    jf, tf = _both(ids, lengths)
+    visited = np.random.default_rng(8).random((4, n)) < 0.3
+    jr = JO.advance_filter_batch(jg, jf, jnp.asarray(visited), cap,
+                                 cap_front=cap_front, backend="xla")
+    tr = TO.advance_filter_batch(tg, tf, torch.from_numpy(visited), cap,
+                                 cap_front=cap_front)
+    _eq(jr[0].ids, tr[0].ids)
+    _eq(jr[0].lengths, tr[0].lengths)
+    _eq(jr[1], tr[1])
+    _eq(jr[2], tr[2])
+    # the kernel wrapper on CPU tensors is the plain version, no launch
+    before = K.KERNELS["advance_filter_batch"].launches
+    base, sizes = TO._base_and_sizes(tg, tf.ids, tf.valid_mask, "vertex")
+    out = K.advance_filter_batch(tg.row_offsets, tg.col_indices, base,
+                                 sizes, torch.from_numpy(visited), cap,
+                                 cap_front or 60, tg.cache)
+    assert torch.equal(out[0], tr[0].ids) and torch.equal(out[3], tr[2])
+    assert K.KERNELS["advance_filter_batch"].launches == before
+
+
+def test_advance_filter_single_matches_reference(pair):
+    jg, tg = pair
+    n = tg.num_vertices
+    ids, lengths = _frontiers(n, 1, 50, seed=9)
+    jf, tf = _both(ids, lengths)
+    visited = np.random.default_rng(10).random(n) < 0.2
+    jr = JO.advance_filter(jg, jf.lane(0), jnp.asarray(visited), 1024,
+                           backend="xla")
+    tr = TO.advance_filter(tg, tf.lane(0), torch.from_numpy(visited), 1024)
+    _eq(jr[0].ids, tr[0].ids)
+    assert int(jr[0].length) == int(tr[0].length)
+    _eq(jr[1], tr[1])
+    assert int(jr[2]) == int(tr[2])
+
+
+def test_advance_kernels_match_pallas(small_pair):
+    """K1 and K3's reference kernels in Pallas interpret mode."""
+    jg, tg = small_pair
+    n = tg.num_vertices
+    ids, lengths = _frontiers(n, 2, 16, seed=11)
+    jf, tf = _both(ids, lengths)
+    jr, _ = JO.advance_batch(jg, jf, 512, backend="pallas")
+    tr, _ = TO.advance_batch(tg, tf, 512)
+    for f in jr._fields:
+        _eq(getattr(jr, f), getattr(tr, f))
+    visited = np.random.default_rng(12).random((2, n)) < 0.25
+    jr = JO.advance_filter_batch(jg, jf, jnp.asarray(visited), 512,
+                                 backend="pallas")
+    tr = TO.advance_filter_batch(tg, tf, torch.from_numpy(visited), 512)
+    _eq(jr[0].ids, tr[0].ids)
+    _eq(jr[1], tr[1])
+    _eq(jr[2], tr[2])
+
+
+def test_advance_to_vertex_frontier_matches_reference(pair):
+    jg, tg = pair
+    ids, lengths = _frontiers(tg.num_vertices, 2, 30, seed=16)
+    jf, tf = _both(ids, lengths)
+    jr, _ = JO.advance_batch(jg, jf, 2048, backend="xla")
+    tr, _ = TO.advance_batch(tg, tf, 2048)
+    jv = JO.advance_to_vertex_frontier_batch(jr, 700, backend="xla")
+    tv = TO.advance_to_vertex_frontier_batch(tr, 700)
+    _eq(jv.ids, tv.ids)
+    _eq(jv.lengths, tv.lengths)
+    js = JO.advance_to_vertex_frontier(
+        JO.AdvanceResult(*(t[0] for t in jr)), backend="xla")
+    ts = TO.advance_to_vertex_frontier(TO.AdvanceResult(*(t[0] for t in tr)))
+    _eq(js.ids, ts.ids)
+
+
+def test_frontier_workload_matches_reference(pair):
+    jg, tg = pair
+    ids, lengths = _frontiers(tg.num_vertices, 3, 20, seed=13)
+    jf, tf = _both(ids, lengths)
+    _eq(JO.frontier_workload(jg, jf), TO.frontier_workload(tg, tf))
+
+
+@pytest.mark.parametrize("kind", ["rmat", "grid"])
+def test_advance_pull_batch_matches_reference(kind):
+    jg, tg = _pair(JG.rmat(9, 8, seed=7, weighted=True) if kind == "rmat"
+                   else JG.grid2d(20, weighted=True, seed=3))
+    n = tg.num_vertices
+    rng = np.random.default_rng(14)
+    cur = rng.random((3, n)) < 0.1
+    unv = rng.random((3, n)) < 0.7
+    jn, jp = JO.advance_pull_batch(jg, JF.BatchedDenseFrontier(
+        jnp.asarray(unv)), JF.BatchedDenseFrontier(jnp.asarray(cur)),
+        return_preds=True)
+    tn, tp = TO.advance_pull_batch(tg, TF.BatchedDenseFrontier(
+        torch.from_numpy(unv)), TF.BatchedDenseFrontier(
+        torch.from_numpy(cur)), return_preds=True)
+    _eq(jn.flags, tn.flags)
+    _eq(jp, tp)
+    one = TO.advance_pull(tg, TF.DenseFrontier(torch.from_numpy(unv[0])),
+                          TF.DenseFrontier(torch.from_numpy(cur[0])))
+    _eq(jn.flags[0], one.flags)
+
+
+def test_scatters_match_reference():
+    rng = np.random.default_rng(15)
+    idx = rng.integers(0, 20, 100).astype(np.int32)
+    valid = rng.random(100) < 0.7
+    vals = rng.integers(0, 50, 100).astype(np.float32)
+    target = rng.integers(0, 60, 20).astype(np.float32)
+    args = [jnp.asarray(a) for a in (vals, idx, valid, target)]
+    targs = [torch.from_numpy(a) for a in (vals, idx, valid, target)]
+    _eq(JO.scatter_min(*args), TO.scatter_min(*targs))
+    _eq(JO.scatter_add(*args), TO.scatter_add(*targs))
+    flags = np.zeros(20, bool)
+    _eq(JO.scatter_or(args[1], args[2], jnp.asarray(flags)),
+        TO.scatter_or(targs[1], targs[2], torch.from_numpy(flags)))
+
+
+def test_lb_strategy_only():
+    with pytest.raises(NotImplementedError, match="later slice"):
+        TO._strategy("TWC")
+    with pytest.raises(ValueError):
+        TO._strategy("bogus")
