@@ -5,26 +5,39 @@ NVIDIA Hopper card.
   python3 chip_smoke.py [--scale 22]
 
 ``--scale`` cuts the rmat graph for a quick check after a kernel edit;
-the default, 22, is the main path's size.
+the default, 22, is the main path's size. Triangle counting runs at
+min(scale, 18) and its unfiltered variant two scales lower, whose
+expansion (Σ min(deg(u), deg(v)) slots over every edge) passes int32
+from scale 18 on (PERF.md §4).
 
 Phases:
   1. device and build — the card's name and power limit, the PyTorch and
-     CUDA toolkit versions, and the build of the four CUDA kernels from
+     CUDA toolkit versions, and the build of the five CUDA kernels from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel
      with the host-side graph generation);
   2. kernel vs plain — each kernel's wrapper against its plain PyTorch
      version on the same card tensors, at the main path's shapes on the
      rmat graph (two capacity tiers, the top one included; B = 1 and
      B = 4), integer outputs equal and the SpMV bit-equal to its plain
-     version run on the CPU; each kernel timed beside its plain version,
-     one PyTorch library call where one computes the same function, and
-     the least time the card could take;
-  3. main path — bfs from the max-degree vertex, bfs_batch, sssp,
-     sssp_batch and 20 PageRank sweeps on the cuda backend, validated
-     against host oracles (numpy BFS hop counts, scipy Dijkstra, a numpy
-     power iteration); every kernel's launch counter must have grown;
-  4. where the time goes — the batched primitives once more under
-     torch.profiler: device busy time, idle share, top kernels.
+     version run on the CPU; K3 (B = 1) and K5 (locate) at triangle
+     counting's shape, the mxm expansion of the oriented rmat scale-18
+     graph (6.6e8 slots); K5 (found) on segmented_intersect's probes of
+     edge pairs of the scale-22 graph, and on an empty haystack; each
+     kernel timed beside its plain version, one PyTorch library call
+     where one computes the same function, and the least time the card
+     could take;
+  3. main path — (a) the first slice's: bfs from the max-degree vertex,
+     bfs_batch, sssp, sssp_batch and 20 PageRank sweeps; (b) the second
+     slice's: connected components and bc_batch at scale 22,
+     triangle_count at scale 18 and triangle_count_full at scale 16 —
+     all on the cuda backend, validated against host oracles (numpy BFS
+     hop counts, scipy Dijkstra, a numpy power iteration, scipy
+     components, numpy Brandes, scipy products for the triangles); each
+     path runs with the launch counters set to 0 and every kernel of it
+     must have launched;
+  4. where the time goes — path (a)'s batched primitives, then path
+     (b), once more under torch.profiler: device busy time, idle share,
+     top kernels.
 
 Prints one JSON line of kernel numbers, then the card's name and power
 limit, then ``{"ok": true, "device": ...}`` as the last line. Any failure
@@ -45,9 +58,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # non-tensor-core peak, the rate for int ops
 EDGE_FACTOR = 16
 BATCH = 4
-# PageRank (float32) against a float64 power iteration, per vertex
-# relative: float32 folds of up to ~1.6e5 in-edges drift by ~1e-6..1e-5
-PR_RTOL = 1e-4
+TC_SCALE = 18
+# triangles of rmat(scale, 16, seed=0), counted by a chunked scipy product
+TRIANGLES = {14: 2_808_907, 16: 15_681_649, 18: 82_931_365}
 
 
 def _smi() -> str:
@@ -110,12 +123,16 @@ def main(argv=None) -> int:
     from repro_torch.core import graph as G
     from repro_torch.core import operators as O
     from repro_torch.core import ref as R
-    from repro_torch.core.primitives import (bfs, bfs_batch, pagerank, sssp,
-                                             sssp_batch)
+    from repro_torch.core.primitives import (bc_batch, bfs, bfs_batch,
+                                             connected_components, pagerank,
+                                             sssp, sssp_batch, triangle_count,
+                                             triangle_count_full)
+    from repro_torch.core.primitives import tc as TC
     from repro_torch.core.primitives.pagerank import _inv_out_degrees
     from repro_torch.kernels import ops as K
     from repro_torch.kernels import ref as P
     from repro_torch.kernels import runtime
+    from repro_torch.linalg import ops as L
     from repro_torch.linalg import semiring as SR
 
     t_start = time.monotonic()
@@ -358,6 +375,146 @@ def main(argv=None) -> int:
     del a_csr, y_k, y_l, y_c
     torch.cuda.empty_cache()
 
+    # K3 (B = 1) and K5 (locate) at triangle counting's shape: the mxm
+    # expansion of the oriented rmat graph, every slot live
+    tc_scale = min(args.scale, TC_SCALE)
+    t0 = time.monotonic()
+    g_tc = G.rmat(tc_scale, EDGE_FACTOR, seed=0, weighted=True, device=dev)
+    sub, ssrc, sdst = TC._orient(g_tc)
+    (a_off, a_idx, _), (bt_off, bt_idx, _), base, probe, cap = L.mxm_plan(
+        sub, sub, (ssrc, sdst), b_transpose=True)
+    sizes = (torch.index_select(a_off, 0, base + 1)
+             - torch.index_select(a_off, 0, base)).to(torch.int32)
+    n_tc, m_sub = g_tc.num_vertices, sub.num_edges
+    print(f"TC shape: rmat scale {tc_scale}, m={g_tc.num_edges}, oriented "
+          f"m'={m_sub}, mxm expansion {cap} slots (host "
+          f"{time.monotonic() - t0:.1f} s)")
+
+    def k3t():
+        return K.advance(a_off, a_idx, base, sizes, cap)
+
+    def p3t():
+        return O._advance_torch(a_off, a_idx, base, sizes, cap)
+
+    equal_ints("advance (B=1, TC shape)", k3t(), p3t())
+    torch.cuda.empty_cache()
+    ms, pms = _timed(torch, k3t, 3), _timed(torch, p3t, 1)
+    nbytes = m_sub * 16 + cap * 4 + cap * 21
+    print(f"K3 advance B=1 cap_out={cap} (TC shape): {ms:.3f} ms, plain "
+          f"{pms:.3f} ms, bound "
+          f"{_bound_ms(nbytes, cap * (K._iters(m_sub) * 4 + 8))[0]:.3f} ms")
+    _, needles, _, pair, _, _, _ = k3t()
+    rows = torch.index_select(probe, 0, pair)
+    del pair
+    lo = torch.index_select(bt_off, 0, rows)
+    hi = torch.index_select(bt_off, 0, rows + 1)
+    torch.cuda.empty_cache()
+
+    def k5l():
+        return K.segment_locate(bt_idx, lo, hi, needles)
+
+    def p5l():
+        return P.segment_locate(bt_idx, lo, hi, needles)
+
+    pos = k5l()
+    equal_ints("segment_search (locate)", [pos], [p5l()])
+    # the library call: in mxm every [lo, hi) is one whole CSR row, so
+    # torch.searchsorted over (row, column) keys finds the same positions
+    keys = sub.row_seg.long() * n_tc + bt_idx.long()
+    query = rows.long() * n_tc + needles.long()
+    del rows
+
+    def lib5():
+        return torch.searchsorted(keys, query)
+
+    lpos = lib5()
+    hit = pos >= 0
+    if not torch.equal(lpos[hit], pos[hit].long()) or bool(
+            (keys[lpos[~hit].clamp(max=m_sub - 1)] == query[~hit]).any()):
+        raise AssertionError("segment_search (locate) differs from "
+                             "torch.searchsorted")
+    n_hit = int(hit.sum())
+    del lpos, hit, pos
+    ms, pms, lms = (_timed(torch, k5l, 10), _timed(torch, p5l, 1),
+                    _timed(torch, lib5, 3))
+    # each lane reads needle, lo, hi and writes one int32; the haystack
+    # once. Operations: at most floor(log2 len) + 1 steps of ~5 per lane
+    seg = (hi - lo).clamp(min=1).to(torch.float32)
+    steps = float(torch.where(hi > lo, torch.floor(torch.log2(seg)) + 1,
+                              0.0).sum(dtype=torch.float64))
+    nbytes, ops = cap * 16 + m_sub * 4, steps * 5 + cap * 4
+    print(f"K5 segment_search locate cap={cap} hits={n_hit} (TC shape): "
+          f"{ms:.3f} ms, plain {pms:.3f} ms, torch.searchsorted {lms:.3f} "
+          f"ms, bound {_bound_ms(nbytes, ops)[0]:.3f} ms")
+    record("segment_search", 0, ms, pms, nbytes, ops, lms)
+    del keys, query, seg, needles, lo, hi, base, probe, sizes
+    torch.cuda.empty_cache()
+
+    # K5 (found) on segmented_intersect's probes: edges (u, v) of the
+    # scale-22 graph drawn at random, as many as keep the expansion at
+    # most 3e8 slots; their neighbour lists are probed from HBM
+    rng = np.random.default_rng(1)
+    e_ids = torch.from_numpy(rng.integers(0, m, 1 << 20)).to(dev)
+    pu = torch.index_select(g.row_seg, 0, e_ids)
+    pv = torch.index_select(ci, 0, e_ids)
+    mins = torch.minimum(g.degrees[pu.long()], g.degrees[pv.long()])
+    npairs = int((torch.cumsum(mins.long(), 0) <= 3 * 10 ** 8).sum())
+    need = int(mins[:npairs].sum())
+    length = torch.tensor(npairs, dtype=torch.int32, device=dev)
+    fa = F.SparseFrontier(ids=pu[:npairs].contiguous(), length=length)
+    fb = F.SparseFrontier(ids=pv[:npairs].contiguous(), length=length)
+    needles, lo, hi, _, _ = O._intersect_probes(g, fa, fb, need, "cuda")
+
+    def k5f():
+        return K.segment_search(ci, lo, hi, needles)
+
+    def p5f():
+        return P.segment_search(ci, lo, hi, needles)
+
+    found = k5f()
+    equal_ints("segment_search (found)", [found], [p5f()])
+    keys = g.row_seg.long() * n + ci.long()
+    query = ((torch.searchsorted(ro, lo, right=True) - 1).long() * n
+             + needles.long())
+
+    def lib5f():
+        return torch.searchsorted(keys, query)
+
+    lfound = keys[lib5f().clamp_(max=m - 1)] == query
+    if not torch.equal(lfound, found):
+        raise AssertionError("segment_search (found) differs from "
+                             "torch.searchsorted")
+    del lfound
+    ms, pms, lms = (_timed(torch, k5f, 10), _timed(torch, p5f, 1),
+                    _timed(torch, lib5f, 3))
+    # 13 B per lane (needle, lo, hi, one bool); no haystack term: each
+    # probe reads ~log2(deg) entries of one row, a small part of the
+    # 513 MB of columns, and which entries it reads is not counted
+    print(f"K5 segment_search found pairs={npairs} cap={need} hits="
+          f"{int(found.sum())} (scale {args.scale}): {ms:.3f} ms, plain "
+          f"{pms:.3f} ms, torch.searchsorted {lms:.3f} ms, bound "
+          f"{_bound_ms(need * 13, 0)[0]:.3f} ms")
+    del keys, query, found, needles, lo, hi
+    torch.cuda.empty_cache()
+    r_k = O.segmented_intersect(g, fa, fb, need, backend="cuda")
+    r_p = O.segmented_intersect(g, fa, fb, need, backend="torch")
+    equal_ints("segmented_intersect", r_k, r_p)
+    print(f"segmented_intersect of {npairs} edge pairs: {int(r_k.total)} "
+          f"common neighbours, cuda equal to torch")
+    del r_k, r_p, fa, fb, pu, pv, mins, e_ids
+
+    # K5 on an empty haystack: nothing is read, nothing found
+    empty = torch.zeros((0,), dtype=torch.int32, device=dev)
+    lo0 = torch.zeros((1 << 16,), dtype=torch.int32, device=dev)
+    nd0 = torch.arange(1 << 16, dtype=torch.int32, device=dev)
+    equal_ints("segment_search (empty haystack)",
+               [K.segment_search(empty, lo0, lo0 + 1, nd0),
+                K.segment_locate(empty, lo0, lo0 + 1, nd0)],
+               [P.segment_search(empty, lo0, lo0 + 1, nd0),
+                P.segment_locate(empty, lo0, lo0 + 1, nd0)])
+    print("K5 on an empty haystack: equal to the plain version")
+    torch.cuda.empty_cache()
+
     # ---- phase 3: the main path on the cuda backend ----
     rng = np.random.default_rng(0)
     sources = [hubs[0]] + [int(v) for v in rng.choice(
@@ -384,9 +541,10 @@ def main(argv=None) -> int:
     r_pr = run("pagerank", lambda: pagerank(g, max_iter=20, backend="cuda"))
     launches = {k: v.launches for k, v in K.KERNELS.items()}
     peak = torch.cuda.max_memory_allocated()
-    print(f"main path launches: {launches}; peak device memory "
+    print(f"main path (a) launches: {launches}; peak device memory "
           f"{peak / 2 ** 30:.2f} GiB")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in ("advance_filter_batch", "compact",
+                           "advance_batch", "spmv") if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -417,49 +575,136 @@ def main(argv=None) -> int:
     for f in r_sssp._fields:
         if not torch.equal(getattr(r_sssp, f), getattr(r_ssspb, f)[0]):
             raise AssertionError(f"sssp {f} differs from sssp_batch lane 0")
-    want_pr = R.pagerank_ref(g, iters=20).astype(np.float64)
-    got_pr = r_pr.rank.cpu().numpy()
-    if got_pr.shape != (n,) or not np.isfinite(got_pr).all():
-        raise AssertionError("pagerank ranks are not n finite values")
-    pr_rel = float((np.abs(got_pr - want_pr) / want_pr).max())
-    if pr_rel > PR_RTOL or r_pr.iterations != 20:
+    pr_rel = R.pagerank_rel_err(r_pr.rank.cpu().numpy(),
+                                R.pagerank_ref(g, iters=20))
+    if pr_rel > R.PR_RTOL or r_pr.iterations != 20:
         raise AssertionError(f"pagerank off the oracle by {pr_rel} "
                              f"(relative)")
     print(f"validated against numpy BFS, scipy Dijkstra and numpy "
           f"PageRank (max |rank error| / rank {pr_rel:.3g}, limit "
-          f"{PR_RTOL:g}) in {time.monotonic() - t0:.1f} s")
+          f"{R.PR_RTOL:g}) in {time.monotonic() - t0:.1f} s")
 
-    # ---- where the time goes: the batched main path once more under
+    # ---- phase 3 (b): the second slice's path: cc and bc_batch at the
+    # main scale, triangle counting (K3 + K5 through mxm) ----
+    g_full = G.rmat(tc_scale - 2, EDGE_FACTOR, seed=0, weighted=True,
+                    device=dev)
+    torch.cuda.empty_cache()
+    K.reset_launches()
+    torch.cuda.synchronize()
+    timings2 = {}
+
+    def run2(label, fn):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        timings2[label] = time.monotonic() - t
+        return out
+
+    r_cc = run2("cc", lambda: connected_components(g, backend="cuda"))
+    r_bc = run2("bc_batch", lambda: bc_batch(g, sources, backend="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    r_tc = run2("tc", lambda: triangle_count(g_tc, backend="cuda"))
+    tc_peak = torch.cuda.max_memory_allocated()
+    r_tcs = run2("tc_small", lambda: triangle_count(g_full, backend="cuda"))
+    r_tcf = run2("tc_full",
+                 lambda: triangle_count_full(g_full, backend="cuda"))
+    launches2 = {k: v.launches for k, v in K.KERNELS.items()}
+    print(f"main path (b) launches: {launches2}; triangle_count peak "
+          f"device memory {tc_peak / 2 ** 30:.2f} GiB "
+          f"({(tc_peak - held) / 2 ** 30:.2f} GiB above the "
+          f"{held / 2 ** 30:.2f} GiB held before it)")
+    missing = [k for k in ("advance_batch", "segment_search")
+               if launches2[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing}")
+    edges2 = {"cc": m, "bc_batch": 2 * m * b, "tc": g_tc.num_edges,
+              "tc_small": g_full.num_edges, "tc_full": g_full.num_edges}
+    for label, dt in timings2.items():
+        print(f"{label:10s} {dt * 1e3:10.2f} ms "
+              f"{edges2[label] / dt / 1e6:10.2f} MTEPS")
+    print(f"cc iterations {r_cc.iterations}, components "
+          f"{int(r_cc.num_components)}; bc levels "
+          f"{r_bc.max_level.tolist()}; triangles: scale {tc_scale} "
+          f"{int(r_tc.total)}, scale {tc_scale - 2} {int(r_tcs.total)} "
+          f"(unfiltered {int(r_tcf)})")
+
+    t0 = time.monotonic()
+    if not np.array_equal(r_cc.labels.cpu().numpy(), R.cc_ref(g)):
+        raise AssertionError("cc labels differ from scipy's components")
+    bc_err = 0.0
+    for i, s in enumerate(sources):
+        got, want = r_bc.bc[i].cpu().numpy(), R.bc_ref(g, s)
+        if not np.allclose(got, want, rtol=1e-3, atol=1e-3):
+            raise AssertionError(f"bc_batch lane {i} differs from Brandes")
+        bc_err = max(bc_err, float((np.abs(got - want) / np.maximum(
+            np.abs(want), 1.0)).max()))
+    total = int(r_tc.total)
+    if (total != R.tc_ref(g_tc) or total != int(r_tc.per_edge.long().sum())
+            or total != TRIANGLES.get(tc_scale, total)):
+        raise AssertionError(f"triangle_count {total} differs from the "
+                             f"oracle")
+    small = int(r_tcs.total)
+    if (small != int(r_tcf) or small != R.tc_ref(g_full)
+            or small != TRIANGLES.get(tc_scale - 2, small)):
+        raise AssertionError(f"triangle_count_full {int(r_tcf)} / "
+                             f"triangle_count {small} differ")
+    print(f"validated cc against scipy, bc_batch against numpy Brandes "
+          f"(max |error| / max(|bc|, 1) {bc_err:.3g}; limit rtol 1e-3, "
+          f"atol 1e-3) and the triangles against scipy in "
+          f"{time.monotonic() - t0:.1f} s")
+    del r_cc, r_bc, r_tc, r_tcs, r_tcf, g_full, sub
+    torch.cuda.empty_cache()
+
+    # ---- where the time goes: each slice's path once more under
     # torch.profiler (its overhead inflates the wall time; the device
     # time per kernel is what it is for) ----
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
+
+    def profiled(label, fn, top):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        # device-side events only: a host op's row repeats its kernels'
+        rows = [(e.self_device_time_total, e.count, e.key)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        busy = sum(r[0] for r in rows) / 1e3
+        print(f"profiled {label}: wall {wall * 1e3:.1f} ms, device busy "
+              f"{busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}")
+        for us, count, key in sorted(rows, reverse=True)[:top]:
+            print(f"  {us / 1e3:10.3f} ms {count:6d}x  {key[:90]}")
+
+    def path_a():
         bfs_batch(g, sources, backend="cuda")
         sssp_batch(g, sources, backend="cuda")
         pagerank(g, max_iter=20, backend="cuda")
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    # device-side events only: a host op's row repeats its kernels' time
-    rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    busy = sum(r[0] for r in rows) / 1e3
-    print(f"profiled bfs_batch+sssp_batch+pagerank: wall {wall * 1e3:.1f} "
-          f"ms, device busy {busy:.1f} ms, idle share "
-          f"{1 - busy / (wall * 1e3):.3f}")
-    for us, count, key in sorted(rows, reverse=True)[:12]:
-        print(f"  {us / 1e3:10.3f} ms {count:6d}x  {key[:90]}")
+
+    def path_b():
+        connected_components(g, backend="cuda")
+        bc_batch(g, sources, backend="cuda")
+        triangle_count(g_tc, backend="cuda")
+
+    profiled("bfs_batch+sssp_batch+pagerank", path_a, 12)
+    profiled("cc+bc_batch+triangle_count", path_b, 12)
+    del g_tc
 
     kernels = []
     for name, k in K.KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces,
-                        "launches": launches[name], **results[name]})
+                        "launches": launches[name] + launches2[name],
+                        **results[name]})
     print(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(_smi())

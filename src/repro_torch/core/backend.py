@@ -2,9 +2,9 @@
 ``repro.core.backend``).
 
 Every operator hot path — advance expansion+gather, fused
-advance+filter, frontier compaction, the SpMV sweep — is registered
-here once per backend, under the reference's op names and call
-contracts:
+advance+filter, frontier compaction, the SpMV sweep, the segmented
+binary search and the masked SpGEMM built on it — is registered here
+once per backend, under the reference's op names and call contracts:
 
   "torch" — plain PyTorch formulations, the twin of each ``xla``
             provider. Runs on the CPU or the card.

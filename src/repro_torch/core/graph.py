@@ -309,6 +309,13 @@ def from_edge_list(src, dst, n: Optional[int] = None, values=None,
                           sort_neighbors=False, device=device)
 
 
+def edge_list(graph: Graph) -> tuple[np.ndarray, np.ndarray]:
+    """The graph's (src, dst) edges in CSR order, as int32 host arrays."""
+    ro = graph.row_offsets.cpu().numpy()
+    src = np.repeat(np.arange(len(ro) - 1, dtype=np.int32), np.diff(ro))
+    return src, graph.cols_np()
+
+
 def rmat(scale: int, edge_factor: int = 16, a: float = 0.57,
          b: float = 0.19, c: float = 0.19, seed: int = 0,
          weighted: bool = False, undirected: bool = True,

@@ -13,6 +13,10 @@
   advance_pull   — pull over the CSC mirror: for every unvisited vertex,
                    the largest active in-neighbour (a segment max), which
                    is also the predecessor it records.
+  segmented_intersect — SmallLarge intersection of paired neighbour
+                   lists: LB expansion of the smaller list, a bounded
+                   binary search in the larger ("segment_search"),
+                   compaction of the matches.
   scatter_*      — the atomic-replacement scatters.
 
 The ``"torch"`` providers registered here are the plain twins of the
@@ -33,10 +37,12 @@ import torch
 
 from . import backend as B
 from .frontier import (INVALID, BatchedDenseFrontier, BatchedSparseFrontier,
-                       DenseFrontier, SparseFrontier, compact_values_batch)
+                       DenseFrontier, SparseFrontier, compact_values,
+                       compact_values_batch)
 from .graph import Graph
 
 INT32_MIN = -2 ** 31
+INT32_MAX = 2 ** 31 - 1
 
 
 def _strategy(strategy: str) -> None:
@@ -343,6 +349,116 @@ def advance_pull(graph: Graph, unvisited: DenseFrontier,
     if return_preds:
         return DenseFrontier(out[0].flags[0]), out[1][0]
     return DenseFrontier(out.flags[0])
+
+
+# ---------------------------------------------------------------------------
+# segmented intersection (paper §4.3)
+# ---------------------------------------------------------------------------
+
+
+def _searchsorted_segment(haystack: torch.Tensor, lo: torch.Tensor,
+                          hi: torch.Tensor, needles: torch.Tensor,
+                          iters: int = 32, locate: bool = False
+                          ) -> torch.Tensor:
+    """Bounded lower-bound search of ``needles[i]`` in the sorted
+    ``haystack[lo[i]:hi[i])``, every lane ``iters`` steps; returns True
+    where found — or, with ``locate=True``, the matched position (-1
+    when absent). The SmallLarge probe (§4.3), the plain version of K5.
+    ``lo`` and ``hi`` are offsets into the haystack. An empty haystack
+    is never read: nothing is found in it."""
+    lo = lo.to(torch.int32)
+    hi = hi.to(torch.int32)
+    m = int(haystack.shape[0])
+    if m == 0:
+        if locate:
+            return torch.full_like(needles, -1, dtype=torch.int32)
+        return torch.zeros_like(needles, dtype=torch.bool)
+    lo_ = lo
+    hi_ = hi
+    for _ in range(iters):
+        live = lo_ < hi_
+        mid = lo_ + ((hi_ - lo_) >> 1)
+        mid_val = torch.index_select(haystack, 0, mid.clamp(0, m - 1))
+        go_right = mid_val < needles
+        lo_ = torch.where(go_right & live, mid + 1, lo_)
+        hi_ = torch.where(~go_right & live, mid, hi_)
+    found = (lo_ < hi) & (torch.index_select(
+        haystack, 0, lo_.clamp(0, m - 1)) == needles)
+    if locate:
+        return torch.where(found, lo_, -1).to(torch.int32)
+    return found
+
+
+@B.register("segment_search", B.TORCH)
+def _segment_search_torch(haystack, lo, hi, needles) -> torch.Tensor:
+    """found[i] = needles[i] in sorted haystack[lo[i]:hi[i]) (bool)."""
+    return _searchsorted_segment(haystack, lo, hi, needles)
+
+
+def _segment_locate_torch(haystack, lo, hi, needles) -> torch.Tensor:
+    """Position of needles[i] in haystack[lo[i]:hi[i]), -1 when absent
+    (int32) — the probe of the semiring SpGEMM (``linalg.mxm``)."""
+    return _searchsorted_segment(haystack, lo, hi, needles, locate=True)
+
+
+class IntersectResult(NamedTuple):
+    items: torch.Tensor    # (cap_out,) intersected vertex ids (compacted)
+    pair_of: torch.Tensor  # (cap_out,) which input pair produced the item
+    length: torch.Tensor   # () int32
+    counts: torch.Tensor   # (cap_in,) per-pair intersection sizes
+    total: torch.Tensor    # () int32 global intersection count
+
+
+def _intersect_probes(graph: Graph, fa: SparseFrontier, fb: SparseFrontier,
+                      cap_out: int, bk: str):
+    """The probes of a segmented intersection: the smaller list of each
+    pair expanded (LB, "advance"), each element to be searched in the
+    larger one. Returns (needles, lo, hi, pair, valid), (cap_out,) each:
+    ``haystack[lo:hi)`` is the larger endpoint's neighbour list."""
+    valid_pair = fa.valid_mask & fb.valid_mask
+    a = torch.where(valid_pair, fa.ids, 0)
+    b = torch.where(valid_pair, fb.ids, 0)
+    ro = graph.row_offsets
+    deg_a = ro[a.long() + 1] - ro[a.long()]
+    deg_b = ro[b.long() + 1] - ro[b.long()]
+    a_small = deg_a <= deg_b
+    small = torch.where(a_small, a, b)
+    large = torch.where(a_small, b, a)
+    sizes = torch.where(valid_pair, torch.where(a_small, deg_a, deg_b),
+                        0).to(torch.int32)
+    # fused expansion: dst of the small-side advance IS the probe needle
+    _, needles, _, pair, _, valid, _ = B.dispatch("advance", bk)(
+        ro, graph.col_indices, small, sizes, cap_out)
+    l_vert = torch.index_select(large, 0, pair)
+    lo = torch.index_select(ro, 0, l_vert)
+    hi = torch.index_select(ro, 0, l_vert + 1)
+    return needles, lo, hi, pair, valid
+
+
+def segmented_intersect(graph: Graph, fa: SparseFrontier,
+                        fb: SparseFrontier, cap_out: int, *,
+                        backend: Optional[str] = None) -> IntersectResult:
+    """Intersect the neighbour lists of paired items of two frontiers
+    (sorted adjacency lists, as ``from_edge_list`` builds them).
+
+    SmallLarge: expand the *smaller* list of each pair (LB, "advance"),
+    binary-search each element in the larger list ("segment_search"),
+    compact the matches ("compact"). An edgeless graph runs the same
+    providers: the kernels take m = 0, and the search reads nothing."""
+    bk = B.resolve(backend, graph.device)
+    needles, lo, hi, pair, valid = _intersect_probes(graph, fa, fb,
+                                                     cap_out, bk)
+    found = B.dispatch("segment_search", bk)(graph.col_indices, lo, hi,
+                                             needles)
+    found = found & valid
+    counts = torch.zeros((fa.capacity,), dtype=torch.int32,
+                         device=graph.device)
+    counts.index_add_(0, pair, found.to(torch.int32))
+    items, length = compact_values(needles, found, cap_out, backend=bk)
+    pair_c, _ = compact_values(pair, found, cap_out, backend=bk)
+    return IntersectResult(items=items, pair_of=pair_c, length=length,
+                           counts=counts,
+                           total=counts.sum(dtype=torch.int32))
 
 
 def _safe_index(index: torch.Tensor, valid: torch.Tensor,

@@ -1,4 +1,6 @@
 """Host-side oracles of the primitives."""
-from .ref_graph import bfs_ref, pagerank_ref, sssp_ref
+from .ref_graph import (PR_RTOL, bc_ref, bfs_ref, cc_ref, pagerank_ref,
+                        pagerank_rel_err, sssp_ref, tc_ref)
 
-__all__ = ["bfs_ref", "pagerank_ref", "sssp_ref"]
+__all__ = ["PR_RTOL", "bc_ref", "bfs_ref", "cc_ref", "pagerank_ref",
+           "pagerank_rel_err", "sssp_ref", "tc_ref"]

@@ -1,13 +1,21 @@
-"""Host-side oracles for BFS, SSSP and PageRank (counterpart of
-``repro.core.ref.ref_graph``), fast enough for rmat scale 22:
+"""Host-side oracles of the six primitives (counterpart of
+``repro.core.ref.ref_graph``), independent of the code under test and
+vectorised so that they finish at the card's sizes (rmat scale 22; the
+reference's own TC/CC/BC oracles loop over every edge in Python):
 
   bfs_ref      — level-synchronous BFS hop counts in vectorized numpy;
   sssp_ref     — scipy's Dijkstra (float64, cast to float32; the graph's
                  integer weights keep every distance exact);
-  pagerank_ref — float64 power iteration over a scipy sparse matrix.
+  pagerank_ref — float64 power iteration over a scipy sparse matrix;
+  cc_ref       — scipy's connected components, each labelled by its
+                 smallest vertex id (what hooking to the min converges
+                 to);
+  bc_ref       — level-synchronous Brandes in numpy, float64;
+  tc_ref       — row-chunked scipy products over the oriented adjacency.
 
 The semantics are the reference's: -1 / inf for unreachable vertices,
-dangling mass redistributed uniformly.
+dangling mass redistributed uniformly. ``PR_RTOL`` is the PageRank
+check both the CLI and ``chip_smoke.py`` apply.
 """
 from __future__ import annotations
 
@@ -16,12 +24,28 @@ import scipy.sparse as sp
 from scipy.sparse import csgraph
 
 
+# PageRank (float32) against the float64 oracle, per vertex relative:
+# float32 folds of up to ~1.6e5 in-edges drift by ~1e-6..1e-5. Ranks
+# average 1/n (2.4e-7 at rmat scale 22), so an absolute limit of 1e-6
+# would pass almost any vector.
+PR_RTOL = 1e-4
+
+
 def _csr(graph):
     ro = graph.row_offsets.cpu().numpy().astype(np.int64)
     ci = graph.col_indices.cpu().numpy().astype(np.int64)
     w = (None if graph.edge_values is None
          else graph.edge_values.cpu().numpy().astype(np.float64))
     return ro, ci, w
+
+
+def _out_edges(ro, ci, frontier):
+    """(u, v) of every out-edge of the vertices in ``frontier``."""
+    starts = ro[frontier]
+    lens = ro[frontier + 1] - starts
+    pos = np.repeat(starts - np.cumsum(lens) + lens, lens) + np.arange(
+        lens.sum())
+    return np.repeat(frontier, lens), ci[pos]
 
 
 def bfs_ref(graph, src: int) -> np.ndarray:
@@ -34,11 +58,7 @@ def bfs_ref(graph, src: int) -> np.ndarray:
     d = 0
     while len(frontier):
         d += 1
-        starts, ends = ro[frontier], ro[frontier + 1]
-        lens = ends - starts
-        pos = np.repeat(starts - np.cumsum(lens) + lens, lens) + np.arange(
-            lens.sum())
-        nbrs = np.unique(ci[pos])
+        nbrs = np.unique(_out_edges(ro, ci, frontier)[1])
         nbrs = nbrs[depth[nbrs] < 0]
         depth[nbrs] = d
         frontier = nbrs
@@ -70,3 +90,79 @@ def pagerank_ref(graph, damping: float = 0.85, iters: int = 20
         dangling = pr[deg == 0].sum() / n
         pr = (1 - damping) / n + damping * (at @ contrib + dangling)
     return pr.astype(np.float32)
+
+
+def pagerank_rel_err(rank, want) -> float:
+    """Largest per-vertex |rank - want| / want (``want`` from
+    :func:`pagerank_ref`, every entry > 0); inf for a rank vector of the
+    wrong shape or with a non-finite entry."""
+    rank = np.asarray(rank, np.float64)
+    want = np.asarray(want, np.float64)
+    if rank.shape != want.shape or not np.isfinite(rank).all():
+        return float("inf")
+    return float((np.abs(rank - want) / want).max()) if len(want) else 0.0
+
+
+def cc_ref(graph) -> np.ndarray:
+    """Connected-component labels: each vertex's label is the smallest
+    vertex id of its (weakly connected) component."""
+    ro, ci, _ = _csr(graph)
+    n = len(ro) - 1
+    a = sp.csr_matrix((np.ones(len(ci), np.int8), ci, ro), shape=(n, n))
+    _, comp = csgraph.connected_components(a, directed=True,
+                                           connection="weak")
+    first = np.full(comp.max() + 1 if n else 0, n, dtype=np.int64)
+    np.minimum.at(first, comp, np.arange(n))
+    return first[comp].astype(np.int32)
+
+
+def bc_ref(graph, src: int) -> np.ndarray:
+    """Brandes dependencies of every vertex for one source (float64,
+    cast to float32): level-synchronous sigma accumulation, then the
+    levels in reverse; the source's own entry is 0."""
+    ro, ci, _ = _csr(graph)
+    n = len(ro) - 1
+    depth = np.full(n, -1, dtype=np.int64)
+    depth[src] = 0
+    sigma = np.zeros(n)
+    sigma[src] = 1.0
+    levels = [np.array([src], dtype=np.int64)]
+    while True:
+        d = len(levels)
+        u, v = _out_edges(ro, ci, levels[-1])
+        new = np.unique(v[depth[v] < 0])
+        depth[new] = d
+        tree = depth[v] == d
+        sigma += np.bincount(v[tree], weights=sigma[u[tree]], minlength=n)
+        if not len(new):
+            break
+        levels.append(new)
+    delta = np.zeros(n)
+    for front in reversed(levels):
+        u, v = _out_edges(ro, ci, front)
+        tree = (depth[v] == depth[u] + 1) & (sigma[v] > 0)
+        u, v = u[tree], v[tree]
+        delta += np.bincount(u, weights=sigma[u] / sigma[v] * (1 + delta[v]),
+                             minlength=n)
+    delta[src] = 0.0
+    return delta.astype(np.float32)
+
+
+def tc_ref(graph, rows_per_chunk: int = 1 << 14) -> int:
+    """Exact triangle count of an undirected graph: orient each edge from
+    the higher (degree, id) endpoint to the lower, then count, for every
+    oriented edge (u, v), the common out-neighbours of u and v —
+    ``(A'[rows] @ A'ᵀ) ∘ A'[rows]`` summed, in row chunks."""
+    ro, ci, _ = _csr(graph)
+    n = len(ro) - 1
+    deg = np.diff(ro)
+    src = np.repeat(np.arange(n), deg)
+    keep = (deg[src] > deg[ci]) | ((deg[src] == deg[ci]) & (src > ci))
+    a = sp.csr_matrix((np.ones(int(keep.sum()), np.int64),
+                       (src[keep], ci[keep])), shape=(n, n))
+    at = a.T.tocsr()
+    total = 0
+    for lo in range(0, n, rows_per_chunk):
+        rows = a[lo:lo + rows_per_chunk]
+        total += int((rows @ at).multiply(rows).sum())
+    return total

@@ -1,0 +1,87 @@
+// Bounded segmented binary search (K5) for Hopper, in both of its modes.
+//
+// Replaces the TPU kernel segment_search_kernel
+// (src/repro/kernels/segment_search.py:52): for each lane i, the lower
+// bound of needles[i] in the sorted haystack[lo[i]:hi[i]); `found` mode
+// writes 1 where the haystack holds the needle there (else 0), `locate`
+// mode the matched position (else -1). It is the SmallLarge probe of
+// segmented intersection (found) and of the masked SpGEMM behind
+// triangle counting (locate).
+//
+// What differs from the TPU kernel, and why:
+//  * The Pallas kernel maps the whole haystack into VMEM on every grid
+//    step. Here it stays in device memory and is read through the
+//    read-only path (__ldg): the columns of rmat scale 18 (30 MB) stay in
+//    the 50 MB L2; at scale 22 (513 MB) the probes come from HBM.
+//  * The Pallas kernel runs a fixed ceil(log2 m) + 1 steps on every lane;
+//    a thread here stops when lo >= hi. Each step of a live lane is the
+//    reference's step (mid clamped to the haystack), so the lower bound,
+//    and every output, is bit-equal. The midpoint is lo + (hi - lo) / 2,
+//    taken unsigned: the reference's (lo + hi) // 2 overflows int32 once
+//    the edges pass 2^30.
+//  * One thread per needle, in a grid-stride loop with a 64-bit index: a
+//    launch of triangle counting at rmat scale 18 holds 6.6e8 lanes.
+//  * A lane with lo >= hi reads nothing (padding lanes, empty segments,
+//    and every lane of an empty haystack, which is never touched).
+// Bound by bytes: 16 B per lane (needle, lo, hi read once, one int32 or
+// byte written) plus the haystack once; the search's dependent loads
+// are latency, which the many lanes in flight hide.
+#include "common.cuh"
+
+namespace {
+
+template <bool kLocate, typename Out>
+__global__ void search_kernel(const int* __restrict__ hay, int m,
+                              const int* __restrict__ lo,
+                              const int* __restrict__ hi,
+                              const int* __restrict__ needles,
+                              long long cap, Out* __restrict__ out) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < cap; i += stride) {
+    const int h0 = hi[i];
+    const int x = needles[i];
+    int l = lo[i], h = h0;
+    bool found = false;
+    if (l < h && m > 0) {
+      while (l < h) {
+        const int mid =
+            l + static_cast<int>(static_cast<unsigned>(h - l) >> 1);
+        if (__ldg(hay + min(max(mid, 0), m - 1)) < x) l = mid + 1;
+        else h = mid;
+      }
+      found = l < h0 && __ldg(hay + min(max(l, 0), m - 1)) == x;
+    }
+    if (kLocate) out[i] = static_cast<Out>(found ? l : -1);
+    else out[i] = static_cast<Out>(found ? 1 : 0);
+  }
+}
+
+template <bool kLocate, typename Out>
+int launch(const int* hay, int m, const int* lo, const int* hi,
+           const int* needles, long long cap, Out* out, void* stream) {
+  if (cap > 0) {
+    const long long want = (cap + kThreads - 1) / kThreads;
+    const int blocks = static_cast<int>(want < (1 << 20) ? want : (1 << 20));
+    search_kernel<kLocate, Out>
+        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            hay, m, lo, hi, needles, cap, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+EXPORT int segment_search_found(const int* hay, int m, const int* lo,
+                                const int* hi, const int* needles,
+                                long long cap, unsigned char* found,
+                                void* stream) {
+  return launch<false>(hay, m, lo, hi, needles, cap, found, stream);
+}
+
+EXPORT int segment_search_locate(const int* hay, int m, const int* lo,
+                                 const int* hi, const int* needles,
+                                 long long cap, int* pos, void* stream) {
+  return launch<true>(hay, m, lo, hi, needles, cap, pos, stream);
+}

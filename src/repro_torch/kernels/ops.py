@@ -10,9 +10,10 @@ Each wrapper takes the registry op's arguments, and
     current stream, raises if the launch returned a CUDA error, and adds
     one to the kernel's launch counter. It never falls back.
 
-``KERNELS`` lists the four kernels with their sources, the TPU kernels
+``KERNELS`` lists the five kernels with their sources, the TPU kernels
 they replace and their launch counters (``chip_smoke.py`` reads and
-resets them).
+resets them). The ``"mxm"`` provider is no kernel of its own: it runs
+K3 (the expansion) and K5 (the probe) through their wrappers.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from typing import Optional
 import torch
 
 from ..core import backend as B
+from ..linalg.ops import make_mxm_impl
 from . import ref, runtime
 
 INT32_MAX = 2 ** 31 - 1
@@ -51,6 +53,8 @@ KERNELS = {k.name: k for k in (
            "src/repro/kernels/advance_fused.py:210"),
     Kernel("spmv", "src/repro_torch/kernels/csrc/spmv.cu",
            "src/repro/kernels/semiring_spmv.py:56"),
+    Kernel("segment_search", "src/repro_torch/kernels/csrc/search.cu",
+           "src/repro/kernels/segment_search.py:52"),
 )}
 
 
@@ -68,6 +72,10 @@ _SIGNATURES = {
     ("compact", "compact_batch"): (
         [_P, ctypes.c_longlong, _P, _I, _I] + [_P] * 4 + [_P]),
     ("spmv", "spmv"): [_I] + [_P] * 4 + [_I, _P, _I, _I, _P, _P],
+    ("search", "segment_search_found"): (
+        [_P, _I] + [_P] * 3 + [ctypes.c_longlong, _P, _P]),
+    ("search", "segment_search_locate"): (
+        [_P, _I] + [_P] * 3 + [ctypes.c_longlong, _P, _P]),
 }
 _fns: dict = {}
 
@@ -307,3 +315,48 @@ def spmv(offsets, indices, values, x, sr, ell_width, mask, row_seg=None,
             runtime.stream_ptr(dev))
     KERNELS["spmv"].launches += 1
     return y
+
+
+def _search(haystack, lo, hi, needles, locate: bool) -> torch.Tensor:
+    """K5 on CUDA tensors: one launch in ``found`` (bool) or ``locate``
+    (int32 position, -1 where absent) mode."""
+    dev = haystack.device
+    _require(haystack, "haystack", torch.int32, 1, dev)
+    for t, name in ((lo, "lo"), (hi, "hi"), (needles, "needles")):
+        _require(t, name, torch.int32, 1, dev)
+    cap = int(needles.shape[0])
+    if lo.shape[0] != cap or hi.shape[0] != cap:
+        raise ValueError("lo, hi and needles must have one length")
+    if haystack.shape[0] > INT32_MAX:
+        raise ValueError("haystack beyond int32 positions")
+    if locate:
+        out = torch.empty((cap,), dtype=torch.int32, device=dev)
+        fn = "segment_search_locate"
+    else:
+        out = torch.empty((cap,), dtype=torch.bool, device=dev)
+        fn = "segment_search_found"
+    _launch("search", fn, runtime.ptr(haystack), int(haystack.shape[0]),
+            runtime.ptr(lo), runtime.ptr(hi), runtime.ptr(needles), cap,
+            runtime.ptr(out), runtime.stream_ptr(dev))
+    KERNELS["segment_search"].launches += 1
+    return out
+
+
+@B.register("segment_search", B.CUDA)
+def segment_search(haystack, lo, hi, needles) -> torch.Tensor:
+    """K5, found mode: needles[i] in sorted haystack[lo[i]:hi[i]) → bool."""
+    if haystack.device.type == "cpu":
+        return ref.segment_search(haystack, lo, hi, needles)
+    return _search(haystack, lo, hi, needles, locate=False)
+
+
+def segment_locate(haystack, lo, hi, needles) -> torch.Tensor:
+    """K5, locate mode: the position of needles[i] in haystack[lo[i]:hi[i])
+    → int32, -1 where absent (the probe of the SpGEMM)."""
+    if haystack.device.type == "cpu":
+        return ref.segment_locate(haystack, lo, hi, needles)
+    return _search(haystack, lo, hi, needles, locate=True)
+
+
+# masked SpGEMM: K3 expands (a B = 1 launch), K5 locates
+B.register("mxm", B.CUDA)(make_mxm_impl(advance, segment_locate))

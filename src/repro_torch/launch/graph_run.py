@@ -1,5 +1,5 @@
 """Graph-analytics driver for the port (counterpart of
-``repro.launch.graph_run``, main-path primitives only).
+``repro.launch.graph_run``): the paper's six primitives.
 
 Builds a graph, runs the requested primitives, optionally validates them
 against the host oracles, and prints the run time and MTEPS (edges
@@ -7,11 +7,15 @@ visited / run time) per primitive. Exits nonzero when a validation
 fails.
 
   PYTHONPATH=src python -m repro_torch.launch.graph_run --graph rmat \
-      --scale 14 --primitives bfs,sssp,pagerank --validate --backend cuda
+      --scale 14 --primitives bfs,sssp,pagerank,cc,bc,tc --validate
 
 ``--device`` defaults to the card; ``--device cpu`` runs the plain
 PyTorch path. ``--sources 3,99,512`` runs bfs/sssp as ONE batched
-multi-source program over the listed roots.
+multi-source program over the listed roots, and makes bc accumulate
+exactly those roots. Triangle counting expands Σ min(deg'(u), deg'(v))
+slots over the oriented edges, which must fit int32: on rmat graphs
+(edge factor 16) scale 19 is the largest that does; a larger graph is
+refused before any kernel launches.
 """
 from __future__ import annotations
 
@@ -24,8 +28,13 @@ import torch
 from ..core import backend as B
 from ..core import graph as G
 from ..core import ref as R
-from ..core.primitives import bfs, bfs_batch, pagerank, sssp, sssp_batch
+from ..core.primitives import (bc, bc_batch, bfs, bfs_batch,
+                               connected_components, pagerank, sssp,
+                               sssp_batch, triangle_count)
 from ..kernels.runtime import resolve_device
+from ..linalg.ops import CapacityError
+
+PRIMITIVES = ("bfs", "sssp", "pagerank", "cc", "bc", "tc")
 
 
 def make_graph(kind: str, scale: int, edge_factor: int, seed: int,
@@ -78,11 +87,40 @@ def run_primitive(name: str, g: G.Graph, src: int, validate: bool,
         _sync(dev)
         dt = time.monotonic() - t0
         if validate:
-            ok = bool(np.allclose(r.rank.cpu().numpy(),
-                                  R.pagerank_ref(g, iters=20), atol=1e-6))
+            ok = R.pagerank_rel_err(r.rank.cpu().numpy(),
+                                    R.pagerank_ref(g, iters=20)) <= R.PR_RTOL
+    elif name == "cc":
+        r = connected_components(g, backend=backend)
+        _sync(dev)
+        dt = time.monotonic() - t0
+        if validate:
+            ok = np.array_equal(r.labels.cpu().numpy(), R.cc_ref(g))
+    elif name == "bc":
+        roots = sources or [src]
+        r = (bc_batch(g, sources, backend=backend) if sources
+             else bc(g, src, backend=backend))
+        total = r.bc.reshape(len(roots), -1).sum(dim=0)
+        _sync(dev)
+        dt = time.monotonic() - t0
+        edges = 2 * g.num_edges * len(roots)
+        if validate:
+            want = sum(R.bc_ref(g, s).astype(np.float64) for s in roots)
+            ok = bool(np.allclose(total.cpu().numpy(), want, rtol=1e-3,
+                                  atol=1e-3))
+    elif name == "tc":
+        try:
+            r = triangle_count(g, backend=backend)
+        except CapacityError as e:
+            raise SystemExit(
+                f"tc: {e}; on rmat graphs (edge factor 16) scale 19 is the "
+                f"largest whose expansion fits") from e
+        _sync(dev)
+        dt = time.monotonic() - t0
+        if validate:
+            ok = int(r.total) == R.tc_ref(g)
     else:
         raise ValueError(f"unknown primitive {name!r}; this driver runs "
-                         f"bfs, sssp and pagerank")
+                         f"{', '.join(PRIMITIVES)}")
     return dt, edges / dt / 1e6, ok
 
 
@@ -92,12 +130,14 @@ def main(argv=None) -> None:
     ap.add_argument("--scale", type=int, default=14)
     ap.add_argument("--edge-factor", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--primitives", default="bfs,sssp,pagerank")
+    ap.add_argument("--primitives", default="bfs,sssp,pagerank",
+                    help=f"comma-separated, of {','.join(PRIMITIVES)}")
     ap.add_argument("--validate", action="store_true")
     ap.add_argument("--src", type=int, default=None)
     ap.add_argument("--sources", default=None, metavar="S0,S1,...",
                     help="comma-separated roots: bfs/sssp run as one "
-                         "batched multi-source program over them")
+                         "batched multi-source program over them, and bc "
+                         "accumulates exactly them")
     ap.add_argument("--backend", default=None, choices=B.BACKENDS,
                     help="operator backend (default: cuda on the card, "
                          "torch on the CPU)")

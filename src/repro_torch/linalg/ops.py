@@ -1,4 +1,5 @@
-"""Semiring SpMV (counterpart of ``repro.linalg.ops``, the "spmv" op).
+"""Semiring SpMV and masked SpGEMM (counterpart of ``repro.linalg.ops``,
+the "spmv" and "mxm" ops).
 
 ``y⟨mask⟩ = A ⊗ x``: y[i] = ⊕ over row i's edges of (value ⊗ x[dst]).
 The reference fixes the grouping of every row's fold, and both backends
@@ -15,17 +16,26 @@ Empty rows and masked-out rows hold the ⊕-identity. ``values=None`` is a
 structural matrix (every entry the ⊗-identity, so the product is the
 gathered ``x``).
 
-Registry contract ("spmv", shared with the CUDA provider):
-  (offsets, indices, values|None, x (nx,), sr, ell_width, mask|None,
-   row_seg|None, over_pos, over_row) → y (n,) float32
+Registry contracts (shared with the CUDA providers):
+  "spmv" (offsets, indices, values|None, x (nx,), sr, ell_width,
+          mask|None, row_seg|None, over_pos, over_row) → y (n,) float32
+  "mxm"  (a_off, a_idx, a_vals|None, bt_off, bt_idx, bt_vals|None,
+          base (E,), probe_rows (E,), sr, cap_out) → c (E,) float32 —
+         the dot formulation over a mask pattern: row ``base[e]`` of the
+         expansion structure is LB-expanded ("advance"), each emitted
+         column id is located in row ``probe_rows[e]`` of the
+         B-transpose structure (the K5 probe), and the matches are
+         ⊗-combined and ⊕-reduced per mask edge.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..core import backend as B
+from ..core import operators as O
 from ..core.graph import Graph
 from . import semiring as S
 from .semiring import Semiring, plus_times
@@ -89,6 +99,26 @@ def _spmv_torch(offsets, indices, values, x, sr: Semiring, ell_width,
     return y.to(torch.float32)
 
 
+def _csr_side(a: Graph, transpose: bool):
+    """(offsets, indices, values, ell_width, row_seg, over_pos, over_row)
+    of a Graph's CSR, or of its CSC mirror with ``transpose=True``. Dense
+    int32 columns on one device only: storage plans and sharded
+    placements are not ported (ROADMAP A10, A13)."""
+    if not isinstance(a, Graph):
+        raise TypeError(
+            f"expected a Graph, got {type(a).__name__}; sharded "
+            f"placements are not ported yet (ROADMAP A13)")
+    if transpose:
+        if not a.has_csc:
+            raise ValueError("transpose=True needs the CSC mirror "
+                             "(build_csc=True)")
+        return (a.csc_offsets, a.csc_indices, a.csc_edge_values,
+                a.csc_ell_width, a.csc_row_seg, a.csc_over_pos,
+                a.csc_over_row)
+    return (a.row_offsets, a.col_indices, a.edge_values, a.ell_width,
+            a.row_seg, a.over_pos, a.over_row)
+
+
 def spmv(a: Graph, x, *, semiring=plus_times, mask=None,
          complement: bool = False, transpose: bool = False,
          structural: bool = False,
@@ -99,16 +129,7 @@ def spmv(a: Graph, x, *, semiring=plus_times, mask=None,
     ``complement=True`` flips the (n,) row mask."""
     sr = S.get(semiring)
     bk = B.resolve(backend, a.device)
-    if transpose:
-        if not a.has_csc:
-            raise ValueError("transpose=True needs the CSC mirror")
-        side = (a.csc_offsets, a.csc_indices, a.csc_edge_values,
-                a.csc_ell_width, a.csc_row_seg, a.csc_over_pos,
-                a.csc_over_row)
-    else:
-        side = (a.row_offsets, a.col_indices, a.edge_values, a.ell_width,
-                a.row_seg, a.over_pos, a.over_row)
-    off, idx, vals, width, seg, opos, orow = side
+    off, idx, vals, width, seg, opos, orow = _csr_side(a, transpose)
     if structural:
         vals = None
     if mask is None:
@@ -120,3 +141,129 @@ def spmv(a: Graph, x, *, semiring=plus_times, mask=None,
     x = torch.as_tensor(x, dtype=torch.float32, device=a.device)
     return B.dispatch("spmv", bk)(off, idx, vals, x, sr, width, mask, seg,
                                   opos, orow)
+
+
+def _gather_vals(vals: Optional[torch.Tensor], idx: torch.Tensor,
+                 one: float) -> torch.Tensor:
+    """``vals[clip(idx)]``, or the ⊗-identity for a structural (or
+    empty) matrix."""
+    m = 0 if vals is None else int(vals.shape[0])
+    if m == 0:
+        return torch.tensor(one, dtype=torch.float32, device=idx.device)
+    return torch.index_select(vals, 0, idx.clamp(0, m - 1))
+
+
+def make_mxm_impl(expand, locate):
+    """A masked-SpGEMM registry provider built from an LB expansion (the
+    "advance" contract) and a position-returning probe. The ``torch``
+    provider passes the plain ones, ``kernels.ops`` K3 and K5. The
+    intermediates are dropped as soon as they are used: at rmat scale
+    18, triangle counting expands 6.6e8 slots."""
+
+    def impl(a_off, a_idx, a_vals, bt_off, bt_idx, bt_vals, base,
+             probe_rows, sr: Semiring, cap_out: int) -> torch.Tensor:
+        e = int(base.shape[0])
+        dev = base.device
+        sizes = (torch.index_select(a_off, 0, base + 1)
+                 - torch.index_select(a_off, 0, base)).to(torch.int32)
+        # row-tiled expansion of the mask edges' expansion-side rows: the
+        # emitted column id IS the probe needle, in_pos the mask edge
+        _, needles, eid, pair, _, valid, _ = expand(a_off, a_idx, base,
+                                                    sizes, cap_out)
+        rows = torch.index_select(probe_rows, 0, pair)
+        lo = torch.index_select(bt_off, 0, rows)
+        hi = torch.index_select(bt_off, 0, rows + 1)
+        del rows
+        pos = locate(bt_idx, lo, hi, needles)
+        del lo, hi, needles
+        found = (pos >= 0) & valid
+        del valid
+        sv = _gather_vals(a_vals, eid, sr.one)
+        del eid
+        lv = _gather_vals(bt_vals, pos, sr.one)
+        del pos
+        prod = torch.where(found, sr.mul_op(sv, lv), sr.zero)
+        del found, sv, lv
+        prod = prod.to(torch.float32)
+        if sr.add == "plus":
+            c = torch.zeros((e,), dtype=torch.float32, device=dev)
+            c.index_add_(0, pair, prod)
+        else:
+            # the segment op's neutral element on empty segments, as
+            # jax.ops.segment_min / segment_max give it
+            neutral = float("inf") if sr.add == "min" else float("-inf")
+            c = torch.full((e,), neutral, dtype=torch.float32, device=dev)
+            c.scatter_reduce_(0, pair.long(), prod,
+                              "amin" if sr.add == "min" else "amax")
+        return torch.where(sizes > 0, c, sr.zero).to(torch.float32)
+
+    return impl
+
+
+_mxm_torch = B.register("mxm", B.TORCH)(
+    make_mxm_impl(O._advance_torch, O._segment_locate_torch))
+
+
+class CapacityError(ValueError):
+    """An ``mxm`` expansion whose positions would pass int32."""
+
+
+def mxm_plan(a: Graph, b: Graph, mask, *, b_transpose: bool = False):
+    """Host-side plan of ``mxm``: the expansion side's and the probe
+    side's (offsets, indices, values), and the (E,) ``base`` rows to
+    expand, ``probe_rows`` to probe and the expansion capacity. When
+    both sides share one structure (``C = A ⊗ Aᵀ``) each mask edge
+    expands its smaller endpoint row and probes the larger — the
+    SmallLarge workload reduction of paper §4.3 — so the capacity is
+    Σ min(deg(src), deg(dst)) instead of Σ deg(src)."""
+    a_off, a_idx, a_vals = _csr_side(a, transpose=False)[:3]
+    bt_off, bt_idx, bt_vals = _csr_side(b, transpose=not b_transpose)[:3]
+    msrc = np.asarray(mask[0], np.int64)
+    mdst = np.asarray(mask[1], np.int64)
+    deg_a = np.diff(a_off.cpu().numpy().astype(np.int64))[msrc]
+    deg_b = np.diff(bt_off.cpu().numpy().astype(np.int64))[mdst]
+    if a_off is bt_off and a_idx is bt_idx:
+        a_small = deg_a <= deg_b
+        base = np.where(a_small, msrc, mdst)
+        probe_rows = np.where(a_small, mdst, msrc)
+        cap = int(np.minimum(deg_a, deg_b).sum())
+    else:
+        base, probe_rows = msrc, mdst
+        cap = int(deg_a.sum())
+    dev = a_off.device
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.int32)).to(dev)
+
+    return ((a_off, a_idx, a_vals), (bt_off, bt_idx, bt_vals), t(base),
+            t(probe_rows), cap)
+
+
+def mxm(a: Graph, b: Graph, mask, *, semiring=plus_times,
+        b_transpose: bool = False, structural: bool = False,
+        cap_out: Optional[int] = None,
+        backend: Optional[str] = None) -> torch.Tensor:
+    """Row-tiled masked semiring SpGEMM (dot formulation):
+    ``C⟨M⟩ = A ⊗ B`` computed only at the mask pattern.
+
+    ``mask`` is the nnz pattern of M as ``(src_ids, dst_ids)`` host
+    arrays; the result is ``c (E,)`` with
+    ``c[e] = ⊕_w A[src_e, w] ⊗ B[w, dst_e]``. ``b_transpose=True``
+    computes ``A ⊗ bᵀ`` (column ``dst_e`` of B is row ``dst_e`` of b's
+    CSR — triangle counting's ``C = A ⊗ Aᵀ``); otherwise b's CSC mirror
+    gives column access. Capacity planning is host-side
+    (:func:`mxm_plan`); a capacity beyond int32 raises before anything
+    is launched. Only the single-device placement is ported."""
+    sr = S.get(semiring)
+    (a_off, a_idx, a_vals), (bt_off, bt_idx, bt_vals), base, probe_rows, \
+        cap = mxm_plan(a, b, mask, b_transpose=b_transpose)
+    bk = B.resolve(backend, a_off.device)
+    if structural:
+        a_vals = bt_vals = None
+    cap = max(cap, 1) if cap_out is None else int(cap_out)
+    if cap > O.INT32_MAX:
+        raise CapacityError(
+            f"mxm needs {cap:,} expansion slots, beyond the int32 "
+            f"positions of the expansion ({O.INT32_MAX:,})")
+    return B.dispatch("mxm", bk)(a_off, a_idx, a_vals, bt_off, bt_idx,
+                                 bt_vals, base, probe_rows, sr, cap)

@@ -12,9 +12,14 @@ import torch
 from repro_torch.core import frontier as F
 from repro_torch.core import graph as G
 from repro_torch.core import operators as O
-from repro_torch.core.primitives import bfs_batch, pagerank, sssp_batch
+from repro_torch.core import ref as R
+from repro_torch.core.primitives import (bc_batch, bfs_batch,
+                                         connected_components, pagerank,
+                                         sssp_batch, triangle_count,
+                                         triangle_count_full)
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import ref as P
+from repro_torch.linalg import ops as L
 from repro_torch.linalg import semiring as SR
 
 pytestmark = pytest.mark.cuda
@@ -112,7 +117,28 @@ def test_kernels_on_edgeless_graph(card):
                 lambda bk: sssp_batch(g, [0, 3], delta=1.0, backend=bk)):
         a, b = run("cuda"), run("torch")
         assert all(torch.equal(x, y) for x, y in zip(a, b))
+    # K5 on the empty haystack reads nothing and finds nothing
+    lo = torch.zeros((5000,), dtype=torch.int32, device=card)
+    needles = torch.arange(5000, dtype=torch.int32, device=card)
+    assert not K.segment_search(g.col_indices, lo, lo + 2, needles).any()
+    assert (K.segment_locate(g.col_indices, lo, lo, needles) == -1).all()
     assert all(k.launches > 0 for k in K.KERNELS.values())
+    # segmented_intersect on the edgeless graph: K3, K5 and K2 launch
+    fa = F.SparseFrontier(ids=torch.tensor([0, 3, 5, -1], dtype=torch.int32,
+                                           device=card),
+                          length=torch.tensor(3, dtype=torch.int32,
+                                              device=card))
+    fb = F.SparseFrontier(ids=torch.tensor([1, 3, 7, -1], dtype=torch.int32,
+                                           device=card),
+                          length=torch.tensor(3, dtype=torch.int32,
+                                              device=card))
+    K.reset_launches()
+    a = O.segmented_intersect(g, fa, fb, 512, backend="cuda")
+    for name in ("advance_batch", "segment_search", "compact"):
+        assert K.KERNELS[name].launches > 0, name
+    b = O.segmented_intersect(g, fa, fb, 512, backend="torch")
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert int(a.total) == 0 and int(a.length) == 0
 
 
 def test_primitives_cuda_match_torch_backend(graph):
@@ -127,4 +153,80 @@ def test_primitives_cuda_match_torch_backend(graph):
     # atomic index_add_, so the two differ only by the order of its adds
     a, b = pagerank(g, backend="cuda"), pagerank(g, backend="torch")
     assert float(((a.rank - b.rank).abs() / b.rank).max()) <= 1e-5
+    a, b = triangle_count(g, backend="cuda"), triangle_count(g,
+                                                             backend="torch")
+    assert torch.equal(a.per_edge, b.per_edge)
     assert all(k.launches > 0 for k in K.KERNELS.values())
+
+
+def _probes(g, count, seed):
+    """Whole-row probes of the CSR columns, half of them hits, with
+    empty segments and -1 padding lanes."""
+    rng = np.random.default_rng(seed)
+    ro = g.row_offsets.cpu().numpy()
+    ci = g.col_indices.cpu().numpy()
+    rows = rng.integers(0, g.num_vertices, size=count)
+    lo, hi = ro[rows], ro[rows + 1]
+    pick = lo + (rng.random(count) * np.maximum(hi - lo, 1)).astype(np.int64)
+    needles = np.where(rng.random(count) < 0.5,
+                       ci[np.minimum(pick, len(ci) - 1)],
+                       rng.integers(0, g.num_vertices, size=count))
+    hi = np.where(rng.random(count) < 0.05, lo, hi)
+    lo[-100:], hi[-100:], needles[-100:] = 0, 0, -1
+    return [torch.from_numpy(a.astype(np.int32)).to(g.device)
+            for a in (lo, hi, needles)]
+
+
+def test_segment_search_kernel_matches_plain(graph):
+    g = graph
+    lo, hi, needles = _probes(g, 300_000, seed=7)
+    K.reset_launches()
+    found = K.segment_search(g.col_indices, lo, hi, needles)
+    pos = K.segment_locate(g.col_indices, lo, hi, needles)
+    assert K.KERNELS["segment_search"].launches == 2
+    assert found.dtype == torch.bool and pos.dtype == torch.int32
+    assert torch.equal(found, P.segment_search(g.col_indices, lo, hi,
+                                               needles))
+    assert torch.equal(pos, P.segment_locate(g.col_indices, lo, hi,
+                                             needles))
+    assert torch.equal(found, pos >= 0) and int(found.sum()) > 1000
+
+
+def test_mxm_tc_intersect_cuda_match_torch_backend(graph):
+    g = graph
+    ro = g.row_offsets.cpu().numpy()
+    mask = (np.repeat(np.arange(g.num_vertices, dtype=np.int32),
+                      np.diff(ro)), g.col_indices.cpu().numpy())
+    K.reset_launches()
+    for kw in (dict(semiring="plus_and", b_transpose=True,
+                    structural=True), dict(semiring="min_plus")):
+        a = L.mxm(g, g, mask, backend="cuda", **kw)
+        b = L.mxm(g, g, mask, backend="torch", **kw)
+        assert torch.equal(a, b)
+    a, b = triangle_count(g, backend="cuda"), triangle_count(g,
+                                                             backend="torch")
+    assert torch.equal(a.per_edge, b.per_edge)
+    assert int(a.total) == R.tc_ref(g)
+    assert int(triangle_count_full(g, backend="cuda")) == int(a.total)
+    fa = F.compact_indices(torch.rand(g.num_vertices, device=g.device)
+                           < 0.3, 200, backend="torch")
+    fb = F.SparseFrontier(ids=torch.where(fa.valid_mask,
+                                          (fa.ids * 7 + 3)
+                                          % g.num_vertices, -1),
+                          length=fa.length)
+    a = O.segmented_intersect(g, fa, fb, 1 << 16, backend="cuda")
+    b = O.segmented_intersect(g, fa, fb, 1 << 16, backend="torch")
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert K.KERNELS["segment_search"].launches > 0
+    assert K.KERNELS["advance_batch"].launches > 0
+
+
+def test_cc_bc_on_the_card_match_oracles(graph):
+    g = graph
+    r = connected_components(g, backend="cuda")
+    assert np.array_equal(r.labels.cpu().numpy(), R.cc_ref(g))
+    srcs = [int(torch.argmax(g.degrees)), 5, 77]
+    r = bc_batch(g, srcs, backend="cuda")
+    for i, s in enumerate(srcs):
+        np.testing.assert_allclose(r.bc[i].cpu().numpy(), R.bc_ref(g, s),
+                                   rtol=1e-3, atol=1e-3)

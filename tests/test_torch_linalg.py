@@ -1,7 +1,10 @@
 """Port SpMV against the reference for all five semirings: bit for bit
 with the xla provider (both replay the same fixed-grouping fold), and
 within 1e-5 of the Pallas kernel (interpret mode), the tolerance the
-reference's own tests give its two providers (tests/test_linalg.py)."""
+reference's own tests give its two providers (tests/test_linalg.py).
+The masked SpGEMM (mxm) bit for bit with the reference's xla provider:
+its sums add small integers (counts, or products of integer weights),
+which float32 holds exactly in any order."""
 import numpy as np
 import pytest
 import torch
@@ -10,6 +13,8 @@ from repro import linalg as JL
 from repro.core import graph as JG
 from repro.linalg import semiring as JS
 from repro_torch import convert
+from repro_torch.core import backend as TB
+from repro_torch.core import graph as TG
 from repro_torch.core.graph import TENSOR_FIELDS
 from repro_torch.kernels import ops as K
 from repro_torch.linalg import ops as TL
@@ -88,3 +93,61 @@ def test_semiring_table_matches_reference():
     assert [TS.SEMIRINGS[k].code for k in order] == [0, 1, 2, 3, 4]
     with pytest.raises(ValueError):
         TS.get("bogus")
+
+
+# --- masked SpGEMM (mxm) --------------------------------------------------
+
+
+def _edges(g):
+    ro = g.row_offsets.numpy()
+    src = np.repeat(np.arange(len(ro) - 1, dtype=np.int32), np.diff(ro))
+    return src, g.col_indices.numpy()
+
+
+def test_mxm_plus_and_structural_matches_reference(pair):
+    """C⟨A⟩ = A ⊗ Aᵀ over ⟨plus, and⟩ with the SmallLarge swap: per-edge
+    common-neighbour counts, the triangle-counting product."""
+    jg, tg = pair
+    mask = _edges(tg)
+    want = np.asarray(JL.mxm(jg, jg, mask, semiring=JS.plus_and,
+                             b_transpose=True, structural=True,
+                             backend="xla"))
+    got = TL.mxm(tg, tg, mask, semiring="plus_and", b_transpose=True,
+                 structural=True)
+    assert got.dtype == torch.float32
+    assert np.array_equal(want, got.numpy())
+    # the kernel provider on CPU tensors is the plain one, no launch
+    before = {k: v.launches for k, v in K.KERNELS.items()}
+    a, bt, base, probe, cap = TL.mxm_plan(tg, tg, mask, b_transpose=True)
+    args = (*a[:2], None, *bt[:2], None, base, probe, TS.plus_and, cap)
+    assert torch.equal(TB.dispatch("mxm", "cuda")(*args), got)
+    assert {k: v.launches for k, v in K.KERNELS.items()} == before
+
+
+@pytest.mark.parametrize("sr", SEMIRINGS)
+def test_mxm_weighted_through_csc_matches_reference(pair, sr):
+    """C⟨M⟩ = A ⊗ A over random vertex pairs, B's columns through the CSC
+    mirror (no swap), stored weights on both sides."""
+    jg, tg = pair
+    rng = np.random.default_rng(31)
+    n = tg.num_vertices
+    mask = (rng.integers(0, n, 600).astype(np.int32),
+            rng.integers(0, n, 600).astype(np.int32))
+    want = np.asarray(JL.mxm(jg, jg, mask, semiring=JS.get(sr),
+                             backend="xla"))
+    got = TL.mxm(tg, tg, mask, semiring=sr)
+    assert np.array_equal(want, got.numpy())
+
+
+def test_mxm_refusals(pair):
+    _, tg = pair
+    mask = _edges(tg)
+    with pytest.raises(ValueError, match="beyond the int32"):
+        TL.mxm(tg, tg, mask, b_transpose=True, cap_out=2 ** 31)
+    with pytest.raises(TypeError, match="A13"):
+        TL.mxm((tg.row_offsets, tg.col_indices, None), tg, mask)
+    no_csc = TG.Graph.from_csr(tg.row_offsets.numpy(),
+                               tg.col_indices.numpy(), build_csc=False,
+                               device="cpu")
+    with pytest.raises(ValueError, match="CSC mirror"):
+        TL.mxm(no_csc, no_csc, mask)

@@ -12,6 +12,7 @@ from repro.core import frontier as JF
 from repro.core import graph as JG
 from repro.core import operators as JO
 from repro_torch import convert
+from repro_torch.core import backend as TB
 from repro_torch.core import frontier as TF
 from repro_torch.core import operators as TO
 from repro_torch.core.graph import TENSOR_FIELDS
@@ -217,3 +218,124 @@ def test_lb_strategy_only():
         TO._strategy("TWC")
     with pytest.raises(ValueError):
         TO._strategy("bogus")
+
+
+# --- segmented search (K5) and segmented intersection -------------------
+
+
+def _search_inputs(tg, count, seed):
+    """``count`` probes into the CSR columns: whole rows (empty ones
+    included), needles drawn from the row or at random, and a tail of
+    -1 padding lanes (lo = hi = 0, needle -1) as the Pallas wrapper pads."""
+    rng = np.random.default_rng(seed)
+    ro = tg.row_offsets.numpy()
+    ci = tg.col_indices.numpy()
+    n = tg.num_vertices
+    live = count - count // 8
+    rows = rng.integers(0, n, size=live)
+    rows[: live // 10] = np.flatnonzero(np.diff(ro) == 0)[0] if (
+        np.diff(ro) == 0).any() else rows[: live // 10]
+    lo, hi = ro[rows], ro[rows + 1]
+    hit = rng.random(live) < 0.5
+    pick = lo + (rng.random(live) * np.maximum(hi - lo, 1)).astype(np.int64)
+    needles = np.where(hit & (hi > lo), ci[np.minimum(pick, len(ci) - 1)],
+                       rng.integers(0, n, size=live))
+    # a few empty segments cut out of non-empty rows
+    hi = np.where(rng.random(live) < 0.05, lo, hi)
+    pad = count - live
+    cat = lambda a, v: np.concatenate([a, np.full(pad, v)]).astype(np.int32)
+    return (ci.astype(np.int32), cat(lo, 0), cat(hi, 0), cat(needles, -1))
+
+
+@pytest.mark.parametrize("locate", [False, True], ids=["found", "locate"])
+def test_segment_search_matches_reference(pair, locate):
+    jg, tg = pair
+    hay, lo, hi, needles = _search_inputs(tg, 3000, seed=21)
+    j = [jnp.asarray(a) for a in (hay, lo, hi, needles)]
+    t = [torch.from_numpy(a) for a in (hay, lo, hi, needles)]
+    if locate:
+        want = np.asarray(JO._searchsorted_segment(*j, locate=True))
+        got = TO._segment_locate_torch(*t)
+        assert got.dtype == torch.int32
+    else:
+        want = np.asarray(JO._segment_search_xla(*j))
+        got = TO._segment_search_torch(*t)
+        assert got.dtype == torch.bool
+    assert np.array_equal(want, got.numpy())
+    assert (want != (-1 if locate else 0)).sum() > 100   # real hits
+    # the registry op and the kernel wrappers on CPU tensors: the plain
+    # version, no launch
+    before = K.KERNELS["segment_search"].launches
+    wrap = K.segment_locate if locate else K.segment_search
+    assert torch.equal(wrap(*t), got)
+    if not locate:
+        assert torch.equal(TB.dispatch("segment_search", "torch")(*t), got)
+        assert torch.equal(TB.dispatch("segment_search", "cuda")(*t), got)
+    assert K.KERNELS["segment_search"].launches == before
+
+
+@pytest.mark.parametrize("locate", [False, True], ids=["found", "locate"])
+def test_segment_search_matches_pallas_kernel(pair, locate):
+    """K5's reference kernel in Pallas interpret mode."""
+    from repro.kernels.segment_search import segment_search_kernel
+    _, tg = pair
+    hay, lo, hi, needles = _search_inputs(tg, 2000, seed=22)
+    want = np.asarray(segment_search_kernel(
+        *(jnp.asarray(a) for a in (hay, lo, hi, needles)),
+        interpret=True, locate=locate))
+    got = TO._searchsorted_segment(
+        *(torch.from_numpy(a) for a in (hay, lo, hi, needles)),
+        locate=locate)
+    assert np.array_equal(want, got.numpy().astype(np.int32))
+
+
+def test_segment_search_empty_haystack_reads_nothing():
+    hay = torch.zeros((0,), dtype=torch.int32)
+    lo = torch.zeros((50,), dtype=torch.int32)
+    needles = torch.arange(50, dtype=torch.int32) - 1
+    assert not TO._segment_search_torch(hay, lo, lo, needles).any()
+    assert (TO._segment_locate_torch(hay, lo, lo + 3, needles) == -1).all()
+    assert not K.segment_search(hay, lo, lo, needles).any()
+
+
+def _pair_frontiers(n, cap, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    length = int(rng.integers(cap // 2, cap + 1))
+    for _ in range(2):
+        ids = np.full(cap, -1, np.int32)
+        ids[:length] = rng.integers(0, n, size=length)
+        out.append(ids)
+    return out, length
+
+
+@pytest.mark.parametrize("cap_out", [4096, None])
+def test_segmented_intersect_matches_reference(pair, cap_out):
+    jg, tg = pair
+    (a, b), length = _pair_frontiers(tg.num_vertices, 64, seed=23)
+    deg = np.diff(tg.row_offsets.numpy())
+    need = int(np.minimum(deg[a[:length]], deg[b[:length]]).sum())
+    cap = cap_out or max(need, 1)       # 4096 truncates, None does not
+    jr = JO.segmented_intersect(
+        jg, JF.SparseFrontier(jnp.asarray(a), jnp.int32(length)),
+        JF.SparseFrontier(jnp.asarray(b), jnp.int32(length)), cap,
+        backend="xla")
+    tr = TO.segmented_intersect(
+        tg, TF.SparseFrontier(torch.from_numpy(a), torch.tensor(length)),
+        TF.SparseFrontier(torch.from_numpy(b), torch.tensor(length)), cap)
+    for f in jr._fields:
+        _eq(getattr(jr, f), getattr(tr, f))
+    assert int(tr.total) > 0
+
+
+def test_segmented_intersect_on_edgeless_graph():
+    """m = 0: nothing intersects."""
+    from repro_torch.core.graph import Graph
+    tg = Graph.from_csr(np.zeros(9, np.int32), np.zeros(0, np.int32),
+                        device="cpu")
+    (a, b), length = _pair_frontiers(8, 16, seed=24)
+    fa = TF.SparseFrontier(torch.from_numpy(a), torch.tensor(length))
+    fb = TF.SparseFrontier(torch.from_numpy(b), torch.tensor(length))
+    r = TO.segmented_intersect(tg, fa, fb, 512)
+    assert int(r.total) == 0 and int(r.length) == 0
+    assert (r.items == -1).all() and not r.counts.any()

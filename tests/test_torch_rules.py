@@ -10,7 +10,10 @@ import torch
 
 from repro_torch.core import backend as TB
 from repro_torch.core import graph as TG
-from repro_torch.core.primitives import bfs, pagerank, sssp
+from repro_torch.core.primitives import (bc, bc_batch, bfs,
+                                         connected_components, pagerank,
+                                         sssp, triangle_count,
+                                         triangle_count_full)
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import runtime
 from repro_torch.launch import graph_run
@@ -35,7 +38,8 @@ def _forbidden(name: str) -> bool:
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py",
+                          ROOT / "tools" / "ab_paths.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_never_imports_jax_or_reference(path):
     bad = [name for name in _imports(path) if _forbidden(name)]
@@ -58,7 +62,12 @@ def test_cuda_backend_refuses_cpu_tensors():
     g = TG.rmat(5, 4, seed=2, weighted=True, device="cpu")
     for call in (lambda: bfs(g, 0, backend="cuda"),
                  lambda: sssp(g, 0, backend="cuda"),
-                 lambda: pagerank(g, backend="cuda")):
+                 lambda: pagerank(g, backend="cuda"),
+                 lambda: connected_components(g, backend="cuda"),
+                 lambda: bc(g, 0, backend="cuda"),
+                 lambda: bc_batch(g, [0, 1], backend="cuda"),
+                 lambda: triangle_count(g, backend="cuda"),
+                 lambda: triangle_count_full(g, backend="cuda")):
         with pytest.raises(ValueError, match="CUDA tensors"):
             call()
     assert TB.resolve(None, g.device) == TB.TORCH
@@ -74,7 +83,7 @@ def test_dispatch_miss_is_structured():
     assert info.value.op == "no_such_op"
     assert isinstance(info.value, KeyError)
     for op in ("compact", "advance", "advance_batch", "advance_filter",
-               "advance_filter_batch", "spmv"):
+               "advance_filter_batch", "spmv", "segment_search", "mxm"):
         assert TB.registered(op, TB.TORCH) and TB.registered(op, TB.CUDA)
 
 
