@@ -8,11 +8,14 @@ NVIDIA Hopper card.
 the default, 22, is the main path's size. Triangle counting runs at
 min(scale, 18) and its unfiltered variant two scales lower, whose
 expansion (Σ min(deg(u), deg(v)) slots over every edge) passes int32
-from scale 18 on (PERF.md §4).
+from scale 18 on (PERF.md §4). Label propagation and subgraph matching
+run at min(scale, 16): LP sweeps all n labels every iteration (m·n
+products), and the triangle query's join expands about Σ deg² slots,
+which passes int32 from scale 17 on.
 
 Phases:
   1. device and build — the card's name and power limit, the PyTorch and
-     CUDA toolkit versions, and the build of the five CUDA kernels from
+     CUDA toolkit versions, and the build of the six CUDA kernels from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel
      with the host-side graph generation);
   2. kernel vs plain — each kernel's wrapper against its plain PyTorch
@@ -22,22 +25,28 @@ Phases:
      version run on the CPU; K3 (B = 1) and K5 (locate) at triangle
      counting's shape, the mxm expansion of the oriented rmat scale-18
      graph (6.6e8 slots); K5 (found) on segmented_intersect's probes of
-     edge pairs of the scale-22 graph, and on an empty haystack; each
-     kernel timed beside its plain version, one PyTorch library call
-     where one computes the same function, and the least time the card
-     could take;
+     edge pairs of the scale-22 graph, and on an empty haystack; K4m
+     (spmm) bit-equal to its plain version on integer-valued blocks over
+     five semirings x (structural, weighted) x (masked, unmasked) x
+     k in {1, 4, 5, 32, 33}, and at reach's and label propagation's
+     shapes; each kernel timed beside its plain version, one PyTorch
+     library call where one computes the same function, and the least
+     time the card could take;
   3. main path — (a) the first slice's: bfs from the max-degree vertex,
      bfs_batch, sssp, sssp_batch and 20 PageRank sweeps; (b) the second
      slice's: connected components and bc_batch at scale 22,
-     triangle_count at scale 18 and triangle_count_full at scale 16 —
-     all on the cuda backend, validated against host oracles (numpy BFS
-     hop counts, scipy Dijkstra, a numpy power iteration, scipy
-     components, numpy Brandes, scipy products for the triangles); each
-     path runs with the launch counters set to 0 and every kernel of it
-     must have launched;
-  4. where the time goes — path (a)'s batched primitives, then path
-     (b), once more under torch.profiler: device busy time, idle share,
-     top kernels.
+     triangle_count at scale 18 and triangle_count_full at scale 16;
+     (c) the third slice's: reach_batch (3 hops) and who_to_follow at
+     scale 22, label_propagation and the triangle query of
+     subgraph_match at scale 16 — all on the cuda backend, validated
+     against host oracles (numpy BFS hop counts, scipy Dijkstra, a numpy
+     power iteration, scipy components, numpy Brandes, scipy products
+     for the triangles, a sort-based LP, float64 PPR and SALSA, 6 x the
+     triangle count); each path runs with the launch counters set to 0
+     and every kernel of it must have launched;
+  4. where the time goes — path (a)'s batched primitives, then paths
+     (b) and (c), once more under torch.profiler: device busy time,
+     idle share, top kernels.
 
 Prints one JSON line of kernel numbers, then the card's name and power
 limit, then ``{"ok": true, "device": ...}`` as the last line. Any failure
@@ -59,6 +68,13 @@ FP32_OPS_PER_S = 67e12         # non-tensor-core peak, the rate for int ops
 EDGE_FACTOR = 16
 BATCH = 4
 TC_SCALE = 18
+LP_SCALE = 16          # label propagation and subgraph matching
+HOPS = 3               # reach's k
+WTF_K = 1000           # circle of trust
+WTF_TOL = 1e-5         # PPR / SALSA against float64 (atomic float sums)
+TRIANGLE = [(0, 1), (0, 2), (1, 2)]
+INT32_MAX = 2 ** 31 - 1
+K4M_HEAVY = 1024       # spmm splits longer rows over a block (spmv.cu)
 # triangles of rmat(scale, 16, seed=0), counted by a chunked scipy product
 TRIANGLES = {14: 2_808_907, 16: 15_681_649, 18: 82_931_365}
 
@@ -124,9 +140,12 @@ def main(argv=None) -> int:
     from repro_torch.core import operators as O
     from repro_torch.core import ref as R
     from repro_torch.core.primitives import (bc_batch, bfs, bfs_batch,
-                                             connected_components, pagerank,
-                                             sssp, sssp_batch, triangle_count,
-                                             triangle_count_full)
+                                             connected_components,
+                                             label_propagation, pagerank,
+                                             reach_batch, sssp, sssp_batch,
+                                             subgraph_match, triangle_count,
+                                             triangle_count_full,
+                                             who_to_follow)
     from repro_torch.core.primitives import tc as TC
     from repro_torch.core.primitives.pagerank import _inv_out_degrees
     from repro_torch.kernels import ops as K
@@ -515,11 +534,138 @@ def main(argv=None) -> int:
     print("K5 on an empty haystack: equal to the plain version")
     torch.cuda.empty_cache()
 
-    # ---- phase 3: the main path on the cuda backend ----
+    # K4m: the SpMM kernel against its plain version (run on the card,
+    # whose plus fold is an atomic index_add_). Integer-valued blocks and
+    # the integer weights make every semiring's fold exact in any order,
+    # so the two must agree bit for bit: five semirings x (structural,
+    # weighted) x (masked, unmasked) x k on rmat scale 14
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rowmask_d = rowmask.to(dev)
+    for k in (1, 4, 5, 32, 33):
+        xk = torch.randint(0, 4, (gs.num_vertices, k), generator=gen,
+                           device=dev).to(torch.float32)
+        for name, sr in SR.SEMIRINGS.items():
+            for vals in (None, gs.edge_values):
+                for mask in (None, rowmask_d):
+                    args_k = (gs.row_offsets, gs.col_indices, vals, xk, sr,
+                              gs.ell_width, mask, gs.row_seg)
+                    if not torch.equal(K.spmm(*args_k), P.spmm(*args_k)):
+                        raise AssertionError(f"spmm {name} k={k} differs "
+                                             f"from the plain version")
+    # general floats, plus_times: at k >= 32, on rows of at most
+    # K4M_HEAVY edges, each lane folds its column in ascending edge order,
+    # as the plain version on the CPU does (bit for bit); elsewhere the
+    # edge groups and a heavy row's per-warp shares regroup each sum
+    # (rtol 1e-5, the reference's own limit between its two providers)
+    light = (gs.degrees <= K4M_HEAVY).cpu()
+    float_err = 0.0
+    for k in (4, 32, 33):
+        xf = torch.rand((gs.num_vertices, k), generator=gen, device=dev)
+        args_k = (gs.row_offsets, gs.col_indices, gs.edge_values, xf,
+                  SR.plus_times, gs.ell_width, None, gs.row_seg)
+        got = K.spmm(*args_k).cpu()
+        want = P.spmm(*(a.cpu() if torch.is_tensor(a) else a
+                        for a in args_k))
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+        if (k >= 32 and not torch.equal(got[light], want[light])
+                or rel > 1e-5):
+            raise AssertionError(f"spmm plus_times k={k} on floats off its "
+                                 f"plain version by {rel:.3g} (relative)")
+        float_err = max(float_err, rel)
+    print(f"K4m spmm: five semirings x (structural, weighted) x (masked, "
+          f"unmasked) x k in (1, 4, 5, 32, 33) bit-equal to the plain "
+          f"version on integer-valued blocks (rmat scale 14); float "
+          f"plus_times bit-equal at k = 32, 33 on the rows of at most "
+          f"{K4M_HEAVY} edges, max relative error {float_err:.3g}")
+
     rng = np.random.default_rng(0)
     sources = [hubs[0]] + [int(v) for v in rng.choice(
         np.flatnonzero(deg_np > 0), b - 1, replace=False)]
     hub = sources[0]
+
+    # K4m at reach's shape: the scale-22 CSC, k = 4 (path a's sources),
+    # or_and, the second hop (R after one hop, masked to the rows some
+    # lane has not reached); cuSPARSE's plus_times product of the same
+    # block is the library yardstick (its counts, > 0, are the or)
+    r_hop = torch.zeros((n, b), dtype=torch.float32, device=dev)
+    r_hop[torch.tensor(sources, device=dev), torch.arange(b, device=dev)] = 1
+    csc = (g.csc_offsets, g.csc_indices, None)
+    r_hop = torch.maximum(r_hop, K.spmm(
+        *csc, r_hop, SR.or_and, g.csc_ell_width,
+        torch.amin(r_hop, dim=1) < 1, g.csc_row_seg))
+    need = torch.amin(r_hop, dim=1) < 1
+    reach_args = (*csc, r_hop, SR.or_and, g.csc_ell_width, need,
+                  g.csc_row_seg)
+
+    def k4r():
+        return K.spmm(*reach_args)
+
+    def p4r():
+        return P.spmm(*reach_args)
+
+    a_csc = torch.sparse_csr_tensor(g.csc_offsets, g.csc_indices,
+                                    torch.ones(m, device=dev), size=(n, n))
+
+    def lib4r():
+        return torch.sparse.mm(a_csc, r_hop)
+
+    y_k = k4r()
+    equal_ints("spmm (reach shape)", [y_k], [p4r()])
+    if not torch.equal(y_k > 0, (lib4r() > 0) & need[:, None]):
+        raise AssertionError("spmm (reach shape) differs from torch.sparse")
+    ms_r, pms_r, lms_r = (_timed(torch, k4r, 10), _timed(torch, p4r, 2),
+                          _timed(torch, lib4r, 10))
+    m_live = int(torch.where(need, g.csc_offsets[1:] - g.csc_offsets[:-1],
+                             0).sum(dtype=torch.int64))
+    # offsets, mask, the live rows' columns, X once, Y once
+    nbytes_r = (n + 1) * 4 + n + m_live * 4 + 2 * n * b * 4
+    bound_r = _bound_ms(nbytes_r, 2 * m_live * b)[0]
+    print(f"K4m spmm or_and k={b} (reach's 2nd hop, {int(need.sum())} rows "
+          f"live, {m_live} edges): {ms_r:.3f} ms, plain {pms_r:.3f} ms, "
+          f"torch.sparse.mm {lms_r:.3f} ms, bound {bound_r:.3f} ms")
+    del a_csc, y_k, r_hop, need, reach_args
+    torch.cuda.empty_cache()
+
+    # K4m at label propagation's shape: rmat scale 16, k = 32, the
+    # one-hot block of the first 32 labels of the first iteration
+    # (labels0 = arange(n)); plus_times, the vote counts
+    lp_scale = min(args.scale, LP_SCALE)
+    g16 = G.rmat(lp_scale, EDGE_FACTOR, seed=0, weighted=True, device=dev)
+    n16, m16 = g16.num_vertices, g16.num_edges
+    lanes32 = torch.arange(32, dtype=torch.int32, device=dev)
+    onehot = (torch.arange(n16, dtype=torch.int32, device=dev)[:, None]
+              == lanes32[None, :]).to(torch.float32)
+    lp_args = (g16.row_offsets, g16.col_indices, None, onehot,
+               SR.plus_times, g16.ell_width, None, g16.row_seg)
+
+    def k4l():
+        return K.spmm(*lp_args)
+
+    def p4l():
+        return P.spmm(*lp_args)
+
+    a16 = torch.sparse_csr_tensor(g16.row_offsets, g16.col_indices,
+                                  torch.ones(m16, device=dev),
+                                  size=(n16, n16))
+
+    def lib4l():
+        return torch.sparse.mm(a16, onehot)
+
+    y_k = k4l()
+    equal_ints("spmm (label propagation shape)", [y_k], [p4l()])
+    lib_err = float((y_k - lib4l()).abs().max())
+    ms, pms, lms = (_timed(torch, k4l, 50), _timed(torch, p4l, 5),
+                    _timed(torch, lib4l, 50))
+    nbytes = (n16 + 1) * 4 + m16 * 4 + 2 * n16 * 32 * 4
+    print(f"K4m spmm plus_times k=32 (label propagation, rmat scale "
+          f"{lp_scale}: n={n16} m={m16}): {ms:.3f} ms, plain {pms:.3f} ms, "
+          f"torch.sparse.mm {lms:.3f} ms (max |difference| {lib_err:g}), "
+          f"bound {_bound_ms(nbytes, 2 * m16 * 32)[0]:.3f} ms")
+    record("spmm", 0, ms, pms, nbytes, 2 * m16 * 32, lms)
+    del a16, y_k, onehot, lp_args
+    torch.cuda.empty_cache()
+
+    # ---- phase 3: the main path on the cuda backend ----
     K.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -561,8 +707,8 @@ def main(argv=None) -> int:
 
     # validation against the host oracles
     t0 = time.monotonic()
-    for i, s in enumerate(sources):
-        want = R.bfs_ref(g, s)
+    depths = [R.bfs_ref(g, s) for s in sources]     # reach reuses them
+    for i, want in enumerate(depths):
         if not np.array_equal(r_bfsb.labels[i].cpu().numpy(), want):
             raise AssertionError(f"bfs_batch lane {i} differs from the "
                                  f"oracle")
@@ -660,6 +806,132 @@ def main(argv=None) -> int:
     del r_cc, r_bc, r_tc, r_tcs, r_tcf, g_full, sub
     torch.cuda.empty_cache()
 
+    # ---- phase 3 (c): the third slice's path: reach_batch and
+    # who_to_follow at the main scale, label_propagation and the triangle
+    # query of subgraph_match at scale 16 ----
+    deg16 = g16.degrees.cpu().numpy().astype(np.int64)
+    join_bound = int((deg16 * deg16).sum())
+    if join_bound > INT32_MAX:
+        raise AssertionError(f"the triangle join may expand {join_bound:,} "
+                             f"slots at rmat scale {lp_scale}, past int32")
+    tri = int(triangle_count(g16, backend="cuda").total)
+    sm_cap = max(6 * tri, m16)
+    print(f"path (c) graph: rmat scale {lp_scale} n={n16} m={m16} max_deg="
+          f"{deg16.max()}, Σ deg² {join_bound:,} (the triangle join's "
+          f"expansion bound), {tri} triangles, subgraph cap {sm_cap}")
+    torch.cuda.empty_cache()
+    K.reset_launches()
+    timings3 = {}
+
+    def run3(label, fn):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        timings3[label] = time.monotonic() - t
+        return out
+
+    r_reach = run3("reach_batch",
+                   lambda: reach_batch(g, sources, HOPS, backend="cuda"))
+    r_lp = run3("label_propagation",
+                lambda: label_propagation(g16, max_iter=30, backend="cuda"))
+    r_wtf = run3("wtf", lambda: who_to_follow(
+        g, hub, k=WTF_K, ppr_iters=30, salsa_iters=10, backend="cuda"))
+    before = K.KERNELS["segment_search"].launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    r_sm = run3("subgraph_match", lambda: subgraph_match(
+        g16, 3, TRIANGLE, cap=sm_cap, backend="cuda"))
+    sm_peak = torch.cuda.max_memory_allocated()
+    join_probes = K.KERNELS["segment_search"].launches - before
+    launches3 = {k: v.launches for k, v in K.KERNELS.items()}
+    print(f"main path (c) launches: {launches3} ({join_probes} K5 launches "
+          f"in subgraph_match's join); subgraph_match peak device memory "
+          f"{sm_peak / 2 ** 30:.2f} GiB ({(sm_peak - held) / 2 ** 30:.2f} "
+          f"GiB above the {held / 2 ** 30:.2f} GiB held before it)")
+    missing = [k for k in ("spmm", "compact") if launches3[k] == 0]
+    if missing or join_probes == 0:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing + ['segment_search'] * (not join_probes)}")
+    edges3 = {"reach_batch": m * HOPS * b,
+              "label_propagation": m16 * r_lp.iterations, "wtf": m,
+              "subgraph_match": m16}
+    for label, dt in timings3.items():
+        print(f"{label:17s} {dt * 1e3:10.2f} ms "
+              f"{edges3[label] / dt / 1e6:10.2f} MTEPS")
+    print(f"reach counts {r_reach.counts.tolist()}; label_propagation "
+          f"{r_lp.iterations} iterations, "
+          f"{int(torch.unique(r_lp.labels).numel())} labels; subgraph "
+          f"{r_sm.count} embeddings")
+
+    t0 = time.monotonic()
+    for i, dep in enumerate(depths):
+        want = (dep >= 0) & (dep <= HOPS)
+        if not np.array_equal(r_reach.reached[i].cpu().numpy(), want):
+            raise AssertionError(f"reach_batch lane {i} differs from BFS "
+                                 f"depth <= {HOPS}")
+    lp_labels, lp_iters = R.label_propagation_ref(g16, max_iter=30)
+    if (not np.array_equal(r_lp.labels.cpu().numpy(), lp_labels)
+            or r_lp.iterations != lp_iters):
+        raise AssertionError("label_propagation differs from the oracle")
+    # who-to-follow: PPR against float64, the circle of trust against the
+    # oracle's top k up to swaps among ranks within the tolerance of its
+    # k-th, SALSA against float64 on the port's own circle
+    ppr = r_wtf.ppr.cpu().numpy()
+    ppr_want = R.ppr_ref(g, hub, iters=30)
+    ppr_err = float(np.abs(ppr.astype(np.float64) - ppr_want).max())
+    cot = r_wtf.cot.cpu().numpy()
+    ranked = ppr_want.astype(np.float64)
+    ranked[hub] = -np.inf
+    cot_want = np.argsort(-ranked, kind="stable")[:len(cot)]
+    kth = ranked[cot_want[-1]]
+    swapped = np.setxor1d(cot, cot_want)
+    if (ppr_err > WTF_TOL or hub in cot or len(np.unique(cot)) != len(cot)
+            or (np.abs(ranked[swapped] - kth) > WTF_TOL).any()):
+        raise AssertionError(f"who_to_follow: PPR off by {ppr_err:.3g} or "
+                             f"its circle of trust differs")
+    hubs_cot = np.zeros(n, bool)
+    hubs_cot[cot[ppr[cot] > 0]] = True
+    h_want, a_want = R.salsa_ref(g, hubs_cot, iters=10)
+    salsa_err = max(
+        float(np.abs(r_wtf.hub_scores.cpu().numpy() - h_want).max()),
+        float(np.abs(r_wtf.auth_scores.cpu().numpy() - a_want).max()))
+    if salsa_err > WTF_TOL:
+        raise AssertionError(f"who_to_follow SALSA off by {salsa_err:.3g}")
+    # subgraph matching: 6 ordered embeddings per triangle, each of
+    # distinct vertices with every query edge in the graph, and the same
+    # table as the torch backend on the card
+    if r_sm.count != 6 * tri or r_sm.truncated or tri != TRIANGLES.get(
+            lp_scale, tri):
+        raise AssertionError(f"subgraph_match found {r_sm.count} triangle "
+                             f"embeddings, not 6 x {tri}")
+    emb = r_sm.embeddings[:r_sm.count].long()
+    keys = g16.row_seg.long() * n16 + g16.col_indices.long()
+    for a, c in TRIANGLE:
+        q = emb[:, a] * n16 + emb[:, c]
+        pos = torch.searchsorted(keys, q).clamp_(max=m16 - 1)
+        if not bool((keys[pos] == q).all() and (emb[:, a] != emb[:, c])
+                    .all()):
+            raise AssertionError(f"a subgraph embedding lacks the query "
+                                 f"edge ({a}, {c})")
+    del emb, keys, q, pos
+    torch.cuda.empty_cache()
+    r_smt = subgraph_match(g16, 3, TRIANGLE, cap=sm_cap, backend="torch")
+    if r_smt.count != r_sm.count or not torch.equal(r_smt.embeddings,
+                                                    r_sm.embeddings):
+        raise AssertionError("subgraph_match differs between the cuda and "
+                             "torch backends")
+    print(f"validated reach_batch against BFS depth <= {HOPS}, "
+          f"label_propagation against the sort-based oracle, "
+          f"who_to_follow against float64 PPR (max |error| {ppr_err:.3g}) "
+          f"and SALSA ({salsa_err:.3g}; limit {WTF_TOL:g}; {len(swapped)} "
+          f"circle-of-trust ids swapped at ties), subgraph_match against "
+          f"6 x the triangle count and the torch backend, in "
+          f"{time.monotonic() - t0:.1f} s")
+    del r_reach, r_lp, r_wtf, r_sm, r_smt
+    torch.cuda.empty_cache()
+
     # ---- where the time goes: each slice's path once more under
     # torch.profiler (its overhead inflates the wall time; the device
     # time per kernel is what it is for) ----
@@ -695,15 +967,25 @@ def main(argv=None) -> int:
         bc_batch(g, sources, backend="cuda")
         triangle_count(g_tc, backend="cuda")
 
+    def path_c():
+        reach_batch(g, sources, HOPS, backend="cuda")
+        label_propagation(g16, max_iter=2, backend="cuda")
+        who_to_follow(g, hub, k=WTF_K, ppr_iters=30, salsa_iters=10,
+                      backend="cuda")
+        subgraph_match(g16, 3, TRIANGLE, cap=sm_cap, backend="cuda")
+
     profiled("bfs_batch+sssp_batch+pagerank", path_a, 12)
     profiled("cc+bc_batch+triangle_count", path_b, 12)
-    del g_tc
+    profiled("reach_batch+label_propagation (2 iterations)+wtf+"
+             "subgraph_match", path_c, 12)
+    del g_tc, g16
 
     kernels = []
     for name, k in K.KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces,
-                        "launches": launches[name] + launches2[name],
+                        "launches": (launches[name] + launches2[name]
+                                     + launches3[name]),
                         **results[name]})
     print(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

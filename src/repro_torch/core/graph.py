@@ -309,6 +309,15 @@ def from_edge_list(src, dst, n: Optional[int] = None, values=None,
                           sort_neighbors=False, device=device)
 
 
+def row_segments_of(offsets: torch.Tensor) -> torch.Tensor:
+    """The owning row of every edge slot of a CSR (or CSC) offsets array,
+    int32 — what the build-time ``row_seg`` / ``csc_row_seg`` hold."""
+    n = int(offsets.shape[0]) - 1
+    return torch.repeat_interleave(
+        torch.arange(n, dtype=torch.int32, device=offsets.device),
+        (offsets[1:] - offsets[:-1]).long())
+
+
 def edge_list(graph: Graph) -> tuple[np.ndarray, np.ndarray]:
     """The graph's (src, dst) edges in CSR order, as int32 host arrays."""
     ro = graph.row_offsets.cpu().numpy()

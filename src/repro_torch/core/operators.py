@@ -39,7 +39,7 @@ from . import backend as B
 from .frontier import (INVALID, BatchedDenseFrontier, BatchedSparseFrontier,
                        DenseFrontier, SparseFrontier, compact_values,
                        compact_values_batch)
-from .graph import Graph
+from .graph import Graph, row_segments_of
 
 INT32_MIN = -2 ** 31
 INT32_MAX = 2 ** 31 - 1
@@ -307,12 +307,8 @@ def _long_seg(graph: Graph) -> torch.Tensor:
     per graph."""
     seg = graph.cache.get("csc_row_seg64")
     if seg is None:
-        if graph.csc_row_seg is not None:
-            seg = graph.csc_row_seg.long()
-        else:
-            seg = torch.repeat_interleave(
-                torch.arange(graph.num_vertices, device=graph.device),
-                (graph.csc_offsets[1:] - graph.csc_offsets[:-1]).long())
+        seg = (graph.csc_row_seg if graph.csc_row_seg is not None
+               else row_segments_of(graph.csc_offsets)).long()
         graph.cache["csc_row_seg64"] = seg
     return seg
 

@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import backend as B
-from ..graph import Graph
+from ..graph import Graph, row_segments_of
 from ..operators import scatter_min
 
 
@@ -48,12 +48,8 @@ def connected_components(graph: Graph, *,
     B.resolve(backend, graph.device)
     n = graph.num_vertices
     dev = graph.device
-    if graph.row_seg is not None:
-        src = graph.row_seg
-    else:
-        src = torch.repeat_interleave(
-            torch.arange(n, dtype=torch.int32, device=dev),
-            graph.degrees.long())
+    src = (graph.row_seg if graph.row_seg is not None
+           else row_segments_of(graph.row_offsets))
     dst = graph.col_indices
     cid = torch.arange(n, dtype=torch.int32, device=dev)
     iterations = 0

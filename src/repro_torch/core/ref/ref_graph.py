@@ -1,7 +1,7 @@
-"""Host-side oracles of the six primitives (counterpart of
+"""Host-side oracles of the primitives (counterpart of
 ``repro.core.ref.ref_graph``), independent of the code under test and
 vectorised so that they finish at the card's sizes (rmat scale 22; the
-reference's own TC/CC/BC oracles loop over every edge in Python):
+reference's own TC/CC/BC/LP/SALSA oracles loop in Python):
 
   bfs_ref      — level-synchronous BFS hop counts in vectorized numpy;
   sssp_ref     — scipy's Dijkstra (float64, cast to float32; the graph's
@@ -11,7 +11,17 @@ reference's own TC/CC/BC oracles loop over every edge in Python):
                  smallest vertex id (what hooking to the min converges
                  to);
   bc_ref       — level-synchronous Brandes in numpy, float64;
-  tc_ref       — row-chunked scipy products over the oriented adjacency.
+  tc_ref       — row-chunked scipy products over the oriented adjacency;
+  reach_ref    — BFS depth within [0, k];
+  label_propagation_ref — synchronous LP with a sort-based per-vertex
+                 mode (the reference counts every label of every vertex,
+                 O(n²) per iteration); also returns the sweep count;
+  ppr_ref      — float64 personalized PageRank: the reference's
+                 ``np.add.at`` becomes a scipy product of Aᵀ (the CSR
+                 arrays read as a CSC matrix), which scatters the edges in
+                 the same ascending order, so the sums are the same bits;
+  salsa_ref    — float64 SALSA over the hubs' out-edges with
+                 ``np.bincount(weights=)``, again the add.at order.
 
 The semantics are the reference's: -1 / inf for unreachable vertices,
 dangling mass redistributed uniformly. ``PR_RTOL`` is the PageRank
@@ -83,7 +93,7 @@ def pagerank_ref(graph, damping: float = 0.85, iters: int = 20
     ro, ci, _ = _csr(graph)
     n = len(ro) - 1
     deg = np.diff(ro)
-    at = sp.csr_matrix((np.ones(len(ci)), ci, ro), shape=(n, n)).T.tocsr()
+    at = sp.csc_matrix((np.ones(len(ci)), ci, ro), shape=(n, n))   # Aᵀ
     pr = np.full(n, 1.0 / n)
     for _ in range(iters):
         contrib = np.where(deg > 0, pr / np.maximum(deg, 1), 0.0)
@@ -166,3 +176,91 @@ def tc_ref(graph, rows_per_chunk: int = 1 << 14) -> int:
         rows = a[lo:lo + rows_per_chunk]
         total += int((rows @ at).multiply(rows).sum())
     return total
+
+
+def reach_ref(graph, src: int, k: int) -> np.ndarray:
+    """k-hop reachability: BFS depth within [0, k]."""
+    depth = bfs_ref(graph, src)
+    return (depth >= 0) & (depth <= k)
+
+
+def label_propagation_ref(graph, max_iter: int = 30, labels=None
+                          ) -> tuple[np.ndarray, int]:
+    """Synchronous label propagation, the device rule: every vertex with
+    out-neighbours adopts their most frequent label (ties → smallest),
+    all at once, until a sweep changes nothing or ``max_iter`` sweeps.
+    Returns (labels int32, sweeps run — the one that changed nothing
+    included, as the device loop counts it)."""
+    ro, ci, _ = _csr(graph)
+    n = len(ro) - 1
+    lab = (np.arange(n, dtype=np.int64) if labels is None
+           else np.asarray(labels, np.int64).copy())
+    src = np.repeat(np.arange(n, dtype=np.int64), np.diff(ro))
+    sweeps = 0
+    for sweeps in range(1, max_iter + 1):
+        new = lab.copy()
+        if len(ci):
+            span = int(lab.max()) + 1
+            # (vertex, neighbour label) keys, sorted: one run per pair
+            key = np.sort(src * span + lab[ci])
+            head = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+            votes = np.diff(np.r_[head, len(key)])
+            u, lbl = key[head] // span, key[head] % span
+            # per vertex (runs ascending by label): the first largest
+            first = np.flatnonzero(np.r_[True, u[1:] != u[:-1]])
+            best = np.maximum.reduceat(votes, first)
+            top = votes == np.repeat(best, np.diff(np.r_[first,
+                                                        len(votes)]))
+            cand = np.flatnonzero(top)
+            pick = cand[np.r_[True, u[cand][1:] != u[cand][:-1]]]
+            new[u[pick]] = lbl[pick]
+        if np.array_equal(new, lab):
+            break
+        lab = new
+    else:
+        sweeps = max_iter
+    return lab.astype(np.int32), sweeps
+
+
+def ppr_ref(graph, src: int, damping: float = 0.85,
+            iters: int = 30) -> np.ndarray:
+    """Personalized PageRank with teleport to ``src`` (float64, cast to
+    float32)."""
+    ro, ci, _ = _csr(graph)
+    n = len(ro) - 1
+    deg = np.diff(ro)
+    at = sp.csc_matrix((np.ones(len(ci)), ci, ro), shape=(n, n))   # Aᵀ
+    pr = np.zeros(n)
+    pr[src] = 1.0
+    for _ in range(iters):
+        contrib = np.where(deg > 0, pr / np.maximum(deg, 1), 0.0)
+        nxt = at @ contrib
+        dangling = pr[deg == 0].sum()
+        new = damping * nxt
+        new[src] += (1 - damping) + damping * dangling
+        pr = new
+    return pr.astype(np.float32)
+
+
+def salsa_ref(graph, hubs: np.ndarray, iters: int = 10):
+    """Bipartite SALSA on the subgraph of ``hubs`` (a bool mask over the
+    vertices) and their out-neighbours. Returns (hub_scores,
+    auth_scores), float32."""
+    ro, ci, _ = _csr(graph)
+    n = len(ro) - 1
+    hubs = np.asarray(hubs, dtype=bool)
+    src = np.repeat(np.arange(n, dtype=np.int64), np.diff(ro))
+    live = hubs[src]
+    e_hub, e_auth = src[live], ci[live]
+    if not len(e_hub):
+        return np.zeros(n, np.float32), np.zeros(n, np.float32)
+    hub_deg = np.bincount(e_hub, minlength=n).astype(np.float64)
+    auth_deg = np.bincount(e_auth, minlength=n).astype(np.float64)
+    h = hubs / max(hubs.sum(), 1)
+    a = np.zeros(n)
+    for _ in range(iters):
+        contrib = np.where(hub_deg > 0, h / np.maximum(hub_deg, 1), 0.0)
+        a = np.bincount(e_auth, weights=contrib[e_hub], minlength=n)
+        contrib = np.where(auth_deg > 0, a / np.maximum(auth_deg, 1), 0.0)
+        h = np.bincount(e_hub, weights=contrib[e_auth], minlength=n)
+    return h.astype(np.float32), a.astype(np.float32)

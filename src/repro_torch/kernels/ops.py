@@ -10,7 +10,7 @@ Each wrapper takes the registry op's arguments, and
     current stream, raises if the launch returned a CUDA error, and adds
     one to the kernel's launch counter. It never falls back.
 
-``KERNELS`` lists the five kernels with their sources, the TPU kernels
+``KERNELS`` lists the six kernels with their sources, the TPU kernels
 they replace and their launch counters (``chip_smoke.py`` reads and
 resets them). The ``"mxm"`` provider is no kernel of its own: it runs
 K3 (the expansion) and K5 (the probe) through their wrappers.
@@ -53,6 +53,8 @@ KERNELS = {k.name: k for k in (
            "src/repro/kernels/advance_fused.py:210"),
     Kernel("spmv", "src/repro_torch/kernels/csrc/spmv.cu",
            "src/repro/kernels/semiring_spmv.py:56"),
+    Kernel("spmm", "src/repro_torch/kernels/csrc/spmv.cu",
+           "src/repro/kernels/semiring_spmv.py:56"),
     Kernel("segment_search", "src/repro_torch/kernels/csrc/search.cu",
            "src/repro/kernels/segment_search.py:52"),
 )}
@@ -72,6 +74,7 @@ _SIGNATURES = {
     ("compact", "compact_batch"): (
         [_P, ctypes.c_longlong, _P, _I, _I] + [_P] * 4 + [_P]),
     ("spmv", "spmv"): [_I] + [_P] * 4 + [_I, _P, _I, _I, _P, _P],
+    ("spmv", "spmm"): [_I] + [_P] * 4 + [_I, _I, _P, _I, _P, _P],
     ("search", "segment_search_found"): (
         [_P, _I] + [_P] * 3 + [ctypes.c_longlong, _P, _P]),
     ("search", "segment_search_locate"): (
@@ -314,6 +317,41 @@ def spmv(offsets, indices, values, x, sr, ell_width, mask, row_seg=None,
             int(x.shape[0]), runtime.ptr(mask), n, width, runtime.ptr(y),
             runtime.stream_ptr(dev))
     KERNELS["spmv"].launches += 1
+    return y
+
+
+@B.register("spmm", B.CUDA)
+def spmm(offsets, indices, values, x, sr, ell_width, mask, row_seg=None):
+    """K4m: masked-semiring SpMM over the CSR and a dense (nx, k) block,
+    one warp per (row, 32-column chunk), each output folded in a fixed
+    order (``ell_width`` and ``row_seg`` are unused: the CSR gives both)."""
+    if offsets.device.type == "cpu":
+        return ref.spmm(offsets, indices, values, x, sr, ell_width, mask,
+                        row_seg)
+    dev = offsets.device
+    _require(offsets, "offsets", torch.int32, 1, dev)
+    _require(indices, "indices", torch.int32, 1, dev)
+    _require(x, "x", torch.float32, 2, dev)
+    if values is not None:
+        _require(values, "values", torch.float32, 1, dev)
+        if values.shape != indices.shape:
+            raise ValueError("values and indices differ in length")
+    n = int(offsets.shape[0]) - 1
+    nx, k = (int(d) for d in x.shape)
+    if mask is not None:
+        _require(mask, "mask", torch.bool, 1, dev)
+        if mask.shape[0] != n:
+            raise ValueError("mask must be (n,)")
+    if max(n, nx) * k > INT32_MAX:
+        raise ValueError(f"spmm indexes rows * k = {max(n, nx) * k:,} "
+                         f"entries, beyond int32")
+    if int(indices.shape[0]) and nx == 0:
+        raise ValueError("x is empty")
+    y = torch.empty((n, k), dtype=torch.float32, device=dev)
+    _launch("spmv", "spmm", sr.code, runtime.ptr(offsets),
+            runtime.ptr(indices), runtime.ptr(values), runtime.ptr(x), nx,
+            k, runtime.ptr(mask), n, runtime.ptr(y), runtime.stream_ptr(dev))
+    KERNELS["spmm"].launches += 1
     return y
 
 

@@ -14,7 +14,8 @@ from ..core.operators import _advance_batch_torch as advance_batch
 from ..core.operators import _advance_filter_batch_torch as advance_filter_batch
 from ..core.operators import _segment_locate_torch as segment_locate
 from ..core.operators import _segment_search_torch as segment_search
+from ..linalg.ops import _spmm_torch as spmm
 from ..linalg.ops import _spmv_torch as spmv
 
 __all__ = ["advance_batch", "advance_filter_batch", "compact",
-           "segment_locate", "segment_search", "spmv"]
+           "segment_locate", "segment_search", "spmm", "spmv"]

@@ -1,5 +1,6 @@
 """Graph-analytics driver for the port (counterpart of
-``repro.launch.graph_run``): the paper's six primitives.
+``repro.launch.graph_run``): the paper's six primitives, k-hop reach,
+label propagation and who-to-follow.
 
 Builds a graph, runs the requested primitives, optionally validates them
 against the host oracles, and prints the run time and MTEPS (edges
@@ -12,10 +13,15 @@ fails.
 ``--device`` defaults to the card; ``--device cpu`` runs the plain
 PyTorch path. ``--sources 3,99,512`` runs bfs/sssp as ONE batched
 multi-source program over the listed roots, and makes bc accumulate
-exactly those roots. Triangle counting expands Σ min(deg'(u), deg'(v))
-slots over the oriented edges, which must fit int32: on rmat graphs
-(edge factor 16) scale 19 is the largest that does; a larger graph is
-refused before any kernel launches.
+exactly those roots; reach then answers one batched query per root.
+``--hops`` is reach's k (default 3). Triangle counting expands
+Σ min(deg'(u), deg'(v)) slots over the oriented edges, which must fit
+int32: on rmat graphs (edge factor 16) scale 19 is the largest that
+does; a larger graph is refused before any kernel launches. Label
+propagation sweeps every one of the n labels in 32-column SpMM blocks,
+m·n products per iteration: keep it to rmat scale 16 or so. wtf (the
+max-degree user, k = min(1000, n - 1)) prints its time but no
+PASS/FAIL, as in the reference.
 """
 from __future__ import annotations
 
@@ -29,12 +35,14 @@ from ..core import backend as B
 from ..core import graph as G
 from ..core import ref as R
 from ..core.primitives import (bc, bc_batch, bfs, bfs_batch,
-                               connected_components, pagerank, sssp,
-                               sssp_batch, triangle_count)
+                               connected_components, label_propagation,
+                               pagerank, reach, reach_batch, sssp,
+                               sssp_batch, triangle_count, who_to_follow)
 from ..kernels.runtime import resolve_device
 from ..linalg.ops import CapacityError
 
-PRIMITIVES = ("bfs", "sssp", "pagerank", "cc", "bc", "tc")
+PRIMITIVES = ("bfs", "sssp", "pagerank", "cc", "bc", "tc", "reach",
+              "label_propagation", "wtf")
 
 
 def make_graph(kind: str, scale: int, edge_factor: int, seed: int,
@@ -54,7 +62,7 @@ def _sync(device: torch.device) -> None:
 
 
 def run_primitive(name: str, g: G.Graph, src: int, validate: bool,
-                  backend: str, sources=None):
+                  backend: str, sources=None, hops: int = 3):
     """Run one primitive; returns (seconds, MTEPS, ok or None)."""
     dev = g.device
     edges = g.num_edges
@@ -118,6 +126,31 @@ def run_primitive(name: str, g: G.Graph, src: int, validate: bool,
         dt = time.monotonic() - t0
         if validate:
             ok = int(r.total) == R.tc_ref(g)
+    elif name == "reach":
+        roots = sources or [src]
+        r = (reach_batch(g, sources, hops, backend=backend) if sources
+             else reach(g, src, hops, backend=backend))
+        _sync(dev)
+        dt = time.monotonic() - t0
+        edges = g.num_edges * hops * len(roots)
+        if validate:
+            got = r.reached.cpu().numpy().reshape(len(roots), -1)
+            ok = all(np.array_equal(got[i], R.reach_ref(g, s, hops))
+                     for i, s in enumerate(roots))
+    elif name == "label_propagation":
+        r = label_propagation(g, backend=backend)
+        _sync(dev)
+        dt = time.monotonic() - t0
+        edges = g.num_edges * r.iterations
+        if validate:
+            labels, iters = R.label_propagation_ref(g)
+            ok = (np.array_equal(r.labels.cpu().numpy(), labels)
+                  and r.iterations == iters)
+    elif name == "wtf":
+        who_to_follow(g, src, k=min(1000, g.num_vertices - 1),
+                      backend=backend)
+        _sync(dev)
+        dt = time.monotonic() - t0
     else:
         raise ValueError(f"unknown primitive {name!r}; this driver runs "
                          f"{', '.join(PRIMITIVES)}")
@@ -135,9 +168,11 @@ def main(argv=None) -> None:
     ap.add_argument("--validate", action="store_true")
     ap.add_argument("--src", type=int, default=None)
     ap.add_argument("--sources", default=None, metavar="S0,S1,...",
-                    help="comma-separated roots: bfs/sssp run as one "
-                         "batched multi-source program over them, and bc "
-                         "accumulates exactly them")
+                    help="comma-separated roots: bfs/sssp/reach run as "
+                         "one batched multi-source program over them, and "
+                         "bc accumulates exactly them")
+    ap.add_argument("--hops", type=int, default=3,
+                    help="k of the k-hop reach")
     ap.add_argument("--backend", default=None, choices=B.BACKENDS,
                     help="operator backend (default: cuda on the card, "
                          "torch on the CPU)")
@@ -166,7 +201,7 @@ def main(argv=None) -> None:
     for name in args.primitives.split(","):
         name = name.strip()
         dt, mteps, ok = run_primitive(name, g, src, args.validate, backend,
-                                      sources=sources)
+                                      sources=sources, hops=args.hops)
         status = "" if ok is None else ("  PASS" if ok else "  FAIL")
         print(f"{name:9s} {dt * 1000:9.2f} ms  {mteps:9.2f} MTEPS"
               f"  backend={backend}{status}")

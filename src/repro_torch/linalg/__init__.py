@@ -1,6 +1,8 @@
-"""Semiring sparse linear algebra: the SpMV sweep and the masked SpGEMM."""
+"""Semiring sparse linear algebra: the SpMV and SpMM sweeps, the sparse-
+vector product and the masked SpGEMM."""
 from . import semiring
-from .ops import mxm, spmv
+from .ops import mxm, spmm, spmsv, spmv
 from .semiring import plus_and, plus_times
 
-__all__ = ["mxm", "plus_and", "plus_times", "semiring", "spmv"]
+__all__ = ["mxm", "plus_and", "plus_times", "semiring", "spmm", "spmsv",
+           "spmv"]

@@ -1,5 +1,5 @@
-"""Semiring SpMV and masked SpGEMM (counterpart of ``repro.linalg.ops``,
-the "spmv" and "mxm" ops).
+"""Semiring SpMV, SpMM, SpMSpV and masked SpGEMM (counterpart of
+``repro.linalg.ops``, the "spmv", "spmm" and "mxm" ops).
 
 ``y⟨mask⟩ = A ⊗ x``: y[i] = ⊕ over row i's edges of (value ⊗ x[dst]).
 The reference fixes the grouping of every row's fold, and both backends
@@ -19,6 +19,12 @@ gathered ``x``).
 Registry contracts (shared with the CUDA providers):
   "spmv" (offsets, indices, values|None, x (nx,), sr, ell_width,
           mask|None, row_seg|None, over_pos, over_row) → y (n,) float32
+  "spmm" (offsets, indices, values|None, x (nx, k), sr, ell_width,
+          mask|None, row_seg|None) → y (n, k) float32 — the torch
+         provider ⊕-folds each row's products in ascending edge order
+         (the reference's ``_spmm_xla`` segment reduce), the CUDA kernel
+         in another fixed order (the same bits for min, max and exact
+         sums); no ELL tree, so ``ell_width`` is unused;
   "mxm"  (a_off, a_idx, a_vals|None, bt_off, bt_idx, bt_vals|None,
           base (E,), probe_rows (E,), sr, cap_out) → c (E,) float32 —
          the dot formulation over a mask pattern: row ``base[e]`` of the
@@ -36,7 +42,7 @@ import torch
 
 from ..core import backend as B
 from ..core import operators as O
-from ..core.graph import Graph
+from ..core.graph import Graph, row_segments_of
 from . import semiring as S
 from .semiring import Semiring, plus_times
 
@@ -99,6 +105,44 @@ def _spmv_torch(offsets, indices, values, x, sr: Semiring, ell_width,
     return y.to(torch.float32)
 
 
+def _segment_fold(sr: Semiring, seg: torch.Tensor, prod: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """(n, k) ⊕-fold of the (m, k) ``prod`` rows by the sorted segment
+    ids ``seg``, as the reference's ``segment_sum`` / ``segment_min`` /
+    ``segment_max``: a plus fold starts from 0 and adds in edge order (on
+    the CPU), a min / max fold covers only the row's own products. Rows
+    with no products keep the ⊕-identity."""
+    k = int(prod.shape[1])
+    y = torch.full((n, k), sr.zero, dtype=torch.float32, device=prod.device)
+    if sr.add == "plus":
+        return y.index_add_(0, seg, prod)
+    idx = seg.long()[:, None].expand(-1, k)
+    return y.scatter_reduce_(0, idx, prod,
+                             "amin" if sr.add == "min" else "amax",
+                             include_self=False)
+
+
+@B.register("spmm", B.TORCH)
+def _spmm_torch(offsets, indices, values, x, sr: Semiring, ell_width,
+                mask, row_seg=None):
+    """Plain SpMM, the twin of the reference's ``_spmm_xla`` (and the
+    plain version of the CUDA SpMM kernel): gather ``x[cols]`` as (m, k),
+    ⊗ with the stored values, ⊕-fold per row, the ⊕-identity on empty and
+    masked-out rows."""
+    del ell_width
+    n = int(offsets.shape[0]) - 1
+    deg = offsets[1:] - offsets[:-1]
+    if row_seg is None:
+        row_seg = row_segments_of(offsets)
+    xv = torch.index_select(x, 0, indices)
+    prod = xv if values is None else sr.mul_op(values[:, None], xv)
+    y = _segment_fold(sr, row_seg, prod.to(torch.float32), n)
+    y = torch.where((deg > 0)[:, None], y, sr.zero)
+    if mask is not None:
+        y = torch.where(mask[:, None], y, sr.zero)
+    return y.to(torch.float32)
+
+
 def _csr_side(a: Graph, transpose: bool):
     """(offsets, indices, values, ell_width, row_seg, over_pos, over_row)
     of a Graph's CSR, or of its CSC mirror with ``transpose=True``. Dense
@@ -132,15 +176,81 @@ def spmv(a: Graph, x, *, semiring=plus_times, mask=None,
     off, idx, vals, width, seg, opos, orow = _csr_side(a, transpose)
     if structural:
         vals = None
-    if mask is None:
-        if complement:
-            raise ValueError("complement=True requires a mask")
-    else:
-        mask = torch.as_tensor(mask, device=a.device).to(torch.bool)
-        mask = ~mask if complement else mask
+    mask = _row_mask(mask, complement, a.device)
     x = torch.as_tensor(x, dtype=torch.float32, device=a.device)
     return B.dispatch("spmv", bk)(off, idx, vals, x, sr, width, mask, seg,
                                   opos, orow)
+
+
+def _row_mask(mask, complement: bool, device) -> Optional[torch.Tensor]:
+    if mask is None:
+        if complement:
+            raise ValueError("complement=True requires a mask")
+        return None
+    mask = torch.as_tensor(mask, device=device).to(torch.bool)
+    return ~mask if complement else mask
+
+
+def spmm(a: Graph, x, *, semiring=plus_times, mask=None,
+         complement: bool = False, transpose: bool = False,
+         structural: bool = False,
+         backend: Optional[str] = None) -> torch.Tensor:
+    """Dense-accumulator semiring SpMM ``Y⟨mask⟩ = A ⊗ X`` (X (nx, k)):
+    each column of X is one lane (a reachability source, a label block).
+    Same mask, complement, transpose and structural semantics as
+    :func:`spmv`."""
+    sr = S.get(semiring)
+    bk = B.resolve(backend, a.device)
+    off, idx, vals, width, seg, _, _ = _csr_side(a, transpose)
+    if structural:
+        vals = None
+    mask = _row_mask(mask, complement, a.device)
+    x = torch.as_tensor(x, dtype=torch.float32, device=a.device)
+    if x.dim() != 2:
+        raise ValueError(f"spmm needs a dense (n, k) operand, got shape "
+                         f"{tuple(x.shape)}")
+    return B.dispatch("spmm", bk)(off, idx, vals, x.contiguous(), sr, width,
+                                  mask, seg)
+
+
+def spmsv(a: Graph, ids, xvals=None, *, semiring=plus_times, mask=None,
+          complement: bool = False, structural: bool = False,
+          cap_out: Optional[int] = None,
+          backend: Optional[str] = None) -> torch.Tensor:
+    """Sparse-vector semiring product (SpMSpV, the push direction):
+    ``y⟨mask⟩[v] = ⊕_{u active} x[u] ⊗ A[u, v]``, with x given as
+    frontier ``ids`` (-1 = dead lane) and per-lane ``xvals`` (None = the
+    ⊗-identity). One "advance" expansion (K3 on the cuda backend) whose
+    functor is ⊗, then a ⊕ scatter into a dense (n,) output. ``cap_out``
+    defaults to the exact expansion size (duplicate ids expand once per
+    lane), counted on the host."""
+    sr = S.get(semiring)
+    bk = B.resolve(backend, a.device)
+    off, idx, vals = _csr_side(a, transpose=False)[:3]
+    if structural:
+        vals = None
+    n = int(off.shape[0]) - 1
+    ids = torch.as_tensor(ids, dtype=torch.int32, device=a.device)
+    valid_in = ids >= 0
+    base = torch.where(valid_in, ids, 0)
+    deg = (torch.index_select(off, 0, base + 1)
+           - torch.index_select(off, 0, base))
+    sizes = torch.where(valid_in, deg, 0).to(torch.int32)
+    cap = int(sizes.sum()) if cap_out is None else int(cap_out)
+    _, dst, eid, in_pos, _, valid, _ = B.dispatch("advance", bk)(
+        off, idx, base, sizes, max(cap, 1))
+    sv = (torch.tensor(sr.one, dtype=torch.float32, device=a.device)
+          if xvals is None else torch.index_select(
+              torch.as_tensor(xvals, dtype=torch.float32, device=a.device),
+              0, in_pos))
+    av = _gather_vals(vals, eid, sr.one)
+    prod = torch.where(valid, sr.mul_op(sv, av), sr.zero).to(torch.float32)
+    # dead slots land in a spill entry n that is cut off (the reference's
+    # mode="drop")
+    y = torch.full((n + 1,), sr.zero, dtype=torch.float32, device=a.device)
+    y = sr.scatter_accum(y, torch.where(valid, dst, n), prod)[:n]
+    mask = _row_mask(mask, complement, a.device)
+    return y if mask is None else torch.where(mask, y, sr.zero)
 
 
 def _gather_vals(vals: Optional[torch.Tensor], idx: torch.Tensor,

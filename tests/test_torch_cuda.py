@@ -14,9 +14,11 @@ from repro_torch.core import graph as G
 from repro_torch.core import operators as O
 from repro_torch.core import ref as R
 from repro_torch.core.primitives import (bc_batch, bfs_batch,
-                                         connected_components, pagerank,
-                                         sssp_batch, triangle_count,
-                                         triangle_count_full)
+                                         connected_components,
+                                         label_propagation, pagerank,
+                                         reach_batch, sssp_batch,
+                                         subgraph_match, triangle_count,
+                                         triangle_count_full, who_to_follow)
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import ref as P
 from repro_torch.linalg import ops as L
@@ -122,6 +124,11 @@ def test_kernels_on_edgeless_graph(card):
     needles = torch.arange(5000, dtype=torch.int32, device=card)
     assert not K.segment_search(g.col_indices, lo, lo + 2, needles).any()
     assert (K.segment_locate(g.col_indices, lo, lo, needles) == -1).all()
+    # K4m: every row empty, every output the ⊕-identity
+    block = torch.rand((8, 3), device=card)
+    args = (g.row_offsets, g.col_indices, None, block, SR.min_plus,
+            g.ell_width, None, g.row_seg)
+    assert torch.equal(K.spmm(*args), P.spmm(*args))
     assert all(k.launches > 0 for k in K.KERNELS.values())
     # segmented_intersect on the edgeless graph: K3, K5 and K2 launch
     fa = F.SparseFrontier(ids=torch.tensor([0, 3, 5, -1], dtype=torch.int32,
@@ -156,6 +163,9 @@ def test_primitives_cuda_match_torch_backend(graph):
     a, b = triangle_count(g, backend="cuda"), triangle_count(g,
                                                              backend="torch")
     assert torch.equal(a.per_edge, b.per_edge)
+    a, b = (reach_batch(g, srcs, 2, backend="cuda"),
+            reach_batch(g, srcs, 2, backend="torch"))
+    assert torch.equal(a.reached, b.reached)
     assert all(k.launches > 0 for k in K.KERNELS.values())
 
 
@@ -230,3 +240,100 @@ def test_cc_bc_on_the_card_match_oracles(graph):
     for i, s in enumerate(srcs):
         np.testing.assert_allclose(r.bc[i].cpu().numpy(), R.bc_ref(g, s),
                                    rtol=1e-3, atol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def heavy_graph(card):
+    """rmat scale 14: rows above and below the kernel's 1024-edge split."""
+    return G.rmat(14, 16, seed=1, weighted=True, device=card)
+
+
+@pytest.mark.parametrize("name", sorted(SR.SEMIRINGS))
+@pytest.mark.parametrize("k", [1, 4, 5, 32, 33])
+def test_spmm_kernel_matches_plain_bitwise(heavy_graph, name, k):
+    """Integer-valued X and integer weights: every semiring's fold is
+    exact, so the kernel's fixed order and the plain version's (atomic
+    adds on the card) give the same bits, on light rows and on the rows
+    split over a block."""
+    g = heavy_graph
+    sr = SR.SEMIRINGS[name]
+    gen = torch.Generator(device=g.device).manual_seed(k)
+    x = torch.randint(0, 4, (g.num_vertices, k), generator=gen,
+                      device=g.device).to(torch.float32)
+    mask = torch.rand(g.num_vertices, generator=gen, device=g.device) < 0.5
+    K.reset_launches()
+    for vals in (None, g.edge_values):
+        for m in (None, mask):
+            args = (g.row_offsets, g.col_indices, vals, x, sr, g.ell_width,
+                    m, g.row_seg)
+            assert torch.equal(K.spmm(*args), P.spmm(*args))
+    assert K.KERNELS["spmm"].launches == 4
+
+
+@pytest.mark.parametrize("k", [4, 32, 33])
+def test_spmm_kernel_float_plus_times(heavy_graph, k):
+    """General floats: at k >= 32, on rows of at most 1024 edges, a lane
+    folds its column in ascending edge order, the plain version's order
+    on the CPU, so the two are bit-equal there; below 32 the edge groups,
+    and on longer rows the block's per-warp shares, regroup the sum (rtol
+    1e-5, the reference's own limit between its providers)."""
+    g = heavy_graph
+    light = (g.degrees <= 1024).cpu()
+    assert 0 < int((~light).sum()) < g.num_vertices
+    x = torch.rand((g.num_vertices, k), device=g.device)
+    args = (g.row_offsets, g.col_indices, g.edge_values, x, SR.plus_times,
+            g.ell_width, None, g.row_seg)
+    got = K.spmm(*args).cpu()
+    want = P.spmm(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if k >= 32:
+        assert torch.equal(got[light], want[light])
+
+
+def test_spmm_kernel_refusals(graph):
+    g = graph
+    x = torch.ones((g.num_vertices, 2), device=g.device)
+    with pytest.raises(ValueError, match="x has shape"):
+        K.spmm(g.row_offsets, g.col_indices, None, x[:, 0], SR.or_and,
+               g.ell_width, None)
+    with pytest.raises(ValueError, match="mask"):
+        K.spmm(g.row_offsets, g.col_indices, None, x, SR.or_and,
+               g.ell_width, torch.ones(3, dtype=torch.bool,
+                                       device=g.device))
+    # (2^21 + 1) empty rows x 1024 columns: n*k passes int32
+    offsets = torch.zeros(2 ** 21 + 2, dtype=torch.int32, device=g.device)
+    with pytest.raises(ValueError, match="beyond int32"):
+        K.spmm(offsets, g.col_indices[:0], None,
+               torch.ones((1, 1024), device=g.device), SR.or_and, 1, None)
+
+
+def test_third_slice_primitives_cuda_match_torch_backend(graph):
+    g = graph
+    srcs = [int(torch.argmax(g.degrees)), 5, 77, 5]
+    K.reset_launches()
+    a, b = reach_batch(g, srcs, 3, backend="cuda"), reach_batch(
+        g, srcs, 3, backend="torch")
+    assert torch.equal(a.reached, b.reached)
+    for i, s in enumerate(srcs):
+        assert np.array_equal(a.reached[i].cpu().numpy(),
+                              R.reach_ref(g, s, 3))
+    a = label_propagation(g, max_iter=8, backend="cuda")
+    b = label_propagation(g, max_iter=8, backend="torch")
+    assert torch.equal(a.labels, b.labels) and a.iterations == b.iterations
+    labels, iters = R.label_propagation_ref(g, max_iter=8)
+    assert np.array_equal(a.labels.cpu().numpy(), labels)
+    assert a.iterations == iters
+    assert K.KERNELS["spmm"].launches > 0
+    u = srcs[0]
+    w = who_to_follow(g, u, k=50, backend="cuda")
+    np.testing.assert_allclose(w.ppr.cpu().numpy(), R.ppr_ref(g, u),
+                               rtol=0, atol=1e-5)
+    K.reset_launches()
+    tri = subgraph_match(g, 3, [(0, 1), (0, 2), (1, 2)], cap=1 << 20,
+                         backend="cuda")
+    assert tri.count == 6 * R.tc_ref(g) and not tri.truncated
+    assert K.KERNELS["segment_search"].launches > 0
+    assert K.KERNELS["compact"].launches > 0
+    ref = subgraph_match(g, 3, [(0, 1), (0, 2), (1, 2)], cap=1 << 20,
+                         backend="torch")
+    assert torch.equal(tri.embeddings, ref.embeddings)

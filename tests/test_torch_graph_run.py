@@ -34,9 +34,22 @@ def test_graph_run_cc_bc_tc_validate_on_cpu(capsys, sources):
         assert any(line.startswith(name) for line in out.splitlines())
 
 
+@pytest.mark.parametrize("sources", [None, "3,40,200,3"])
+def test_graph_run_reach_lp_wtf_on_cpu(capsys, sources):
+    argv = ["--scale", "8", "--primitives", "reach,label_propagation,wtf",
+            "--hops", "2", "--validate", "--device", "cpu"]
+    graph_run.main(argv + (["--sources", sources] if sources else []))
+    out = capsys.readouterr().out
+    assert out.count("PASS") == 2 and "FAIL" not in out
+    lines = {line.split()[0]: line for line in out.splitlines()[1:]}
+    assert set(lines) == {"reach", "label_propagation", "wtf"}
+    assert "PASS" not in lines["wtf"]           # as in the reference
+    assert all("backend=torch" in line for line in lines.values())
+
+
 def test_graph_run_rejects_unknown_primitive():
     with pytest.raises(ValueError, match="unknown primitive"):
-        graph_run.main(["--scale", "6", "--primitives", "reach",
+        graph_run.main(["--scale", "6", "--primitives", "no_such_primitive",
                         "--device", "cpu"])
 
 

@@ -2,9 +2,16 @@
 with the xla provider (both replay the same fixed-grouping fold), and
 within 1e-5 of the Pallas kernel (interpret mode), the tolerance the
 reference's own tests give its two providers (tests/test_linalg.py).
-The masked SpGEMM (mxm) bit for bit with the reference's xla provider:
-its sums add small integers (counts, or products of integer weights),
-which float32 holds exactly in any order."""
+SpMM bit for bit with the xla provider for every semiring and any
+float input (both fold each row in ascending edge order on the CPU),
+and with the Pallas provider on integer-valued inputs, whose sums
+float32 holds exactly in any order; on float inputs plus_times within
+the same 1e-5 (the Pallas kernel sums a row's ELL lanes as one
+reduction and merges the overflow after, another grouping). SpMSpV
+bit for bit with the xla provider. The masked SpGEMM (mxm) bit for bit
+with the reference's xla provider: its sums add small integers
+(counts, or products of integer weights), which float32 holds exactly
+in any order."""
 import numpy as np
 import pytest
 import torch
@@ -151,3 +158,113 @@ def test_mxm_refusals(pair):
                                device="cpu")
     with pytest.raises(ValueError, match="CSC mirror"):
         TL.mxm(no_csc, no_csc, mask)
+
+
+# --- SpMM and SpMSpV ------------------------------------------------------
+
+
+@pytest.mark.parametrize("sr", SEMIRINGS)
+@pytest.mark.parametrize("k", [1, 5, 32])
+@pytest.mark.parametrize("masked", ["unmasked", "masked", "complemented"])
+def test_spmm_matches_reference_bitwise(pair, sr, k, masked):
+    jg, tg = pair
+    n = tg.num_vertices
+    rng = np.random.default_rng(17 + k)
+    x = rng.random((n, k)).astype(np.float32)
+    mask = rng.random(n) < 0.5 if masked != "unmasked" else None
+    kw = dict(mask=mask, complement=masked == "complemented")
+    for transpose in (False, True):
+        for structural in (False, True):
+            want = np.asarray(JL.spmm(jg, x, semiring=JS.get(sr),
+                                      backend="xla", transpose=transpose,
+                                      structural=structural, **kw))
+            got = TL.spmm(tg, x, semiring=sr, transpose=transpose,
+                          structural=structural, **kw)
+            assert got.shape == (n, k) and got.dtype == torch.float32
+            assert np.array_equal(want, got.numpy()), (transpose,
+                                                       structural)
+
+
+@pytest.mark.parametrize("sr", SEMIRINGS)
+@pytest.mark.parametrize("k", [1, 5, 32])
+def test_spmm_matches_pallas_kernel(sr, k):
+    jg, tg = _pair(JG.rmat(6, 4, seed=1, weighted=True))
+    n = tg.num_vertices
+    rng = np.random.default_rng(23)
+    ints = rng.integers(0, 4, (n, k)).astype(np.float32)
+    mask = rng.random(n) < 0.6
+    for m in (None, mask):
+        want = np.asarray(JL.spmm(jg, ints, semiring=JS.get(sr),
+                                  backend="pallas", transpose=True,
+                                  mask=m))
+        got = TL.spmm(tg, ints, semiring=sr, transpose=True, mask=m)
+        assert np.array_equal(want, got.numpy())
+    if sr == "plus_times":
+        x = rng.random((n, k)).astype(np.float32)
+        want = np.asarray(JL.spmm(jg, x, backend="pallas", mask=mask))
+        got = TL.spmm(tg, x, mask=mask).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_spmm_kernel_wrapper_on_cpu_is_the_plain_version(pair):
+    _, tg = pair
+    x = torch.from_numpy(np.random.default_rng(4).random(
+        (tg.num_vertices, 4)).astype(np.float32))
+    mask = torch.arange(tg.num_vertices) % 3 > 0
+    before = K.KERNELS["spmm"].launches
+    args = (tg.csc_offsets, tg.csc_indices, None, x, TS.or_and,
+            tg.csc_ell_width, mask, tg.csc_row_seg)
+    assert torch.equal(K.spmm(*args), TL._spmm_torch(*args))
+    assert torch.equal(TB.dispatch("spmm", "cuda")(*args),
+                       TB.dispatch("spmm", "torch")(*args))
+    assert K.KERNELS["spmm"].launches == before
+    # the plain version derives the edge→row map when it is not given
+    assert torch.equal(TL._spmm_torch(*args[:-1]), TL._spmm_torch(*args))
+
+
+def test_spmm_refusals(pair):
+    _, tg = pair
+    with pytest.raises(ValueError, match=r"dense \(n, k\)"):
+        TL.spmm(tg, np.ones(tg.num_vertices, np.float32))
+    with pytest.raises(ValueError, match="complement=True requires"):
+        TL.spmm(tg, np.ones((tg.num_vertices, 2), np.float32),
+                complement=True)
+
+
+def test_spmm_on_edgeless_graph():
+    g = TG.Graph.from_csr(np.zeros(6, np.int32), np.zeros(0, np.int32),
+                          device="cpu")
+    for sr in SEMIRINGS:
+        y = TL.spmm(g, np.ones((5, 3), np.float32), semiring=sr)
+        assert torch.equal(y, torch.full((5, 3), TS.get(sr).zero))
+
+
+@pytest.mark.parametrize("sr", SEMIRINGS)
+@pytest.mark.parametrize("xvals", [False, True])
+def test_spmsv_matches_reference_bitwise(pair, sr, xvals):
+    """Dead lanes (-1) and duplicate ids (each expands its row once per
+    lane), with and without per-lane values, masked and unmasked."""
+    jg, tg = pair
+    n = tg.num_vertices
+    rng = np.random.default_rng(29)
+    ids = rng.integers(0, n, 40).astype(np.int32)
+    ids[[3, 17]] = -1
+    ids[20] = ids[21]
+    xv = rng.random(40).astype(np.float32) if xvals else None
+    mask = rng.random(n) < 0.5
+    for kw in (dict(), dict(mask=mask), dict(mask=mask, complement=True),
+               dict(structural=True)):
+        want = np.asarray(JL.spmsv(jg, ids, xv, semiring=JS.get(sr),
+                                   backend="xla", **kw))
+        got = TL.spmsv(tg, ids, xv, semiring=sr, **kw)
+        assert np.array_equal(want, got.numpy()), kw
+
+
+def test_spmsv_explicit_capacity_truncates_as_reference(pair):
+    jg, tg = pair
+    ids = np.array([0, 5, 9], np.int32)
+    for cap in (1, 7):
+        want = np.asarray(JL.spmsv(jg, ids, semiring=JS.get("plus_times"),
+                                   backend="xla", cap_out=cap))
+        got = TL.spmsv(tg, ids, cap_out=cap)
+        assert np.array_equal(want, got.numpy())

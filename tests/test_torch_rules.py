@@ -11,9 +11,11 @@ import torch
 from repro_torch.core import backend as TB
 from repro_torch.core import graph as TG
 from repro_torch.core.primitives import (bc, bc_batch, bfs,
-                                         connected_components, pagerank,
-                                         sssp, triangle_count,
-                                         triangle_count_full)
+                                         connected_components,
+                                         label_propagation, pagerank, reach,
+                                         reach_batch, sssp, subgraph_match,
+                                         triangle_count,
+                                         triangle_count_full, who_to_follow)
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import runtime
 from repro_torch.launch import graph_run
@@ -67,7 +69,13 @@ def test_cuda_backend_refuses_cpu_tensors():
                  lambda: bc(g, 0, backend="cuda"),
                  lambda: bc_batch(g, [0, 1], backend="cuda"),
                  lambda: triangle_count(g, backend="cuda"),
-                 lambda: triangle_count_full(g, backend="cuda")):
+                 lambda: triangle_count_full(g, backend="cuda"),
+                 lambda: reach(g, 0, backend="cuda"),
+                 lambda: reach_batch(g, [0, 1], backend="cuda"),
+                 lambda: label_propagation(g, backend="cuda"),
+                 lambda: who_to_follow(g, 0, k=4, backend="cuda"),
+                 lambda: subgraph_match(g, 3, [(0, 1), (1, 2)],
+                                        backend="cuda")):
         with pytest.raises(ValueError, match="CUDA tensors"):
             call()
     assert TB.resolve(None, g.device) == TB.TORCH
@@ -83,7 +91,8 @@ def test_dispatch_miss_is_structured():
     assert info.value.op == "no_such_op"
     assert isinstance(info.value, KeyError)
     for op in ("compact", "advance", "advance_batch", "advance_filter",
-               "advance_filter_batch", "spmv", "segment_search", "mxm"):
+               "advance_filter_batch", "spmv", "spmm", "segment_search",
+               "mxm"):
         assert TB.registered(op, TB.TORCH) and TB.registered(op, TB.CUDA)
 
 
