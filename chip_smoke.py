@@ -15,7 +15,7 @@ which passes int32 from scale 17 on.
 
 Phases:
   1. device and build — the card's name and power limit, the PyTorch and
-     CUDA toolkit versions, and the build of the six CUDA kernels from
+     CUDA toolkit versions, and the build of the nine CUDA kernels from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel
      with the host-side graph generation);
   2. kernel vs plain — each kernel's wrapper against its plain PyTorch
@@ -29,16 +29,31 @@ Phases:
      (spmm) bit-equal to its plain version on integer-valued blocks over
      five semirings x (structural, weighted) x (masked, unmasked) x
      k in {1, 4, 5, 32, 33}, and at reach's and label propagation's
-     shapes; each kernel timed beside its plain version, one PyTorch
-     library call where one computes the same function, and the least
-     time the card could take;
+     shapes; K6 (lb_expand) bit-equal on every slot at rmat-22's
+     whole-graph expansion (2^27 slots), at a capacity that is no power
+     of two, on zero-size segments and at cap_in = 0; K7
+     (flash_attention) at Qwen2-VL-2B's and Kimi K2's head widths (128,
+     112) in bf16 and fp32 — prefill 8192 x 8192 causal, a 128-query
+     chunk against 8192 keys, more queries than keys, non-causal —
+     within one rounding of its output (bf16: rtol 8e-3, atol 1e-4) and
+     3e-5 (fp32) of its plain version, rows that see no key exactly 0; K8 (moe_gather) bit-equal at Kimi K2's
+     dispatch (8192 x 7168 bf16 tokens, 384 experts x capacity 216) and
+     on rows that are no multiple of 16 bytes; every tuned kernel (K1,
+     K2, K3, K4 at k = 1, K5, K6) bit-equal to its plain version at
+     every block size from 64 to 1024 threads; each kernel timed beside
+     its plain version, one PyTorch library call where one computes the
+     same function, and the least time the card could take;
   3. main path — (a) the first slice's: bfs from the max-degree vertex,
      bfs_batch, sssp, sssp_batch and 20 PageRank sweeps; (b) the second
      slice's: connected components and bc_batch at scale 22,
      triangle_count at scale 18 and triangle_count_full at scale 16;
      (c) the third slice's: reach_batch (3 hops) and who_to_follow at
      scale 22, label_propagation and the triangle query of
-     subgraph_match at scale 16 — all on the cuda backend, validated
+     subgraph_match at scale 16; (d) the fourth slice's: the kernel
+     tuner (its five probes over the default capacity ladder, into a
+     cache under build/, its picks printed) and the kernel API's
+     lb_expand, flash_attention and moe_gather at phase 2's shapes —
+     all on the cuda backend, validated
      against host oracles (numpy BFS hop counts, scipy Dijkstra, a numpy
      power iteration, scipy components, numpy Brandes, scipy products
      for the triangles, a sort-based LP, float64 PPR and SALSA, 6 x the
@@ -57,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -77,6 +93,23 @@ INT32_MAX = 2 ** 31 - 1
 K4M_HEAVY = 1024       # spmm splits longer rows over a block (spmv.cu)
 # triangles of rmat(scale, 16, seed=0), counted by a chunked scipy product
 TRIANGLES = {14: 2_808_907, 16: 15_681_649, 18: 82_931_365}
+BF16_OPS_PER_S = 989e12        # dense tensor-core peak, bf16 and fp16
+QWEN2_VL_HEAD = 128    # Qwen2-VL-2B: 1536 wide, 12 heads (arXiv:2409.12191)
+KIMI_HEAD = 112        # Kimi K2, src/repro/configs/kimi_k2_1t_a32b.py
+KIMI_D_MODEL = 7168
+KIMI_EXPERTS, KIMI_TOP_K = 384, 8
+MOE_TOKENS = 8192
+MOE_CAPACITY_FACTOR = 1.25     # the reference's default (models/api.py)
+# (label, Sq, Sk, causal): prefill, a chunk against a filled cache,
+# more queries than keys (rows 0 .. Sq - Sk - 1 see none), non-causal
+ATTENTION_SHAPES = (("prefill", 8192, 8192, True),
+                    ("chunk", 128, 8192, True),
+                    ("sq>sk", 2048, 1024, True),
+                    ("non-causal", 4096, 4096, False))
+# K7 against its plain version, (rtol, atol): fp32 within the reference's
+# 3e-5; bf16 within one rounding of the output (an ulp is at most 2^-7 of
+# the value), since both sides compute in fp32 and round once
+ATTENTION_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (8e-3, 1e-4)}
 
 
 def _smi() -> str:
@@ -112,10 +145,322 @@ def _timed(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def _bound_ms(nbytes: float, ops: float,
+              rate: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _moe_slots(torch, tokens, experts, top_k, capacity, dev):
+    """slot_token (experts x capacity,) int32 of a seeded top-k routing:
+    each expert's slots take its tokens in token order, -1 after the
+    last; a token past the expert's capacity is dropped."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    scores = torch.rand((tokens, experts), generator=gen, device=dev)
+    expert = torch.topk(scores, top_k, dim=1).indices.reshape(-1)
+    token = torch.arange(tokens, device=dev).repeat_interleave(top_k)
+    order = torch.sort(expert, stable=True).indices
+    expert, token = expert[order], token[order]
+    counts = torch.bincount(expert, minlength=experts)
+    start = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(expert.numel(), device=dev) - start[expert]
+    keep = rank < capacity
+    slot_token = torch.full((experts * capacity,), -1, dtype=torch.int32,
+                            device=dev)
+    slot_token[(expert * capacity + rank)[keep]] = token[keep].to(
+        torch.int32)
+    return slot_token
+
+
+def _attention_pairs(np, sq, sk, causal) -> int:
+    """(query, key) pairs the end-aligned mask lets through."""
+    if not causal:
+        return sq * sk
+    return int(np.clip(np.arange(sq, dtype=np.int64) + (sk - sq + 1), 0,
+                       sk).sum())
+
+
+def _fourth_slice_kernels(torch, np, K, P, tuner, SR, g, gs, dev, record):
+    """K6, K7 and K8 against their plain versions at full width, timed
+    beside one PyTorch library call and their bounds; every tuned kernel
+    at every candidate block size. Returns the entry points' inputs for
+    path (d)."""
+    import torch.nn.functional as TF
+    n, m = g.num_vertices, g.num_edges
+
+    # K6 at rmat-22's whole-graph expansion: every vertex's out-degree
+    sizes = g.degrees.to(torch.int32).contiguous()
+    cap = tuner.pow2_ceil(m)
+    slots = torch.arange(cap, dtype=torch.int32, device=dev)
+    offsets = K.lb_offsets(sizes)
+    prefix = offsets[:-1].contiguous()
+
+    def k6():
+        return K.lb_expand(sizes, cap)
+
+    def p6():
+        return P.lb_expand(K.lb_offsets(sizes), cap)
+
+    def lib6():
+        return torch.searchsorted(prefix, slots, right=True)
+
+    got = k6()
+    want = p6()
+    for i, name in enumerate(("in_pos", "rank", "valid")):
+        if not torch.equal(got[i], want[i]):
+            raise AssertionError(f"lb_expand {name} differs from the plain "
+                                 f"version")
+    if int(got.total) != m or int(got.valid.sum()) != m or not torch.equal(
+            lib6()[:m] - 1, got.in_pos[:m].long()):
+        raise AssertionError("lb_expand differs from torch.searchsorted")
+    del got, want
+    ms, pms, lms = (_timed(torch, k6, 20), _timed(torch, p6, 5),
+                    _timed(torch, lib6, 5))
+    nbytes, ops = cap * 9 + (n + 1) * 4, cap * K._iters(n) * 4
+    print(f"K6 lb_expand cap_in={n} cap_out={cap} total={m}: {ms:.3f} ms, "
+          f"plain {pms:.3f} ms, torch.searchsorted {lms:.3f} ms, bound "
+          f"{_bound_ms(nbytes, ops)[0]:.3f} ms; bit-equal on every slot")
+    record("lb_expand", 0, ms, pms, nbytes, ops, lms)
+    del slots, prefix, offsets
+    torch.cuda.empty_cache()
+    # a capacity that is no power of two, zero-size segments, cap_in = 0
+    rng = np.random.default_rng(4)
+    zs = torch.from_numpy(rng.integers(0, 9, 300_000).astype(np.int32))
+    zs[torch.from_numpy(rng.random(300_000) < 0.4)] = 0
+    for sz, c in ((sizes, m + 777_777), (zs.to(dev), 1_000_003),
+                  (zs.to(dev), 999), (sizes[:0], 4097)):
+        got = K.lb_expand(sz, c)
+        want = P.lb_expand(K.lb_offsets(sz), c)
+        if not all(torch.equal(a, b) for a, b in zip(got[:3], want)):
+            raise AssertionError(f"lb_expand cap_in={sz.numel()} cap_out={c} "
+                                 f"differs from the plain version")
+    print("K6 lb_expand at cap_out = m + 777,777, on 40 % zero-size "
+          "segments (cap_out 1,000,003 and 999) and at cap_in = 0: "
+          "bit-equal to the plain version on every slot")
+
+    # K7 at two published head widths, bf16 and fp32
+    attention = []
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for head, model in ((QWEN2_VL_HEAD, "Qwen2-VL-2B"),
+                        (KIMI_HEAD, "Kimi K2")):
+        for dtype in (torch.bfloat16, torch.float32):
+            rtol, atol = ATTENTION_TOL[str(dtype)[6:]]
+            rate = FP32_OPS_PER_S if dtype == torch.float32 else (
+                BF16_OPS_PER_S)
+            for label, sq, sk, causal in ATTENTION_SHAPES:
+                q, k, v = (torch.randn((r, head), generator=gen,
+                                       device=dev).to(dtype)
+                           for r in (sq, sk, sk))
+                got = K.flash_attention(q, k, v, causal=causal)
+                want = P.flash_attention(q, k, v, causal=causal).float()
+                err = (got.float() - want).abs()
+                if bool((err > atol + rtol * want.abs()).any()) or (
+                        causal and sq > sk
+                        and bool((got[:sq - sk] != 0).any())):
+                    raise AssertionError(
+                        f"flash_attention {model} D={head} {dtype} {label} "
+                        f"off its plain version by {float(err.max()):.3g}")
+                mask = None
+                if causal and sq != sk:
+                    mask = (torch.arange(sk, device=dev)[None, :]
+                            <= torch.arange(sq, device=dev)[:, None]
+                            + (sk - sq))
+                q4, k4, v4 = q[None, None], k[None, None], v[None, None]
+
+                def k7():
+                    return K.flash_attention(q, k, v, causal=causal)
+
+                def p7():
+                    return P.flash_attention(q, k, v, causal=causal)
+
+                def lib7():
+                    return TF.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=mask,
+                        is_causal=causal and mask is None)
+
+                ms, pms, lms = (_timed(torch, k7, 3), _timed(torch, p7, 2),
+                                _timed(torch, lib7, 5))
+                ops = 4 * _attention_pairs(np, sq, sk, causal) * head
+                nbytes = 2 * (sq + sk) * head * q.element_size()
+                bound = _bound_ms(nbytes, ops, rate)[0]
+                print(f"K7 flash_attention {model} D={head} "
+                      f"{str(dtype)[6:]} {label} Sq={sq} Sk={sk}: "
+                      f"{ms:.3f} ms, plain {pms:.3f} ms, sdpa {lms:.3f} "
+                      f"ms, bound {bound:.4f} ms, max |error| "
+                      f"{float(err.max()):.3g} (limit {atol:g} + {rtol:g} |want|)")
+                if (head, dtype, label) == (QWEN2_VL_HEAD, torch.bfloat16,
+                                            "prefill"):
+                    record("flash_attention", float(err.max()), ms, pms,
+                           nbytes, ops, lms, rate)
+                attention.append((q, k, v, causal, rtol, atol))
+                del got, want, err, mask
+    torch.cuda.empty_cache()
+
+    # K8 at Kimi K2's dispatch: 8192 tokens of width 7168 in bf16 into
+    # 384 experts x the reference's capacity (models/moe.py _capacity)
+    cap_e = max(8 * math.ceil(math.ceil(
+        MOE_TOKENS * KIMI_TOP_K / KIMI_EXPERTS * MOE_CAPACITY_FACTOR) / 8), 8)
+    slot = _moe_slots(torch, MOE_TOKENS, KIMI_EXPERTS, KIMI_TOP_K, cap_e, dev)
+    nslots, filled = slot.numel(), int((slot >= 0).sum())
+    x = torch.randn((MOE_TOKENS, KIMI_D_MODEL), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    xz = torch.cat([x, x.new_zeros((1, KIMI_D_MODEL))])
+    idx = torch.where(slot < 0, MOE_TOKENS, slot).long()
+
+    def k8():
+        return K.moe_gather(x, slot)
+
+    def p8():
+        return P.moe_gather(x, slot)
+
+    def lib8():
+        return torch.index_select(xz, 0, idx)
+
+    got = k8()
+    if not torch.equal(got, p8()) or not torch.equal(got, lib8()):
+        raise AssertionError("moe_gather differs from its plain version or "
+                             "index_select")
+    del got
+    ms, pms, lms = (_timed(torch, k8, 20), _timed(torch, p8, 5),
+                    _timed(torch, lib8, 20))
+    nbytes = (MOE_TOKENS + nslots) * KIMI_D_MODEL * 2 + nslots * 4
+    print(f"K8 moe_gather x=({MOE_TOKENS}, {KIMI_D_MODEL}) bf16, "
+          f"{KIMI_EXPERTS} experts x capacity {cap_e} = {nslots} slots, "
+          f"{filled} filled: {ms:.3f} ms, plain {pms:.3f} ms, index_select "
+          f"{lms:.3f} ms, bound {_bound_ms(nbytes, 0)[0]:.3f} ms; "
+          f"bit-equal")
+    record("moe_gather", 0, ms, pms, nbytes, 0, lms)
+    # rows whose bytes are no multiple of 16, an unaligned view, fp32
+    dm = KIMI_D_MODEL
+    for xi in (x[:, :dm - 1].contiguous(),
+               x.reshape(-1)[1:1 + (MOE_TOKENS - 1) * dm].view(-1, dm),
+               x[:, :999].float().contiguous()):
+        if not torch.equal(K.moe_gather(xi, slot), P.moe_gather(xi, slot)):
+            raise AssertionError(f"moe_gather on {tuple(xi.shape)} "
+                                 f"{xi.dtype} differs from the plain version")
+    print(f"K8 moe_gather on rows of {dm - 1} bf16 (2-byte copies), an "
+          f"unaligned view (2-byte copies) and rows of 999 fp32 (4-byte "
+          f"copies): bit-equal to the plain version")
+    del xz, idx
+    torch.cuda.empty_cache()
+
+    # every tuned kernel (K1-K6 but K4m) at every candidate block size, on
+    # rmat scale 14 at its full capacity
+    ro, ci = gs.row_offsets, gs.col_indices
+    ns, ms_ = gs.num_vertices, gs.num_edges
+    gen = torch.Generator(device=dev).manual_seed(3)
+    base = torch.randint(0, ns, (2, 3000), generator=gen, device=dev,
+                         dtype=torch.int32)
+    bsizes = gs.degrees.to(torch.int32)[base.long()]
+    bsizes[:, 2500:] = 0                        # dead input lanes
+    visited = torch.rand((2, ns), generator=gen, device=dev) < 0.3
+    bitmap = torch.rand((2, ns), generator=gen, device=dev) < 0.4
+    ids = torch.arange(ns, dtype=torch.int32, device=dev)[None, :]
+    xs = torch.rand(ns, generator=gen, device=dev)
+    spmv_args = (ro, ci, gs.edge_values, xs, SR.min_plus, gs.ell_width,
+                 None, gs.row_seg, gs.over_pos, gs.over_row)
+    rows = torch.randint(0, ns, (200_000,), generator=gen, device=dev)
+    lo, hi = ro[rows], ro[rows + 1]
+    needles = torch.where(torch.rand(rows.shape, generator=gen, device=dev)
+                          < 0.5, ci[lo.long().clamp(max=ms_ - 1)],
+                          torch.randint(0, ns, rows.shape, generator=gen,
+                                        device=dev, dtype=torch.int32))
+    runs = {
+        "advance": (lambda t: K.advance_batch(ro, ci, base, bsizes, ms_,
+                                              threads=t),
+                    lambda: P.advance_batch(ro, ci, base, bsizes, ms_)),
+        "advance_filter": (
+            lambda t: K.advance_filter_batch(ro, ci, base, bsizes, visited,
+                                             ms_, ns, {}, threads=t),
+            lambda: P.advance_filter_batch(ro, ci, base, bsizes, visited,
+                                           ms_, ns)),
+        "compact": (lambda t: K.compact(ids, bitmap, threads=t),
+                    lambda: P.compact(ids, bitmap)),
+        "spmv": (lambda t: (K.spmv(*spmv_args, threads=t),),
+                 lambda: (P.spmv(*spmv_args),)),
+        "segment_search": (
+            lambda t: (K.segment_search(ci, lo, hi, needles, threads=t),
+                       K.segment_locate(ci, lo, hi, needles, threads=t)),
+            lambda: (P.segment_search(ci, lo, hi, needles),
+                     P.segment_locate(ci, lo, hi, needles))),
+        "lb_expand": (lambda t: K.lb_expand(gs.degrees.to(torch.int32),
+                                            ms_ + 999, threads=t)[:3],
+                      lambda: P.lb_expand(K.lb_offsets(
+                          gs.degrees.to(torch.int32)), ms_ + 999)),
+    }
+    blocks = tuner.candidates(tuner.MAX_THREADS)
+    for op, (kern, plain) in runs.items():
+        want = plain()
+        for t in blocks:
+            if not all(torch.equal(a, b) for a, b in zip(kern(t), want)):
+                raise AssertionError(f"{op} at {t} threads per block "
+                                     f"differs from the plain version")
+    print(f"block-size invariance: advance, advance_filter, compact, spmv "
+          f"(min_plus), segment_search (found and locate) and lb_expand "
+          f"bit-equal to their plain versions at {blocks} threads per "
+          f"block (rmat scale 14, full capacity)")
+    return {"sizes": sizes, "cap": cap, "attention": attention, "x": x,
+            "slot": slot}
+
+
+def _fourth_slice_path(torch, K, P, tuner, runtime, root, dev, fourth):
+    """Path (d): the tuner over its default ladder into a cache of its own
+    under build/, then the kernel API's lb_expand, flash_attention and
+    moe_gather once each, with the launch counters set to 0 first;
+    validated against the plain versions. Returns the launch counts."""
+    cache = root / "build" / "chip_smoke_tuner.json"
+    cache.parent.mkdir(parents=True, exist_ok=True)
+    cache.unlink(missing_ok=True)
+    prev = tuner.cache_path()
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    tuner.set_cache(cache)
+    try:
+        picked = tuner.autotune_all(tuner.DEFAULT_CAPS)
+        picks = {(op, cap): tuner.entry(op, cap, dev)
+                 for (op, cap, _) in picked}
+    finally:
+        tuner.set_cache(prev)
+    tune_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    exp = K.lb_expand(fourth["sizes"], fourth["cap"])
+    att = [K.flash_attention(q, k, v, causal=c)
+           for q, k, v, c, *_ in fourth["attention"]]
+    moe = K.moe_gather(fourth["x"], fourth["slot"])
+    torch.cuda.synchronize()
+    api_s = time.monotonic() - t0
+    launches4 = {k: v.launches for k, v in K.KERNELS.items()}
+    print(f"main path (d) launches: {launches4}; tuner {tune_s:.2f} s, "
+          f"kernel API {api_s * 1e3:.1f} ms")
+    missing = [k for k in ("advance_filter_batch", "compact",
+                           "advance_batch", "spmv", "lb_expand",
+                           "flash_attention", "moe_gather")
+               if launches4[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing}")
+    print(f"tuner picks ({runtime.platform(dev)}), threads per block and "
+          f"ms per launch at each capacity:")
+    for (op, cap), e in sorted(picks.items()):
+        print(f"  {op:15s} cap={cap:<7d} -> {e['tile']:4d} threads, "
+              f"{e['ms']:.5f} ms")
+    want = P.lb_expand(K.lb_offsets(fourth["sizes"]), fourth["cap"])
+    if not all(torch.equal(a, b) for a, b in zip(exp[:3], want)):
+        raise AssertionError("path (d) lb_expand differs from the plain "
+                             "version")
+    for got, (q, k, v, c, rtol, atol) in zip(att, fourth["attention"]):
+        w = P.flash_attention(q, k, v, causal=c).float()
+        if bool(((got.float() - w).abs() > atol + rtol * w.abs()).any()):
+            raise AssertionError("path (d) flash_attention off its plain "
+                                 "version")
+    if not torch.equal(moe, P.moe_gather(fourth["x"], fourth["slot"])):
+        raise AssertionError("path (d) moe_gather differs from the plain "
+                             "version")
+    print(f"validated path (d): lb_expand and moe_gather bit-equal, "
+          f"{len(att)} flash_attention calls within their limits")
+    return launches4
 
 
 def main(argv=None) -> int:
@@ -150,12 +495,16 @@ def main(argv=None) -> int:
     from repro_torch.core.primitives.pagerank import _inv_out_degrees
     from repro_torch.kernels import ops as K
     from repro_torch.kernels import ref as P
-    from repro_torch.kernels import runtime
+    from repro_torch.kernels import runtime, tuner
     from repro_torch.linalg import ops as L
     from repro_torch.linalg import semiring as SR
 
     t_start = time.monotonic()
     dev = runtime.resolve_device(None)
+    # fp32 products in full fp32 (the defaults, stated): the plain
+    # attention's matmuls are the yardstick of K7's fp32 sums
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = _smi()
     print(f"card: {smi}")
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
@@ -202,8 +551,9 @@ def main(argv=None) -> int:
     cap_v = max(min(n, m), 1)
     results: dict = {}
 
-    def record(name, err, ms, plain_ms, nbytes, ops, library_ms=None):
-        bound, by = _bound_ms(nbytes, ops)
+    def record(name, err, ms, plain_ms, nbytes, ops, library_ms=None,
+               rate=FP32_OPS_PER_S):
+        bound, by = _bound_ms(nbytes, ops, rate)
         results[name] = {"max_abs_err": float(err), "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound,
                          "bound_by": by, "library_ms": library_ms}
@@ -665,6 +1015,15 @@ def main(argv=None) -> int:
     del a16, y_k, onehot, lp_args
     torch.cuda.empty_cache()
 
+    # ---- phase 2 (d): the fourth slice's kernels, K6-K8, at full width,
+    # and every tuned kernel at every block size ----
+    t0 = time.monotonic()
+    fourth = _fourth_slice_kernels(torch, np, K, P, tuner, SR, g, gs, dev,
+                                   record)
+    torch.cuda.empty_cache()
+    print(f"K6-K8 and the block sizes checked and timed in "
+          f"{time.monotonic() - t0:.1f} s")
+
     # ---- phase 3: the main path on the cuda backend ----
     K.reset_launches()
     torch.cuda.synchronize()
@@ -932,6 +1291,17 @@ def main(argv=None) -> int:
     del r_reach, r_lp, r_wtf, r_sm, r_smt
     torch.cuda.empty_cache()
 
+    # ---- phase 3 (d): the fourth slice's path: the kernel layer's entry
+    # points, the tuner (its five probes over the default ladder, into a
+    # cache of its own) and the kernel API's lb_expand, flash_attention
+    # and moe_gather at the shapes of phase 2 ----
+    t0 = time.monotonic()
+    launches4 = _fourth_slice_path(torch, K, P, tuner, runtime, root, dev,
+                                   fourth)
+    del fourth
+    torch.cuda.empty_cache()
+    print(f"path (d) run and validated in {time.monotonic() - t0:.1f} s")
+
     # ---- where the time goes: each slice's path once more under
     # torch.profiler (its overhead inflates the wall time; the device
     # time per kernel is what it is for) ----
@@ -985,7 +1355,7 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces,
                         "launches": (launches[name] + launches2[name]
-                                     + launches3[name]),
+                                     + launches3[name] + launches4[name]),
                         **results[name]})
     print(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -118,13 +118,15 @@ def registered(op: str, backend: str) -> bool:
     return True
 
 
-def tier_plan(op: str, cap: int, *, min_tier: Optional[int] = None
-              ) -> tuple[int, ...]:
+def tier_plan(op: str, cap: int, *, min_tier: Optional[int] = None,
+              device=None) -> tuple[int, ...]:
     """Capacity ladder for ``op`` up to ``cap``. Tier choice never
     changes results — every rung computes the same masked expansion,
-    larger rungs carry more dead lanes. The floor is ``MIN_TIER`` for
-    every op until a tuner measures the card."""
-    del op
+    larger rungs carry more dead lanes. The floor is the tuner's
+    measured tile for ``op`` at the bottom tier on ``device``'s platform
+    (``kernels.tuner.tier_floor``), ``MIN_TIER`` where none is cached."""
+    from ..kernels import tuner
     from .frontier import MIN_TIER, tier_caps
-    return tier_caps(cap, min_tier=MIN_TIER if min_tier is None
-                     else min_tier)
+    if min_tier is None:
+        min_tier = tuner.tier_floor(op, MIN_TIER, device=device)
+    return tier_caps(cap, min_tier=min_tier)

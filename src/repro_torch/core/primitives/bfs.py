@@ -79,7 +79,7 @@ def _run(graph: Graph, srcs: torch.Tensor, do_a: float, do_b: float,
     # vertex frontiers are post-uniquify: min(n, m) slots suffice
     cap_v = max(min(n, m), 1)
     cap_e = m
-    caps_e = (B.tier_plan("advance_filter", cap_e)
+    caps_e = (B.tier_plan("advance_filter", cap_e, device=graph.device)
               if tiered and cap_e > 0 else (max(cap_e, 1),))
     params = DirectionParams(do_a=do_a, do_b=do_b, enabled=direction)
     deg = graph.degrees

@@ -66,7 +66,7 @@ def _run(graph: Graph, srcs: torch.Tensor, delta: float, use_delta: bool,
     n, m = graph.num_vertices, graph.num_edges
     b = int(srcs.shape[0])
     dev = graph.device
-    caps_e = (B.tier_plan("advance", m) if tiered and m > 0
+    caps_e = (B.tier_plan("advance", m, device=dev) if tiered and m > 0
               else (max(m, 1),))
     deg = graph.degrees
     delta_t = torch.tensor(delta, dtype=torch.float32, device=dev)

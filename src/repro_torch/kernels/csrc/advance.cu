@@ -28,8 +28,11 @@
 //      first[b, dst] to INT_MAX (work ∝ frontier, not B·n), and the tail
 //      of ids/srcs is filled with -1.
 // `first` is a (B, n) table the caller keeps filled with INT_MAX between
-// calls. Bound by bytes: ~8 bytes of gathers plus 16 bytes of scratch
-// traffic per slot, and random 4-byte atomics into `first`.
+// calls. Both launchers take their threads per block from the wrapper
+// (the tuner's ops "advance" and "advance_filter"); blocks of any size
+// give the same outputs. Bound by bytes: ~8 bytes of gathers plus 16
+// bytes of scratch traffic per slot, and random 4-byte atomics into
+// `first`.
 #include "common.cuh"
 
 namespace {
@@ -99,9 +102,10 @@ __global__ void af_expand(const int* __restrict__ offsets,
   ksrc[b * cap_out + slot] = s;
 }
 
+template <int T>
 __global__ void af_count(const int* __restrict__ first, int n, int cap_out,
                          int* __restrict__ kdst, int* __restrict__ bcount) {
-  __shared__ int warp_sums[kWarps];
+  __shared__ int warp_sums[T / 32];
   const int slot = blockIdx.x * blockDim.x + threadIdx.x;
   const size_t b = blockIdx.y;
   bool survive = false;
@@ -114,22 +118,23 @@ __global__ void af_count(const int* __restrict__ first, int n, int cap_out,
     }
   }
   int count;
-  block_rank(survive, warp_sums, &count);
+  block_rank<T / 32>(survive, warp_sums, &count);
   if (threadIdx.x == 0) bcount[b * gridDim.x + blockIdx.x] = count;
 }
 
+template <int T>
 __global__ void af_emit(const int* __restrict__ kdst,
                         const int* __restrict__ ksrc,
                         const int* __restrict__ boff,
                         const int* __restrict__ lengths, int n, int cap_out,
                         int cap_front, int* __restrict__ first,
                         int* __restrict__ ids, int* __restrict__ srcs) {
-  __shared__ int warp_sums[kWarps];
+  __shared__ int warp_sums[T / 32];
   const int slot = blockIdx.x * blockDim.x + threadIdx.x;
   const size_t b = blockIdx.y;
   const int d = slot < cap_out ? kdst[b * cap_out + slot] : -1;
   int count;
-  const int r = block_rank(d >= 0, warp_sums, &count);
+  const int r = block_rank<T / 32>(d >= 0, warp_sums, &count);
   if (d >= 0) {
     const int pos = boff[b * gridDim.x + blockIdx.x] + r;
     if (pos < cap_front) {
@@ -151,9 +156,12 @@ EXPORT int advance_batch(const int* offsets, const int* base,
                          const int* row_offsets, const int* cols, int batch,
                          int cap_in, int cap_out, int m, int iters, int* src,
                          int* dst, int* eid, int* in_pos, int* rank,
-                         unsigned char* valid, void* stream) {
-  const dim3 grid((cap_out + kThreads - 1) / kThreads, batch);
-  adv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                         unsigned char* valid, int threads, void* stream) {
+  if (!valid_threads(threads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((cap_out + threads - 1) / threads, batch);
+  adv_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       offsets, base, row_offsets, cols, cap_in, cap_out, m, iters, src, dst,
       eid, in_pos, rank, valid);
   return static_cast<int>(cudaGetLastError());
@@ -166,17 +174,26 @@ EXPORT int advance_filter_batch(const int* offsets, const int* base,
                                 int iters, int cap_front, int* first,
                                 int* kdst, int* ksrc, int* bcount, int* boff,
                                 int* ids, int* srcs, int* lengths,
-                                int* totals, void* stream) {
+                                int* totals, int threads, void* stream) {
+  if (!valid_threads(threads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nblk = (cap_out + kThreads - 1) / kThreads;
+  const int nblk = (cap_out + threads - 1) / threads;
   const dim3 grid(nblk, batch);
-  af_expand<<<grid, kThreads, 0, st>>>(offsets, base, row_offsets, cols,
-                                       visited, n, cap_in, cap_out, m, iters,
-                                       first, kdst, ksrc);
-  af_count<<<grid, kThreads, 0, st>>>(first, n, cap_out, kdst, bcount);
+  af_expand<<<grid, threads, 0, st>>>(offsets, base, row_offsets, cols,
+                                      visited, n, cap_in, cap_out, m, iters,
+                                      first, kdst, ksrc);
+#define REPRO_AF_COUNT(T) \
+  af_count<T><<<grid, T, 0, st>>>(first, n, cap_out, kdst, bcount)
+  REPRO_FOR_THREADS(threads, REPRO_AF_COUNT)
+#undef REPRO_AF_COUNT
   scan_rows<<<batch, 1024, 0, st>>>(bcount, nblk, boff, totals, lengths,
                                     cap_front);
-  af_emit<<<grid, kThreads, 0, st>>>(kdst, ksrc, boff, lengths, n, cap_out,
-                                     cap_front, first, ids, srcs);
+#define REPRO_AF_EMIT(T)                                                 \
+  af_emit<T><<<grid, T, 0, st>>>(kdst, ksrc, boff, lengths, n, cap_out,  \
+                                 cap_front, first, ids, srcs)
+  REPRO_FOR_THREADS(threads, REPRO_AF_EMIT)
+#undef REPRO_AF_EMIT
   return static_cast<int>(cudaGetLastError());
 }

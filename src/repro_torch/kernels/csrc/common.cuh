@@ -11,9 +11,29 @@
 
 #define EXPORT extern "C" __attribute__((visibility("default")))
 
-constexpr int kThreads = 256;            // threads per block, 8 warps
+// Threads per block where the launcher takes no block size (spmm,
+// scan_rows has its own 1024); the tuned launchers take `threads`, one of
+// kBlockSizes, from the wrapper (repro_torch.kernels.tuner, whose untuned
+// default is this same 256).
+constexpr int kThreads = 256;            // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+
+__host__ __device__ constexpr bool valid_threads(int t) {
+  return t >= 64 && t <= 1024 && (t & (t - 1)) == 0;
+}
+
+// Instantiates CALL(T) for the block size `threads` (64 ... 1024) and
+// returns cudaErrorInvalidValue for any other.
+#define REPRO_FOR_THREADS(threads, CALL)                                  \
+  switch (threads) {                                                      \
+    case 64: CALL(64); break;                                             \
+    case 128: CALL(128); break;                                           \
+    case 256: CALL(256); break;                                           \
+    case 512: CALL(512); break;                                           \
+    case 1024: CALL(1024); break;                                         \
+    default: return static_cast<int>(cudaErrorInvalidValue);              \
+  }
 
 EXPORT const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -34,8 +54,10 @@ __device__ __forceinline__ int lb_search(const int* __restrict__ offs,
 }
 
 // Exclusive rank of `flag` among the flagged threads of the block (in
-// thread order) and the block's flag count. Every thread of the block
-// must call it; `warp_sums` is shared memory of kWarps ints.
+// thread order) and the block's flag count, for a block of W warps. Every
+// thread of the block must call it; `warp_sums` is shared memory of W
+// ints.
+template <int W>
 __device__ __forceinline__ int block_rank(bool flag, int* warp_sums,
                                           int* total) {
   const unsigned ballot = __ballot_sync(kFull, flag);
@@ -45,7 +67,7 @@ __device__ __forceinline__ int block_rank(bool flag, int* warp_sums,
   __syncthreads();
   int before = 0, all = 0;
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
+  for (int w = 0; w < W; ++w) {
     const int c = warp_sums[w];
     before += (w < warp) ? c : 0;
     all += c;

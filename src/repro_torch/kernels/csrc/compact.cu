@@ -13,33 +13,37 @@
 // reads 4 bytes per kept entry. The TPU kernel's one-hot matrix "scatter"
 // (O(tile²) compares) becomes a ballot and a direct store: every read and
 // write is coalesced, and the mask is read twice (the second time from L2).
-// `values` may be one row broadcast over the batch (row stride 0).
+// `values` may be one row broadcast over the batch (row stride 0). The
+// block size comes from the wrapper (the tuner's op "compact"); the
+// block scan is instantiated for each of 64 ... 1024 threads.
 #include "common.cuh"
 
 namespace {
 
+template <int T>
 __global__ void cp_count(const unsigned char* __restrict__ mask, int cap,
                          int* __restrict__ bcount) {
-  __shared__ int warp_sums[kWarps];
+  __shared__ int warp_sums[T / 32];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const size_t b = blockIdx.y;
   const bool keep = i < cap && mask[b * cap + i];
   int count;
-  block_rank(keep, warp_sums, &count);
+  block_rank<T / 32>(keep, warp_sums, &count);
   if (threadIdx.x == 0) bcount[b * gridDim.x + blockIdx.x] = count;
 }
 
+template <int T>
 __global__ void cp_emit(const int* __restrict__ values, long long vstride,
                         const unsigned char* __restrict__ mask, int cap,
                         const int* __restrict__ boff,
                         const int* __restrict__ totals,
                         int* __restrict__ packed) {
-  __shared__ int warp_sums[kWarps];
+  __shared__ int warp_sums[T / 32];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const size_t b = blockIdx.y;
   const bool keep = i < cap && mask[b * cap + i];
   int count;
-  const int r = block_rank(keep, warp_sums, &count);
+  const int r = block_rank<T / 32>(keep, warp_sums, &count);
   if (keep) {
     packed[b * cap + boff[b * gridDim.x + blockIdx.x] + r] =
         values[b * vstride + i];
@@ -53,13 +57,21 @@ __global__ void cp_emit(const int* __restrict__ values, long long vstride,
 EXPORT int compact_batch(const int* values, long long vstride,
                          const unsigned char* mask, int batch, int cap,
                          int* bcount, int* boff, int* packed, int* totals,
-                         void* stream) {
+                         int threads, void* stream) {
+  if (!valid_threads(threads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nblk = (cap + kThreads - 1) / kThreads;
+  const int nblk = (cap + threads - 1) / threads;
   const dim3 grid(nblk, batch);
-  cp_count<<<grid, kThreads, 0, st>>>(mask, cap, bcount);
+#define REPRO_CP_COUNT(T) cp_count<T><<<grid, T, 0, st>>>(mask, cap, bcount)
+  REPRO_FOR_THREADS(threads, REPRO_CP_COUNT)
+#undef REPRO_CP_COUNT
   scan_rows<<<batch, 1024, 0, st>>>(bcount, nblk, boff, totals, nullptr, 0);
-  cp_emit<<<grid, kThreads, 0, st>>>(values, vstride, mask, cap, boff,
-                                     totals, packed);
+#define REPRO_CP_EMIT(T)                                                  \
+  cp_emit<T><<<grid, T, 0, st>>>(values, vstride, mask, cap, boff, totals, \
+                                 packed)
+  REPRO_FOR_THREADS(threads, REPRO_CP_EMIT)
+#undef REPRO_CP_EMIT
   return static_cast<int>(cudaGetLastError());
 }

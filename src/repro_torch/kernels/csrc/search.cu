@@ -23,9 +23,10 @@
 //    launch of triangle counting at rmat scale 18 holds 6.6e8 lanes.
 //  * A lane with lo >= hi reads nothing (padding lanes, empty segments,
 //    and every lane of an empty haystack, which is never touched).
-// Bound by bytes: 16 B per lane (needle, lo, hi read once, one int32 or
-// byte written) plus the haystack once; the search's dependent loads
-// are latency, which the many lanes in flight hide.
+// Threads per block come from the wrapper (the tuner's op
+// "segment_search"). Bound by bytes: 16 B per lane (needle, lo, hi read
+// once, one int32 or byte written) plus the haystack once; the search's
+// dependent loads are latency, which the many lanes in flight hide.
 #include "common.cuh"
 
 namespace {
@@ -60,12 +61,16 @@ __global__ void search_kernel(const int* __restrict__ hay, int m,
 
 template <bool kLocate, typename Out>
 int launch(const int* hay, int m, const int* lo, const int* hi,
-           const int* needles, long long cap, Out* out, void* stream) {
+           const int* needles, long long cap, Out* out, int threads,
+           void* stream) {
+  if (!valid_threads(threads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (cap > 0) {
-    const long long want = (cap + kThreads - 1) / kThreads;
+    const long long want = (cap + threads - 1) / threads;
     const int blocks = static_cast<int>(want < (1 << 20) ? want : (1 << 20));
     search_kernel<kLocate, Out>
-        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        <<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
             hay, m, lo, hi, needles, cap, out);
   }
   return static_cast<int>(cudaGetLastError());
@@ -76,12 +81,13 @@ int launch(const int* hay, int m, const int* lo, const int* hi,
 EXPORT int segment_search_found(const int* hay, int m, const int* lo,
                                 const int* hi, const int* needles,
                                 long long cap, unsigned char* found,
-                                void* stream) {
-  return launch<false>(hay, m, lo, hi, needles, cap, found, stream);
+                                int threads, void* stream) {
+  return launch<false>(hay, m, lo, hi, needles, cap, found, threads, stream);
 }
 
 EXPORT int segment_search_locate(const int* hay, int m, const int* lo,
                                  const int* hi, const int* needles,
-                                 long long cap, int* pos, void* stream) {
-  return launch<true>(hay, m, lo, hi, needles, cap, pos, stream);
+                                 long long cap, int* pos, int threads,
+                                 void* stream) {
+  return launch<true>(hay, m, lo, hi, needles, cap, pos, threads, stream);
 }

@@ -22,6 +22,8 @@
 // Products and sums use __fmul_rn / __fadd_rn (and the build passes
 // -fmad=false), so no multiply-add is contracted: each product and each
 // sum rounds as PyTorch's separate operations do.
+// The wrapper gives the threads per block (the tuner's op "spmv"): a
+// block of T threads covers T / 32 rows.
 // Bound by bytes: per edge a 4-byte column read (coalesced, plus 4 bytes
 // of value when weighted), x read once (4 bytes per vertex: 16.8 MB at
 // rmat scale 22, which the 50 MB L2 holds), per row 4 bytes of offsets
@@ -64,6 +66,9 @@
 //    bits, which covers reach (0/1) and label propagation (vote counts
 //    at most the degree).
 //  * Indices are int32: the wrapper refuses n*k or nx*k past 2^31.
+//  * Blocks are always kThreads = 256 threads: the heavy-row split folds
+//    the block's 8 warps' shares in a fixed order, so another block size
+//    would change float sums. spmm has no tuner probe.
 // Bound by bytes: per edge a 4-byte column (plus 4 of value) and k*4
 // bytes of X gathered (through L2 where X fits its 50 MB), per row 4 of
 // offsets, 1 of mask and k*4 of output.
@@ -177,13 +182,13 @@ __global__ void spmv_rows(const int* __restrict__ offsets,
 template <int SR>
 int launch(int c, const int* offsets, const int* cols, const float* vals,
            const float* x, int nx, const unsigned char* mask, int n,
-           int width, int wp, float* y, cudaStream_t st) {
-  const int rows_per_block = kThreads / 32;
+           int width, int wp, float* y, int threads, cudaStream_t st) {
+  const int rows_per_block = threads / 32;
   const int grid = (n + rows_per_block - 1) / rows_per_block;
 #define REPRO_SPMV_CASE(CC)                                               \
   case CC:                                                                \
-    spmv_rows<SR, CC><<<grid, kThreads, 0, st>>>(offsets, cols, vals, x,  \
-                                                 nx, mask, n, width, wp, y); \
+    spmv_rows<SR, CC><<<grid, threads, 0, st>>>(offsets, cols, vals, x,   \
+                                                nx, mask, n, width, wp, y); \
     break;
   switch (c) {
     REPRO_SPMV_CASE(1)
@@ -383,7 +388,10 @@ EXPORT int spmm(int semiring, const int* offsets, const int* cols,
 EXPORT int spmv(int semiring, const int* offsets, const int* cols,
                 const float* vals, const float* x, int nx,
                 const unsigned char* mask, int n, int width, float* y,
-                void* stream) {
+                int threads, void* stream) {
+  if (!valid_threads(threads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n == 0) return 0;
   int wp = 1;
   while (wp < width) wp *= 2;
@@ -392,19 +400,19 @@ EXPORT int spmv(int semiring, const int* offsets, const int* cols,
   switch (semiring) {
     case kPlusTimes:
       return launch<kPlusTimes>(c, offsets, cols, vals, x, nx, mask, n,
-                                width, wp, y, st);
+                                width, wp, y, threads, st);
     case kMinPlus:
       return launch<kMinPlus>(c, offsets, cols, vals, x, nx, mask, n, width,
-                              wp, y, st);
+                              wp, y, threads, st);
     case kOrAnd:
       return launch<kOrAnd>(c, offsets, cols, vals, x, nx, mask, n, width,
-                            wp, y, st);
+                            wp, y, threads, st);
     case kMaxMin:
       return launch<kMaxMin>(c, offsets, cols, vals, x, nx, mask, n, width,
-                             wp, y, st);
+                             wp, y, threads, st);
     case kPlusAnd:
       return launch<kPlusAnd>(c, offsets, cols, vals, x, nx, mask, n, width,
-                              wp, y, st);
+                              wp, y, threads, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

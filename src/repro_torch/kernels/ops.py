@@ -10,10 +10,19 @@ Each wrapper takes the registry op's arguments, and
     current stream, raises if the launch returned a CUDA error, and adds
     one to the kernel's launch counter. It never falls back.
 
-``KERNELS`` lists the six kernels with their sources, the TPU kernels
+``KERNELS`` lists the nine kernels with their sources, the TPU kernels
 they replace and their launch counters (``chip_smoke.py`` reads and
 resets them). The ``"mxm"`` provider is no kernel of its own: it runs
 K3 (the expansion) and K5 (the probe) through their wrappers.
+
+Threads per block: the graph kernels K1–K6 (all but ``spmm``) take
+theirs from ``tuner.tile_for(op, cap)`` at each launch, 256 with no
+cache, or from an explicit ``threads=`` (the tuner's probes and the
+tile-invariance checks). The kernel API's ``lb_expand``,
+``flash_attention`` and ``moe_gather`` are the reference's
+``repro.kernels.ops`` functions of the same names; no registry op
+dispatches to them, as in the reference. The tuner's five probes are
+registered at the end of this module.
 """
 from __future__ import annotations
 
@@ -26,10 +35,11 @@ import torch
 
 from ..core import backend as B
 from ..linalg.ops import make_mxm_impl
-from . import ref, runtime
+from . import ref, runtime, tuner
+from .ref import KExpansion
 
 INT32_MAX = 2 ** 31 - 1
-_THREADS = 256
+_BLOCK_SIZES = frozenset(tuner.candidates(tuner.MAX_THREADS))   # 64 ... 1024
 
 
 @dataclass
@@ -57,6 +67,12 @@ KERNELS = {k.name: k for k in (
            "src/repro/kernels/semiring_spmv.py:56"),
     Kernel("segment_search", "src/repro_torch/kernels/csrc/search.cu",
            "src/repro/kernels/segment_search.py:52"),
+    Kernel("lb_expand", "src/repro_torch/kernels/csrc/lb_expand.cu",
+           "src/repro/kernels/lb_expand.py:53"),
+    Kernel("flash_attention", "src/repro_torch/kernels/csrc/attention.cu",
+           "src/repro/kernels/flash_attention.py:74"),
+    Kernel("moe_gather", "src/repro_torch/kernels/csrc/moe_gather.cu",
+           "src/repro/kernels/moe_dispatch.py:38"),
 )}
 
 
@@ -67,18 +83,24 @@ def reset_launches() -> None:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+# every tuned launcher takes its threads per block just before the stream
 _SIGNATURES = {
-    ("advance", "advance_batch"): [_P] * 4 + [_I] * 5 + [_P] * 7,
+    ("advance", "advance_batch"): [_P] * 4 + [_I] * 5 + [_P] * 6 + [_I, _P],
     ("advance", "advance_filter_batch"): (
-        [_P] * 5 + [_I] * 7 + [_P] * 9 + [_P]),
+        [_P] * 5 + [_I] * 7 + [_P] * 9 + [_I, _P]),
     ("compact", "compact_batch"): (
-        [_P, ctypes.c_longlong, _P, _I, _I] + [_P] * 4 + [_P]),
-    ("spmv", "spmv"): [_I] + [_P] * 4 + [_I, _P, _I, _I, _P, _P],
+        [_P, _L, _P, _I, _I] + [_P] * 4 + [_I, _P]),
+    ("spmv", "spmv"): [_I] + [_P] * 4 + [_I, _P, _I, _I, _P, _I, _P],
     ("spmv", "spmm"): [_I] + [_P] * 4 + [_I, _I, _P, _I, _P, _P],
     ("search", "segment_search_found"): (
-        [_P, _I] + [_P] * 3 + [ctypes.c_longlong, _P, _P]),
+        [_P, _I] + [_P] * 3 + [_L, _P, _I, _P]),
     ("search", "segment_search_locate"): (
-        [_P, _I] + [_P] * 3 + [ctypes.c_longlong, _P, _P]),
+        [_P, _I] + [_P] * 3 + [_L, _P, _I, _P]),
+    ("lb_expand", "lb_expand"): [_P, _I, _I, _I, _P, _P, _P, _I, _P],
+    ("attention", "flash_attention"): (
+        [_I] + [_P] * 4 + [_I, _I, _I, ctypes.c_float, _I, _P]),
+    ("moe_gather", "moe_gather"): [_P, _I, _L, _I, _P, _L, _P, _P],
 }
 _fns: dict = {}
 
@@ -117,6 +139,17 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, dim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
+def _threads(op: str, cap: int, dev: torch.device,
+             threads: Optional[int]) -> int:
+    """Threads per block of one launch: ``threads`` when given (a power
+    of two in [64, 1024]), else the tuner's pick for (op, cap)."""
+    t = tuner.tile_for(op, cap, device=dev) if threads is None else threads
+    if t not in _BLOCK_SIZES:
+        raise ValueError(f"threads per block must be a power of two in "
+                         f"[64, 1024], not {t}")
+    return t
+
+
 def _offsets(sizes: torch.Tensor) -> torch.Tensor:
     """(B, cap_in+1) exclusive degree scans with the total last. One
     int64 scan of the flattened rows, minus each row's starting sum:
@@ -145,7 +178,8 @@ def _check_csr(row_offsets, col_indices, dev) -> None:
 
 
 @B.register("advance_batch", B.CUDA)
-def advance_batch(row_offsets, col_indices, base, sizes, cap_out: int):
+def advance_batch(row_offsets, col_indices, base, sizes, cap_out: int, *,
+                  threads: Optional[int] = None):
     """K3: batched LB advance → (src, dst, edge_id, in_pos, rank, valid,
     totals), (B, cap_out) each and totals (B,)."""
     if row_offsets.device.type == "cpu":
@@ -160,6 +194,7 @@ def advance_batch(row_offsets, col_indices, base, sizes, cap_out: int):
     b, cap_in = base.shape
     if cap_out > INT32_MAX:
         raise ValueError("cap_out beyond int32")
+    nthr = _threads("advance", cap_out, dev, threads)
     offsets = _offsets(sizes)
     out = [torch.empty((b, cap_out), dtype=torch.int32, device=dev)
            for _ in range(5)]
@@ -168,7 +203,7 @@ def advance_batch(row_offsets, col_indices, base, sizes, cap_out: int):
             runtime.ptr(base), runtime.ptr(row_offsets),
             runtime.ptr(col_indices), b, cap_in, cap_out,
             int(col_indices.shape[0]), _iters(cap_in),
-            *(runtime.ptr(t) for t in out), runtime.ptr(valid),
+            *(runtime.ptr(t) for t in out), runtime.ptr(valid), nthr,
             runtime.stream_ptr(dev))
     KERNELS["advance_batch"].launches += 1
     totals = offsets[:, cap_in].clone()
@@ -176,10 +211,11 @@ def advance_batch(row_offsets, col_indices, base, sizes, cap_out: int):
 
 
 @B.register("advance", B.CUDA)
-def advance(row_offsets, col_indices, base, sizes, cap_out: int):
+def advance(row_offsets, col_indices, base, sizes, cap_out: int, *,
+            threads: Optional[int] = None):
     """Single-lane "advance": a B=1 launch of K3."""
     out = advance_batch(row_offsets, col_indices, base[None], sizes[None],
-                        cap_out)
+                        cap_out, threads=threads)
     return tuple(t[0] for t in out)
 
 
@@ -200,7 +236,8 @@ def _first_table(cache: Optional[dict], b: int, n: int,
 @B.register("advance_filter_batch", B.CUDA)
 def advance_filter_batch(row_offsets, col_indices, base, sizes,
                          visited: torch.Tensor, cap_out: int,
-                         cap_front: int, cache: Optional[dict] = None):
+                         cap_front: int, cache: Optional[dict] = None, *,
+                         threads: Optional[int] = None):
     """K1: fused advance → visited test → exact first-occurrence culling
     → compaction. Returns (ids, srcs, lengths, totals)."""
     if row_offsets.device.type == "cpu":
@@ -217,9 +254,10 @@ def advance_filter_batch(row_offsets, col_indices, base, sizes,
         raise ValueError("bad cap_out / cap_front")
     b, cap_in = base.shape
     n = int(visited.shape[1])
+    nthr = _threads("advance_filter", cap_out, dev, threads)
     offsets = _offsets(sizes)
     first = _first_table(cache, b, n, dev)
-    nblk = -(-cap_out // _THREADS)
+    nblk = -(-cap_out // nthr)
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.int32, device=dev)
@@ -235,23 +273,25 @@ def advance_filter_batch(row_offsets, col_indices, base, sizes,
             runtime.ptr(first), runtime.ptr(kdst), runtime.ptr(ksrc),
             runtime.ptr(bcount), runtime.ptr(boff), runtime.ptr(ids),
             runtime.ptr(srcs), runtime.ptr(lengths), runtime.ptr(totals),
-            runtime.stream_ptr(dev))
+            nthr, runtime.stream_ptr(dev))
     KERNELS["advance_filter_batch"].launches += 1
     return ids, srcs, lengths, totals
 
 
 @B.register("advance_filter", B.CUDA)
 def advance_filter(row_offsets, col_indices, base, sizes, visited,
-                   cap_out: int, cap_front: int, cache=None):
+                   cap_out: int, cap_front: int, cache=None, *,
+                   threads: Optional[int] = None):
     """Single-lane "advance_filter": a B=1 launch of K1."""
     out = advance_filter_batch(row_offsets, col_indices, base[None],
                                sizes[None], visited[None], cap_out,
-                               cap_front, cache)
+                               cap_front, cache, threads=threads)
     return tuple(t[0] for t in out)
 
 
 @B.register("compact", B.CUDA)
-def compact(values: torch.Tensor, mask: torch.Tensor):
+def compact(values: torch.Tensor, mask: torch.Tensor, *,
+            threads: Optional[int] = None):
     """K2: stable per-row compaction → (packed (B, cap), totals (B,)).
     ``values`` is (B, cap) or one (1, cap) row shared by every lane."""
     if mask.device.type == "cpu":
@@ -270,7 +310,8 @@ def compact(values: torch.Tensor, mask: torch.Tensor):
         vstride = values.stride(0)
     else:
         raise ValueError("values must have B rows or one row")
-    nblk = -(-cap // _THREADS)
+    nthr = _threads("compact", cap, dev, threads)
+    nblk = -(-cap // nthr)
     bcount = torch.empty((b, nblk), dtype=torch.int32, device=dev)
     boff = torch.empty_like(bcount)
     packed = torch.empty((b, cap), dtype=torch.int32, device=dev)
@@ -278,14 +319,14 @@ def compact(values: torch.Tensor, mask: torch.Tensor):
     _launch("compact", "compact_batch", runtime.ptr(values), vstride,
             runtime.ptr(mask), b, cap, runtime.ptr(bcount),
             runtime.ptr(boff), runtime.ptr(packed), runtime.ptr(totals),
-            runtime.stream_ptr(dev))
+            nthr, runtime.stream_ptr(dev))
     KERNELS["compact"].launches += 1
     return packed, totals
 
 
 @B.register("spmv", B.CUDA)
 def spmv(offsets, indices, values, x, sr, ell_width, mask, row_seg=None,
-         over_pos=None, over_row=None):
+         over_pos=None, over_row=None, *, threads: Optional[int] = None):
     """K4: masked-semiring SpMV over the CSR, one warp per row, with the
     reference's fixed fold (the overflow lists are implied by the CSR)."""
     if offsets.device.type == "cpu":
@@ -311,11 +352,12 @@ def spmv(offsets, indices, values, x, sr, ell_width, mask, row_seg=None,
         raise ValueError("ELL width above 1024")
     if int(indices.shape[0]) and int(x.shape[0]) == 0:
         raise ValueError("x is empty")
+    nthr = _threads("spmv", n, dev, threads)
     y = torch.empty((n,), dtype=torch.float32, device=dev)
     _launch("spmv", "spmv", sr.code, runtime.ptr(offsets),
             runtime.ptr(indices), runtime.ptr(values), runtime.ptr(x),
             int(x.shape[0]), runtime.ptr(mask), n, width, runtime.ptr(y),
-            runtime.stream_ptr(dev))
+            nthr, runtime.stream_ptr(dev))
     KERNELS["spmv"].launches += 1
     return y
 
@@ -355,7 +397,8 @@ def spmm(offsets, indices, values, x, sr, ell_width, mask, row_seg=None):
     return y
 
 
-def _search(haystack, lo, hi, needles, locate: bool) -> torch.Tensor:
+def _search(haystack, lo, hi, needles, locate: bool,
+            threads: Optional[int]) -> torch.Tensor:
     """K5 on CUDA tensors: one launch in ``found`` (bool) or ``locate``
     (int32 position, -1 where absent) mode."""
     dev = haystack.device
@@ -367,6 +410,7 @@ def _search(haystack, lo, hi, needles, locate: bool) -> torch.Tensor:
         raise ValueError("lo, hi and needles must have one length")
     if haystack.shape[0] > INT32_MAX:
         raise ValueError("haystack beyond int32 positions")
+    nthr = _threads("segment_search", cap, dev, threads)
     if locate:
         out = torch.empty((cap,), dtype=torch.int32, device=dev)
         fn = "segment_search_locate"
@@ -375,26 +419,244 @@ def _search(haystack, lo, hi, needles, locate: bool) -> torch.Tensor:
         fn = "segment_search_found"
     _launch("search", fn, runtime.ptr(haystack), int(haystack.shape[0]),
             runtime.ptr(lo), runtime.ptr(hi), runtime.ptr(needles), cap,
-            runtime.ptr(out), runtime.stream_ptr(dev))
+            runtime.ptr(out), nthr, runtime.stream_ptr(dev))
     KERNELS["segment_search"].launches += 1
     return out
 
 
 @B.register("segment_search", B.CUDA)
-def segment_search(haystack, lo, hi, needles) -> torch.Tensor:
+def segment_search(haystack, lo, hi, needles, *,
+                   threads: Optional[int] = None) -> torch.Tensor:
     """K5, found mode: needles[i] in sorted haystack[lo[i]:hi[i]) → bool."""
     if haystack.device.type == "cpu":
         return ref.segment_search(haystack, lo, hi, needles)
-    return _search(haystack, lo, hi, needles, locate=False)
+    return _search(haystack, lo, hi, needles, False, threads)
 
 
-def segment_locate(haystack, lo, hi, needles) -> torch.Tensor:
+def segment_locate(haystack, lo, hi, needles, *,
+                   threads: Optional[int] = None) -> torch.Tensor:
     """K5, locate mode: the position of needles[i] in haystack[lo[i]:hi[i])
     → int32, -1 where absent (the probe of the SpGEMM)."""
     if haystack.device.type == "cpu":
         return ref.segment_locate(haystack, lo, hi, needles)
-    return _search(haystack, lo, hi, needles, locate=True)
+    return _search(haystack, lo, hi, needles, True, threads)
 
 
 # masked SpGEMM: K3 expands (a B = 1 launch), K5 locates
 B.register("mxm", B.CUDA)(make_mxm_impl(advance, segment_locate))
+
+
+# ---------------------------------------------------------------------------
+# The kernel API: the reference's repro.kernels.ops.lb_expand,
+# flash_attention and moe_gather
+# ---------------------------------------------------------------------------
+
+
+def lb_offsets(sizes: torch.Tensor) -> torch.Tensor:
+    """(cap_in+1,) int32 exclusive scan of ``sizes`` with the total last
+    (the reference wrapper's int32 cumsum)."""
+    return torch.cat([sizes.new_zeros(1, dtype=torch.int32),
+                      torch.cumsum(sizes, 0, dtype=torch.int32)])
+
+
+def lb_expand(sizes: torch.Tensor, cap_out: int, *,
+              threads: Optional[int] = None) -> KExpansion:
+    """K6: load-balanced expansion geometry of segments of ``sizes``
+    (cap_in,) int32 over ``cap_out`` output slots → KExpansion(in_pos,
+    rank, valid, total): each slot's segment, its rank there, whether it
+    lies below the total (bool), and the total (0-d int32). Every slot,
+    the invalid ones too, equals the plain version's."""
+    if sizes.dim() != 1:
+        raise ValueError("sizes must be (cap_in,)")
+    offsets = lb_offsets(sizes)
+    if sizes.device.type == "cpu":
+        return KExpansion(*ref.lb_expand(offsets, cap_out),
+                          total=offsets[-1])
+    dev = sizes.device
+    _require(sizes, "sizes", torch.int32, 1, dev)
+    if not 0 <= cap_out <= INT32_MAX:
+        raise ValueError(f"cap_out {cap_out:,} is outside int32")
+    cap_in = int(sizes.shape[0])
+    nthr = _threads("lb_expand", cap_out, dev, threads)
+    in_pos = torch.empty((cap_out,), dtype=torch.int32, device=dev)
+    rank = torch.empty_like(in_pos)
+    valid = torch.empty((cap_out,), dtype=torch.bool, device=dev)
+    _launch("lb_expand", "lb_expand", runtime.ptr(offsets), cap_in, cap_out,
+            _iters(cap_in), runtime.ptr(in_pos), runtime.ptr(rank),
+            runtime.ptr(valid), nthr, runtime.stream_ptr(dev))
+    KERNELS["lb_expand"].launches += 1
+    return KExpansion(in_pos, rank, valid, offsets[-1])
+
+
+_ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, bq: int = 128,
+                    bk: int = 128) -> torch.Tensor:
+    """K7: single-head attention, q (Sq, D), k and v (Sk, D) of one type
+    (fp32, bf16 or fp16) → (Sq, D) in q's type; the causal mask is
+    aligned to the ends (query i sees keys j <= i + Sk - Sq) and a row
+    that sees no key is 0. Scores, softmax statistics and the sum are
+    fp32. ``bq`` and ``bk`` are the Pallas kernel's tiles, kept for the
+    reference's signature: the card's kernel picks its own (64 x 64),
+    which changes only the order of the float sums. On the card D is a
+    multiple of 8 up to 256."""
+    del bq, bk
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal)
+    dev = q.device
+    dtype = q.dtype
+    if dtype not in _ATTN_DTYPES:
+        raise ValueError(f"q has dtype {dtype}; expected float32, "
+                         f"bfloat16 or float16")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _require(t, name, dtype, 2, dev)
+    sq, d = (int(x) for x in q.shape)
+    sk = int(k.shape[0])
+    if k.shape[1] != d or tuple(v.shape) != (sk, d):
+        raise ValueError("k and v must be (Sk, D) with q's D")
+    if d < 8 or d > 256 or d % 8:
+        raise ValueError(f"head width {d}: the kernel takes a multiple of "
+                         f"8 up to 256")
+    if max(sq, sk) * d > INT32_MAX:
+        raise ValueError("sequence x head width beyond int32")
+    out = torch.empty((sq, d), dtype=dtype, device=dev)
+    _launch("attention", "flash_attention", _ATTN_DTYPES[dtype],
+            runtime.ptr(q), runtime.ptr(k), runtime.ptr(v), runtime.ptr(out),
+            sq, sk, d, ctypes.c_float(1.0 / math.sqrt(d)), int(bool(causal)),
+            runtime.stream_ptr(dev))
+    KERNELS["flash_attention"].launches += 1
+    return out
+
+
+def moe_gather(x: torch.Tensor, slot_token: torch.Tensor) -> torch.Tensor:
+    """K8: out[s] = x[slot_token[s]] for x (T, D) and slot_token (S,)
+    int32, a zero row where slot_token[s] < 0; an id past the last token
+    reads the last row (JAX clamps gather indices, and the reference's
+    gather relies on it; no host check). Output (S, D) in x's type."""
+    if x.device.type == "cpu":
+        return ref.moe_gather(x, slot_token)
+    dev = x.device
+    if x.dim() != 2 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous (T, D) matrix")
+    if x.dtype not in _ATTN_DTYPES:
+        raise ValueError(f"x has dtype {x.dtype}; expected float32, "
+                         f"bfloat16 or float16")
+    _require(slot_token, "slot_token", torch.int32, 1, dev)
+    t, d = (int(n) for n in x.shape)
+    if t > INT32_MAX:
+        raise ValueError("more tokens than int32 ids")
+    s = int(slot_token.shape[0])
+    out = torch.empty((s, d), dtype=x.dtype, device=dev)
+    _launch("moe_gather", "moe_gather", runtime.ptr(x), t,
+            d * x.element_size(), x.element_size(), runtime.ptr(slot_token),
+            s, runtime.ptr(out), runtime.stream_ptr(dev))
+    KERNELS["moe_gather"].launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Tuner probes: a representative launch at a forced block size on
+# synthetic card tensors (the reference's probes, repro.kernels.ops),
+# timed by CUDA events. Without a card a probe raises: timing the plain
+# versions would measure nothing the tuner could use.
+# ---------------------------------------------------------------------------
+
+_PROBE_REPS = 10
+_PROBE_SPIN_CYCLES = 10_000_000
+_probe_inputs: dict = {}
+
+
+def _probe_time(fn) -> float:
+    """Device seconds per call of ``fn``, the mean of ``_PROBE_REPS``
+    calls. The calls queue behind a spin of about 5 ms on the card, so
+    the events time the device's work alone: a small launch takes less
+    time on the card than its wrapper takes on the host, and timed back
+    to back the probe would measure the host."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(_PROBE_SPIN_CYCLES)
+    start.record()
+    for _ in range(_PROBE_REPS):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3 / _PROBE_REPS
+
+
+def _probe_graph(cap: int) -> dict:
+    """A uniform CSR of degree 8 sized to ``cap`` and the frontier of its
+    first cap / 8 vertices, made once per capacity on the card."""
+    dev = runtime.resolve_device(None)
+    key = (cap, str(dev))
+    inp = _probe_inputs.get(key)
+    if inp is None:
+        gen = torch.Generator().manual_seed(0)
+        n = max(cap // 8, 16)
+        k = min(n, max(cap // 8, 1))
+        cols = torch.sort(torch.randint(0, n, (n, 8), generator=gen,
+                                        dtype=torch.int32), dim=1).values
+        inp = {"n": n,
+               "ro": (torch.arange(n + 1, dtype=torch.int32) * 8).to(dev),
+               "ci": cols.reshape(-1).to(dev),
+               "base": (torch.arange(k, dtype=torch.int32) % n).to(dev),
+               "sizes": torch.full((k,), 8, dtype=torch.int32, device=dev),
+               "visited": torch.zeros((n,), dtype=torch.bool, device=dev),
+               "ids": torch.arange(cap, dtype=torch.int32,
+                                   device=dev)[None, :],
+               "cache": {}}
+        inp["keep"] = inp["ids"] % 3 == 0
+        _probe_inputs[key] = inp
+    return inp
+
+
+def _probe_advance(cap: int, tile: int) -> float:
+    p = _probe_graph(cap)
+    return _probe_time(lambda: advance(p["ro"], p["ci"], p["base"],
+                                       p["sizes"], cap, threads=tile))
+
+
+def _probe_advance_filter(cap: int, tile: int) -> float:
+    p = _probe_graph(cap)
+    return _probe_time(lambda: advance_filter(
+        p["ro"], p["ci"], p["base"], p["sizes"], p["visited"], cap,
+        min(cap, p["n"]), p["cache"], threads=tile))
+
+
+def _probe_compact(cap: int, tile: int) -> float:
+    p = _probe_graph(cap)
+    return _probe_time(lambda: compact(p["ids"], p["keep"], threads=tile))
+
+
+def _probe_lb_expand(cap: int, tile: int) -> float:
+    p = _probe_graph(cap)
+    return _probe_time(lambda: lb_expand(p["sizes"], cap, threads=tile))
+
+
+def _probe_spmv(cap: int, tile: int) -> float:
+    """The reference's probe: n = max(cap, 16) rows of 8 random
+    neighbours, unit values, plus_times."""
+    from ..linalg import semiring as SR
+    dev = runtime.resolve_device(None)
+    key = ("spmv", cap, str(dev))
+    inp = _probe_inputs.get(key)
+    if inp is None:
+        gen = torch.Generator().manual_seed(0)
+        n = max(cap, 16)
+        inp = ((torch.arange(n + 1, dtype=torch.int32) * 8).to(dev),
+               torch.randint(0, n, (n * 8,), generator=gen,
+                             dtype=torch.int32).to(dev),
+               torch.ones((n * 8,), dtype=torch.float32, device=dev),
+               torch.ones((n,), dtype=torch.float32, device=dev))
+        _probe_inputs[key] = inp
+    ro, ci, vals, x = inp
+    return _probe_time(lambda: spmv(ro, ci, vals, x, SR.plus_times, 8, None,
+                                    threads=tile))
+
+
+tuner.register_probe("advance", _probe_advance)
+tuner.register_probe("advance_filter", _probe_advance_filter)
+tuner.register_probe("compact", _probe_compact)
+tuner.register_probe("lb_expand", _probe_lb_expand)
+tuner.register_probe("spmv", _probe_spmv)

@@ -1,6 +1,6 @@
 """Device probe and kernel build for the hand-written Hopper kernels.
 
-Two jobs, both counterparts of ``repro.kernels.runtime``:
+Three jobs, counterparts of ``repro.kernels.runtime``:
 
   * ``resolve_device(device)`` — the one device decision. ``None`` means
     the card (``"cuda"``); a CUDA device must exist and be a Hopper part
@@ -14,6 +14,8 @@ Two jobs, both counterparts of ``repro.kernels.runtime``:
     an edited source rebuilds. All sources build in parallel, one
     ``nvcc`` each. A missing ``nvcc`` or a failed build raises with the
     compiler's output; nothing falls back to the plain versions.
+  * ``platform(device)`` — the tuner's platform key: the card's compute
+    capability and name, or ``cpu``.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_platforms: dict[int, str] = {}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -57,6 +60,27 @@ def resolve_device(device=None) -> torch.device:
             f"{torch.cuda.get_device_name(index)} has compute capability "
             f"{major}.{minor}; the kernels are built for Hopper (9.x)")
     return torch.device("cuda", index)
+
+
+def platform(device=None) -> str:
+    """The tuner's platform key for ``device``: a measured launch tile
+    is valid only for the card it was measured on, e.g.
+    ``cuda:sm_90:NVIDIA H100 80GB HBM3``; ``cpu`` for the CPU, where no
+    kernel launches. ``None`` is the current CUDA device when there is
+    one, else the CPU."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = _platforms.get(index)
+    if key is None:
+        major, minor = torch.cuda.get_device_capability(index)
+        key = (f"cuda:sm_{major}{minor}:"
+               f"{torch.cuda.get_device_name(index)}")
+        _platforms[index] = key
+    return key
 
 
 def _nvcc() -> str:

@@ -26,6 +26,11 @@ from repro_torch.linalg import semiring as SR
 
 pytestmark = pytest.mark.cuda
 
+# the kernels of the graph paths; lb_expand is the kernel API's and the
+# tuner's (the primitives expand through K1 and K3)
+GRAPH_KERNELS = ("advance_filter_batch", "compact", "advance_batch", "spmv",
+                 "spmm", "segment_search", "lb_expand")
+
 
 @pytest.fixture(scope="module")
 def card():
@@ -129,7 +134,11 @@ def test_kernels_on_edgeless_graph(card):
     args = (g.row_offsets, g.col_indices, None, block, SR.min_plus,
             g.ell_width, None, g.row_seg)
     assert torch.equal(K.spmm(*args), P.spmm(*args))
-    assert all(k.launches > 0 for k in K.KERNELS.values())
+    # K6 over the edgeless graph's all-zero degrees: no slot is valid
+    sizes0 = g.degrees.to(torch.int32)
+    got, want = K.lb_expand(sizes0, 700), K.lb_expand(sizes0.cpu(), 700)
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(got, want))
+    assert all(K.KERNELS[k].launches > 0 for k in GRAPH_KERNELS)
     # segmented_intersect on the edgeless graph: K3, K5 and K2 launch
     fa = F.SparseFrontier(ids=torch.tensor([0, 3, 5, -1], dtype=torch.int32,
                                            device=card),
@@ -166,7 +175,7 @@ def test_primitives_cuda_match_torch_backend(graph):
     a, b = (reach_batch(g, srcs, 2, backend="cuda"),
             reach_batch(g, srcs, 2, backend="torch"))
     assert torch.equal(a.reached, b.reached)
-    assert all(k.launches > 0 for k in K.KERNELS.values())
+    assert all(K.KERNELS[k].launches > 0 for k in GRAPH_KERNELS[:-1])
 
 
 def _probes(g, count, seed):
@@ -337,3 +346,130 @@ def test_third_slice_primitives_cuda_match_torch_backend(graph):
     ref = subgraph_match(g, 3, [(0, 1), (0, 2), (1, 2)], cap=1 << 20,
                          backend="torch")
     assert torch.equal(tri.embeddings, ref.embeddings)
+
+
+# ---- the fourth slice: K6-K8, block sizes, the tuner ----------------------
+
+@pytest.mark.parametrize("cap_in,cap_out", [(0, 5), (1, 8), (17, 100),
+                                            (500, 513), (3000, 70_000),
+                                            (40, 7)])
+def test_lb_expand_kernel_matches_plain_on_every_slot(card, cap_in,
+                                                      cap_out):
+    rng = np.random.default_rng(cap_in + cap_out)
+    sizes = torch.from_numpy(rng.integers(0, 40, cap_in).astype(np.int32))
+    sizes[::7] = 0                              # zero-size segments
+    K.reset_launches()
+    got = K.lb_expand(sizes.to(card), cap_out)
+    want = K.lb_expand(sizes, cap_out)
+    assert K.KERNELS["lb_expand"].launches == 1
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("sq,sk,d,causal", [
+    (64, 64, 32, True), (128, 128, 64, True), (100, 37, 16, True),
+    (16, 256, 64, False), (300, 700, 112, True), (77, 700, 256, True),
+    (130, 129, 128, False), (700, 300, 8, True)])
+def test_flash_attention_kernel_matches_plain(card, dtype, sq, sk, d,
+                                              causal):
+    gen = torch.Generator(device=card).manual_seed(sq * d)
+    q, k, v = (torch.randn((n, d), generator=gen, device=card).to(dtype)
+               for n in (sq, sk, sk))
+    got = K.flash_attention(q, k, v, causal=causal)
+    want = P.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == dtype
+    # both compute in fp32: fp32 within the reference's 3e-5, bf16 and
+    # fp16 within one rounding of the output (an ulp is at most 2^-7 and
+    # 2^-10 of the value)
+    rtol, atol = {torch.float32: (3e-5, 3e-5), torch.bfloat16: (8e-3, 1e-4),
+                  torch.float16: (1e-3, 1e-5)}[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    if causal and sq > sk:                      # rows that see no key
+        assert (got[:sq - sk] == 0).all()
+
+
+def test_flash_attention_kernel_refusals(card):
+    q = torch.randn((16, 264), device=card)
+    with pytest.raises(ValueError, match="head width"):
+        K.flash_attention(q, q, q)
+    q = torch.randn((16, 12), device=card)
+    with pytest.raises(ValueError, match="head width"):
+        K.flash_attention(q, q, q)
+    q = torch.randn((16, 16), device=card)
+    with pytest.raises(ValueError, match="dtype"):
+        K.flash_attention(q, q.half(), q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("t,d,s", [(10, 8, 30), (128, 64, 128), (50, 7, 9),
+                                   (300, 7168, 1000), (33, 5, 70)])
+def test_moe_gather_kernel_matches_plain_bitwise(card, dtype, t, d, s):
+    gen = torch.Generator(device=card).manual_seed(t + d)
+    x = torch.randn((t, d), generator=gen, device=card).to(dtype)
+    slot = torch.randint(-1, t + 3, (s,), generator=gen, device=card,
+                         dtype=torch.int32)       # some ids past the end
+    slot[::5] = -1
+    got = K.moe_gather(x, slot)
+    assert torch.equal(got, P.moe_gather(x, slot))
+    assert torch.equal(got.cpu(), K.moe_gather(x.cpu(), slot.cpu()))
+    # an unaligned view of x takes the narrow copy
+    xv = x.reshape(-1)[1:1 + (t - 1) * d].view(t - 1, d)
+    assert torch.equal(K.moe_gather(xv, slot), P.moe_gather(xv, slot))
+
+
+@pytest.mark.parametrize("threads", [64, 128, 256, 512, 1024])
+def test_tuned_kernels_are_block_size_invariant(graph, threads):
+    """Every tuned kernel gives its plain version's bits at every
+    candidate block size."""
+    g = graph
+    front = _frontier(g, 3, seed=4)
+    base, sizes = O._base_and_sizes(g, front.ids, front.valid_mask, "vertex")
+    ro, ci = g.row_offsets, g.col_indices
+    cap = g.num_edges
+    got = K.advance_batch(ro, ci, base, sizes, cap, threads=threads)
+    assert all(torch.equal(x, y) for x, y in
+               zip(got, P.advance_batch(ro, ci, base, sizes, cap)))
+    visited = torch.rand((3, g.num_vertices), device=g.device) < 0.3
+    got = K.advance_filter_batch(ro, ci, base, sizes, visited, cap, 100,
+                                 g.cache, threads=threads)
+    assert all(torch.equal(x, y) for x, y in zip(got, P.advance_filter_batch(
+        ro, ci, base, sizes, visited, cap, 100)))
+    mask = torch.rand((3, 5000), device=g.device) < 0.4
+    vals = torch.randint(0, 99, (3, 5000), dtype=torch.int32,
+                         device=g.device)
+    assert all(torch.equal(x, y) for x, y in zip(
+        K.compact(vals, mask, threads=threads), P.compact(vals, mask)))
+    x = torch.rand(g.num_vertices, device=g.device)
+    args = (g.row_offsets, g.col_indices, g.edge_values, x, SR.min_plus,
+            g.ell_width, None, g.row_seg, g.over_pos, g.over_row)
+    assert torch.equal(K.spmv(*args, threads=threads), P.spmv(*args))
+    lo, hi, needles = _probes(g, 20_000, seed=threads)
+    assert torch.equal(K.segment_search(ci, lo, hi, needles,
+                                        threads=threads),
+                       P.segment_search(ci, lo, hi, needles))
+    assert torch.equal(K.segment_locate(ci, lo, hi, needles,
+                                        threads=threads),
+                       P.segment_locate(ci, lo, hi, needles))
+    got = K.lb_expand(g.degrees.to(torch.int32), cap + 999, threads=threads)
+    want = K.lb_expand(g.degrees.to(torch.int32).cpu(), cap + 999)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+def test_autotune_on_the_card(card, tmp_path):
+    from repro_torch.kernels import tuner
+    path = tmp_path / "tune.json"
+    tuner.set_cache(path)
+    try:
+        picked = tuner.autotune_all([512, 4096])
+        assert sorted({op for op, _, _ in picked}) == sorted(tuner.PROBES)
+        for (op, cap, _), tile in picked.items():
+            assert tile in tuner.candidates(cap)
+            assert tuner.tile_for(op, cap, device=card) == tile
+            assert tuner.entry(op, cap, card)["ms"] > 0
+        assert tuner.tier_floor("advance", 512, device=card) >= 512
+    finally:
+        tuner.set_cache(None)
+    assert tuner.tile_for("advance", 4096, device=card) == 256

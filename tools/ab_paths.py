@@ -1,20 +1,20 @@
-"""Warm A/B of graph_run's single-source sssp and bfs_batch between two
-checkouts of this repo on one card.
+"""Warm A/B of graph_run's single-source sssp, bfs_batch, cc and
+bc_batch between two checkouts of this repo on one card.
 
   python tools/ab_paths.py BASE_DIR [--pairs 20] [--scale 22]
 
 BASE_DIR is another checkout (for example the parent commit, unpacked
 with ``git archive``). One worker process per tree imports that tree's
 ``repro_torch`` (``PYTHONPATH=<tree>/src``), builds
-``rmat(scale, 16, seed=0, weighted)`` and runs both paths once to warm
-them (printed as "warm-up"). The two workers build at once and then
+``rmat(scale, 16, seed=0, weighted)`` and runs every path once to warm
+it (printed as "warm-up"). The two workers build at once and then
 take turns: every pair times each path through
 ``launch.graph_run.run_primitive`` on both trees, base first in even
 pairs and change first in odd ones, one worker at a time. sssp starts
-at the max-degree vertex, bfs_batch at it and three random non-isolated
-vertices (seed 0), the sources ``chip_smoke.py`` uses. Prints every run,
-then per path the median of each tree and the median of the
-change-minus-base differences within a pair.
+at the max-degree vertex, bfs_batch and bc_batch at it and three random
+non-isolated vertices (seed 0), the sources ``chip_smoke.py`` uses.
+Prints every run, then per path the median of each tree and the median
+of the change-minus-base differences within a pair.
 """
 from __future__ import annotations
 
@@ -26,11 +26,11 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-PATHS = ("sssp", "bfs_batch")
+PATHS = ("sssp", "bfs_batch", "cc", "bc_batch")
 
 
 def worker(scale: int) -> None:
-    """Build the graph, warm both paths, then time the path named on each
+    """Build the graph, warm every path, then time the path named on each
     line of standard input and answer with its milliseconds."""
     import numpy as np
     import torch
@@ -46,7 +46,10 @@ def worker(scale: int) -> None:
                                                replace=False)]
     run = {"sssp": lambda: gr.run_primitive("sssp", g, hub, False, "cuda"),
            "bfs_batch": lambda: gr.run_primitive("bfs", g, hub, False,
-                                                 "cuda", sources=srcs)}
+                                                 "cuda", sources=srcs),
+           "cc": lambda: gr.run_primitive("cc", g, hub, False, "cuda"),
+           "bc_batch": lambda: gr.run_primitive("bc", g, hub, False, "cuda",
+                                                sources=srcs)}
     print(" ".join(f"{run[p]()[0] * 1e3:.3f}" for p in PATHS), flush=True)
     for line in sys.stdin:
         print(f"{run[line.strip()]()[0] * 1e3:.3f}", flush=True)
