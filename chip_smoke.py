@@ -15,14 +15,16 @@ which passes int32 from scale 17 on.
 
 Phases:
   1. device and build — the card's name and power limit, the PyTorch and
-     CUDA toolkit versions, and the build of the nine CUDA kernels from
+     CUDA toolkit versions, and the build of the ten CUDA kernels from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel
      with the host-side graph generation);
   2. kernel vs plain — each kernel's wrapper against its plain PyTorch
      version on the same card tensors, at the main path's shapes on the
      rmat graph (two capacity tiers, the top one included; B = 1 and
      B = 4), integer outputs equal and the SpMV bit-equal to its plain
-     version run on the CPU; K3 (B = 1) and K5 (locate) at triangle
+     version run on the CPU, timed whole and on its light and heavy rows
+     beside its byte bound and the serial-chain floor of its longest
+     overflow; K3 (B = 1) and K5 (locate) at triangle
      counting's shape, the mxm expansion of the oriented rmat scale-18
      graph (6.6e8 slots); K5 (found) on segmented_intersect's probes of
      edge pairs of the scale-22 graph, and on an empty haystack; K4m
@@ -36,7 +38,11 @@ Phases:
      112) in bf16 and fp32 — prefill 8192 x 8192 causal, a 128-query
      chunk against 8192 keys, more queries than keys, non-causal —
      within one rounding of its output (bf16: rtol 8e-3, atol 1e-4) and
-     3e-5 (fp32) of its plain version, rows that see no key exactly 0; K8 (moe_gather) bit-equal at Kimi K2's
+     3e-5 (fp32) of its plain version, rows that see no key exactly 0,
+     its SASS holding tensor-core (HMMA) instructions in every
+     instantiation, and at the chunk its split form (kv parts) and its
+     combine kernel each against their plain versions; K8 (moe_gather)
+     bit-equal at Kimi K2's
      dispatch (8192 x 7168 bf16 tokens, 384 experts x capacity 216) and
      on rows that are no multiple of 16 bytes; every tuned kernel (K1,
      K2, K3, K4 at k = 1, K5, K6) bit-equal to its plain version at
@@ -73,6 +79,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -81,6 +88,8 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # non-tensor-core peak, the rate for int ops
+TF32_OPS_PER_S = 495e12        # dense tensor-core peak, TF32
+FADD_CYCLES = 4                # dependent fp32 add latency, cycles
 EDGE_FACTOR = 16
 BATCH = 4
 TC_SCALE = 18
@@ -118,6 +127,15 @@ def _smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0]
+
+
+def _sm_clock_mhz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    return float(out[0])
 
 
 def _nvcc_version(runtime) -> str:
@@ -179,6 +197,70 @@ def _attention_pairs(np, sq, sk, causal) -> int:
         return sq * sk
     return int(np.clip(np.arange(sq, dtype=np.int64) + (sk - sq + 1), 0,
                        sk).sum())
+
+
+def _attention_parts(torch, K, P, q, k, v, nsplit, rtol, atol, record):
+    """K7's split form and the combine kernel, each against its plain
+    version on the same inputs: every part's m within 1e-5 and its acc /
+    l within (rtol, atol) (the parts are fp32; rtol is the output
+    type's), and the combine within (rtol, atol) of the plain combine of
+    the kernel's parts. With ``record``, time the combine."""
+    causal = True
+    acc, ml = K.attention_partials(q, k, v, causal, nsplit)
+    pacc, pml = P.attention_partials(q, k, v, causal, nsplit)
+    err_m = float((ml[..., 0] - pml[..., 0]).abs().max())
+    got = acc / ml[..., 1:].clamp_min(1e-30)
+    want = pacc / pml[..., 1:].clamp_min(1e-30)
+    err_p = (got - want).abs()
+    if err_m > 1e-5 * (1 + float(pml[..., 0].abs().max())) or bool(
+            (err_p > atol + rtol * want.abs()).any()) or not torch.equal(
+            ml[..., 1] == 0, pml[..., 1] == 0):
+        raise AssertionError(f"flash_attention parts off their plain "
+                             f"version: m by {err_m:.3g}, acc / l by "
+                             f"{float(err_p.max()):.3g}")
+    out = K.attention_combine(acc, ml, q.dtype)
+    pout = P.attention_combine(acc, ml, q.dtype).float()
+    err_c = (out.float() - pout).abs()
+    if bool((err_c > atol + rtol * pout.abs()).any()):
+        raise AssertionError(f"attention_combine off its plain version by "
+                             f"{float(err_c.max()):.3g}")
+    sq, d = q.shape
+    print(f"K7 parts: {nsplit} kv parts of Sq={sq} D={d} {q.dtype}: m "
+          f"within {err_m:.3g}, acc / l within {float(err_p.max()):.3g} of "
+          f"the plain parts; combine within {float(err_c.max()):.3g} of the "
+          f"plain combine")
+    if record is not None:
+        ms = _timed(torch, lambda: K.attention_combine(acc, ml, q.dtype), 20)
+        pms = _timed(torch, lambda: P.attention_combine(acc, ml, q.dtype), 5)
+        nbytes = nsplit * sq * (d + 2) * 4 + sq * d * q.element_size()
+        print(f"K7 attention_combine {nsplit} x ({sq}, {d}) -> {q.dtype}: "
+              f"{ms:.4f} ms, plain {pms:.4f} ms, bound "
+              f"{_bound_ms(nbytes, 0)[0]:.4f} ms")
+        record("attention_combine", float(err_c.max()), ms, pms, nbytes, 0)
+
+
+def _hmma_counts(runtime) -> dict:
+    """HMMA (tensor-core) instructions in each attention kernel of the
+    built library, from its SASS (cuobjdump, demangled by cu++filt)."""
+    nvcc = Path(runtime._nvcc())
+    lib = runtime.BUILD_ROOT / runtime._digest() / "libattention.so"
+    sass = subprocess.run([str(nvcc.with_name("cuobjdump")), "-sass",
+                           str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    filt = nvcc.with_name("cu++filt")
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    if filt.exists() and counts:
+        names = subprocess.run([str(filt)], input="\n".join(counts),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+        counts = dict(zip(names, counts.values()))
+    return counts
 
 
 def _fourth_slice_kernels(torch, np, K, P, tuner, SR, g, gs, dev, record):
@@ -284,15 +366,29 @@ def _fourth_slice_kernels(torch, np, K, P, tuner, SR, g, gs, dev, record):
                 ops = 4 * _attention_pairs(np, sq, sk, causal) * head
                 nbytes = 2 * (sq + sk) * head * q.element_size()
                 bound = _bound_ms(nbytes, ops, rate)[0]
+                # the rate the kernel issues at: fp32 three TF32 products
+                # for each, bf16 two for P V (4 operations take 6)
+                issue = (TF32_OPS_PER_S / 3 if dtype == torch.float32
+                         else BF16_OPS_PER_S * 4 / 6)
+                nsplit = K.attention_splits(sq, sk, dtype, K.sm_count(dev))
                 print(f"K7 flash_attention {model} D={head} "
-                      f"{str(dtype)[6:]} {label} Sq={sq} Sk={sk}: "
-                      f"{ms:.3f} ms, plain {pms:.3f} ms, sdpa {lms:.3f} "
-                      f"ms, bound {bound:.4f} ms, max |error| "
-                      f"{float(err.max()):.3g} (limit {atol:g} + {rtol:g} |want|)")
+                      f"{str(dtype)[6:]} {label} Sq={sq} Sk={sk} "
+                      f"(kv parts {nsplit}): {ms:.3f} ms, plain {pms:.3f} "
+                      f"ms, sdpa {lms:.3f} ms, bound {bound:.4f} ms at "
+                      f"{rate / 1e12:.0f} TFLOP/s, "
+                      f"{_bound_ms(nbytes, ops, issue)[0]:.4f} ms at the "
+                      f"tensor-core rate the kernel issues "
+                      f"({issue / 1e12:.0f} TFLOP/s), max |error| "
+                      f"{float(err.max()):.3g} (limit {atol:g} + {rtol:g} "
+                      f"|want|)")
                 if (head, dtype, label) == (QWEN2_VL_HEAD, torch.bfloat16,
                                             "prefill"):
                     record("flash_attention", float(err.max()), ms, pms,
                            nbytes, ops, lms, rate)
+                if head == QWEN2_VL_HEAD and label == "chunk":
+                    _attention_parts(torch, K, P, q, k, v, nsplit, rtol,
+                                     atol, record if dtype == torch.bfloat16
+                                     else None)
                 attention.append((q, k, v, causal, rtol, atol))
                 del got, want, err, mask
     torch.cuda.empty_cache()
@@ -436,7 +532,8 @@ def _fourth_slice_path(torch, K, P, tuner, runtime, root, dev, fourth):
           f"kernel API {api_s * 1e3:.1f} ms")
     missing = [k for k in ("advance_filter_batch", "compact",
                            "advance_batch", "spmv", "lb_expand",
-                           "flash_attention", "moe_gather")
+                           "flash_attention", "attention_combine",
+                           "moe_gather")
                if launches4[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -530,6 +627,17 @@ def main(argv=None) -> int:
         raise built["error"]
     print(f"kernels built and loaded in {built['seconds']:.2f} s "
           f"(one nvcc per source, in parallel)")
+    # K7 runs on the tensor cores in every input type and head width
+    hmma = {}
+    for name, c in _hmma_counts(runtime).items():
+        if "attn_kernel" in name:
+            short = re.search(r"attn_kernel<[^>]*>", name)
+            hmma[short.group(0) if short else name] = c
+    if len(hmma) != 12 or min(hmma.values()) == 0:
+        raise AssertionError(f"attention kernels without tensor-core "
+                             f"instructions in their SASS: {hmma}")
+    print("K7 SASS (cuobjdump): HMMA instructions per instantiation: "
+          + ", ".join(f"{k} {c}" for k, c in sorted(hmma.items())))
     n, m, b = g.num_vertices, g.num_edges, BATCH
     deg_np = g.degrees.cpu().numpy()
     print(f"rmat scale {args.scale} edge factor {EDGE_FACTOR}: "
@@ -741,6 +849,26 @@ def main(argv=None) -> int:
           f"version on the CPU ({plain_cpu_s:.1f} s there), max "
           f"|kernel-library|/|library| {err_lib:.3g}")
     record("spmv", err4, ms, pms, nbytes, 2 * m, lms)
+    # where its time goes: the light rows (degree <= width, the tree
+    # alone) and the heavy rows (the tree and the ordered overflow) as
+    # masks of the same sweep, and the floor the fixed order sets: the
+    # longest overflow's dependent adds at the card's maximum SM clock
+    cdeg = (g.csc_offsets[1:] - g.csc_offsets[:-1]).long()
+    cw = g.csc_ell_width
+    heavy_rows = cdeg > cw
+    split_ms = {}
+    for label, rows in (("light", ~heavy_rows), ("heavy", heavy_rows)):
+        args_m = spmv_args[:6] + (rows,) + spmv_args[7:]
+        split_ms[label] = _timed(torch, lambda: K.spmv(*args_m), 20)
+    longest = int((cdeg - cw).clamp(min=0).max())
+    mhz = _sm_clock_mhz()
+    floor_ms = longest * FADD_CYCLES / (mhz * 1e6) * 1e3
+    print(f"K4 spmv split: light rows ({int((~heavy_rows).sum())}, degree "
+          f"<= {cw}) {split_ms['light']:.3f} ms, heavy rows "
+          f"({int(heavy_rows.sum())}) {split_ms['heavy']:.3f} ms; byte "
+          f"bound {_bound_ms(nbytes, 0)[0]:.3f} ms, serial-chain floor "
+          f"{floor_ms:.3f} ms (the longest overflow, {longest} ordered adds "
+          f"x {FADD_CYCLES} cycles at {mhz:.0f} MHz)")
     del a_csr, y_k, y_l, y_c
     torch.cuda.empty_cache()
 

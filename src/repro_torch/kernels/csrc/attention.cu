@@ -1,243 +1,517 @@
-// Single-head fused attention with an online softmax (K7) for Hopper.
+// Single-head fused attention with an online softmax (K7) on Hopper's
+// tensor cores, and the combine pass of its split-kv form.
 //
 // Replaces the TPU kernel flash_attention_kernel
 // (src/repro/kernels/flash_attention.py:74): o = softmax(q k^T / sqrt(D))
 // v for q (Sq, D) and k, v (Sk, D), fp32, bf16 or fp16, with the causal
 // mask aligned to the ends (query i sees keys j <= i + Sk - Sq). Scores,
-// softmax statistics and the accumulator are fp32, as in the reference,
-// which casts its tiles to fp32 before both products; the output is
-// rounded to q's type once, at the end.
+// softmax statistics and the accumulator are fp32, as in the reference;
+// the output is rounded to q's type once, at the end.
 //
 // The Pallas kernel runs a (q tiles, kv tiles) grid whose kv axis goes in
-// order, carrying the running max, normaliser and accumulator across grid
-// steps in VMEM scratch. CUDA blocks run in no order, so here that axis is
-// a loop inside one block per 64-query tile: the block keeps its Q tile
-// in shared memory and its 64 x D accumulator in registers (4 rows x D/16
-// columns a thread), and stages each 64-key K and V tile in shared memory,
-// converted to fp32. Per kv tile:
-//   1. scores: each thread 4 x 4 of the 64 x 64 tile, fp32 FMAs over D
-//      (rows ty + 16 i, columns tx + 16 j; the Q and K rows are padded by
-//      one float so neither read conflicts on a bank);
-//   2. the reference's update, four threads per row: s = dot * scale,
-//      s = -1e30 where masked, m' = max(m, max s), alpha = exp(m - m'),
-//      p = exp(s - m') and 0 where masked, l' = alpha l + sum p;
-//   3. acc = alpha acc + p v.
-// At the end o = acc / max(l, 1e-30). The finite -1e30 and the clamp are
-// the reference's (flash_attention.py:25, :68): a row that sees no key
-// (Sq > Sk, causal) comes out 0, where -inf would give exp(-inf + inf) =
-// NaN. Kv tiles wholly past a q tile's last visible key are skipped:
-// in the reference they leave m, l and acc as they were (alpha = 1,
-// p = 0), so the numbers are the same.
-// The card's kernel picks its own tiles (64 x 64): the wrapper's bq and
-// bk are the Pallas kernel's, and other tiles change only the order of
-// the float sums.
-// Shared memory: (64 (D'+1) x 2 + 64 D' + 64 x 65 + 3 x 64) x 4 bytes
-// for D' = D rounded up to 64, 128 or 256 (214,528 bytes at D' = 256),
-// above the 48 KB default, so each instantiation raises its limit with
-// cudaFuncSetAttribute once.
-// Bound: 4 Sq Sk D operations (2 Sq Sk D causal, about half the tiles)
-// at the card's rate for the input type (fp32 on CUDA cores here, so 67
-// TFLOP/s; bf16 counts at the tensor cores' 989), or q, k, v and o moved
-// once, whichever is longer. This first version uses fp32 FMAs on the
-// CUDA cores for every input type: no tensor cores.
+// order, carrying the running max m, normaliser l and accumulator acc
+// across grid steps in VMEM. Here a block of 4 warps owns a 64-query tile
+// (16 rows a warp) and walks a range of kv tiles in a loop; K and V tiles
+// are double-buffered in shared memory by cp.async, the next tile in
+// flight while the block works on this one. Per kv tile and warp:
+//   1. S = Q K^T on the tensor cores, fp32 accumulation (mma.sync):
+//      bf16 and fp16 run m16n8k16 in the input type, fragments by
+//      ldmatrix (products of 16-bit values are exact in fp32, so only the
+//      order of the sums differs from the reference's fp32 dot); fp32
+//      runs 3xTF32 (m16n8k8): each operand a = hi + lo, hi rounded to
+//      tf32 and lo the rest, and S += lo_a hi_b + hi_a lo_b + hi_a hi_b,
+//      about 21 bits;
+//   2. the reference's update on the S fragments, in registers: s = dot *
+//      scale, -1e30 where masked, m' = max(m, max s) over the row (a quad
+//      of lanes shares a row), alpha = exp(m - m'), p = exp(s - m') and 0
+//      where masked, l' = alpha l + sum p;
+//   3. acc = alpha acc + P V on the tensor cores. P is fp32 as in the
+//      reference: in bf16 / fp16 it is split into p_hi = rn(p) and p_lo =
+//      rn(p - p_hi) of the input type and both pieces multiply V (two
+//      MMAs, about 16 bits of p; fp16 scales p by 2^12 first so that the
+//      low piece of a small p stays normal, and the result by 2^-12, both
+//      exact); fp32 runs 3xTF32 again. The S fragments are the A
+//      fragments of P V without a trip through shared memory (fp32 takes
+//      a tile's keys in the order 2t, 2t+1 of each 8, which only reorders
+//      the sum).
+// Head widths that are multiples of 8 run in a tile of D' = 32, 64, 128
+// or 256 columns whose padding is zero in shared memory.
+//
+// Balanced work: the q tiles go longest first (block 0 takes the last
+// tile, which sees the most keys under the causal mask), and the wrapper
+// splits each q tile's kv range into `nsplit` parts of whole tiles when
+// the q tiles alone cannot fill the card about twice over (a 128-query
+// chunk against 8192 keys has 2 q tiles). With nsplit = 1 the block
+// writes o = acc / max(l, 1e-30); with nsplit > 1 it writes its (m, l,
+// acc) in fp32 to the wrapper's workspace, and attn_combine merges the
+// parts: M = max m_s, w_s = exp(m_s - M), o = sum w_s acc_s / max(sum w_s
+// l_s, 1e-30). A part that sees no key carries m = -1e30, l = 0, acc = 0.
+// The finite -1e30 and the clamp are the reference's
+// (flash_attention.py:25, :68): a row that sees no key comes out exactly
+// 0, where -inf would give NaN. Kv tiles wholly past a q tile's last
+// visible key are not visited: in the reference they leave m, l and acc
+// as they were.
+//
+// Bound: 4 Sq Sk D operations (about half under the causal mask) at the
+// tensor cores' rate for the input type; the fp32 form issues three TF32
+// products for each (1/3 of 495 TFLOP/s), the 16-bit form two for P V;
+// or q, k, v and o moved once, whichever is longer.
 #include "common.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kBQ = 64;               // queries per block
-constexpr int kBK = 64;               // keys per kv tile
-constexpr int kAttnThreads = 256;     // 16 x 16 threads
+constexpr int kBQ = 64;               // queries per block, 16 a warp
+constexpr int kAttnThreads = 128;     // 4 warps
 constexpr float kNegBig = -1e30f;     // the reference's NEG_INF
+constexpr float kP16Scale = 4096.0f;  // fp16's p scale, 2^12
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// kv tile: 64 keys for 16-bit inputs, 32 for fp32 (its tiles are twice
+// the bytes; 32 keeps two blocks on an SM at D' = 128)
+template <typename T>
+__host__ __device__ constexpr int kv_tile() {
+  return std::is_same<T, float>::value ? 32 : 64;
 }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+
+// shared-memory row stride in elements: 16 bytes of padding, so the
+// ldmatrix rows (16-bit) and the fragment loads (fp32) hit distinct banks
+template <typename T, int DP>
+__host__ __device__ constexpr int row_stride() {
+  return DP + 16 / static_cast<int>(sizeof(T));
+}
+
+template <typename T, int DP>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return static_cast<size_t>(kBQ + 4 * kv_tile<T>()) * row_stride<T, DP>() *
+         sizeof(T);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// D += A B, m16n8k16, 16-bit inputs, fp32 accumulation
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const unsigned (&a)[4],
+                                      unsigned b0, unsigned b1) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// D += A B, m16n8k8, tf32 inputs, fp32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo: hi rounded to tf32, lo = x - hi exactly in fp32, of
+// which the tensor cores read the top 19 bits (a tf32 truncation, an
+// error of at most 2^-10 |lo| <= 2^-21 |x|)
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// (x, y) -> one register of two 16-bit values, x in the low half; the
+// rounding residues into lo
+template <typename T>
+__device__ __forceinline__ unsigned pack_split(float x, float y,
+                                               unsigned& lo) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(
+        x - __bfloat162float(h.x), y - __bfloat162float(h.y));
+    lo = *reinterpret_cast<const unsigned*>(&l);
+    return *reinterpret_cast<const unsigned*>(&h);
+  } else {
+    const __half2 h = __floats2half2_rn(x, y);
+    const __half2 l = __floats2half2_rn(x - __low2float(h),
+                                        y - __high2float(h));
+    lo = *reinterpret_cast<const unsigned*>(&l);
+    return *reinterpret_cast<const unsigned*>(&h);
+  }
+}
 
 template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
+__device__ __forceinline__ void store2(T* p, float x, float y) {
+  if constexpr (std::is_same<T, float>::value) {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+  } else {
+    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
+  }
 }
 
-__host__ __device__ constexpr size_t attn_smem_bytes(int dp) {
-  return (static_cast<size_t>(kBQ) * (dp + 1) +
-          static_cast<size_t>(kBK) * (dp + 1) +
-          static_cast<size_t>(kBK) * dp + static_cast<size_t>(kBQ) *
-          (kBK + 1) + 3 * kBQ) * sizeof(float);
-}
-
-// load rows [r0, r0 + rows) of a (n, d) matrix into a (rows, stride)
-// fp32 tile, zero past row n (columns past d are never read)
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, int n,
-                                          int d, int r0, int rows,
-                                          float* dst, int stride) {
-  for (int idx = threadIdx.x; idx < rows * d; idx += kAttnThreads) {
-    const int r = idx / d, c = idx - r * d;
+// rows [r0, r0 + rows) of a (n, d) matrix into a shared tile of stride S,
+// 16-byte copies, zero past row n
+template <typename T, int S>
+__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src,
+                                          int n, int d, int r0, int rows) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int per_row = d / kVec;
+  for (int i = threadIdx.x; i < rows * per_row; i += kAttnThreads) {
+    const int r = i / per_row, c = (i - r * per_row) * kVec;
     const int g = r0 + r;
-    dst[r * stride + c] =
-        g < n ? to_f(src[static_cast<size_t>(g) * d + c]) : 0.0f;
+    const bool ok = g < n;
+    cp_async16(dst + r * S + c,
+               src + (static_cast<size_t>(ok ? g : 0) * d + c), ok);
   }
 }
 
 template <typename T, int DP>
 __global__ void __launch_bounds__(kAttnThreads)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-            int d, float scale, int causal) {
-  extern __shared__ float smem[];
-  constexpr int QS = DP + 1;          // padded row stride of Q and K
-  constexpr int PS = kBK + 1;         // padded row stride of P
-  constexpr int NJ = DP / 16;         // accumulator columns a thread
-  float* sQ = smem;
-  float* sK = sQ + kBQ * QS;
-  float* sV = sK + kBK * QS;
-  float* sP = sV + kBK * DP;
-  float* sM = sP + kBQ * PS;
-  float* sL = sM + kBQ;
-  float* sA = sL + kBQ;
+            const T* __restrict__ v, T* __restrict__ o,
+            float* __restrict__ ws_acc, float* __restrict__ ws_ml, int sq,
+            int sk, int d, float scale, int causal, int nsplit) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr bool kF16 = std::is_same<T, __half>::value;
+  constexpr int BK = kv_tile<T>();
+  constexpr int S = row_stride<T, DP>();
+  constexpr int NS = BK / 8;            // S fragments (8 keys each)
+  constexpr int ND = DP / 8;            // accumulator fragments (8 cols)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sK[2] = {sQ + kBQ * S, sQ + (kBQ + 2 * BK) * S};
+  T* sV[2] = {sQ + (kBQ + BK) * S, sQ + (kBQ + 3 * BK) * S};
+
   const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int q0 = blockIdx.x * kBQ;
-  const int shift = sk - sq;          // query i sees keys j <= i + shift
-
-  load_tile(q, sq, d, q0, kBQ, sQ, QS);
-  if (tid < kBQ) {
-    sM[tid] = kNegBig;
-    sL[tid] = 0.0f;
-  }
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-  }
-  // keys past the tile's last query's limit are masked for every row
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nq = (sq + kBQ - 1) / kBQ;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x) / nsplit;
+  const int split = static_cast<int>(blockIdx.x) % nsplit;
+  const int q0 = qt * kBQ;
+  const int shift = sk - sq;            // query i sees keys j <= i + shift
   int kend = sk;
-  if (causal) kend = min(sk, min(q0 + kBQ, sq) + shift);
+  if (causal) kend = max(0, min(sk, min(q0 + kBQ, sq) + shift));
+  const int ntile = (kend + BK - 1) / BK;
+  const int per = (ntile + nsplit - 1) / nsplit;
+  const int t0 = min(split * per, ntile);
+  const int t1 = min(t0 + per, ntile);
 
-  for (int k0 = 0; k0 < kend; k0 += kBK) {
-    __syncthreads();                  // the last tile's reads are done
-    load_tile(k, sk, d, k0, kBK, sK, QS);
-    load_tile(v, sk, d, k0, kBK, sV, DP);
-    __syncthreads();
-
-    // 1. scores
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-    }
-#pragma unroll 8
-    for (int c = 0; c < d; ++c) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 16 * i) * QS + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * QS + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = __fmaf_rn(qv[i], kv[j], s[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int kj = k0 + c;
-        const bool ok = kj < sk && (!causal || kj <= q0 + r + shift);
-        sP[r * PS + c] = ok ? __fmul_rn(s[i][j], scale) : kNegBig;
-      }
-    }
-    __syncthreads();
-
-    // 2. the online-softmax update, four threads per row
-    {
-      const int r = tid >> 2, part = tid & 3;
-      float* row = sP + r * PS + part * 16;
-      float mx = kNegBig;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) mx = fmaxf(mx, row[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      const float m_prev = sM[r];
-      const float m_cur = fmaxf(m_prev, mx);
-      const float alpha = expf(m_prev - m_cur);
-      float sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const int kj = k0 + part * 16 + c;
-        const bool ok = kj < sk && (!causal || kj <= q0 + r + shift);
-        const float p = ok ? expf(row[c] - m_cur) : 0.0f;
-        row[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(kFull, sum, 1);
-      sum += __shfl_xor_sync(kFull, sum, 2);
-      __syncwarp();
-      if (part == 0) {
-        sM[r] = m_cur;
-        sL[r] = alpha * sL[r] + sum;
-        sA[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // 3. acc = alpha acc + p v
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = sA[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= a;
-    }
-    const int kn = min(kBK, kend - k0);
-    for (int kk = 0; kk < kn; ++kk) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty + 16 * i) * PS + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float vv = sV[kk * DP + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = __fmaf_rn(pv[i], vv, acc[i][j]);
-      }
+  // the padding columns [d, DP) of every tile are zero
+  if (d < DP) {
+    const int pad = DP - d;
+    for (int i = tid; i < (kBQ + 4 * BK) * pad; i += kAttnThreads) {
+      const int r = i / pad;
+      sQ[r * S + d + (i - r * pad)] = T(0.0f);
     }
   }
-  __syncthreads();
+  load_rows<T, S>(sQ, q, sq, d, q0, kBQ);
+  if (t0 < t1) {
+    load_rows<T, S>(sK[0], k, sk, d, t0 * BK, BK);
+    load_rows<T, S>(sV[0], v, sk, d, t0 * BK, BK);
+  }
+  cp_async_commit();
+
+  const int row_lo = q0 + warp * 16 + g;    // this thread's two rows
+  float m_run[2] = {kNegBig, kNegBig};
+  float l_run[2] = {0.0f, 0.0f};            // this thread's part of l
+  float acc[ND][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int qi = q0 + r;
-    if (qi >= sq) continue;
-    const float l = fmaxf(sL[r], 1e-30f);
+  for (int i = 0; i < ND; ++i) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < d) o[static_cast<size_t>(qi) * d + c] = from_f<T>(acc[i][j] / l);
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+  }
+
+  for (int tile = t0; tile < t1; ++tile) {
+    const int cur = (tile - t0) & 1;
+    if (tile + 1 < t1) {
+      load_rows<T, S>(sK[cur ^ 1], k, sk, d, (tile + 1) * BK, BK);
+      load_rows<T, S>(sV[cur ^ 1], v, sk, d, (tile + 1) * BK, BK);
+    }
+    cp_async_commit();
+    cp_async_wait_1();                      // this tile (and Q) landed
+    __syncthreads();
+    const T* cK = sK[cur];
+    const T* cV = sV[cur];
+    const int k0 = tile * BK;
+
+    // 1. S = Q K^T
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+    }
+    if constexpr (kF32) {
+      const T* qa = sQ + (warp * 16 + g) * S + t;
+#pragma unroll 4
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        unsigned ahi[4], alo[4];
+        split_tf32(qa[8 * kk], ahi[0], alo[0]);
+        split_tf32(qa[8 * S + 8 * kk], ahi[1], alo[1]);
+        split_tf32(qa[8 * kk + 4], ahi[2], alo[2]);
+        split_tf32(qa[8 * S + 8 * kk + 4], ahi[3], alo[3]);
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const T* kb = cK + (8 * j + g) * S + 8 * kk + t;
+          unsigned bhi0, blo0, bhi1, blo1;
+          split_tf32(kb[0], bhi0, blo0);
+          split_tf32(kb[4], bhi1, blo1);
+          mma_tf32(s[j], alo, bhi0, bhi1);
+          mma_tf32(s[j], ahi, blo0, blo1);
+          mma_tf32(s[j], ahi, bhi0, bhi1);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        unsigned a[4];
+        ldsm_x4(a, sQ + (warp * 16 + (lane & 15)) * S + 16 * kk +
+                       8 * (lane >> 4));
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          unsigned b[4];
+          ldsm_x4(b, cK + (16 * np + (lane & 7) + 8 * (lane >> 4)) * S +
+                         16 * kk + 8 * ((lane >> 3) & 1));
+          mma16<T>(s[2 * np], a, b[0], b[1]);
+          mma16<T>(s[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+    }
+
+    // 2. the online-softmax update; element e of fragment j is row
+    // row_lo + 8 (e >> 1), key k0 + 8 j + 2 t + (e & 1)
+    // (a tile that all 16 of the warp's rows see whole needs no mask)
+    unsigned ok = ~0u;
+    if (k0 + BK > sk ||
+        (causal && k0 + BK - 1 > q0 + warp * 16 + shift)) {
+      ok = 0;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = row_lo + 8 * (e >> 1);
+          const bool vis = key < sk && (!causal || key <= row + shift);
+          ok |= static_cast<unsigned>(vis) << (4 * j + e);
+        }
+      }
+    }
+    float mx[2] = {kNegBig, kNegBig};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = (ok >> (4 * j + e)) & 1u ? s[j][e] * scale : kNegBig;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      const float m_cur = fmaxf(m_run[r], mx[r]);
+      alpha[r] = expf(m_run[r] - m_cur);
+      m_run[r] = m_cur;
+    }
+    float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = (ok >> (4 * j + e)) & 1u
+                            ? expf(s[j][e] - m_run[e >> 1]) : 0.0f;
+        s[j][e] = p;
+        sum[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = alpha[r] * l_run[r] + sum[r];
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      acc[i][0] *= alpha[0];
+      acc[i][1] *= alpha[0];
+      acc[i][2] *= alpha[1];
+      acc[i][3] *= alpha[1];
+    }
+
+    // 3. acc += P V
+    if constexpr (kF32) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        unsigned phi[4], plo[4];
+        split_tf32(s[j][0], phi[0], plo[0]);   // (row g, key 2t)
+        split_tf32(s[j][2], phi[1], plo[1]);   // (row g + 8, key 2t)
+        split_tf32(s[j][1], phi[2], plo[2]);   // (row g, key 2t + 1)
+        split_tf32(s[j][3], phi[3], plo[3]);   // (row g + 8, key 2t + 1)
+        const T* vb = cV + (8 * j + 2 * t) * S + g;
+#pragma unroll
+        for (int i = 0; i < ND; ++i) {
+          unsigned bhi0, blo0, bhi1, blo1;
+          split_tf32(vb[8 * i], bhi0, blo0);
+          split_tf32(vb[S + 8 * i], bhi1, blo1);
+          mma_tf32(acc[i], plo, bhi0, bhi1);
+          mma_tf32(acc[i], phi, blo0, blo1);
+          mma_tf32(acc[i], phi, bhi0, bhi1);
+        }
+      }
+    } else {
+      const float ps = kF16 ? kP16Scale : 1.0f;
+#pragma unroll
+      for (int kc = 0; kc < NS / 2; ++kc) {
+        unsigned phi[4], plo[4];
+        phi[0] = pack_split<T>(s[2 * kc][0] * ps, s[2 * kc][1] * ps, plo[0]);
+        phi[1] = pack_split<T>(s[2 * kc][2] * ps, s[2 * kc][3] * ps, plo[1]);
+        phi[2] = pack_split<T>(s[2 * kc + 1][0] * ps, s[2 * kc + 1][1] * ps,
+                               plo[2]);
+        phi[3] = pack_split<T>(s[2 * kc + 1][2] * ps, s[2 * kc + 1][3] * ps,
+                               plo[3]);
+#pragma unroll
+        for (int dp = 0; dp < DP / 16; ++dp) {
+          unsigned b[4];
+          ldsm_x4_t(b, cV + (16 * kc + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                                S + 16 * dp + 8 * (lane >> 4));
+          mma16<T>(acc[2 * dp], plo, b[0], b[1]);
+          mma16<T>(acc[2 * dp], phi, b[0], b[1]);
+          mma16<T>(acc[2 * dp + 1], plo, b[2], b[3]);
+          mma16<T>(acc[2 * dp + 1], phi, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();                        // the buffer may be refilled
+  }
+  cp_async_wait_all();                      // nothing left in flight
+
+  // the row's l is the sum over its quad of lanes
+  float l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = l_run[r] + __shfl_xor_sync(kFull, l_run[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+  }
+  const float unscale = kF16 ? 1.0f / kP16Scale : 1.0f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
+    if (row >= sq) continue;
+    if (nsplit == 1) {
+      const float den = fmaxf(l[r], 1e-30f);
+      T* orow = o + static_cast<size_t>(row) * d;
+#pragma unroll
+      for (int i = 0; i < ND; ++i) {
+        const int c = 8 * i + 2 * t;
+        if (c < d) {
+          store2<T>(orow + c, acc[i][2 * r] * unscale / den,
+                    acc[i][2 * r + 1] * unscale / den);
+        }
+      }
+    } else {
+      const size_t at = static_cast<size_t>(split) * sq + row;
+      float* arow = ws_acc + at * d;
+#pragma unroll
+      for (int i = 0; i < ND; ++i) {
+        const int c = 8 * i + 2 * t;
+        if (c < d) {
+          store2<float>(arow + c, acc[i][2 * r] * unscale,
+                        acc[i][2 * r + 1] * unscale);
+        }
+      }
+      if (t == 0) {
+        ws_ml[2 * at] = m_run[r];
+        ws_ml[2 * at + 1] = l[r];
+      }
     }
   }
 }
 
+// o[row] = sum_s w_s acc_s[row] / max(sum_s w_s l_s, 1e-30), w_s =
+// exp(m_s - max m): one warp per row, lanes over the columns
+template <typename T>
+__global__ void __launch_bounds__(kAttnThreads)
+attn_combine(const float* __restrict__ ws_acc, const float* __restrict__ ws_ml,
+             T* __restrict__ o, int sq, int d, int nsplit) {
+  const int row = blockIdx.x * (kAttnThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= sq) return;
+  float mx = kNegBig;
+  for (int s = 0; s < nsplit; ++s) {
+    mx = fmaxf(mx, ws_ml[2 * (static_cast<size_t>(s) * sq + row)]);
+  }
+  float l = 0.0f;
+  for (int s = 0; s < nsplit; ++s) {
+    const size_t at = static_cast<size_t>(s) * sq + row;
+    l += expf(ws_ml[2 * at] - mx) * ws_ml[2 * at + 1];
+  }
+  const float den = fmaxf(l, 1e-30f);
+  for (int c = 2 * lane; c < d; c += 64) {
+    float x = 0.0f, y = 0.0f;
+    for (int s = 0; s < nsplit; ++s) {
+      const size_t at = static_cast<size_t>(s) * sq + row;
+      const float w = expf(ws_ml[2 * at] - mx);
+      const float2 a = *reinterpret_cast<const float2*>(ws_acc + at * d + c);
+      x += w * a.x;
+      y += w * a.y;
+    }
+    store2<T>(o + static_cast<size_t>(row) * d + c, x / den, y / den);
+  }
+}
+
 template <typename T, int DP>
-int launch(const void* q, const void* k, const void* v, void* o, int sq,
-           int sk, int d, float scale, int causal, cudaStream_t st) {
-  constexpr size_t bytes = attn_smem_bytes(DP);
+int launch(const void* q, const void* k, const void* v, void* o,
+           float* ws_acc, float* ws_ml, int sq, int sk, int d, float scale,
+           int causal, int nsplit, cudaStream_t st) {
+  constexpr size_t bytes = smem_bytes<T, DP>();
   static bool raised = false;         // the smem limit, once per kernel
   if (!raised) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -246,44 +520,88 @@ int launch(const void* q, const void* k, const void* v, void* o, int sq,
     if (err != cudaSuccess) return static_cast<int>(err);
     raised = true;
   }
-  const int grid = (sq + kBQ - 1) / kBQ;
-  attn_kernel<T, DP><<<grid, kAttnThreads, bytes, st>>>(
+  const int nq = (sq + kBQ - 1) / kBQ;
+  attn_kernel<T, DP><<<nq * nsplit, kAttnThreads, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, d, scale,
-      causal);
+      static_cast<const T*>(v), static_cast<T*>(o), ws_acc, ws_ml, sq, sk,
+      d, scale, causal, nsplit);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int sq,
-             int sk, int d, float scale, int causal, cudaStream_t st) {
-  if (d <= 64) return launch<T, 64>(q, k, v, o, sq, sk, d, scale, causal, st);
-  if (d <= 128) {
-    return launch<T, 128>(q, k, v, o, sq, sk, d, scale, causal, st);
+int launch_d(const void* q, const void* k, const void* v, void* o,
+             float* ws_acc, float* ws_ml, int sq, int sk, int d,
+             float scale, int causal, int nsplit, cudaStream_t st) {
+#define REPRO_ATTN_D(DP)                                                  \
+  if (d <= DP) {                                                          \
+    return launch<T, DP>(q, k, v, o, ws_acc, ws_ml, sq, sk, d, scale,     \
+                         causal, nsplit, st);                             \
   }
-  return launch<T, 256>(q, k, v, o, sq, sk, d, scale, causal, st);
+  REPRO_ATTN_D(32)
+  REPRO_ATTN_D(64)
+  REPRO_ATTN_D(128)
+  REPRO_ATTN_D(256)
+#undef REPRO_ATTN_D
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16, 2 fp16. d: a multiple of 8 in [8, 256].
+// dtype: 0 fp32, 1 bf16, 2 fp16. d: a multiple of 8 in [8, 256]. With
+// nsplit = 1 writes o (Sq, d) in the input type; with nsplit > 1 writes
+// the parts' acc (nsplit, Sq, d) and (m, l) (nsplit, Sq, 2), fp32, to the
+// workspace and leaves o alone.
 EXPORT int flash_attention(int dtype, const void* q, const void* k,
-                           const void* v, void* o, int sq, int sk, int d,
-                           float scale, int causal, void* stream) {
-  if (d < 8 || d > 256 || d % 8 != 0) {
+                           const void* v, void* o, float* ws_acc,
+                           float* ws_ml, int sq, int sk, int d, float scale,
+                           int causal, int nsplit, void* stream) {
+  if (d < 8 || d > 256 || d % 8 != 0 || nsplit < 1 ||
+      (nsplit > 1 && (ws_acc == nullptr || ws_ml == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (sq == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_d<float>(q, k, v, o, sq, sk, d, scale, causal, st);
+      return launch_d<float>(q, k, v, o, ws_acc, ws_ml, sq, sk, d, scale,
+                             causal, nsplit, st);
     case 1:
-      return launch_d<__nv_bfloat16>(q, k, v, o, sq, sk, d, scale, causal,
-                                     st);
+      return launch_d<__nv_bfloat16>(q, k, v, o, ws_acc, ws_ml, sq, sk, d,
+                                     scale, causal, nsplit, st);
     case 2:
-      return launch_d<__half>(q, k, v, o, sq, sk, d, scale, causal, st);
+      return launch_d<__half>(q, k, v, o, ws_acc, ws_ml, sq, sk, d, scale,
+                              causal, nsplit, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// o (Sq, d) in the type `dtype` from the parts flash_attention wrote
+EXPORT int attention_combine(int dtype, const float* ws_acc,
+                             const float* ws_ml, void* o, int sq, int d,
+                             int nsplit, void* stream) {
+  if (d < 8 || d % 2 != 0 || nsplit < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (sq == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows = kAttnThreads / 32;
+  const int grid = (sq + rows - 1) / rows;
+  switch (dtype) {
+    case 0:
+      attn_combine<float><<<grid, kAttnThreads, 0, st>>>(
+          ws_acc, ws_ml, static_cast<float*>(o), sq, d, nsplit);
+      break;
+    case 1:
+      attn_combine<__nv_bfloat16><<<grid, kAttnThreads, 0, st>>>(
+          ws_acc, ws_ml, static_cast<__nv_bfloat16*>(o), sq, d, nsplit);
+      break;
+    case 2:
+      attn_combine<__half><<<grid, kAttnThreads, 0, st>>>(
+          ws_acc, ws_ml, static_cast<__half*>(o), sq, d, nsplit);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

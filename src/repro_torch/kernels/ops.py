@@ -10,7 +10,7 @@ Each wrapper takes the registry op's arguments, and
     current stream, raises if the launch returned a CUDA error, and adds
     one to the kernel's launch counter. It never falls back.
 
-``KERNELS`` lists the nine kernels with their sources, the TPU kernels
+``KERNELS`` lists the ten kernels with their sources, the TPU kernels
 they replace and their launch counters (``chip_smoke.py`` reads and
 resets them). The ``"mxm"`` provider is no kernel of its own: it runs
 K3 (the expansion) and K5 (the probe) through their wrappers.
@@ -32,6 +32,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..core import backend as B
 from ..linalg.ops import make_mxm_impl
@@ -71,6 +72,8 @@ KERNELS = {k.name: k for k in (
            "src/repro/kernels/lb_expand.py:53"),
     Kernel("flash_attention", "src/repro_torch/kernels/csrc/attention.cu",
            "src/repro/kernels/flash_attention.py:74"),
+    Kernel("attention_combine", "src/repro_torch/kernels/csrc/attention.cu",
+           "src/repro/kernels/flash_attention.py:74"),
     Kernel("moe_gather", "src/repro_torch/kernels/csrc/moe_gather.cu",
            "src/repro/kernels/moe_dispatch.py:38"),
 )}
@@ -91,7 +94,8 @@ _SIGNATURES = {
         [_P] * 5 + [_I] * 7 + [_P] * 9 + [_I, _P]),
     ("compact", "compact_batch"): (
         [_P, _L, _P, _I, _I] + [_P] * 4 + [_I, _P]),
-    ("spmv", "spmv"): [_I] + [_P] * 4 + [_I, _P, _I, _I, _P, _I, _P],
+    ("spmv", "spmv"): ([_I] + [_P] * 4 + [_I, _P, _I, _I, _P, _I, _I, _P,
+                                          _I, _P]),
     ("spmv", "spmm"): [_I] + [_P] * 4 + [_I, _I, _P, _I, _P, _P],
     ("search", "segment_search_found"): (
         [_P, _I] + [_P] * 3 + [_L, _P, _I, _P]),
@@ -99,7 +103,8 @@ _SIGNATURES = {
         [_P, _I] + [_P] * 3 + [_L, _P, _I, _P]),
     ("lb_expand", "lb_expand"): [_P, _I, _I, _I, _P, _P, _P, _I, _P],
     ("attention", "flash_attention"): (
-        [_I] + [_P] * 4 + [_I, _I, _I, ctypes.c_float, _I, _P]),
+        [_I] + [_P] * 6 + [_I, _I, _I, ctypes.c_float, _I, _I, _P]),
+    ("attention", "attention_combine"): [_I] + [_P] * 3 + [_I] * 3 + [_P],
     ("moe_gather", "moe_gather"): [_P, _I, _L, _I, _P, _L, _P, _P],
 }
 _fns: dict = {}
@@ -324,11 +329,41 @@ def compact(values: torch.Tensor, mask: torch.Tensor, *,
     return packed, totals
 
 
+# K4 gives each row whose overflow passes this many edges a block of its
+# own (csrc/spmv.cu)
+SPMV_BLOCK_OVER = 2048
+# offsets tensor -> {width: (heavy rows by degree, largest first; how many
+# of them get a block)}, made once per graph and dropped with its offsets
+_heavy_lists = WeakIdKeyDictionary()
+
+
+def spmv_heavy_rows(offsets: torch.Tensor, width: int):
+    """K4's schedule of a CSR: the rows of degree > ``width`` as int32,
+    sorted by degree, largest first (ties in row order), and how many of
+    them lead with an overflow of more than ``SPMV_BLOCK_OVER`` edges.
+    Made on the offsets' device at the first call for (offsets, width)
+    and kept while the offsets tensor lives: a graph's offsets do not
+    change."""
+    per = _heavy_lists.get(offsets)
+    if per is None:
+        per = _heavy_lists[offsets] = {}
+    hit = per.get(width)
+    if hit is None:
+        deg = offsets[1:] - offsets[:-1]
+        rows = torch.nonzero(deg > width).squeeze(1)
+        rows = rows[torch.sort(deg[rows], descending=True,
+                               stable=True).indices]
+        nvery = int((deg[rows] - width > SPMV_BLOCK_OVER).sum())
+        hit = per[width] = (rows.to(torch.int32).contiguous(), nvery)
+    return hit
+
+
 @B.register("spmv", B.CUDA)
 def spmv(offsets, indices, values, x, sr, ell_width, mask, row_seg=None,
          over_pos=None, over_row=None, *, threads: Optional[int] = None):
-    """K4: masked-semiring SpMV over the CSR, one warp per row, with the
-    reference's fixed fold (the overflow lists are implied by the CSR)."""
+    """K4: masked-semiring SpMV over the CSR with the reference's fixed
+    fold; the heavy rows first, ordered by ``spmv_heavy_rows`` (the
+    overflow lists are implied by the CSR)."""
     if offsets.device.type == "cpu":
         return ref.spmv(offsets, indices, values, x, sr, ell_width, mask,
                         row_seg, over_pos, over_row)
@@ -353,11 +388,13 @@ def spmv(offsets, indices, values, x, sr, ell_width, mask, row_seg=None,
     if int(indices.shape[0]) and int(x.shape[0]) == 0:
         raise ValueError("x is empty")
     nthr = _threads("spmv", n, dev, threads)
+    heavy, nvery = spmv_heavy_rows(offsets, width)
     y = torch.empty((n,), dtype=torch.float32, device=dev)
     _launch("spmv", "spmv", sr.code, runtime.ptr(offsets),
             runtime.ptr(indices), runtime.ptr(values), runtime.ptr(x),
-            int(x.shape[0]), runtime.ptr(mask), n, width, runtime.ptr(y),
-            nthr, runtime.stream_ptr(dev))
+            int(x.shape[0]), runtime.ptr(mask), n, width, runtime.ptr(heavy),
+            int(heavy.shape[0]), nvery, runtime.ptr(y), nthr,
+            runtime.stream_ptr(dev))
     KERNELS["spmv"].launches += 1
     return y
 
@@ -489,22 +526,35 @@ def lb_expand(sizes: torch.Tensor, cap_out: int, *,
 
 
 _ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_sm_counts: dict = {}
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, bq: int = 128,
-                    bk: int = 128) -> torch.Tensor:
-    """K7: single-head attention, q (Sq, D), k and v (Sk, D) of one type
-    (fp32, bf16 or fp16) → (Sq, D) in q's type; the causal mask is
-    aligned to the ends (query i sees keys j <= i + Sk - Sq) and a row
-    that sees no key is 0. Scores, softmax statistics and the sum are
-    fp32. ``bq`` and ``bk`` are the Pallas kernel's tiles, kept for the
-    reference's signature: the card's kernel picks its own (64 x 64),
-    which changes only the order of the float sums. On the card D is a
-    multiple of 8 up to 256."""
-    del bq, bk
-    if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal)
+def attention_splits(sq: int, sk: int, dtype: torch.dtype,
+                     sms: int) -> int:
+    """K7's kv splits per q tile on a card of ``sms`` SMs: 1 when the q
+    tiles of ``ref.ATTN_BQ`` queries fill the card about twice over, else
+    enough to, with at least two kv tiles a part where the longest q
+    tile's keys allow."""
+    nq = -(-sq // ref.ATTN_BQ)
+    ntile = -(-sk // ref.attention_kv_tile(dtype))
+    if nq == 0 or nq >= 2 * sms:
+        return 1
+    return max(1, min(-(-2 * sms // nq), ntile // 2))
+
+
+def sm_count(dev: torch.device) -> int:
+    """The card's number of SMs (K7's split count depends on it)."""
+    n = _sm_counts.get(dev.index)
+    if n is None:
+        n = _sm_counts[dev.index] = (
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+    return n
+
+
+def _attention_inputs(q, k, v):
+    """Check q (Sq, D), k and v (Sk, D) for K7; returns (dtype code, sq,
+    sk, d, q, k, v), each tensor 16-byte aligned for the kernel's
+    copies."""
     dev = q.device
     dtype = q.dtype
     if dtype not in _ATTN_DTYPES:
@@ -521,10 +571,86 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"8 up to 256")
     if max(sq, sk) * d > INT32_MAX:
         raise ValueError("sequence x head width beyond int32")
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+               for t in (q, k, v))
+    return _ATTN_DTYPES[dtype], sq, sk, d, q, k, v
+
+
+def attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, nsplit: int):
+    """K7 in its split form: each q tile's kv tiles cut into ``nsplit``
+    parts (``ref.attention_partials`` says how) → (acc (nsplit, Sq, D),
+    ml (nsplit, Sq, 2)) in fp32, a part's unnormalised sum and its (m,
+    l); a part that sees no key has m = -1e30 and l = acc = 0."""
+    if q.device.type == "cpu":
+        return ref.attention_partials(q, k, v, causal, nsplit)
+    if nsplit < 2:
+        raise ValueError("the split form takes nsplit >= 2")
+    code, sq, sk, d, q, k, v = _attention_inputs(q, k, v)
+    if nsplit * sq * d > INT32_MAX:
+        raise ValueError("nsplit x Sq x D beyond int32")
+    dev = q.device
+    acc = torch.empty((nsplit, sq, d), dtype=torch.float32, device=dev)
+    ml = torch.empty((nsplit, sq, 2), dtype=torch.float32, device=dev)
+    _launch("attention", "flash_attention", code, runtime.ptr(q),
+            runtime.ptr(k), runtime.ptr(v), runtime.ptr(None),
+            runtime.ptr(acc), runtime.ptr(ml), sq, sk, d,
+            ctypes.c_float(1.0 / math.sqrt(d)), int(bool(causal)), nsplit,
+            runtime.stream_ptr(dev))
+    KERNELS["flash_attention"].launches += 1
+    return acc, ml
+
+
+def attention_combine(acc: torch.Tensor, ml: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """K7's combine: o (Sq, D) in ``dtype`` from the parts of
+    ``attention_partials``: o = sum_s w_s acc_s / max(sum_s w_s l_s,
+    1e-30), w_s = exp(m_s - max m)."""
+    if acc.device.type == "cpu":
+        return ref.attention_combine(acc, ml, dtype)
+    dev = acc.device
+    _require(acc, "acc", torch.float32, 3, dev)
+    _require(ml, "ml", torch.float32, 3, dev)
+    nsplit, sq, d = (int(x) for x in acc.shape)
+    if tuple(ml.shape) != (nsplit, sq, 2):
+        raise ValueError("ml must be (nsplit, Sq, 2) beside acc")
+    if dtype not in _ATTN_DTYPES or d < 8 or d % 2:
+        raise ValueError("bad dtype or head width")
     out = torch.empty((sq, d), dtype=dtype, device=dev)
-    _launch("attention", "flash_attention", _ATTN_DTYPES[dtype],
-            runtime.ptr(q), runtime.ptr(k), runtime.ptr(v), runtime.ptr(out),
-            sq, sk, d, ctypes.c_float(1.0 / math.sqrt(d)), int(bool(causal)),
+    _launch("attention", "attention_combine", _ATTN_DTYPES[dtype],
+            runtime.ptr(acc), runtime.ptr(ml), runtime.ptr(out), sq, d,
+            nsplit, runtime.stream_ptr(dev))
+    KERNELS["attention_combine"].launches += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, bq: int = 128,
+                    bk: int = 128) -> torch.Tensor:
+    """K7: single-head attention, q (Sq, D), k and v (Sk, D) of one type
+    (fp32, bf16 or fp16) → (Sq, D) in q's type; the causal mask is
+    aligned to the ends (query i sees keys j <= i + Sk - Sq) and a row
+    that sees no key is 0. Scores, softmax statistics and the sum are
+    fp32. ``bq`` and ``bk`` are the Pallas kernel's tiles, kept for the
+    reference's signature: the card's kernel picks its own (64 queries,
+    64 keys in bf16 / fp16 and 32 in fp32), which changes only the order
+    of the float sums. When the q tiles cannot fill the card, each one's
+    keys are split over ``attention_splits`` blocks and the combine
+    kernel merges them. On the card D is a multiple of 8 up to 256."""
+    del bq, bk
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal)
+    code, sq, sk, d, q, k, v = _attention_inputs(q, k, v)
+    dev = q.device
+    nsplit = attention_splits(sq, sk, q.dtype, sm_count(dev))
+    if nsplit > 1:
+        acc, ml = attention_partials(q, k, v, causal, nsplit)
+        return attention_combine(acc, ml, q.dtype)
+    out = torch.empty((sq, d), dtype=q.dtype, device=dev)
+    _launch("attention", "flash_attention", code, runtime.ptr(q),
+            runtime.ptr(k), runtime.ptr(v), runtime.ptr(out),
+            runtime.ptr(None), runtime.ptr(None), sq, sk, d,
+            ctypes.c_float(1.0 / math.sqrt(d)), int(bool(causal)), 1,
             runtime.stream_ptr(dev))
     KERNELS["flash_attention"].launches += 1
     return out

@@ -6,7 +6,11 @@ of the same ops — the bit-exact twins of the reference's ``xla``
 providers — so the CUDA kernels are held against exactly what the CPU
 tests hold against the reference. ``lb_expand``, ``flash_attention`` and
 ``moe_gather`` are the counterparts of the reference's oracles
-``lb_expand_ref``, ``flash_attention_ref`` and ``moe_gather_ref``. The
+``lb_expand_ref``, ``flash_attention_ref`` and ``moe_gather_ref``;
+``attention_partials`` and ``attention_combine`` are the plain versions
+of K7's split form and of its combine kernel, and model the kernel's
+arithmetic: its kv parts, and its products in pieces of the input type
+(``tf32_round``). The
 kernel wrappers in ``kernels.ops`` run these on CPU tensors;
 ``chip_smoke.py`` runs them on the card to compare.
 """
@@ -25,9 +29,15 @@ from ..core.operators import _segment_search_torch as segment_search
 from ..linalg.ops import _spmm_torch as spmm
 from ..linalg.ops import _spmv_torch as spmv
 
-__all__ = ["KExpansion", "advance_batch", "advance_filter_batch", "compact",
-           "flash_attention", "lb_expand", "moe_gather", "segment_locate",
-           "segment_search", "spmm", "spmv"]
+__all__ = ["ATTN_BQ", "KExpansion", "advance_batch", "advance_filter_batch",
+           "attention_combine", "attention_kv_tile", "attention_partials",
+           "compact", "flash_attention", "lb_expand", "moe_gather",
+           "segment_locate", "segment_search", "spmm", "spmv",
+           "tf32_round"]
+
+ATTN_BQ = 64                   # K7's queries per block (kBQ)
+ATTN_NEG = -1e30               # the reference's NEG_INF
+ATTN_P16_SCALE = 4096.0        # fp16's p scale before its split (2^12)
 
 
 class KExpansion(NamedTuple):
@@ -67,6 +77,97 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     p = torch.where(torch.isnan(p), 0.0, p)
     return (p @ v.float()).to(q.dtype)
+
+
+def attention_kv_tile(dtype: torch.dtype) -> int:
+    """K7's keys per kv tile: 32 for fp32 inputs, 64 for bf16 and fp16."""
+    return 32 if dtype == torch.float32 else 64
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 fraction bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds (finite values)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """The top 19 bits of fp32, as the tensor cores read a tf32 operand
+    that was not rounded."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split_mm(a: torch.Tensor, b: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """a @ b in fp32 as K7 runs it on the tensor cores for inputs of
+    ``dtype``: 16-bit a is the split p (hi + lo pieces of the type, each
+    product exact in fp32); fp32 is 3xTF32 (lo_a hi_b + hi_a lo_b + hi_a
+    hi_b, hi rounded to tf32, lo the rest truncated to it)."""
+    if dtype == torch.float32:
+        ah, bh = tf32_round(a), tf32_round(b)
+        al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+        return al @ bh + ah @ bl + ah @ bh
+    scale = ATTN_P16_SCALE if dtype == torch.float16 else 1.0
+    a = a * scale
+    hi = a.to(dtype).float()
+    lo = (a - hi).to(dtype).float()
+    return (lo @ b + hi @ b) * (1.0 / scale)
+
+
+def attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, nsplit: int):
+    """K7's split form: the kv tiles a q tile of ``ATTN_BQ`` rows visits
+    (up to its last row's last visible key) cut into ``nsplit`` parts of
+    ceil(tiles / nsplit) tiles → (acc (nsplit, Sq, D), ml (nsplit, Sq, 2))
+    in fp32: per part and row m = the max visible score (-1e30 where the
+    part sees none), l = sum exp(s - m) and acc = sum exp(s - m) v, the
+    scores and sums computed as the kernel computes them."""
+    sq, d = q.shape
+    sk = k.shape[0]
+    dev = q.device
+    bk = attention_kv_tile(q.dtype)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    if q.dtype == torch.float32:
+        logits = _split_mm(qf, kf.T, q.dtype)
+    else:
+        logits = qf @ kf.T
+    logits = logits * (1.0 / math.sqrt(d))
+    qpos = torch.arange(sq, device=dev)
+    kpos = torch.arange(sk, device=dev)
+    vis = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+    if causal:
+        vis = kpos[None, :] <= qpos[:, None] + (sk - sq)
+        q_end = torch.clamp((qpos // ATTN_BQ + 1) * ATTN_BQ, max=sq)
+        kend = torch.clamp(q_end + (sk - sq), 0, sk)
+    else:
+        kend = torch.full((sq,), sk, device=dev)
+    ntile = -(-kend // bk)                      # the row's q tile's tiles
+    per = -(-ntile // nsplit)                   # tiles a part
+    ktile = (kpos // bk)[None, :]
+    acc = torch.empty((nsplit, sq, d), dtype=torch.float32, device=dev)
+    ml = torch.empty((nsplit, sq, 2), dtype=torch.float32, device=dev)
+    for s in range(nsplit):
+        part = vis & (ktile >= s * per[:, None]) & (ktile < (s + 1)
+                                                    * per[:, None])
+        lg = logits.masked_fill(~part, ATTN_NEG)
+        m = lg.max(dim=1).values if sk else torch.full(
+            (sq,), ATTN_NEG, device=dev)
+        p = torch.where(part, torch.exp(lg - m[:, None]), 0.0)
+        acc[s] = _split_mm(p, vf, q.dtype)
+        ml[s, :, 0] = m
+        ml[s, :, 1] = p.sum(dim=1)
+    return acc, ml
+
+
+def attention_combine(acc: torch.Tensor, ml: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """o (Sq, D) in ``dtype`` from K7's parts: w_s = exp(m_s - max m), o
+    = sum w_s acc_s / max(sum w_s l_s, 1e-30); a row whose parts see no
+    key is exactly 0."""
+    m, l = ml[..., 0], ml[..., 1]
+    w = torch.exp(m - m.max(dim=0).values)
+    den = torch.clamp((w * l).sum(dim=0), min=1e-30)
+    return ((w[..., None] * acc).sum(dim=0) / den[:, None]).to(dtype)
 
 
 def moe_gather(x: torch.Tensor, slot_token: torch.Tensor) -> torch.Tensor:

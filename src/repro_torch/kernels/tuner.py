@@ -36,7 +36,8 @@ again only on ``set_cache``; ``autotune`` updates them in memory and on
 disk, so a launch's lookup is a dictionary access.
 
 ``default_tile`` is the launch geometry the kernels had before the
-tuner, 256 threads (``kThreads`` in ``csrc/common.cuh``). The
+tuner, 256 threads (``kThreads`` in ``csrc/common.cuh``); an op listed
+in ``OP_DEFAULT_TILES`` (K4's ``spmv``: 128) launches its own. The
 reference's heuristic doubles its tile until a grid of at most
 ``MAX_GRID`` steps covers the capacity, which models a TPU running its
 grid in order on one core; the card runs its blocks in parallel over
@@ -58,6 +59,12 @@ DEFAULT_TILE = 256              # kThreads: 8 warps per block
 MIN_THREADS = 64
 MAX_THREADS = 1024              # the card's limit of threads per block
 DEFAULT_CAPS = (512, 2048, 8192, 32768, 131072)
+# untuned launch geometry of the ops whose kernel measured best at
+# another size: K4 gives each very heavy row a block whose one folding
+# thread holds the block's SM slots, so smaller blocks leave more of the
+# SM to the rest of the grid (128 threads beat 256 by 7 % on one
+# PageRank sweep at rmat scale 22, H100; PERF.md, PR 15)
+OP_DEFAULT_TILES = {"spmv": 128}
 
 # op -> probe(cap, tile) -> seconds, registered by kernels.ops
 PROBES: Dict[str, Callable[[int, int], float]] = {}
@@ -147,7 +154,8 @@ def tile_for(op: str, cap: int, *, encoding: str = "dense",
     """Threads per block for one launch of ``op`` at capacity ``cap`` on
     ``device``. A measured entry wins (clamped to the candidates of
     ``cap``); a dense entry at the same tier is the second choice for a
-    delta launch; else ``default_tile``."""
+    delta launch; else the op's ``OP_DEFAULT_TILES`` entry, or
+    ``default_tile``."""
     entries = _load()
     if entries:
         from . import runtime
@@ -158,7 +166,7 @@ def tile_for(op: str, cap: int, *, encoding: str = "dense",
         tile = entry.get("tile") if isinstance(entry, dict) else None
         if _valid(tile):
             return max(min(tile, pow2_ceil(max(cap, 1))), MIN_THREADS)
-    return default_tile(cap)
+    return OP_DEFAULT_TILES.get(op, default_tile(cap))
 
 
 def tier_floor(op: str, default: int = DEFAULT_MIN_TILE,

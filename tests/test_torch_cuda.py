@@ -473,3 +473,152 @@ def test_autotune_on_the_card(card, tmp_path):
     finally:
         tuner.set_cache(None)
     assert tuner.tile_for("advance", 4096, device=card) == 256
+
+
+# ---- K4 and K7 redesigned: heavy rows first, tensor cores ------------------
+
+def _star_csr(seed: int):
+    """A CSR whose row 0 has 120,000 edges, 40 rows 2,100-5,000 (past the
+    kernel's very-heavy threshold at width <= 33), 3,000 rows 5-300, rows of exactly 16 and
+    17 edges and the rest 0-6; weights and x of both signs."""
+    rng = np.random.default_rng(seed)
+    n = 130_001
+    deg = rng.integers(0, 7, n)
+    deg[0] = 120_000
+    rest = rng.permutation(np.arange(1, n))
+    deg[rest[:40]] = rng.integers(2100, 5000, 40)
+    deg[rest[40:3040]] = rng.integers(5, 300, 3000)
+    deg[rest[3040:3240]] = 16
+    deg[rest[3240:3440]] = 17
+    ro = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    ci = rng.integers(0, n, int(ro[-1])).astype(np.int32)
+    vals = rng.standard_normal(int(ro[-1])).astype(np.float32)
+    x = rng.standard_normal(n).astype(np.float32)
+    return ro, ci, vals, x
+
+
+def _over_lists(ro: np.ndarray, width: int):
+    seg = np.repeat(np.arange(len(ro) - 1, dtype=np.int32), np.diff(ro))
+    return tuple(torch.from_numpy(a) for a in
+                 G._overflow_edges(ro, seg, width))
+
+
+@pytest.mark.parametrize("name", sorted(SR.SEMIRINGS))
+def test_spmv_kernel_heavy_rows_bitwise(card, name):
+    """K4 bit for bit with its plain version on the CPU on a star graph
+    (one row of 120,000 edges, rows past the very-heavy threshold, rows of
+    exactly width and width + 1 edges), negative weights and x, masked
+    heavy rows, at widths 1 ... 1024 and block sizes 64 ... 1024."""
+    sr = SR.SEMIRINGS[name]
+    ro, ci, vals, x = _star_csr(7)
+    cpu = {"ro": torch.from_numpy(ro), "ci": torch.from_numpy(ci),
+           "vals": torch.from_numpy(vals), "x": torch.from_numpy(x)}
+    dev = {k: t.to(card) for k, t in cpu.items()}
+    mask = torch.from_numpy(np.random.default_rng(8).random(len(x)) < 0.5)
+    for width in (1, 16, 33, 100, 1024):
+        opos, orow = _over_lists(ro, width)
+        for use_vals in (False, True):
+            for m in (None, mask, ~mask):
+                want = P.spmv(cpu["ro"], cpu["ci"],
+                              cpu["vals"] if use_vals else None, cpu["x"],
+                              sr, width, m, None, opos, orow)
+                for threads in (64, 256, 1024):
+                    got = K.spmv(dev["ro"], dev["ci"],
+                                 dev["vals"] if use_vals else None,
+                                 dev["x"], sr, width,
+                                 None if m is None else m.to(card), None,
+                                 None, None, threads=threads)
+                    assert torch.equal(got.cpu(), want), (width, use_vals,
+                                                          threads)
+
+
+def test_spmv_heavy_rows_schedule(card):
+    """The heavy-row list: rows of degree > width by degree, largest
+    first, ties in row order; those past the very-heavy threshold lead."""
+    ro, _, _, _ = _star_csr(7)
+    offsets = torch.from_numpy(ro).to(card)
+    heavy, nvery = K.spmv_heavy_rows(offsets, 16)
+    deg = np.diff(ro)
+    want = np.nonzero(deg > 16)[0]
+    want = want[np.argsort(-deg[want], kind="stable")]
+    assert np.array_equal(heavy.cpu().numpy(), want)
+    assert nvery == int((deg - 16 > K.SPMV_BLOCK_OVER).sum()) == 41
+    assert K.spmv_heavy_rows(offsets, 16)[0] is heavy     # made once
+
+
+ATTN_TOL = {torch.float32: (3e-5, 3e-5), torch.bfloat16: (8e-3, 1e-4),
+            torch.float16: (1e-3, 1e-5)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("sq", [1, 16, 128])
+@pytest.mark.parametrize("sk", [4096, 8192])
+def test_flash_attention_split_kv_matches_plain(card, dtype, sq, sk):
+    """Few queries against many keys: the kv axis split over blocks and
+    merged by the combine kernel, within the unchanged limits."""
+    gen = torch.Generator(device=card).manual_seed(sq + sk)
+    q, k, v = (torch.randn((n, 128), generator=gen, device=card).to(dtype)
+               for n in (sq, sk, sk))
+    assert K.attention_splits(sq, sk, dtype, K.sm_count(card)) > 1
+    K.reset_launches()
+    got = K.flash_attention(q, k, v, causal=True)
+    assert K.KERNELS["flash_attention"].launches == 1
+    assert K.KERNELS["attention_combine"].launches == 1
+    rtol, atol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(),
+                               P.flash_attention(q, k, v, True).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [8, 24, 40, 112, 256])
+def test_flash_attention_head_widths_match_plain(card, dtype, d):
+    """Head widths padded with zeros in shared memory, causal and not."""
+    gen = torch.Generator(device=card).manual_seed(d)
+    q, k, v = (torch.randn((n, d), generator=gen, device=card).to(dtype)
+               for n in (333, 517, 517))
+    rtol, atol = ATTN_TOL[dtype]
+    for causal in (True, False):
+        got = K.flash_attention(q, k, v, causal=causal)
+        torch.testing.assert_close(
+            got.float(), P.flash_attention(q, k, v, causal).float(),
+            rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_attention_parts_that_see_no_key(card, dtype):
+    """Causal Sq > Sk: whole q tiles and whole parts see no key. Their
+    parts carry m = -1e30, l = 0, acc = 0, the combine gives exactly 0
+    on the rows that see none, and each kernel agrees with its plain
+    version."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    sq, sk, d = 1000, 300, 64
+    q, k, v = (torch.randn((n, d), generator=gen, device=card).to(dtype)
+               for n in (sq, sk, sk))
+    rtol, atol = ATTN_TOL[dtype]
+    assert K.attention_splits(sq, sk, dtype, K.sm_count(card)) > 1
+    got = K.flash_attention(q, k, v, causal=True)
+    assert (got[:sq - sk] == 0).all()
+    torch.testing.assert_close(got.float(),
+                               P.flash_attention(q, k, v, True).float(),
+                               rtol=rtol, atol=atol)
+    acc, ml = K.attention_partials(q, k, v, True, 7)
+    pacc, pml = P.attention_partials(q, k, v, True, 7)
+    empty = pml[..., 1] == 0
+    assert bool(empty.any()) and bool((~empty).any())
+    assert torch.equal(ml[..., 0][empty], pml[..., 0][empty])
+    assert (ml[..., 1][empty] == 0).all() and (acc[empty] == 0).all()
+    torch.testing.assert_close(ml[..., 0], pml[..., 0], rtol=1e-5,
+                               atol=1e-5)
+    den = pml[..., 1:].clamp_min(1e-30)
+    torch.testing.assert_close(acc / ml[..., 1:].clamp_min(1e-30),
+                               pacc / den, rtol=1e-4, atol=1e-5)
+    out = K.attention_combine(acc, ml, dtype)
+    assert torch.equal(out, K.attention_combine(acc, ml, dtype))
+    torch.testing.assert_close(out.float(),
+                               P.attention_combine(acc, ml, dtype).float(),
+                               rtol=rtol, atol=atol)
+    assert (out[:sq - sk] == 0).all()

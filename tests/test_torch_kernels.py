@@ -164,6 +164,7 @@ def test_plain_versions_are_the_wrappers_on_the_cpu():
     offsets = torch.tensor([0, 3, 3, 5], dtype=torch.int32)
     assert all(torch.equal(a, b) for a, b in
                zip(K.lb_expand(sizes, 9)[:3], P.lb_expand(offsets, 9)))
-    for name in ("lb_expand", "flash_attention", "moe_gather"):
+    for name in ("lb_expand", "flash_attention", "attention_combine",
+                 "moe_gather"):
         assert name in K.KERNELS
-    assert len(K.KERNELS) == 9
+    assert len(K.KERNELS) == 10

@@ -60,6 +60,15 @@ def test_default_tile_is_the_untuned_launch_geometry():
         tuner.set_cache(None)
 
 
+def test_spmv_launches_128_threads_untuned(cache):
+    """K4's own untuned geometry; a measured entry still wins."""
+    tuner.set_cache(None)
+    assert tuner.tile_for("spmv", 1 << 22, device=CPU) == 128
+    assert tuner.tile_for("advance", 1 << 22, device=CPU) == 256
+    _write(cache, {tuner._key("spmv", 4096, "cpu", 512): {"tile": 512}})
+    assert tuner.tile_for("spmv", 4096, device=CPU) == 512
+
+
 def test_candidates_are_block_sizes():
     assert tuner.candidates(40) == [64]
     assert tuner.candidates(512) == [64, 128, 256, 512]

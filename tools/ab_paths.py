@@ -1,5 +1,5 @@
-"""Warm A/B of graph_run's single-source sssp, bfs_batch, cc and
-bc_batch between two checkouts of this repo on one card.
+"""Warm A/B of graph_run's single-source sssp, bfs_batch, cc, bc_batch
+and pagerank (20 sweeps) between two checkouts of this repo on one card.
 
   python tools/ab_paths.py BASE_DIR [--pairs 20] [--scale 22]
 
@@ -26,7 +26,7 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-PATHS = ("sssp", "bfs_batch", "cc", "bc_batch")
+PATHS = ("sssp", "bfs_batch", "cc", "bc_batch", "pagerank")
 
 
 def worker(scale: int) -> None:
@@ -49,7 +49,9 @@ def worker(scale: int) -> None:
                                                  "cuda", sources=srcs),
            "cc": lambda: gr.run_primitive("cc", g, hub, False, "cuda"),
            "bc_batch": lambda: gr.run_primitive("bc", g, hub, False, "cuda",
-                                                sources=srcs)}
+                                                sources=srcs),
+           "pagerank": lambda: gr.run_primitive("pagerank", g, hub, False,
+                                                "cuda")}
     print(" ".join(f"{run[p]()[0] * 1e3:.3f}" for p in PATHS), flush=True)
     for line in sys.stdin:
         print(f"{run[line.strip()]()[0] * 1e3:.3f}", flush=True)
