@@ -48,7 +48,17 @@ Phases:
      K2, K3, K4 at k = 1, K5, K6) bit-equal to its plain version at
      every block size from 64 to 1024 threads; each kernel timed beside
      its plain version, one PyTorch library call where one computes the
-     same function, and the least time the card could take;
+     same function, and the least time the card could take; (e) the
+     storage plans' kernel variants, each bit-equal to its plain version
+     and timed beside the int32 form on the same frontier: K1 and K3
+     decoding the anchored-delta stream in the kernel at the grid's
+     shape (grid2d 2048, a quarter of the vertices in each of 4 lanes),
+     reading int16 and int64 columns at rmat scale 15, and on rmat-22's
+     delta stream, whose escapes send it to the decoded dense view; K4
+     at bf16 precision (plus_times and plus_and, structural and weighted,
+     fp32 and bf16 values, on rmat scale 15; one PageRank sweep at
+     rmat-22 against the plain version on the CPU) and K4m at bf16 at
+     label propagation's shape;
   3. main path — (a) the first slice's: bfs from the max-degree vertex,
      bfs_batch, sssp, sssp_batch and 20 PageRank sweeps; (b) the second
      slice's: connected components and bc_batch at scale 22,
@@ -58,7 +68,17 @@ Phases:
      subgraph_match at scale 16; (d) the fourth slice's: the kernel
      tuner (its five probes over the default capacity ladder, into a
      cache under build/, its picks printed) and the kernel API's
-     lb_expand, flash_attention and moe_gather at phase 2's shapes —
+     lb_expand, flash_attention and moe_gather at phase 2's shapes; (e)
+     the fifth slice's: the storage plans — bfs_batch (B = 4: push, pull,
+     auto), sssp_batch (B = 4) and 20 PageRank sweeps on grid2d 2048
+     (n = 4,194,304, the road-network stand-in at rmat-22's vertex
+     count) under dense int32 and under the escape-free delta encoding,
+     and on rmat scale 15 (n = 32,768, the int16 ladder's top) under
+     int16, int32 and int64, with triangle_count under int16 and int32,
+     each plan bit-equal to its int32 twin; bfs_batch and sssp_batch on
+     rmat-22's delta stream (escaped: the dense fallback) equal to int32;
+     bf16 PageRank at rmat-22 within 1e-2 of fp32; resident_bytes of
+     every plan —
      all on the cuda backend, validated
      against host oracles (numpy BFS hop counts, scipy Dijkstra, a numpy
      power iteration, scipy components, numpy Brandes, scipy products
@@ -66,12 +86,15 @@ Phases:
      triangle count); each path runs with the launch counters set to 0
      and every kernel of it must have launched;
   4. where the time goes — path (a)'s batched primitives, then paths
-     (b) and (c), once more under torch.profiler: device busy time,
-     idle share, top kernels.
+     (b) and (c), and path (e) on the delta grid (its BFS and SSSP at
+     side 512, device events only; PageRank at 2048), once more under
+     torch.profiler: device busy time, idle share, top kernels.
 
-Prints one JSON line of kernel numbers, then the card's name and power
-limit, then ``{"ok": true, "device": ...}`` as the last line. Any failure
-raises and exits nonzero. Without a CUDA device, or outside a checkout
+Prints one JSON line of kernel numbers (each kernel with its launches by
+variant — column storage or precision — and a row of its own for each
+variant phase 2 (e) timed), then the card's name and power limit, then
+``{"ok": true, "device": ...}`` as the last line. Any failure raises and
+exits nonzero. Without a CUDA device, or outside a checkout
 of the repository, it exits 2 and prints no result.
 """
 from __future__ import annotations
@@ -80,6 +103,7 @@ import argparse
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import threading
@@ -100,6 +124,10 @@ WTF_TOL = 1e-5         # PPR / SALSA against float64 (atomic float sums)
 TRIANGLE = [(0, 1), (0, 2), (1, 2)]
 INT32_MAX = 2 ** 31 - 1
 K4M_HEAVY = 1024       # spmm splits longer rows over a block (spmv.cu)
+GRID_SIDE = 2048       # grid2d: n = 4,194,304, rmat-22's vertex count
+TIMING_ROUNDS = 5      # interleaved rounds when plans are compared
+PROFILE_GRID_SIDE = 512  # path (e)'s profiled BFS and SSSP
+INT16_SCALE = 15       # rmat scale 15: n = 32,768, the int16 ladder's top
 # triangles of rmat(scale, 16, seed=0), counted by a chunked scipy product
 TRIANGLES = {14: 2_808_907, 16: 15_681_649, 18: 82_931_365}
 BF16_OPS_PER_S = 989e12        # dense tensor-core peak, bf16 and fp16
@@ -161,6 +189,16 @@ def _timed(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _in_turns(torch, fns, reps: int) -> list:
+    """The median ms of each of ``fns`` over TIMING_ROUNDS rounds of
+    ``_timed``, taken in turns, the order rotated each round."""
+    times = [[] for _ in fns]
+    for r in range(TIMING_ROUNDS):
+        for i in [(r + j) % len(fns) for j in range(len(fns))]:
+            times[i].append(_timed(torch, fns[i], reps))
+    return [statistics.median(t) for t in times]
 
 
 def _bound_ms(nbytes: float, ops: float,
@@ -504,7 +542,8 @@ def _fourth_slice_path(torch, K, P, tuner, runtime, root, dev, fourth):
     """Path (d): the tuner over its default ladder into a cache of its own
     under build/, then the kernel API's lb_expand, flash_attention and
     moe_gather once each, with the launch counters set to 0 first;
-    validated against the plain versions. Returns the launch counts."""
+    validated against the plain versions. Returns the launch counts, in
+    total and by variant."""
     cache = root / "build" / "chip_smoke_tuner.json"
     cache.parent.mkdir(parents=True, exist_ok=True)
     cache.unlink(missing_ok=True)
@@ -515,8 +554,8 @@ def _fourth_slice_path(torch, K, P, tuner, runtime, root, dev, fourth):
     tuner.set_cache(cache)
     try:
         picked = tuner.autotune_all(tuner.DEFAULT_CAPS)
-        picks = {(op, cap): tuner.entry(op, cap, dev)
-                 for (op, cap, _) in picked}
+        picks = {(op, cap, enc): tuner.entry(op, cap, dev, encoding=enc)
+                 for (op, cap, enc) in picked}
     finally:
         tuner.set_cache(prev)
     tune_s = time.monotonic() - t0
@@ -528,6 +567,7 @@ def _fourth_slice_path(torch, K, P, tuner, runtime, root, dev, fourth):
     torch.cuda.synchronize()
     api_s = time.monotonic() - t0
     launches4 = {k: v.launches for k, v in K.KERNELS.items()}
+    variants4 = {k: dict(v.variants) for k, v in K.KERNELS.items()}
     print(f"main path (d) launches: {launches4}; tuner {tune_s:.2f} s, "
           f"kernel API {api_s * 1e3:.1f} ms")
     missing = [k for k in ("advance_filter_batch", "compact",
@@ -540,9 +580,9 @@ def _fourth_slice_path(torch, K, P, tuner, runtime, root, dev, fourth):
                              f"{missing}")
     print(f"tuner picks ({runtime.platform(dev)}), threads per block and "
           f"ms per launch at each capacity:")
-    for (op, cap), e in sorted(picks.items()):
-        print(f"  {op:15s} cap={cap:<7d} -> {e['tile']:4d} threads, "
-              f"{e['ms']:.5f} ms")
+    for (op, cap, enc), e in sorted(picks.items()):
+        print(f"  {op:15s} cap={cap:<7d} {enc:5s} -> {e['tile']:4d} "
+              f"threads, {e['ms']:.5f} ms")
     want = P.lb_expand(K.lb_offsets(fourth["sizes"]), fourth["cap"])
     if not all(torch.equal(a, b) for a, b in zip(exp[:3], want)):
         raise AssertionError("path (d) lb_expand differs from the plain "
@@ -557,7 +597,392 @@ def _fourth_slice_path(torch, K, P, tuner, runtime, root, dev, fourth):
                              "version")
     print(f"validated path (d): lb_expand and moe_gather bit-equal, "
           f"{len(att)} flash_attention calls within their limits")
-    return launches4
+    return launches4, variants4
+
+
+def _fifth_slice_kernels(torch, np, K, P, O, F, G, S, SR, g, dev, record):
+    """K1 and K3 in each column form of the storage plans (delta at the
+    grid's shape, int16 at rmat scale 15, int64 on a small explicit-int64
+    graph) and K4 / K4m at bf16 against their plain versions, timed beside
+    the int32 form on the same frontier. Returns the graphs of path (e)."""
+    t0 = time.monotonic()
+    graphs = {
+        "grid-int32": G.grid2d(GRID_SIDE, weighted=True, seed=0,
+                               device=dev),
+        "grid-delta": G.grid2d(GRID_SIDE, weighted=True, seed=0,
+                               encoding="delta", device=dev),
+        "rmat15-int16": G.rmat(INT16_SCALE, EDGE_FACTOR, seed=0,
+                               weighted=True, device=dev),
+        "rmat15-int32": G.rmat(INT16_SCALE, EDGE_FACTOR, seed=0,
+                               weighted=True, index_dtype="int32",
+                               device=dev),
+        "rmat15-int64": G.rmat(INT16_SCALE, EDGE_FACTOR, seed=0,
+                               weighted=True, index_dtype="int64",
+                               device=dev),
+    }
+    # rmat-22 under delta, from the main graph's CSR (the same arrays as
+    # rmat(22, ..., encoding="delta"), without generating them again)
+    vals = g.edge_values.cpu().numpy()
+    graphs["rmat22-delta"] = G.Graph.from_csr(
+        g.row_offsets.cpu().numpy(), g.cols_np(), vals, sort_neighbors=False,
+        encoding="delta", device=dev)
+    torch.cuda.synchronize()
+    plans = {k: (v.plan.index_dtype, v.plan.encoding)
+             for k, v in graphs.items()}
+    want_plans = {"grid-int32": ("int32", "dense"),
+                  "grid-delta": ("int32", "delta"),
+                  "rmat15-int16": ("int16", "dense"),
+                  "rmat15-int32": ("int32", "dense"),
+                  "rmat15-int64": ("int64", "dense"),
+                  "rmat22-delta": (S.plan_for(g.num_vertices).index_dtype,
+                                   "delta")}
+    if plans != want_plans:
+        raise AssertionError(f"storage plans {plans}, expected {want_plans}")
+    grid_esc = graphs["grid-delta"].col_store.num_escapes + graphs[
+        "grid-delta"].csc_store.num_escapes
+    if grid_esc:
+        raise AssertionError(f"the grid's delta stream has {grid_esc} "
+                             f"escapes; its kernels would not decode it")
+    d22 = graphs["rmat22-delta"]
+    if not torch.equal(d22.cols(), g.col_indices) or not torch.equal(
+            d22.csc_cols(), g.csc_indices):
+        raise AssertionError("rmat-22's delta columns do not decode to its "
+                             "dense ones")
+    gg = graphs["grid-int32"]
+    print(f"storage plans built in {time.monotonic() - t0:.1f} s: grid "
+          f"{GRID_SIDE}x{GRID_SIDE} n={gg.num_vertices} m={gg.num_edges} "
+          f"(int32 dense, and delta with 0 escapes); rmat scale "
+          f"{INT16_SCALE} n={graphs['rmat15-int16'].num_vertices} "
+          f"m={graphs['rmat15-int16'].num_edges} (int16, int32, int64); "
+          f"rmat scale 22 delta with {d22.col_store.num_escapes} CSR and "
+          f"{d22.csc_store.num_escapes} CSC escapes (of {d22.num_edges})")
+    for name, gr in graphs.items():
+        rb = S.resident_bytes(gr)
+        print(f"resident_bytes {name}: {rb['plan']} column_bytes "
+              f"{rb['column_bytes']} bytes_per_edge {rb['bytes_per_edge']} "
+              f"total_bytes {rb['total_bytes']} total_bytes_per_edge "
+              f"{rb['total_bytes_per_edge']}")
+    rb = {k: v for k, v in S.resident_bytes(g).items() if k != "arrays"}
+    print(f"resident_bytes rmat{int(math.log2(g.num_vertices))}-"
+          f"{g.plan.index_dtype}: {rb}")
+
+    # K1 and K3 on one frontier per group of plans: a quarter of the
+    # vertices in each of B lanes, at the capacity tier its expansion
+    # needs; each plan checked against its plain version, then the plans
+    # timed in turns (the median of TIMING_ROUNDS rounds, the order
+    # rotated each round), as a comparison within one call must be
+    def expand_group(label, plans, front, visited):
+        """plans: (variant, graph, column bytes a slot, bytes a live input
+        lane besides its 16) → {variant: {kernel: (ms, plain ms, bytes,
+        operations)}}."""
+        runs, out = {}, {}
+        for variant, gr, col_bytes, lane_bytes in plans:
+            store = gr.col_store
+            base, sizes = O._base_and_sizes(gr, front.ids, front.valid_mask,
+                                            "vertex")
+            bl = int(base.shape[0])
+            caps = F.tier_caps(gr.num_edges)
+            cap = caps[F.tier_index(int(sizes.sum(dim=1).max()), caps)]
+            live = int(front.lengths.sum())
+            slots = int(torch.clamp(sizes.sum(dim=1), max=cap).sum())
+            cap_v = gr.num_vertices
+            iters = K._iters(cap_v)
+            fns = {
+                "advance_filter_batch": (
+                    lambda gr=gr, store=store, base=base, sizes=sizes,
+                    cap=cap: K.advance_filter_batch(
+                        gr.row_offsets, store, base, sizes, visited, cap,
+                        gr.num_vertices, gr.cache),
+                    lambda gr=gr, store=store, base=base, sizes=sizes,
+                    cap=cap: P.advance_filter_batch(
+                        gr.row_offsets, store, base, sizes, visited, cap,
+                        gr.num_vertices),
+                    live * (16 + lane_bytes) + slots * (col_bytes + 1)
+                    + bl * cap_v * 8 + bl * 8,
+                    slots * (iters * 4 + 8)),
+                "advance_batch": (
+                    lambda gr=gr, store=store, base=base, sizes=sizes,
+                    cap=cap: K.advance_batch(gr.row_offsets, store, base,
+                                             sizes, cap, gr.cache),
+                    lambda gr=gr, store=store, base=base, sizes=sizes,
+                    cap=cap: P.advance_batch(gr.row_offsets, store, base,
+                                             sizes, cap),
+                    live * (16 + lane_bytes) + slots * col_bytes
+                    + bl * cap * 21 + bl * 4,
+                    bl * cap * (iters * 4 + 8)),
+            }
+            K.reset_launches()
+            for name, (kf, pf, _, _) in fns.items():
+                for i, (x, y) in enumerate(zip(kf(), pf())):
+                    if not torch.equal(x, y):
+                        raise AssertionError(f"{name} ({variant}, {label}): "
+                                             f"output {i} differs from the "
+                                             f"plain version")
+                if K.KERNELS[name].variants != {variant: 1}:
+                    raise AssertionError(f"{name} on {label} ran "
+                                         f"{K.KERNELS[name].variants}, not "
+                                         f"{variant}")
+            runs[variant] = (fns, bl, cap, slots)
+        for name in ("advance_filter_batch", "advance_batch"):
+            times = {v: [] for v in runs}
+            order = list(runs)
+            for r in range(TIMING_ROUNDS):
+                for v in order[r % len(order):] + order[:r % len(order)]:
+                    times[v].append(_timed(torch, runs[v][0][name][0], 10))
+            for v, (fns, bl, cap, slots) in runs.items():
+                _, pf, nbytes, ops = fns[name]
+                ms = statistics.median(times[v])
+                pms = _timed(torch, pf, 2)
+                print(f"{'K1' if name == 'advance_filter_batch' else 'K3'} "
+                      f"{name} {v} ({label}) B={bl} cap_out={cap} "
+                      f"slots={slots}: {ms:.3f} ms (rounds "
+                      f"{', '.join(f'{t:.3f}' for t in times[v])}), plain "
+                      f"{pms:.3f} ms, bound {_bound_ms(nbytes, ops)[0]:.3f} "
+                      f"ms")
+                out.setdefault(v, {})[name] = (ms, pms, nbytes, ops)
+        return out
+
+    def quarter(gr, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        nn = gr.num_vertices
+        mask = torch.rand((BATCH, nn), generator=gen, device=dev) < 0.25
+        visited = torch.rand((BATCH, nn), generator=gen, device=dev) < 0.5
+        return F.compact_indices_batch(mask, nn, backend="torch"), visited
+
+    # int32: 4 B a column; delta: 2 B a delta and a 4 B anchor a live lane
+    front, visited = quarter(gg, 11)
+    got = expand_group(f"grid {GRID_SIDE}",
+                       (("int32", gg, 4, 0),
+                        ("delta", graphs["grid-delta"], 2, 4)),
+                       front, visited)
+    for name, row in got["delta"].items():
+        record(f"{name}:delta", 0, *row)
+    front, visited = quarter(graphs["rmat15-int32"], 12)
+    got = expand_group(f"rmat {INT16_SCALE}",
+                       (("int32", graphs["rmat15-int32"], 4, 0),
+                        ("int16", graphs["rmat15-int16"], 2, 0),
+                        ("int64", graphs["rmat15-int64"], 8, 0)),
+                       front, visited)
+    for v in ("int16", "int64"):
+        for name, row in got[v].items():
+            record(f"{name}:{v}", 0, *row)
+    # rmat-22's delta stream: escaped, so the dense fallback runs the int32
+    # kernels on its decoded view
+    front, visited = quarter(g, 13)
+    expand_group("rmat 22 delta", ((
+        "dense_fallback" if d22.col_store.num_escapes else "delta", d22, 4,
+        0),), front, visited)
+    del front, visited
+    torch.cuda.empty_cache()
+
+    # K4 at bf16: all of the small graph's plus semirings, structural and
+    # weighted (float32 and bfloat16 values), bit for bit with the plain
+    # version on the CPU; then one bf16 PageRank sweep at rmat-22
+    gs = graphs["rmat15-int16"]
+    gen = torch.Generator().manual_seed(7)
+    xs = (torch.rand(gs.num_vertices, generator=gen) * 3.0).to(dev)
+    mask = (torch.rand(gs.num_vertices, generator=gen) < 0.5).to(dev)
+    wv = gs.edge_values * 1.37
+    for name in ("plus_times", "plus_and"):
+        sr = SR.with_precision(name, "bf16")
+        for v in (None, wv, wv.to(torch.bfloat16)):
+            for mk in (None, mask):
+                args = (gs.row_offsets, gs.col_store, v, xs, sr,
+                        gs.ell_width, mk, None, gs.over_pos, gs.over_row)
+                got = K.spmv(*args, cache=gs.cache)
+                want = P.spmv(*(a.cpu() if torch.is_tensor(a) else a
+                                for a in args))
+                if not torch.equal(got.cpu(), want):
+                    raise AssertionError(f"spmv {name} bf16 differs from "
+                                         f"the plain version")
+    print(f"K4 spmv bf16: plus_times and plus_and x (structural, fp32 "
+          f"values, bf16 values) x (masked, unmasked) bit-equal to the "
+          f"plain version on rmat scale {INT16_SCALE} (int16 columns)")
+    from repro_torch.core.primitives.pagerank import _inv_out_degrees
+    n, m = g.num_vertices, g.num_edges
+    contrib = torch.full((n,), 1.0 / n, device=dev) * _inv_out_degrees(g)
+    sr16 = SR.with_precision(SR.plus_times, "bf16")
+    spmv_args = (g.csc_offsets, g.csc_indices, None, contrib, sr16,
+                 g.csc_ell_width, None, g.csc_row_seg, g.csc_over_pos,
+                 g.csc_over_row)
+    y_k = K.spmv(*spmv_args).cpu()
+    y_c = P.spmv(*(a.cpu() if torch.is_tensor(a) else a for a in spmv_args))
+    if not torch.equal(y_k, y_c):
+        raise AssertionError("spmv bf16 differs from its plain version on "
+                             "the CPU at rmat-22")
+    args32 = spmv_args[:4] + (SR.plus_times,) + spmv_args[5:]
+    y32 = K.spmv(*args32).cpu()
+    ms, ms32 = _in_turns(torch, (lambda: K.spmv(*spmv_args),
+                                 lambda: K.spmv(*args32)), 20)
+    pms = _timed(torch, lambda: P.spmv(*spmv_args), 3)
+    nbytes = m * 4 + n * 4 + (n + 1) * 4 + n * 4
+    print(f"K4 spmv plus_times bf16 n={n} m={m}: {ms:.3f} ms (fp32 "
+          f"{ms32:.3f} ms in the same turns), plain {pms:.3f} ms, bound "
+          f"{_bound_ms(nbytes, 3 * m)[0]:.3f} ms; bit-equal to the plain "
+          f"version on the CPU; max |bf16 - fp32| "
+          f"{float((y_k - y32).abs().max()):.3g}")
+    record("spmv:bf16", 0, ms, pms, nbytes, 3 * m)
+    # K4m at bf16 at label propagation's shape (k = 32) on general floats:
+    # bit-equal to the plain version on the CPU on the rows of at most
+    # K4M_HEAVY edges (the same fold order there), rtol 1e-5 elsewhere
+    g16 = G.rmat(LP_SCALE, EDGE_FACTOR, seed=0, weighted=True, device=dev)
+    x16 = torch.rand((g16.num_vertices, 32), generator=gen).to(dev)
+    mm_args = (g16.row_offsets, g16.col_store, None, x16, sr16,
+               g16.ell_width, None, g16.row_seg)
+    got = K.spmm(*mm_args).cpu()
+    want = P.spmm(*(a.cpu() if torch.is_tensor(a) else a for a in mm_args))
+    light = (g16.degrees <= K4M_HEAVY).cpu()
+    if not torch.equal(got[light], want[light]) or not torch.allclose(
+            got, want, rtol=1e-5, atol=1e-5):
+        raise AssertionError("spmm bf16 off its plain version")
+    err = float((got - want).abs().max())
+    mm32 = mm_args[:4] + (SR.plus_times,) + mm_args[5:]
+    ms, ms32 = _in_turns(torch, (lambda: K.spmm(*mm_args),
+                                 lambda: K.spmm(*mm32)), 20)
+    pms = _timed(torch, lambda: P.spmm(*mm_args), 3)
+    n16, m16 = g16.num_vertices, g16.num_edges
+    nbytes = m16 * 4 + (n16 + 1) * 4 + 2 * n16 * 32 * 4
+    print(f"K4m spmm plus_times bf16 k=32 (rmat scale {LP_SCALE}, uniform "
+          f"floats): {ms:.3f} ms (fp32 {ms32:.3f} ms in the same turns), "
+          f"plain {pms:.3f} ms, bound "
+          f"{_bound_ms(nbytes, 3 * m16 * 32)[0]:.4f} ms; bit-equal on the "
+          f"rows of at most {K4M_HEAVY} edges, max |difference| {err:.3g}")
+    record("spmm:bf16", err, ms, pms, nbytes, 3 * m16 * 32)
+    del g16, x16, got, want
+    torch.cuda.empty_cache()
+    return graphs
+
+
+def _fifth_slice_path(torch, np, K, R, G, S, graphs, g, sources, dev):
+    """Path (e): bfs_batch (push, pull, auto), sssp_batch and pagerank on
+    the grid under dense int32 and delta and on rmat scale 15 under
+    int16, int32 and int64, each equal bit for bit across its plans, the
+    grid's against the oracles; triangle_count on rmat-15 int16 and int32;
+    bfs_batch and sssp_batch on rmat-22's escaped delta stream (the dense
+    fallback) and bf16 PageRank on rmat-22 against fp32. Returns the
+    launch counts, in total and by variant, read where the run ends."""
+    from repro_torch.core.primitives import (bfs_batch, pagerank, sssp_batch,
+                                             triangle_count)
+    gg = graphs["grid-int32"]
+    ng = gg.num_vertices
+    gsrc = [0, ng // 2 + GRID_SIDE // 2, 12345, ng - 1]
+    runs = {
+        "bfs_batch push": lambda gr, s: bfs_batch(gr, s, direction=False,
+                                                  backend="cuda"),
+        "bfs_batch pull": lambda gr, s: bfs_batch(gr, s, do_a=0.0, do_b=0.0,
+                                                  backend="cuda"),
+        "bfs_batch auto": lambda gr, s: bfs_batch(gr, s, backend="cuda"),
+        "sssp_batch": lambda gr, s: sssp_batch(gr, s, backend="cuda"),
+        "pagerank": lambda gr, s: (pagerank(gr, max_iter=20,
+                                            backend="cuda").rank,),
+    }
+    K.reset_launches()
+    torch.cuda.synchronize()
+    results, times = {}, {}
+    for name, gr in graphs.items():
+        if name == "rmat22-delta":
+            continue
+        srcs = (gsrc if name.startswith("grid")
+                else [int(torch.argmax(gr.degrees)), 1, 2, 3])
+        for label, fn in runs.items():
+            t = time.monotonic()
+            results[name, label] = fn(gr, srcs)
+            torch.cuda.synchronize()
+            times[name, label] = time.monotonic() - t
+    for name in ("rmat15-int16", "rmat15-int32"):
+        t = time.monotonic()
+        results[name, "triangle_count"] = (triangle_count(
+            graphs[name], backend="cuda").per_edge,)
+        torch.cuda.synchronize()
+        times[name, "triangle_count"] = time.monotonic() - t
+    d22 = graphs["rmat22-delta"]
+    for label in ("bfs_batch auto", "sssp_batch"):
+        t = time.monotonic()
+        results["rmat22-delta", label] = runs[label](d22, sources)
+        torch.cuda.synchronize()
+        times["rmat22-delta", label] = time.monotonic() - t
+    t = time.monotonic()
+    pr16 = pagerank(g, max_iter=20, precision="bf16", backend="cuda")
+    torch.cuda.synchronize()
+    times["rmat22-int32", "pagerank bf16"] = time.monotonic() - t
+    launches = {k: v.launches for k, v in K.KERNELS.items()}
+    variants = {k: dict(v.variants) for k, v in K.KERNELS.items()}
+    print(f"main path (e) launches: {launches}; by variant: "
+          f"{ {k: v for k, v in variants.items() if v} }")
+    for (name, label), dt in times.items():
+        it = results.get((name, label))
+        iters = ""
+        if it is not None and hasattr(it, "iterations"):
+            iters = f", iterations {it.iterations.tolist()}"
+        if it is not None and hasattr(it, "pull_iters"):
+            iters += f", pull {it.pull_iters.tolist()}"
+        print(f"  {name:13s} {label:15s} {dt * 1e3:10.1f} ms{iters}")
+    for name in ("advance_filter_batch", "advance_batch"):
+        if variants[name].get("delta", 0) == 0:
+            raise AssertionError(f"{name} never ran its delta variant on "
+                                 f"path (e)")
+        need = ["int16", "int64"]
+        if graphs["rmat22-delta"].col_store.num_escapes:
+            need.append("dense_fallback")
+        for v in need:
+            if variants[name].get(v, 0) == 0:
+                raise AssertionError(f"{name} never ran its {v} variant "
+                                     f"on path (e)")
+    if variants["spmv"].get("bf16", 0) == 0 or variants[
+            "segment_search"].get("int16", 0) == 0:
+        raise AssertionError("spmv bf16 or segment_search int16 never ran "
+                             "on path (e)")
+
+    # every plan equal to its int32 twin, bit for bit
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    for label in list(runs) + ["triangle_count"]:
+        for twin, base in (("grid-delta", "grid-int32"),
+                           ("rmat15-int16", "rmat15-int32"),
+                           ("rmat15-int64", "rmat15-int32")):
+            if (twin, label) in results and not same(
+                    results[twin, label], results[base, label]):
+                raise AssertionError(f"{label} on {twin} differs from "
+                                     f"{base}")
+    for label in ("bfs_batch auto", "sssp_batch"):
+        if not same(results["rmat22-delta", label], runs[label](g, sources)):
+            raise AssertionError(f"{label} on rmat-22 delta differs from "
+                                 f"int32")
+    pr32 = pagerank(g, max_iter=20, backend="cuda").rank
+    err16 = float((pr16.rank - pr32).abs().max())
+    rel16 = float(((pr16.rank - pr32).abs() / pr32).max())
+    if err16 >= 1e-2 or pr16.rank.dtype != torch.float32:
+        raise AssertionError(f"bf16 PageRank off fp32 by {err16}")
+    # the grid's against the oracles
+    t0 = time.monotonic()
+    depths = [R.bfs_ref(gg, s) for s in gsrc]
+    for label in ("bfs_batch push", "bfs_batch pull", "bfs_batch auto"):
+        labels = results["grid-int32", label].labels.cpu().numpy()
+        for i, want in enumerate(depths):
+            if not np.array_equal(labels[i], want):
+                raise AssertionError(f"{label} on the grid differs from "
+                                     f"the oracle (lane {i})")
+    if not np.array_equal(results["grid-int32", "sssp_batch"].dist.cpu()
+                          .numpy(), R.sssp_ref(gg, gsrc)):
+        raise AssertionError("sssp_batch on the grid differs from Dijkstra")
+    pr_rel = R.pagerank_rel_err(
+        results["grid-int32", "pagerank"][0].cpu().numpy(),
+        R.pagerank_ref(gg, iters=20))
+    if pr_rel > R.PR_RTOL:
+        raise AssertionError(f"pagerank on the grid off the oracle by "
+                             f"{pr_rel}")
+    print(f"validated path (e): delta = int32 on the grid, int16 = int64 = "
+          f"int32 on rmat scale {INT16_SCALE} (bfs push / pull / auto, "
+          f"sssp_batch, pagerank, triangle_count), bit for bit; rmat-22 "
+          f"delta's bfs_batch and sssp_batch = int32's through the dense "
+          f"fallback; the "
+          f"grid against numpy BFS, scipy Dijkstra and numpy PageRank "
+          f"(max |rank error| / rank {pr_rel:.3g}); bf16 PageRank at "
+          f"rmat-22 within {err16:.3g} of fp32 (limit 1e-2; {rel16:.3g} "
+          f"relative), in "
+          f"{time.monotonic() - t0:.1f} s")
+    return launches, variants
 
 
 def main(argv=None) -> int:
@@ -581,6 +1006,7 @@ def main(argv=None) -> int:
     from repro_torch.core import graph as G
     from repro_torch.core import operators as O
     from repro_torch.core import ref as R
+    from repro_torch.core import storage as S
     from repro_torch.core.primitives import (bc_batch, bfs, bfs_batch,
                                              connected_components,
                                              label_propagation, pagerank,
@@ -1153,6 +1579,19 @@ def main(argv=None) -> int:
           f"{time.monotonic() - t0:.1f} s")
 
     # ---- phase 3: the main path on the cuda backend ----
+    # launches by kernel and variant, summed over the main path's runs
+    variant_totals = {k: {} for k in K.KERNELS}
+
+    def tally(variants=None):
+        """Add one run's launches by variant (the live counters, or a
+        snapshot taken where the run ended) to the totals."""
+        if variants is None:
+            variants = {k: v.variants for k, v in K.KERNELS.items()}
+        for name, per in variants.items():
+            for var, c in per.items():
+                variant_totals[name][var] = (
+                    variant_totals[name].get(var, 0) + c)
+
     K.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1173,6 +1612,7 @@ def main(argv=None) -> int:
                   lambda: sssp_batch(g, sources, backend="cuda"))
     r_pr = run("pagerank", lambda: pagerank(g, max_iter=20, backend="cuda"))
     launches = {k: v.launches for k, v in K.KERNELS.items()}
+    tally()
     peak = torch.cuda.max_memory_allocated()
     print(f"main path (a) launches: {launches}; peak device memory "
           f"{peak / 2 ** 30:.2f} GiB")
@@ -1246,6 +1686,7 @@ def main(argv=None) -> int:
     r_tcf = run2("tc_full",
                  lambda: triangle_count_full(g_full, backend="cuda"))
     launches2 = {k: v.launches for k, v in K.KERNELS.items()}
+    tally()
     print(f"main path (b) launches: {launches2}; triangle_count peak "
           f"device memory {tc_peak / 2 ** 30:.2f} GiB "
           f"({(tc_peak - held) / 2 ** 30:.2f} GiB above the "
@@ -1333,6 +1774,7 @@ def main(argv=None) -> int:
     sm_peak = torch.cuda.max_memory_allocated()
     join_probes = K.KERNELS["segment_search"].launches - before
     launches3 = {k: v.launches for k, v in K.KERNELS.items()}
+    tally()
     print(f"main path (c) launches: {launches3} ({join_probes} K5 launches "
           f"in subgraph_match's join); subgraph_match peak device memory "
           f"{sm_peak / 2 ** 30:.2f} GiB ({(sm_peak - held) / 2 ** 30:.2f} "
@@ -1424,11 +1866,29 @@ def main(argv=None) -> int:
     # cache of its own) and the kernel API's lb_expand, flash_attention
     # and moe_gather at the shapes of phase 2 ----
     t0 = time.monotonic()
-    launches4 = _fourth_slice_path(torch, K, P, tuner, runtime, root, dev,
-                                   fourth)
+    launches4, variants4 = _fourth_slice_path(torch, K, P, tuner, runtime,
+                                              root, dev, fourth)
+    tally(variants4)
     del fourth
     torch.cuda.empty_cache()
     print(f"path (d) run and validated in {time.monotonic() - t0:.1f} s")
+
+    # ---- phase 2 (e): the fifth slice's kernels: K1 and K3 in each column
+    # form of the storage plans, K4 and K4m at bf16 ----
+    t0 = time.monotonic()
+    graphs5 = _fifth_slice_kernels(torch, np, K, P, O, F, G, S, SR, g, dev,
+                                   record)
+    print(f"storage-plan kernels checked and timed in "
+          f"{time.monotonic() - t0:.1f} s")
+
+    # ---- phase 3 (e): the fifth slice's path: the storage plans on the
+    # cuda backend (the grid dense and delta, rmat-15 int16 / int32 /
+    # int64, rmat-22 delta, bf16 PageRank) ----
+    t0 = time.monotonic()
+    launches5, variants5 = _fifth_slice_path(torch, np, K, R, G, S,
+                                             graphs5, g, sources, dev)
+    tally(variants5)
+    print(f"path (e) run and validated in {time.monotonic() - t0:.1f} s")
 
     # ---- where the time goes: each slice's path once more under
     # torch.profiler (its overhead inflates the wall time; the device
@@ -1436,10 +1896,15 @@ def main(argv=None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def profiled(label, fn, top):
+    def profiled(label, fn, top, host_ops=True):
+        """``host_ops=False`` traces the device alone (its busy time is
+        all this reads), for a run of many thousand steps whose host
+        events the profiler cannot summarise within the time limit."""
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        acts = [ProfilerActivity.CUDA]
+        if host_ops:
+            acts.insert(0, ProfilerActivity.CPU)
+        with profile(activities=acts) as prof:
             t0 = time.monotonic()
             fn()
             torch.cuda.synchronize()
@@ -1472,19 +1937,45 @@ def main(argv=None) -> int:
                       backend="cuda")
         subgraph_match(g16, 3, TRIANGLE, cap=sm_cap, backend="cuda")
 
+    # path (e) takes ~14,000 BSP steps at side 2048; its breakdown is
+    # taken on the delta grid of side PROFILE_GRID_SIDE (~3,500 steps),
+    # PageRank at full size
+    g_prof = G.grid2d(PROFILE_GRID_SIDE, weighted=True, seed=0,
+                      encoding="delta", device=dev)
+
+    def path_e():
+        nn = g_prof.num_vertices
+        srcs = [0, nn // 2 + PROFILE_GRID_SIDE // 2, 12345 % nn, nn - 1]
+        bfs_batch(g_prof, srcs, backend="cuda")
+        sssp_batch(g_prof, srcs, backend="cuda")
+        pagerank(graphs5["grid-delta"], max_iter=20, backend="cuda")
+
     profiled("bfs_batch+sssp_batch+pagerank", path_a, 12)
     profiled("cc+bc_batch+triangle_count", path_b, 12)
     profiled("reach_batch+label_propagation (2 iterations)+wtf+"
              "subgraph_match", path_c, 12)
-    del g_tc, g16
+    profiled(f"grid {PROFILE_GRID_SIDE} delta: bfs_batch+sssp_batch, "
+             f"grid {GRID_SIDE} delta: pagerank", path_e, 12, host_ops=False)
+    del g_tc, g16, graphs5, g_prof
 
+    # each kernel, then the column or precision variants this slice timed
+    # as rows of their own, launches those of the main path's run
     kernels = []
     for name, k in K.KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces,
                         "launches": (launches[name] + launches2[name]
-                                     + launches3[name] + launches4[name]),
+                                     + launches3[name] + launches4[name]
+                                     + launches5[name]),
+                        "variants": variant_totals[name],
                         **results[name]})
+    for row in sorted(r for r in results if ":" in r):
+        name, variant = row.split(":")
+        k = K.KERNELS[name]
+        kernels.append({"name": row, "route": "cuda", "source": k.source,
+                        "replaces": k.replaces,
+                        "launches": variant_totals[name].get(variant, 0),
+                        **results[row]})
     print(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(_smi())

@@ -3,8 +3,18 @@
 ``graph_from_arrays`` builds a port :class:`~repro_torch.core.graph.Graph`
 from the reference Graph's fields given as host numpy arrays
 (``{f: np.asarray(getattr(g, f)) for f in TENSOR_FIELDS}``), so both
-packages can run on the very same arrays. Index fields become int32,
-value fields float32; a field that is missing or None stays None.
+packages can run on the very same arrays. Each array keeps its dtype:
+the column arrays their index dtype (int16, int32 or int64), the values
+float32 or bfloat16 — a bfloat16 array (numpy's ``ml_dtypes`` type, or
+its bits as uint16) becomes a ``torch.bfloat16`` tensor bit for bit.
+The other index fields become int32. A field that is missing or None
+stays None.
+
+A delta-encoded graph has no dense columns; its encoded parts come in
+``col_enc`` / ``csc_enc`` as ``{part: array}`` over the
+:class:`~repro_torch.core.storage.EncodedCols` fields. ``plan``, the
+reference plan's three fields as a dict, is taken as given; without one
+it is read off the arrays.
 """
 from __future__ import annotations
 
@@ -13,32 +23,78 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from .core import storage as S
 from .core.graph import TENSOR_FIELDS, Graph
 from .kernels.runtime import resolve_device
 
 _VALUE_FIELDS = ("edge_values", "csc_edge_values")
+_COL_FIELDS = ("col_indices", "csc_indices")
+_NARROW = {np.dtype(np.int16): "int16", np.dtype(np.int32): "int32",
+           np.dtype(np.int64): "int64"}
+
+
+def _values(a: np.ndarray, dev) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
+        bits = np.ascontiguousarray(a).view(np.int16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+
+def _encoded(parts: Mapping[str, np.ndarray], dev) -> S.EncodedCols:
+    def t(name, dtype):
+        return torch.from_numpy(np.array(parts[name], dtype=dtype)).to(dev)
+
+    return S.EncodedCols(anchor=t("anchor", np.int32),
+                         delta=t("delta", np.uint16),
+                         esc_pos=t("esc_pos", np.int32),
+                         esc_val=t("esc_val", np.int32),
+                         row_seg=t("row_seg", np.int32))
 
 
 def graph_from_arrays(fields: Mapping[str, Optional[np.ndarray]], *,
                       ell_width: Optional[int],
                       csc_ell_width: Optional[int],
+                      plan: Optional[Mapping[str, str]] = None,
+                      col_enc: Optional[Mapping[str, np.ndarray]] = None,
+                      csc_enc: Optional[Mapping[str, np.ndarray]] = None,
                       device=None) -> Graph:
     unknown = set(fields) - set(TENSOR_FIELDS)
     if unknown:
         raise ValueError(f"unknown Graph fields {sorted(unknown)}")
-    for need in ("row_offsets", "col_indices"):
-        if fields.get(need) is None:
-            raise ValueError(f"graph_from_arrays needs {need!r}")
+    if fields.get("row_offsets") is None:
+        raise ValueError("graph_from_arrays needs 'row_offsets'")
+    if fields.get("col_indices") is None and col_enc is None:
+        raise ValueError("graph_from_arrays needs 'col_indices' or col_enc")
     dev = resolve_device(device)
     kw = {}
     for name in TENSOR_FIELDS:
         a = fields.get(name)
-        if a is None:
+        if a is None or np.asarray(a).shape == ():
             kw[name] = None
-            continue
-        dtype = np.float32 if name in _VALUE_FIELDS else np.int32
-        kw[name] = torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
-    return Graph(**kw,
+        elif name in _VALUE_FIELDS:
+            kw[name] = _values(a, dev)
+        elif name in _COL_FIELDS:
+            a = np.asarray(a)
+            dtype = a.dtype if a.dtype in _NARROW else np.dtype(np.int32)
+            kw[name] = torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
+        else:
+            kw[name] = torch.from_numpy(np.array(a, dtype=np.int32)).to(dev)
+    enc = {"col_enc": None if col_enc is None else _encoded(col_enc, dev),
+           "csc_enc": None if csc_enc is None else _encoded(csc_enc, dev)}
+    if plan is not None:
+        plan = S.StoragePlan(**plan)
+    else:
+        cols, values = kw["col_indices"], kw["edge_values"]
+        n = int(kw["row_offsets"].shape[0]) - 1
+        plan = S.StoragePlan(
+            index_dtype=(S.plan_for(n).index_dtype if cols is None
+                         else str(cols.dtype).replace("torch.", "")),
+            encoding="dense" if col_enc is None else "delta",
+            value_dtype=("bf16" if values is not None
+                         and values.dtype == torch.bfloat16 else "fp32"))
+    return Graph(**kw, **enc,
                  ell_width=None if ell_width is None else int(ell_width),
                  csc_ell_width=(None if csc_ell_width is None
-                                else int(csc_ell_width)))
+                                else int(csc_ell_width)),
+                 plan=plan)

@@ -41,6 +41,10 @@ _loaded: set[str] = set()
 
 # (op, backend) -> implementation
 _REGISTRY: dict[tuple[str, str], Callable] = {}
+# (op, backend) -> the column encodings the provider decodes itself; a
+# provider that declared only "dense" receives the dense view of a
+# delta-encoded store (``storage_arg``)
+_ENCODINGS: dict[tuple[str, str], tuple] = {}
 
 
 class ProviderMissError(KeyError):
@@ -86,12 +90,18 @@ def resolve(backend: Optional[str] = None,
     return backend
 
 
-def register(op: str, backend: str):
-    """Decorator: register ``fn`` as the ``backend`` provider of ``op``."""
+def register(op: str, backend: str, encodings: tuple = ("dense",)):
+    """Decorator: register ``fn`` as the ``backend`` provider of ``op``;
+    ``encodings`` names the column storage encodings it decodes itself
+    (see ``storage_arg``)."""
     _check(backend)
+    for enc in encodings:
+        if enc not in ("dense", "delta"):
+            raise ValueError(f"unknown storage encoding {enc!r}")
 
     def deco(fn: Callable) -> Callable:
         _REGISTRY[(op, backend)] = fn
+        _ENCODINGS[(op, backend)] = tuple(encodings)
         return fn
 
     return deco
@@ -116,6 +126,33 @@ def registered(op: str, backend: str) -> bool:
     except ProviderMissError:
         return False
     return True
+
+
+def declared_encodings(op: str, backend: str) -> tuple:
+    """The column encodings the ``backend`` provider of ``op`` decodes
+    itself."""
+    dispatch(op, backend)
+    return _ENCODINGS.get((op, backend), ("dense",))
+
+
+def coerce_store(op: str, backend: str, *, store, cache=None):
+    """The column store to hand the ``backend`` provider of ``op``: the
+    store itself when it is dense (at any index dtype) or the provider
+    declared its encoding, else the dense int32 view. With ``cache`` (a
+    graph's) the view is decoded once and kept there."""
+    from . import storage as S
+    if not isinstance(store, S.EncodedCols) or "delta" in declared_encodings(
+            op, backend):
+        return store
+    return S.dense_view(store, cache)
+
+
+def storage_arg(op: str, backend: str, *, graph, side: str = "csr"):
+    """The column operand for the registry's column slot: the graph's
+    native store (``side`` "csr" or "csc") when the provider declared
+    its encoding, else its dense int32 view, decoded once per graph."""
+    store = graph.col_store if side == "csr" else graph.csc_store
+    return coerce_store(op, backend, store=store, cache=graph.cache)
 
 
 def tier_plan(op: str, cap: int, *, min_tier: Optional[int] = None,

@@ -1,22 +1,33 @@
 """Graph container and generators (counterpart of ``repro.core.graph``).
 
-``Graph`` is a frozen dataclass of int32 tensors on one device:
+``Graph`` is a frozen dataclass of tensors on one device:
 
-    row_offsets : (n+1,)  CSR offsets
-    col_indices : (m,)    neighbor ids, sorted within each row
-    edge_values : (m,)    optional float32 weights
+    row_offsets : (n+1,)  CSR offsets, int32
+    col_indices : (m,)    neighbor ids, sorted within each row, at the
+                          plan's index dtype; None when the columns are
+                          delta-encoded (``col_enc``)
+    edge_values : (m,)    optional weights, float32 or bfloat16
 
 plus the CSC mirror (pull traversal, PageRank's transpose sweep) and the
 build-time sweep metadata of the reference: edge→row maps
 (``row_seg``/``csc_row_seg``), the compacted ELL-overflow edge lists
 (``over_pos``/``over_row`` and their CSC twins) and the two ELL widths.
-Storage is dense int32 only (the reference's default plan).
+
+Storage is planned at build time as the reference plans it
+(``core/storage.py``): ``from_csr`` / ``from_edge_list`` pick the
+narrowest vertex-id dtype that holds ``n`` (int16 up to 32,767 vertices,
+else int32, else int64) or honour an explicit ``index_dtype=``, may
+delta-encode the CSR and CSC columns (``encoding="delta"``) and may keep
+the values in bfloat16 (``value_dtype="bf16"``). The plan rides on the
+graph as ``plan``. Consumers read columns through ``col_store`` /
+``csc_store`` (the registry's column operand), ``storage.gather_cols``
+(per touched edge) or ``cols()`` / ``csc_cols()`` (the dense int32 view).
 
 Everything is built on the host with numpy — the same calls in the same
 order as the reference, so the arrays come out identical; the two large
 stable sorts run through PyTorch on the graph's device, which returns
-the same (unique) permutation faster — and moved to the device once. ``device=None`` means the card; the CPU is used only
-when asked for.
+the same (unique) permutation faster — and moved to the device once.
+``device=None`` means the card; the CPU is used only when asked for.
 """
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ import numpy as np
 import torch
 
 from ..kernels.runtime import resolve_device
+from . import storage as S
 
 INT32_MAX = np.iinfo(np.int32).max
 
@@ -42,7 +54,7 @@ class Graph:
     """Static-topology graph in CSR (+ CSC mirror) form."""
 
     row_offsets: torch.Tensor
-    col_indices: torch.Tensor
+    col_indices: Optional[torch.Tensor]
     edge_values: Optional[torch.Tensor] = None
     csc_offsets: Optional[torch.Tensor] = None
     csc_indices: Optional[torch.Tensor] = None
@@ -54,11 +66,17 @@ class Graph:
     over_row: Optional[torch.Tensor] = None
     csc_over_pos: Optional[torch.Tensor] = None
     csc_over_row: Optional[torch.Tensor] = None
+    # delta-encoded column stores (plan encoding "delta"): when set, the
+    # matching dense ``*_indices`` field is None
+    col_enc: Optional[S.EncodedCols] = None
+    csc_enc: Optional[S.EncodedCols] = None
     ell_width: Optional[int] = None
     csc_ell_width: Optional[int] = None
+    # the build-time storage decision; None only for a Graph made by hand
+    plan: Optional[S.StoragePlan] = None
     # derived tensors and kernel scratch that live as long as the graph
-    # (reciprocal out-degrees, the fused filter's first-slot table); not
-    # part of the graph's value
+    # (reciprocal out-degrees, the fused filter's first-slot table, the
+    # kernels' decoded column views); not part of the graph's value
     cache: dict = field(default_factory=dict, compare=False, repr=False)
 
     # --- basic properties -------------------------------------------------
@@ -68,7 +86,9 @@ class Graph:
 
     @property
     def num_edges(self) -> int:
-        return int(self.col_indices.shape[0])
+        if self.col_indices is not None:
+            return int(self.col_indices.shape[0])
+        return self.col_enc.num_edges
 
     @property
     def device(self) -> torch.device:
@@ -86,23 +106,52 @@ class Graph:
     def weighted(self) -> bool:
         return self.edge_values is not None
 
+    # --- storage access ---------------------------------------------------
+    @property
+    def col_store(self) -> S.ColStore:
+        """The CSR column storage as the registry passes it: the dense
+        array (plan index dtype) or the EncodedCols delta stream."""
+        return self.col_indices if self.col_enc is None else self.col_enc
+
+    @property
+    def csc_store(self) -> Optional[S.ColStore]:
+        return self.csc_indices if self.csc_enc is None else self.csc_enc
+
+    def cols(self) -> torch.Tensor:
+        """The dense int32 CSR columns (decoded when delta, widened when
+        narrow)."""
+        return S.decode_cols(self.col_store)
+
+    def csc_cols(self) -> torch.Tensor:
+        if not self.has_csc:
+            raise ValueError("graph has no CSC mirror")
+        return S.decode_cols(self.csc_store)
+
     def cols_np(self) -> np.ndarray:
-        return self.col_indices.cpu().numpy()
+        """Host-side dense int32 columns."""
+        return self.cols().cpu().numpy()
 
     @classmethod
     def from_csr(cls, row_offsets, col_indices, edge_values=None, *,
                  build_csc: bool = True, sort_neighbors: bool = True,
+                 index_dtype: Optional[str] = None,
+                 encoding: str = "dense", value_dtype: str = "fp32",
                  validate: bool = False, device=None) -> "Graph":
         """Build a Graph from host-side CSR arrays; all build-time
         metadata (CSC mirror, edge→row maps, overflow lists, both ELL
-        widths) is computed here exactly once. ``validate=True`` runs
-        :func:`validate_csr` on the raw input first."""
+        widths) is computed here exactly once. The storage plan
+        (``index_dtype`` / ``encoding`` / ``value_dtype``) is resolved by
+        ``storage.plan_for`` and every column array pinned to it;
+        ``encoding="delta"`` needs sorted rows. ``validate=True`` runs
+        :func:`validate_csr` on the raw input first, against the plan."""
         dev = resolve_device(device)
         ro = np.asarray(row_offsets, np.int64)
         n = len(ro) - 1
+        plan = S.plan_for(n, index_dtype=index_dtype, encoding=encoding,
+                          value_dtype=value_dtype)
         if validate:
-            validate_csr(row_offsets, col_indices, edge_values)
-        ci = np.asarray(col_indices, np.int32)
+            validate_csr(row_offsets, col_indices, edge_values, plan=plan)
+        ci = np.asarray(col_indices, plan.np_index_dtype)
         vals = (None if edge_values is None
                 else np.asarray(edge_values, np.float32))
         counts = np.diff(ro)
@@ -129,29 +178,46 @@ class Graph:
                 return None
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
 
-        return cls(row_offsets=t(ro), col_indices=t(ci),
-                   edge_values=t(vals, np.float32),
-                   csc_offsets=t(csc[0]), csc_indices=t(csc[1]),
-                   csc_edge_values=t(csc[2], np.float32),
+        def vt(a):
+            # bf16 values round to nearest even from float32, as the
+            # reference's jnp.asarray(vals, bfloat16) rounds them
+            v = t(a, np.float32)
+            return None if v is None else v.to(plan.torch_value_dtype)
+
+        col_enc = csc_enc = None
+        col_dense = t(ci, plan.np_index_dtype)
+        csc_dense = t(csc[1], plan.np_index_dtype)
+        if plan.encoding == "delta":
+            col_enc = S.encode_delta(ro, ci, src, dev)
+            col_dense = None
+            if csc[1] is not None:
+                csc_enc = S.encode_delta(csc[0], csc[1], csc_seg, dev)
+                csc_dense = None
+        return cls(row_offsets=t(ro), col_indices=col_dense,
+                   edge_values=vt(vals), csc_offsets=t(csc[0]),
+                   csc_indices=csc_dense, csc_edge_values=vt(csc[2]),
                    csc_edge_ids=t(csc[3]), row_seg=t(src),
                    csc_row_seg=t(csc_seg), over_pos=t(over[0]),
                    over_row=t(over[1]), csc_over_pos=t(csc_over[0]),
-                   csc_over_row=t(csc_over[1]), ell_width=ell_w,
-                   csc_ell_width=csc_ell)
+                   csc_over_row=t(csc_over[1]), col_enc=col_enc,
+                   csc_enc=csc_enc, ell_width=ell_w,
+                   csc_ell_width=csc_ell, plan=plan)
 
 
 class GraphValidationError(ValueError):
     """Structurally invalid CSR input (see :func:`validate_csr`)."""
 
 
-def validate_csr(row_offsets, col_indices, edge_values=None
-                 ) -> tuple[int, int]:
+def validate_csr(row_offsets, col_indices, edge_values=None, *,
+                 plan: Optional[S.StoragePlan] = None) -> tuple[int, int]:
     """Strict structural validation of host-side CSR arrays (the
-    reference's checks, against the int32 id range): offsets 1-D,
-    starting at 0, non-decreasing, ending at the edge count; every
-    column id in ``[0, n)`` and within int32; one finite value per
-    edge. Returns ``(n, m)``; raises :class:`GraphValidationError`
-    naming the first offending row or edge."""
+    reference's checks): offsets 1-D, starting at 0, non-decreasing,
+    ending at the edge count; every column id in ``[0, n)``; ids and
+    ``n`` within the storage plan's index dtype (when a plan is given);
+    edge offsets within int32; one finite value per edge. Runs on the
+    raw arrays, before a cast could truncate an id. Returns ``(n, m)``;
+    raises :class:`GraphValidationError` naming the first offending row
+    or edge."""
     ro = np.asarray(row_offsets, np.int64)
     ci = np.asarray(col_indices, np.int64)
     if ro.ndim != 1 or len(ro) < 1:
@@ -180,6 +246,15 @@ def validate_csr(row_offsets, col_indices, edge_values=None
             raise GraphValidationError(
                 f"column id out of range at edge {e}: {int(ci[e])} not "
                 f"in [0, {n})")
+    if plan is not None:
+        info = np.iinfo(plan.np_index_dtype)
+        top = max(n - 1, int(ci.max()) if len(ci) else 0)
+        if top > info.max:
+            raise GraphValidationError(
+                f"index dtype overflow: storage plan "
+                f"index_dtype={plan.index_dtype!r} holds ids up to "
+                f"{info.max} but the graph needs {top}; pass a wider "
+                f"index_dtype (or index_dtype=None to auto-size)")
     top = max(n - 1, len(ci))
     if top > INT32_MAX:
         raise GraphValidationError(
@@ -201,11 +276,13 @@ def validate_csr(row_offsets, col_indices, edge_values=None
 def validate_graph(g: Graph) -> tuple[int, int]:
     """Re-run :func:`validate_csr` on a built Graph (and its CSC
     mirror), pulling the arrays back to the host."""
-    vals = None if g.edge_values is None else g.edge_values.cpu().numpy()
-    shape = validate_csr(g.row_offsets.cpu().numpy(), g.cols_np(), vals)
+    vals = (None if g.edge_values is None
+            else g.edge_values.float().cpu().numpy())
+    shape = validate_csr(g.row_offsets.cpu().numpy(), g.cols_np(), vals,
+                         plan=g.plan)
     if g.has_csc:
         validate_csr(g.csc_offsets.cpu().numpy(),
-                     g.csc_indices.cpu().numpy())
+                     g.csc_cols().cpu().numpy(), plan=g.plan)
     return shape
 
 
@@ -253,9 +330,14 @@ def from_edge_list(src, dst, n: Optional[int] = None, values=None,
                    undirected: bool = False, build_csc: bool = True,
                    sort_neighbors: bool = True,
                    remove_self_loops: bool = True,
-                   deduplicate: bool = True, device=None) -> Graph:
+                   deduplicate: bool = True,
+                   index_dtype: Optional[str] = None,
+                   encoding: str = "dense", value_dtype: str = "fp32",
+                   device=None) -> Graph:
     """Build a Graph from host-side edge arrays: optionally symmetrize,
-    drop self loops and duplicate edges, sort rows."""
+    drop self loops and duplicate edges, sort rows; the storage plan as
+    in :meth:`Graph.from_csr` (``encoding="delta"`` needs sorted
+    rows)."""
     device = resolve_device(device)
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
@@ -305,8 +387,12 @@ def from_edge_list(src, dst, n: Optional[int] = None, values=None,
     counts = np.bincount(src, minlength=n)
     row_offsets = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(counts, out=row_offsets[1:])
+    if encoding == "delta" and not sort_neighbors:
+        raise ValueError("encoding='delta' requires sort_neighbors=True")
     return Graph.from_csr(row_offsets, dst, values, build_csc=build_csc,
-                          sort_neighbors=False, device=device)
+                          sort_neighbors=False, index_dtype=index_dtype,
+                          encoding=encoding, value_dtype=value_dtype,
+                          device=device)
 
 
 def row_segments_of(offsets: torch.Tensor) -> torch.Tensor:
@@ -328,7 +414,8 @@ def edge_list(graph: Graph) -> tuple[np.ndarray, np.ndarray]:
 def rmat(scale: int, edge_factor: int = 16, a: float = 0.57,
          b: float = 0.19, c: float = 0.19, seed: int = 0,
          weighted: bool = False, undirected: bool = True,
-         device=None) -> Graph:
+         index_dtype: Optional[str] = None, encoding: str = "dense",
+         value_dtype: str = "fp32", device=None) -> Graph:
     """R-MAT / Kronecker generator with the Graph500 initiator — the
     reference's generator, call for call, so the edges are identical."""
     rng = np.random.default_rng(seed)
@@ -347,11 +434,14 @@ def rmat(scale: int, edge_factor: int = 16, a: float = 0.57,
     values = (rng.integers(1, 64, size=m).astype(np.float32)
               if weighted else None)
     return from_edge_list(src, dst, n=n, values=values,
-                          undirected=undirected, device=device)
+                          undirected=undirected, index_dtype=index_dtype,
+                          encoding=encoding, value_dtype=value_dtype,
+                          device=device)
 
 
 def grid2d(side: int, weighted: bool = False, seed: int = 0,
-           device=None) -> Graph:
+           index_dtype: Optional[str] = None, encoding: str = "dense",
+           value_dtype: str = "fp32", device=None) -> Graph:
     """2-D grid — the road-network stand-in (large diameter, small
     uniform degree)."""
     rng = np.random.default_rng(seed)
@@ -363,5 +453,7 @@ def grid2d(side: int, weighted: bool = False, seed: int = 0,
     values = (rng.integers(1, 64, size=len(src)).astype(np.float32)
               if weighted else None)
     return from_edge_list(src, dst, n=side * side, values=values,
-                          undirected=True, device=device)
+                          undirected=True, index_dtype=index_dtype,
+                          encoding=encoding, value_dtype=value_dtype,
+                          device=device)
 

@@ -28,6 +28,12 @@ Functors see whole tensors: ``functor(src, dst, edge_id, rank, valid,
 data) -> (keep, data)`` gets (B, cap) tensors from ``advance_batch`` and
 (cap,) tensors from ``advance``. Only the LB strategy is ported; TWC and
 THREAD (the paper's Fig. 20 ablation) come with a later slice.
+
+Columns are read through the graph's storage plan: the traversal
+providers take the column store (a dense array at any index dtype, or
+the delta stream) and decode per touched edge (``storage.gather_cols``);
+a provider that declared only ``"dense"`` gets the dense view through
+``backend.storage_arg``.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from . import backend as B
+from . import storage as S
 from .frontier import (INVALID, BatchedDenseFrontier, BatchedSparseFrontier,
                        DenseFrontier, SparseFrontier, compact_values,
                        compact_values_batch)
@@ -90,33 +97,37 @@ def lb_expand(sizes: torch.Tensor, valid_in: torch.Tensor,
     return Expansion(*(t[0] for t in exp)) if squeeze else exp
 
 
-@B.register("advance_batch", B.TORCH)
-def _advance_batch_torch(row_offsets: torch.Tensor, col_indices: torch.Tensor,
+@B.register("advance_batch", B.TORCH, encodings=("dense", "delta"))
+def _advance_batch_torch(row_offsets: torch.Tensor, col_indices: S.ColStore,
                          base: torch.Tensor, sizes: torch.Tensor,
-                         cap_out: int):
+                         cap_out: int, cache=None):
     """Plain batched advance: LB sorted search + CSR gathers as separate
     passes. Returns (src, dst, edge_id, in_pos, rank, valid, totals),
     (B, cap_out) each and totals (B,); src/dst/edge_id are -1 and rank 0
-    on dead slots, in_pos is left unmasked (the reference's contract)."""
+    on dead slots, in_pos is left unmasked (the reference's contract).
+    ``col_indices`` is the column store, decoded per touched edge with
+    the expansion's own source as the delta row; ``cache`` is unused
+    here (the kernel keeps its decoded views in it)."""
+    del cache
     exp = lb_expand(sizes, torch.ones_like(sizes, dtype=torch.bool),
                     cap_out)
     src = torch.gather(base, 1, exp.in_pos.long())
     edge_id = row_offsets[src.long()] + exp.rank
     edge_id = torch.where(exp.valid, edge_id, 0)
-    m = col_indices.shape[0]
-    dst = col_indices[edge_id.clamp(0, max(m - 1, 0)).long()] if m else (
-        torch.zeros_like(edge_id))
+    m = S.store_num_edges(col_indices)
+    dst = S.gather_cols(col_indices, edge_id.clamp(0, max(m - 1, 0)), src)
     return (torch.where(exp.valid, src, INVALID),
             torch.where(exp.valid, dst, INVALID),
             torch.where(exp.valid, edge_id, INVALID), exp.in_pos,
             torch.where(exp.valid, exp.rank, 0), exp.valid, exp.total)
 
 
-@B.register("advance", B.TORCH)
-def _advance_torch(row_offsets, col_indices, base, sizes, cap_out: int):
+@B.register("advance", B.TORCH, encodings=("dense", "delta"))
+def _advance_torch(row_offsets, col_indices, base, sizes, cap_out: int,
+                   cache=None):
     """Single-lane "advance": a batch-of-1 ``_advance_batch_torch``."""
     out = _advance_batch_torch(row_offsets, col_indices, base[None],
-                               sizes[None], cap_out)
+                               sizes[None], cap_out, cache)
     return tuple(t[0] for t in out)
 
 
@@ -135,7 +146,7 @@ def _base_and_sizes(graph: Graph, ids: torch.Tensor, valid: torch.Tensor,
     ids = torch.where(valid, ids, 0)
     if input_kind == "edge":
         # an edge item expands the neighbor list of its destination
-        ids = graph.col_indices[ids.long()]
+        ids = S.gather_cols(graph.col_store, ids)
     elif input_kind != "vertex":
         raise ValueError(f"unknown input_kind {input_kind}")
     ro = graph.row_offsets
@@ -168,9 +179,10 @@ def advance_batch(graph: Graph, frontier: BatchedSparseFrontier,
     bk = B.resolve(backend, graph.device)
     base, sizes = _base_and_sizes(graph, frontier.ids, frontier.valid_mask,
                                   input_kind)
+    cols = B.storage_arg("advance_batch", bk, graph=graph)
     src, dst, edge_id, in_pos, rank, valid, total = B.dispatch(
-        "advance_batch", bk)(graph.row_offsets, graph.col_indices, base,
-                             sizes, cap_out)
+        "advance_batch", bk)(graph.row_offsets, cols, base, sizes, cap_out,
+                             graph.cache)
     res = AdvanceResult(src=src, dst=dst, edge_id=edge_id, in_pos=in_pos,
                         valid=valid, total=total)
     return _apply_functor(res, rank, functor, data)
@@ -187,9 +199,10 @@ def advance(graph: Graph, frontier: SparseFrontier, cap_out: int,
     bk = B.resolve(backend, graph.device)
     base, sizes = _base_and_sizes(graph, frontier.ids, frontier.valid_mask,
                                   input_kind)
+    cols = B.storage_arg("advance", bk, graph=graph)
     src, dst, edge_id, in_pos, rank, valid, total = B.dispatch(
-        "advance", bk)(graph.row_offsets, graph.col_indices, base, sizes,
-                       cap_out)
+        "advance", bk)(graph.row_offsets, cols, base, sizes, cap_out,
+                       graph.cache)
     res = AdvanceResult(src=src, dst=dst, edge_id=edge_id, in_pos=in_pos,
                         valid=valid, total=total)
     return _apply_functor(res, rank, functor, data)
@@ -204,7 +217,7 @@ def frontier_workload(graph: Graph, frontier) -> torch.Tensor:
     return sizes.sum(dim=-1, dtype=torch.int32)
 
 
-@B.register("advance_filter_batch", B.TORCH)
+@B.register("advance_filter_batch", B.TORCH, encodings=("dense", "delta"))
 def _advance_filter_batch_torch(row_offsets, col_indices, base, sizes,
                                 visited: torch.Tensor, cap_out: int,
                                 cap_front: int, cache=None):
@@ -234,7 +247,7 @@ def _advance_filter_batch_torch(row_offsets, col_indices, base, sizes,
     return ids, srcs, lengths, keep.sum(dim=1, dtype=torch.int32)
 
 
-@B.register("advance_filter", B.TORCH)
+@B.register("advance_filter", B.TORCH, encodings=("dense", "delta"))
 def _advance_filter_torch(row_offsets, col_indices, base, sizes, visited,
                           cap_out: int, cap_front: int, cache=None):
     """Single-lane "advance_filter": a batch-of-1 call."""
@@ -259,8 +272,9 @@ def advance_filter_batch(graph: Graph, frontier: BatchedSparseFrontier,
     cap_front = frontier.capacity if cap_front is None else cap_front
     base, sizes = _base_and_sizes(graph, frontier.ids, frontier.valid_mask,
                                   "vertex")
+    cols = B.storage_arg("advance_filter_batch", bk, graph=graph)
     ids, srcs, lengths, totals = B.dispatch("advance_filter_batch", bk)(
-        graph.row_offsets, graph.col_indices, base, sizes,
+        graph.row_offsets, cols, base, sizes,
         visited.to(torch.bool), cap_out, cap_front, graph.cache)
     return BatchedSparseFrontier(ids=ids, lengths=lengths), srcs, totals
 
@@ -276,8 +290,9 @@ def advance_filter(graph: Graph, frontier: SparseFrontier,
     cap_front = frontier.capacity if cap_front is None else cap_front
     base, sizes = _base_and_sizes(graph, frontier.ids, frontier.valid_mask,
                                   "vertex")
+    cols = B.storage_arg("advance_filter", bk, graph=graph)
     ids, srcs, length, total = B.dispatch("advance_filter", bk)(
-        graph.row_offsets, graph.col_indices, base, sizes,
+        graph.row_offsets, cols, base, sizes,
         visited.to(torch.bool), cap_out, cap_front, graph.cache)
     return SparseFrontier(ids=ids, length=length), srcs, total
 
@@ -325,7 +340,9 @@ def advance_pull_batch(graph: Graph, unvisited: BatchedDenseFrontier,
         raise ValueError("pull advance requires a CSC mirror")
     n, m = graph.num_vertices, graph.num_edges
     b = current.flags.shape[0]
-    csc = graph.csc_indices
+    # the sweep reads every CSC slot: the dense int32 view, decoded or
+    # widened once per graph
+    csc = S.dense_view(graph.csc_store, graph.cache)
     pred_active = torch.index_select(current.flags, 1, csc)
     pred_id = torch.where(pred_active, csc[None, :], -1)
     preds = torch.full((b, n), INT32_MIN, dtype=torch.int32,
@@ -424,7 +441,8 @@ def _intersect_probes(graph: Graph, fa: SparseFrontier, fb: SparseFrontier,
                         0).to(torch.int32)
     # fused expansion: dst of the small-side advance IS the probe needle
     _, needles, _, pair, _, valid, _ = B.dispatch("advance", bk)(
-        ro, graph.col_indices, small, sizes, cap_out)
+        ro, B.storage_arg("advance", bk, graph=graph), small, sizes, cap_out,
+        graph.cache)
     l_vert = torch.index_select(large, 0, pair)
     lo = torch.index_select(ro, 0, l_vert)
     hi = torch.index_select(ro, 0, l_vert + 1)
@@ -444,8 +462,10 @@ def segmented_intersect(graph: Graph, fa: SparseFrontier,
     bk = B.resolve(backend, graph.device)
     needles, lo, hi, pair, valid = _intersect_probes(graph, fa, fb,
                                                      cap_out, bk)
-    found = B.dispatch("segment_search", bk)(graph.col_indices, lo, hi,
-                                             needles)
+    # the probe searches column values in place: a dense store at its
+    # index dtype, or the decoded view of a delta one
+    found = B.dispatch("segment_search", bk)(
+        B.storage_arg("segment_search", bk, graph=graph), lo, hi, needles)
     found = found & valid
     counts = torch.zeros((fa.capacity,), dtype=torch.int32,
                          device=graph.device)

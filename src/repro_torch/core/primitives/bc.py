@@ -87,7 +87,7 @@ def _bc_impl(graph: Graph, esrc: torch.Tensor, srcs: torch.Tensor,
     each lane's dependencies (0 masks a padding lane)."""
     n = graph.num_vertices
     dev = graph.device
-    edst = graph.col_indices
+    edst = graph.cols()
     b = int(srcs.shape[0])
     lane_ids = torch.arange(b, device=dev)
 

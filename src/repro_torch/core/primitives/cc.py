@@ -50,7 +50,7 @@ def connected_components(graph: Graph, *,
     dev = graph.device
     src = (graph.row_seg if graph.row_seg is not None
            else row_segments_of(graph.row_offsets))
-    dst = graph.col_indices
+    dst = graph.cols()
     cid = torch.arange(n, dtype=torch.int32, device=dev)
     iterations = 0
     while int(src.shape[0]) and iterations < n + 1:

@@ -46,6 +46,7 @@ def label_propagation(graph: Graph, *, labels0=None,
     community detection."""
     bk = B.resolve(backend, graph.device)
     spmm = B.dispatch("spmm", bk)
+    cols_store = B.storage_arg("spmm", bk, graph=graph)
     n = graph.num_vertices
     dev = graph.device
     if labels0 is None:
@@ -65,9 +66,9 @@ def label_propagation(graph: Graph, *, labels0=None,
             cols = i * block + lanes
             onehot = (labels[:, None] == cols[None, :]).to(torch.float32)
             # votes[v, j] = number of v's neighbours labelled cols[j]
-            votes = spmm(graph.row_offsets, graph.col_indices, None, onehot,
+            votes = spmm(graph.row_offsets, cols_store, None, onehot,
                          SR.plus_times, graph.ell_width, None,
-                         graph.row_seg)
+                         graph.row_seg, cache=graph.cache)
             # torch.argmax documents the first maximum: the min label
             arg = torch.argmax(votes, dim=1)
             bs = torch.gather(votes, 1, arg[:, None])[:, 0]

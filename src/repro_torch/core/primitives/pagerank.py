@@ -61,13 +61,21 @@ def _inv_out_degrees(graph: Graph) -> torch.Tensor:
 
 
 def pagerank(graph: Graph, *, damping: float = 0.85, tol: float = 0.0,
-             max_iter: int = 20, backend: Optional[str] = None) -> PRResult:
+             max_iter: int = 20, backend: Optional[str] = None,
+             precision: str = "fp32") -> PRResult:
     """Power-iteration PageRank: at most ``max_iter`` sweeps, stopping
-    early only when every rank moves by ≤ ``tol``."""
+    early only when every rank moves by ≤ ``tol``. ``precision="bf16"``
+    rounds the sweep's products to bfloat16 (float32 sums), as the
+    reference does: the ranks then agree with float32 to ~1e-2, not
+    bit for bit."""
     if not graph.has_csc:
         raise ValueError("pagerank uses the CSC transpose")
     bk = B.resolve(backend, graph.device)
     spmv = B.dispatch("spmv", bk)
+    # the CSC store as the provider takes it (decoded once per graph for
+    # a provider that declared only "dense")
+    csc = B.storage_arg("spmv", bk, graph=graph, side="csc")
+    sr = SR.with_precision(SR.plus_times, precision)
     n = graph.num_vertices
     dev = graph.device
     inv_deg = _inv_out_degrees(graph)
@@ -78,10 +86,10 @@ def pagerank(graph: Graph, *, damping: float = 0.85, tol: float = 0.0,
 
     def body(st: PRState) -> PRState:
         contrib = st.rank * inv_deg
-        acc = spmv(graph.csc_offsets, graph.csc_indices, None, contrib,
-                   SR.plus_times, graph.csc_ell_width, None,
-                   graph.csc_row_seg, graph.csc_over_pos,
-                   graph.csc_over_row)
+        acc = spmv(graph.csc_offsets, csc, None, contrib, sr,
+                   graph.csc_ell_width, None, graph.csc_row_seg,
+                   graph.csc_over_pos, graph.csc_over_row,
+                   cache=graph.cache)
         dangling = _fixed_tree_sum(
             torch.where(dangling_mask, st.rank, 0.0)) / n
         new_rank = teleport + d * (acc + dangling)

@@ -41,6 +41,7 @@ def reach_batch(graph: Graph, srcs, k: int = 3, *,
         raise ValueError("reach uses the CSC transpose (pull sweeps)")
     bk = B.resolve(backend, graph.device)
     spmm = B.dispatch("spmm", bk)
+    csc = B.storage_arg("spmm", bk, graph=graph, side="csc")
     n = graph.num_vertices
     dev = graph.device
     srcs = torch.as_tensor(srcs, dtype=torch.int32, device=dev).reshape(-1)
@@ -49,8 +50,9 @@ def reach_batch(graph: Graph, srcs, k: int = 3, *,
     r[srcs.long(), torch.arange(b, device=dev)] = 1.0
     for _ in range(int(k)):
         need = torch.amin(r, dim=1) < 1.0
-        new = spmm(graph.csc_offsets, graph.csc_indices, None, r,
-                   SR.or_and, graph.csc_ell_width, need, graph.csc_row_seg)
+        new = spmm(graph.csc_offsets, csc, None, r, SR.or_and,
+                   graph.csc_ell_width, need, graph.csc_row_seg,
+                   cache=graph.cache)
         r = torch.maximum(r, new)
     reached = r.T > 0
     return ReachResult(reached=reached,

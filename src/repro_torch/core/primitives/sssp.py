@@ -96,7 +96,10 @@ def _run(graph: Graph, srcs: torch.Tensor, delta: float, use_delta: bool,
             res = ops.AdvanceResult(*(t[:, :k] if t.dim() == 2 else t
                                       for t in res))
             valid = res.valid
+            # bf16 weights widen to float32 exactly, as the reference's
+            # float32 + bfloat16 promotes them
             w = (graph.edge_values[torch.where(valid, res.edge_id, 0).long()]
+                 .to(torch.float32)
                  if m else torch.zeros(valid.shape, device=dev))
             safe_src = torch.where(valid, res.src, 0).long()
             cand = torch.gather(st.dist, 1, safe_src) + w

@@ -73,7 +73,7 @@ def subgraph_match(graph: Graph, n_q: int, q_edges: Sequence[tuple],
         qdeg[b] += 1
     dev = graph.device
     n = graph.num_vertices
-    ro, ci = graph.row_offsets, graph.col_indices
+    ro, ci = graph.row_offsets, graph.cols()
     deg = graph.degrees
     use_labels = labels is not None and q_labels is not None
     if use_labels:

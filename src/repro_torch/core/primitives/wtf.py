@@ -55,8 +55,8 @@ def who_to_follow(graph: Graph, user: int, *, k: int = 1000,
     src_all = graph.row_seg                     # CSR slot → source
     if src_all is None:
         src_all = row_segments_of(graph.row_offsets)
-    esrc_csc = graph.csc_indices
-    edst_csr = graph.col_indices
+    esrc_csc = graph.csc_cols()
+    edst_csr = graph.cols()
     d = torch.tensor(damping, dtype=torch.float32, device=dev)
 
     def seg_sum(vals: torch.Tensor, owners: torch.Tensor) -> torch.Tensor:

@@ -43,9 +43,9 @@ PR_RTOL = 1e-4
 
 def _csr(graph):
     ro = graph.row_offsets.cpu().numpy().astype(np.int64)
-    ci = graph.col_indices.cpu().numpy().astype(np.int64)
+    ci = graph.cols_np().astype(np.int64)
     w = (None if graph.edge_values is None
-         else graph.edge_values.cpu().numpy().astype(np.float64))
+         else graph.edge_values.float().cpu().numpy().astype(np.float64))
     return ro, ci, w
 
 

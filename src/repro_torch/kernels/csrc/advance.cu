@@ -33,14 +33,49 @@
 // give the same outputs. Bound by bytes: ~8 bytes of gathers plus 16
 // bytes of scratch traffic per slot, and random 4-byte atomics into
 // `first`.
+//
+// Column storage (the graph's storage plan, repro_torch/core/storage.py).
+// Both kernels are templates on how they read a column, as the TPU
+// kernels' `_lb_body` reads it (src/repro/kernels/advance_fused.py:48-97,
+// advance_filter_fused.py:97-108):
+//   * DenseCols<T>: a dense array of int16, int32 or int64 ids, widened
+//     to int32 after the gather (2, 4 or 8 bytes a slot);
+//   * DeltaCols: the anchored-delta stream, dst = anchor[src] + delta[e]
+//     with delta uint16 and `src` the row the LB search just produced
+//     (2 bytes a slot plus a 4-byte anchor gather that neighbouring slots
+//     of one row share).
+// A delta stream with escapes (a delta past 0xFFFE, kept in a side list)
+// never reaches a kernel: the wrapper hands it the decoded dense view, as
+// the reference's `_split_store` does. The launchers take the storage as
+// `kind` (kColInt32, kColInt16, kColInt64, kColDelta) and the pointers
+// `cols` and `anchor` (anchor only for kColDelta).
 #include "common.cuh"
 
 namespace {
 
+enum { kColInt32 = 0, kColInt16 = 1, kColInt64 = 2, kColDelta = 3 };
+
+template <typename T>
+struct DenseCols {
+  const T* __restrict__ cols;
+  __device__ __forceinline__ int at(int e, int) const {
+    return static_cast<int>(cols[e]);
+  }
+};
+
+struct DeltaCols {
+  const unsigned short* __restrict__ delta;
+  const int* __restrict__ anchor;
+  __device__ __forceinline__ int at(int e, int src) const {
+    return anchor[src] + static_cast<int>(delta[e]);
+  }
+};
+
+template <typename Cols>
 __global__ void adv_kernel(const int* __restrict__ offsets,
                            const int* __restrict__ base,
                            const int* __restrict__ row_offsets,
-                           const int* __restrict__ cols, int cap_in,
+                           const Cols cols, int cap_in,
                            int cap_out, int m, int iters,
                            int* __restrict__ src, int* __restrict__ dst,
                            int* __restrict__ eid, int* __restrict__ in_pos,
@@ -68,17 +103,18 @@ __global__ void adv_kernel(const int* __restrict__ offsets,
   const int s = base[b * cap_in + pos];
   const int e = row_offsets[s] + rk;
   src[o] = s;
-  dst[o] = cols[min(max(e, 0), m - 1)];
+  dst[o] = cols.at(min(max(e, 0), m - 1), s);
   eid[o] = e;
   in_pos[o] = pos;
   rank[o] = rk;
   valid[o] = 1;
 }
 
+template <typename Cols>
 __global__ void af_expand(const int* __restrict__ offsets,
                           const int* __restrict__ base,
                           const int* __restrict__ row_offsets,
-                          const int* __restrict__ cols,
+                          const Cols cols,
                           const unsigned char* __restrict__ visited, int n,
                           int cap_in, int cap_out, int m, int iters,
                           int* __restrict__ first, int* __restrict__ kdst,
@@ -92,7 +128,7 @@ __global__ void af_expand(const int* __restrict__ offsets,
     const int pos = lb_search(offs, cap_in, slot, iters);
     s = base[b * cap_in + pos];
     const int e = row_offsets[s] + (slot - offs[pos]);
-    const int v = cols[min(max(e, 0), m - 1)];
+    const int v = cols.at(min(max(e, 0), m - 1), s);
     if (!visited[b * n + v]) {
       d = v;
       atomicMin(first + b * n + v, slot);
@@ -150,25 +186,52 @@ __global__ void af_emit(const int* __restrict__ kdst,
   }
 }
 
+// Calls LAUNCH(cols) with the column reader of `kind`; any other kind
+// returns cudaErrorInvalidValue.
+#define REPRO_FOR_COLS(kind, cols, anchor, LAUNCH)                         \
+  switch (kind) {                                                          \
+    case kColInt32:                                                        \
+      LAUNCH((DenseCols<int>{static_cast<const int*>(cols)}));             \
+      break;                                                               \
+    case kColInt16:                                                        \
+      LAUNCH((DenseCols<short>{static_cast<const short*>(cols)}));         \
+      break;                                                               \
+    case kColInt64:                                                        \
+      LAUNCH((DenseCols<long long>{static_cast<const long long*>(cols)})); \
+      break;                                                               \
+    case kColDelta:                                                        \
+      LAUNCH((DeltaCols{static_cast<const unsigned short*>(cols),          \
+                        anchor}));                                         \
+      break;                                                               \
+    default:                                                               \
+      return static_cast<int>(cudaErrorInvalidValue);                      \
+  }
+
 }  // namespace
 
 EXPORT int advance_batch(const int* offsets, const int* base,
-                         const int* row_offsets, const int* cols, int batch,
-                         int cap_in, int cap_out, int m, int iters, int* src,
-                         int* dst, int* eid, int* in_pos, int* rank,
+                         const int* row_offsets, const void* cols,
+                         const int* anchor, int kind, int batch, int cap_in,
+                         int cap_out, int m, int iters, int* src, int* dst,
+                         int* eid, int* in_pos, int* rank,
                          unsigned char* valid, int threads, void* stream) {
   if (!valid_threads(threads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((cap_out + threads - 1) / threads, batch);
-  adv_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      offsets, base, row_offsets, cols, cap_in, cap_out, m, iters, src, dst,
-      eid, in_pos, rank, valid);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_ADV(C)                                                        \
+  adv_kernel<<<grid, threads, 0, st>>>(offsets, base, row_offsets, C,      \
+                                       cap_in, cap_out, m, iters, src, dst, \
+                                       eid, in_pos, rank, valid)
+  REPRO_FOR_COLS(kind, cols, anchor, REPRO_ADV)
+#undef REPRO_ADV
   return static_cast<int>(cudaGetLastError());
 }
 
 EXPORT int advance_filter_batch(const int* offsets, const int* base,
-                                const int* row_offsets, const int* cols,
+                                const int* row_offsets, const void* cols,
+                                const int* anchor, int kind,
                                 const unsigned char* visited, int batch,
                                 int n, int cap_in, int cap_out, int m,
                                 int iters, int cap_front, int* first,
@@ -181,9 +244,12 @@ EXPORT int advance_filter_batch(const int* offsets, const int* base,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nblk = (cap_out + threads - 1) / threads;
   const dim3 grid(nblk, batch);
-  af_expand<<<grid, threads, 0, st>>>(offsets, base, row_offsets, cols,
-                                      visited, n, cap_in, cap_out, m, iters,
-                                      first, kdst, ksrc);
+#define REPRO_AF_EXPAND(C)                                                 \
+  af_expand<<<grid, threads, 0, st>>>(offsets, base, row_offsets, C,      \
+                                      visited, n, cap_in, cap_out, m,     \
+                                      iters, first, kdst, ksrc)
+  REPRO_FOR_COLS(kind, cols, anchor, REPRO_AF_EXPAND)
+#undef REPRO_AF_EXPAND
 #define REPRO_AF_COUNT(T) \
   af_count<T><<<grid, T, 0, st>>>(first, n, cap_out, kdst, bcount)
   REPRO_FOR_THREADS(threads, REPRO_AF_COUNT)

@@ -23,6 +23,10 @@
 //    launch of triangle counting at rmat scale 18 holds 6.6e8 lanes.
 //  * A lane with lo >= hi reads nothing (padding lanes, empty segments,
 //    and every lane of an empty haystack, which is never touched).
+//  * The haystack is the graph's dense column array at its storage
+//    plan's index dtype (int16, int32 or int64; `kind` 1, 0, 2, as the
+//    advance kernels number them), compared with the int32 needles after
+//    widening: an int16 graph's probes read 2 bytes an entry.
 // Threads per block come from the wrapper (the tuner's op
 // "segment_search"). Bound by bytes: 16 B per lane (needle, lo, hi read
 // once, one int32 or byte written) plus the haystack once; the search's
@@ -31,8 +35,8 @@
 
 namespace {
 
-template <bool kLocate, typename Out>
-__global__ void search_kernel(const int* __restrict__ hay, int m,
+template <bool kLocate, typename Out, typename T>
+__global__ void search_kernel(const T* __restrict__ hay, int m,
                               const int* __restrict__ lo,
                               const int* __restrict__ hi,
                               const int* __restrict__ needles,
@@ -49,10 +53,15 @@ __global__ void search_kernel(const int* __restrict__ hay, int m,
       while (l < h) {
         const int mid =
             l + static_cast<int>(static_cast<unsigned>(h - l) >> 1);
-        if (__ldg(hay + min(max(mid, 0), m - 1)) < x) l = mid + 1;
-        else h = mid;
+        if (static_cast<long long>(__ldg(hay + min(max(mid, 0), m - 1))) <
+            x) {
+          l = mid + 1;
+        } else {
+          h = mid;
+        }
       }
-      found = l < h0 && __ldg(hay + min(max(l, 0), m - 1)) == x;
+      found = l < h0 && static_cast<long long>(
+                            __ldg(hay + min(max(l, 0), m - 1))) == x;
     }
     if (kLocate) out[i] = static_cast<Out>(found ? l : -1);
     else out[i] = static_cast<Out>(found ? 1 : 0);
@@ -60,7 +69,7 @@ __global__ void search_kernel(const int* __restrict__ hay, int m,
 }
 
 template <bool kLocate, typename Out>
-int launch(const int* hay, int m, const int* lo, const int* hi,
+int launch(const void* hay, int kind, int m, const int* lo, const int* hi,
            const int* needles, long long cap, Out* out, int threads,
            void* stream) {
   if (!valid_threads(threads)) {
@@ -69,25 +78,36 @@ int launch(const int* hay, int m, const int* lo, const int* hi,
   if (cap > 0) {
     const long long want = (cap + threads - 1) / threads;
     const int blocks = static_cast<int>(want < (1 << 20) ? want : (1 << 20));
-    search_kernel<kLocate, Out>
-        <<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-            hay, m, lo, hi, needles, cap, out);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_SEARCH(T)                                                   \
+  search_kernel<kLocate, Out, T><<<blocks, threads, 0, st>>>(             \
+      static_cast<const T*>(hay), m, lo, hi, needles, cap, out)
+    switch (kind) {
+      case 0: REPRO_SEARCH(int); break;
+      case 1: REPRO_SEARCH(short); break;
+      case 2: REPRO_SEARCH(long long); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef REPRO_SEARCH
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-EXPORT int segment_search_found(const int* hay, int m, const int* lo,
-                                const int* hi, const int* needles,
-                                long long cap, unsigned char* found,
-                                int threads, void* stream) {
-  return launch<false>(hay, m, lo, hi, needles, cap, found, threads, stream);
+EXPORT int segment_search_found(const void* hay, int kind, int m,
+                                const int* lo, const int* hi,
+                                const int* needles, long long cap,
+                                unsigned char* found, int threads,
+                                void* stream) {
+  return launch<false>(hay, kind, m, lo, hi, needles, cap, found, threads,
+                       stream);
 }
 
-EXPORT int segment_search_locate(const int* hay, int m, const int* lo,
-                                 const int* hi, const int* needles,
-                                 long long cap, int* pos, int threads,
-                                 void* stream) {
-  return launch<true>(hay, m, lo, hi, needles, cap, pos, threads, stream);
+EXPORT int segment_search_locate(const void* hay, int kind, int m,
+                                 const int* lo, const int* hi,
+                                 const int* needles, long long cap, int* pos,
+                                 int threads, void* stream) {
+  return launch<true>(hay, kind, m, lo, hi, needles, cap, pos, threads,
+                      stream);
 }

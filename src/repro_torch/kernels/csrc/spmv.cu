@@ -97,12 +97,46 @@
 // Bound by bytes: per edge a 4-byte column (plus 4 of value) and k*4
 // bytes of X gathered (through L2 where X fits its 50 MB), per row 4 of
 // offsets, 1 of mask and k*4 of output.
+
+// ---- Precision (both kernels) ----------------------------------------
+//
+// The TPU kernel rounds its (x) through the semiring's mul_op
+// (src/repro/kernels/semiring_spmv.py:48), so under precision="bf16"
+// (src/repro/linalg/semiring.py:78-104, plus_times and plus_and only) it
+// rounds both operands to bfloat16, then the product, and widens it to
+// fp32 for the (+) fold; a structural matrix's product (the gathered x
+// itself) rounds to bfloat16 too. Here those are two more semiring codes,
+// kPlusTimesBf16 and kPlusAndBf16: their Ring rounds with
+// __float2bfloat16_rn (to nearest even, as PyTorch's conversion rounds).
+// The product of two bfloat16 values is exact in fp32, so rounding the
+// fp32 product once gives the bfloat16 product. The folds are the fp32
+// folds above, unchanged. Both kernels take their columns as int32 and
+// their values as fp32: the wrapper decodes a delta or narrow column
+// store and widens bfloat16 values once per graph.
+#include <cuda_bf16.h>
+
 #include "common.cuh"
 
 namespace {
 
-// semiring codes, the order of repro_torch.linalg.semiring.SEMIRINGS
-enum { kPlusTimes = 0, kMinPlus = 1, kOrAnd = 2, kMaxMin = 3, kPlusAnd = 4 };
+// semiring codes, the order of repro_torch.linalg.semiring.SEMIRINGS,
+// then the bf16 variants of the plus semirings (Semiring.code)
+enum {
+  kPlusTimes = 0,
+  kMinPlus = 1,
+  kOrAnd = 2,
+  kMaxMin = 3,
+  kPlusAnd = 4,
+  kPlusTimesBf16 = 5,
+  kPlusAndBf16 = 6
+};
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Ring<SR>: zero() the (+)-identity, add the (+), mul the (x) of a value
+// and a gathered x, lone(x) the product of a structural matrix
 
 template <int SR>
 struct Ring;
@@ -112,30 +146,54 @@ struct Ring<kPlusTimes> {
   static __device__ float zero() { return 0.0f; }
   static __device__ float add(float a, float b) { return __fadd_rn(a, b); }
   static __device__ float mul(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ float lone(float x) { return x; }
 };
 template <>
 struct Ring<kMinPlus> {
   static __device__ float zero() { return __int_as_float(0x7f800000); }
   static __device__ float add(float a, float b) { return fminf(a, b); }
   static __device__ float mul(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ float lone(float x) { return x; }
 };
 template <>
 struct Ring<kOrAnd> {
   static __device__ float zero() { return 0.0f; }
   static __device__ float add(float a, float b) { return fmaxf(a, b); }
   static __device__ float mul(float a, float b) { return fminf(a, b); }
+  static __device__ float lone(float x) { return x; }
 };
 template <>
 struct Ring<kMaxMin> {
   static __device__ float zero() { return __int_as_float(0xff800000); }
   static __device__ float add(float a, float b) { return fmaxf(a, b); }
   static __device__ float mul(float a, float b) { return fminf(a, b); }
+  static __device__ float lone(float x) { return x; }
 };
 template <>
 struct Ring<kPlusAnd> {
   static __device__ float zero() { return 0.0f; }
   static __device__ float add(float a, float b) { return __fadd_rn(a, b); }
   static __device__ float mul(float a, float b) { return fminf(a, b); }
+  static __device__ float lone(float x) { return x; }
+};
+
+template <>
+struct Ring<kPlusTimesBf16> {
+  static __device__ float zero() { return 0.0f; }
+  static __device__ float add(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ float mul(float a, float b) {
+    return bf16_round(__fmul_rn(bf16_round(a), bf16_round(b)));
+  }
+  static __device__ float lone(float x) { return bf16_round(x); }
+};
+template <>
+struct Ring<kPlusAndBf16> {
+  static __device__ float zero() { return 0.0f; }
+  static __device__ float add(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ float mul(float a, float b) {
+    return fminf(bf16_round(a), bf16_round(b));
+  }
+  static __device__ float lone(float x) { return bf16_round(x); }
 };
 
 constexpr int kProdDepth = 16;      // a producer's loads in flight
@@ -167,7 +225,7 @@ __device__ __forceinline__ float tree_row(const int* __restrict__ cols,
     if (j < lim) {
       const int e = start + j;
       const float xv = __ldg(x + min(max(cols[e], 0), nx - 1));
-      p = vals != nullptr ? R::mul(vals[e], xv) : xv;
+      p = vals != nullptr ? R::mul(vals[e], xv) : R::lone(xv);
     }
     q[i] = p;
   }
@@ -225,7 +283,8 @@ __device__ void spmv_block_row(const int* __restrict__ offsets,
           const int i = i0 + u * nprod;
           if (i < cnt) {
             const float xv = __ldg(x + c[u]);
-            dst[i] = vals != nullptr ? R::mul(vals[base + i], xv) : xv;
+            dst[i] = vals != nullptr ? R::mul(vals[base + i], xv)
+                                     : R::lone(xv);
           }
         }
       }
@@ -299,7 +358,7 @@ __device__ void spmv_heavy_warp(const int* __restrict__ offsets,
         if (lv[b] && j < width) {
           const int e = st + j;
           const float xv = __ldg(x + min(max(cols[e], 0), nx - 1));
-          p = vals != nullptr ? R::mul(vals[e], xv) : xv;
+          p = vals != nullptr ? R::mul(vals[e], xv) : R::lone(xv);
         }
         q[b][i] = p;
       }
@@ -342,7 +401,7 @@ __device__ void spmv_heavy_warp(const int* __restrict__ offsets,
       float p = 0.0f;
       if (c[u] >= 0) {
         const float xv = __ldg(x + c[u]);
-        p = vals != nullptr ? R::mul(a[u], xv) : xv;
+        p = vals != nullptr ? R::mul(a[u], xv) : R::lone(xv);
       }
       tile[(2 * u + half) * kStage + j] = p;
     }
@@ -408,7 +467,7 @@ __device__ void spmv_light_warp(const int* __restrict__ offsets,
       if (have && j < s_deg[off + k]) {
         const int e = s_start[off + k] + j;
         const float xv = __ldg(x + min(max(cols[e], 0), nx - 1));
-        p = vals != nullptr ? R::mul(vals[e], xv) : xv;
+        p = vals != nullptr ? R::mul(vals[e], xv) : R::lone(xv);
       }
       float v = p;
 #pragma unroll
@@ -561,7 +620,7 @@ __device__ __forceinline__ float fold_range(
       const int col = __shfl_sync(kFull, my_col, j);
       const float a = __shfl_sync(kFull, my_val, j);
       const float xv = (j < cnt && col_ok) ? x[col * k + c] : 0.0f;
-      p[t] = vals != nullptr ? R::mul(a, xv) : xv;
+      p[t] = vals != nullptr ? R::mul(a, xv) : R::lone(xv);
     }
 #pragma unroll
     for (int t = 0; t < KP; ++t) {            // then the ordered fold
@@ -688,6 +747,12 @@ EXPORT int spmm(int semiring, const int* offsets, const int* cols,
     case kPlusAnd:
       return launch_mm<kPlusAnd>(offsets, cols, vals, x, nx, k, mask, n, y,
                                  st);
+    case kPlusTimesBf16:
+      return launch_mm<kPlusTimesBf16>(offsets, cols, vals, x, nx, k, mask,
+                                       n, y, st);
+    case kPlusAndBf16:
+      return launch_mm<kPlusAndBf16>(offsets, cols, vals, x, nx, k, mask, n,
+                                     y, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -716,6 +781,8 @@ EXPORT int spmv(int semiring, const int* offsets, const int* cols,
     REPRO_SPMV_SR(kOrAnd)
     REPRO_SPMV_SR(kMaxMin)
     REPRO_SPMV_SR(kPlusAnd)
+    REPRO_SPMV_SR(kPlusTimesBf16)
+    REPRO_SPMV_SR(kPlusAndBf16)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -12,12 +12,26 @@ Each wrapper takes the registry op's arguments, and
 
 ``KERNELS`` lists the ten kernels with their sources, the TPU kernels
 they replace and their launch counters (``chip_smoke.py`` reads and
-resets them). The ``"mxm"`` provider is no kernel of its own: it runs
+resets them), in total and by variant: the column storage a graph kernel
+read (``int32``, ``int16``, ``int64``, ``delta``, or ``dense_fallback``
+for a delta store with escapes, which runs on its decoded int32 view as
+in the reference's ``_split_store``) and the precision of K4 / K4m
+(``fp32``, ``bf16``).
+
+Storage plans: K1, K3, K4 and K4m are registered with
+``encodings=("dense", "delta")``. K1 and K3 decode an escape-free delta
+stream in the kernel (``anchor[src] + delta[eid]``) and read dense
+columns at their index dtype; K4, K4m and K5 take dense columns (K5 at
+any index dtype, K4 / K4m int32): the wrapper decodes or widens a store
+once per graph and keeps the view in the graph's ``cache``, which the
+operator layer passes (``cache=``); without a cache it decodes per
+call. bfloat16 edge values are widened to float32 once per graph the
+same way. The ``"mxm"`` provider is no kernel of its own: it runs
 K3 (the expansion) and K5 (the probe) through their wrappers.
 
 Threads per block: the graph kernels K1–K6 (all but ``spmm``) take
-theirs from ``tuner.tile_for(op, cap)`` at each launch, 256 with no
-cache, or from an explicit ``threads=`` (the tuner's probes and the
+theirs from ``tuner.tile_for(op, cap)`` at each launch (256 with no
+cache, K4's 128), or from an explicit ``threads=`` (the tuner's probes and the
 tile-invariance checks). The kernel API's ``lb_expand``,
 ``flash_attention`` and ``moe_gather`` are the reference's
 ``repro.kernels.ops`` functions of the same names; no registry op
@@ -28,13 +42,14 @@ from __future__ import annotations
 
 import ctypes
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from ..core import backend as B
+from ..core import storage as S
 from ..linalg.ops import make_mxm_impl
 from . import ref, runtime, tuner
 from .ref import KExpansion
@@ -52,6 +67,12 @@ class Kernel:
     source: str
     replaces: str
     launches: int = 0
+    # launches by variant (column storage, or K4's precision)
+    variants: dict = field(default_factory=dict)
+
+    def count(self, variant: str) -> None:
+        self.launches += 1
+        self.variants[variant] = self.variants.get(variant, 0) + 1
 
 
 KERNELS = {k.name: k for k in (
@@ -82,6 +103,7 @@ KERNELS = {k.name: k for k in (
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.variants = {}
 
 
 _P = ctypes.c_void_p
@@ -89,18 +111,19 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # every tuned launcher takes its threads per block just before the stream
 _SIGNATURES = {
-    ("advance", "advance_batch"): [_P] * 4 + [_I] * 5 + [_P] * 6 + [_I, _P],
+    ("advance", "advance_batch"): (
+        [_P] * 5 + [_I] * 6 + [_P] * 6 + [_I, _P]),
     ("advance", "advance_filter_batch"): (
-        [_P] * 5 + [_I] * 7 + [_P] * 9 + [_I, _P]),
+        [_P] * 5 + [_I] + [_P] + [_I] * 7 + [_P] * 9 + [_I, _P]),
     ("compact", "compact_batch"): (
         [_P, _L, _P, _I, _I] + [_P] * 4 + [_I, _P]),
     ("spmv", "spmv"): ([_I] + [_P] * 4 + [_I, _P, _I, _I, _P, _I, _I, _P,
                                           _I, _P]),
     ("spmv", "spmm"): [_I] + [_P] * 4 + [_I, _I, _P, _I, _P, _P],
     ("search", "segment_search_found"): (
-        [_P, _I] + [_P] * 3 + [_L, _P, _I, _P]),
+        [_P, _I, _I] + [_P] * 3 + [_L, _P, _I, _P]),
     ("search", "segment_search_locate"): (
-        [_P, _I] + [_P] * 3 + [_L, _P, _I, _P]),
+        [_P, _I, _I] + [_P] * 3 + [_L, _P, _I, _P]),
     ("lb_expand", "lb_expand"): [_P, _I, _I, _I, _P, _P, _P, _I, _P],
     ("attention", "flash_attention"): (
         [_I] + [_P] * 6 + [_I, _I, _I, ctypes.c_float, _I, _I, _P]),
@@ -145,10 +168,12 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, dim: int,
 
 
 def _threads(op: str, cap: int, dev: torch.device,
-             threads: Optional[int]) -> int:
+             threads: Optional[int], encoding: str = "dense") -> int:
     """Threads per block of one launch: ``threads`` when given (a power
-    of two in [64, 1024]), else the tuner's pick for (op, cap)."""
-    t = tuner.tile_for(op, cap, device=dev) if threads is None else threads
+    of two in [64, 1024]), else the tuner's pick for (op, cap,
+    encoding)."""
+    t = (tuner.tile_for(op, cap, encoding=encoding, device=dev)
+         if threads is None else threads)
     if t not in _BLOCK_SIZES:
         raise ValueError(f"threads per block must be a power of two in "
                          f"[64, 1024], not {t}")
@@ -175,23 +200,74 @@ def _iters(cap_in: int) -> int:
     return max(math.ceil(math.log2(max(cap_in, 2))) + 1, 1)
 
 
-def _check_csr(row_offsets, col_indices, dev) -> None:
-    _require(row_offsets, "row_offsets", torch.int32, 1, dev)
-    _require(col_indices, "col_indices", torch.int32, 1, dev)
-    if col_indices.shape[0] > INT32_MAX:
+# the kernels' column kinds (csrc/advance.cu, csrc/search.cu)
+_COL_KINDS = {torch.int32: (0, "int32"), torch.int16: (1, "int16"),
+              torch.int64: (2, "int64")}
+_DELTA_KIND = 3
+
+
+@dataclass
+class _Cols:
+    """A column store as K1 / K3 read it: the column or delta tensor,
+    the anchors (delta only), the kind code and its variant name."""
+
+    cols: torch.Tensor
+    anchor: Optional[torch.Tensor]
+    kind: int
+    variant: str
+    m: int
+
+    @property
+    def encoding(self) -> str:
+        """The tuner's encoding key of the launch."""
+        return "delta" if self.kind == _DELTA_KIND else "dense"
+
+
+def _dense_cols(t: torch.Tensor, name: str, dev) -> tuple[int, str]:
+    """(kind, variant) of a dense column tensor, after the checks."""
+    if t.device != dev:
+        raise ValueError(f"{name} lies on {t.device}, expected {dev}")
+    if t.dtype not in _COL_KINDS or t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D int16, int32 or "
+                         f"int64 tensor, not {t.dtype} {tuple(t.shape)}")
+    if t.shape[0] > INT32_MAX:
         raise ValueError("more edges than int32 offsets address")
+    return _COL_KINDS[t.dtype]
 
 
-@B.register("advance_batch", B.CUDA)
-def advance_batch(row_offsets, col_indices, base, sizes, cap_out: int, *,
+def _kernel_cols(row_offsets, store, cache: Optional[dict], dev) -> _Cols:
+    """K1's and K3's column operand (the reference's ``_split_store``):
+    a dense array at its index dtype; an escape-free delta stream as
+    (uint16 deltas, int32 anchors); a delta stream with escapes as its
+    decoded int32 view, kept in ``cache``."""
+    _require(row_offsets, "row_offsets", torch.int32, 1, dev)
+    if isinstance(store, S.EncodedCols):
+        if store.num_escapes == 0:
+            _require(store.anchor, "anchor", torch.int32, 1, dev)
+            _require(store.delta, "delta", torch.uint16, 1, dev)
+            if store.anchor.shape[0] != row_offsets.shape[0] - 1:
+                raise ValueError("anchor must hold one entry per row")
+            return _Cols(store.delta, store.anchor, _DELTA_KIND, "delta",
+                         store.num_edges)
+        dense = S.dense_view(store, cache)
+        _dense_cols(dense, "col_indices", dev)
+        return _Cols(dense, None, 0, "dense_fallback", int(dense.shape[0]))
+    kind, variant = _dense_cols(store, "col_indices", dev)
+    return _Cols(store, None, kind, variant, int(store.shape[0]))
+
+
+@B.register("advance_batch", B.CUDA, encodings=("dense", "delta"))
+def advance_batch(row_offsets, col_indices, base, sizes, cap_out: int,
+                  cache: Optional[dict] = None, *,
                   threads: Optional[int] = None):
     """K3: batched LB advance → (src, dst, edge_id, in_pos, rank, valid,
-    totals), (B, cap_out) each and totals (B,)."""
+    totals), (B, cap_out) each and totals (B,). ``col_indices`` is a
+    column store of any plan (see ``_kernel_cols``)."""
     if row_offsets.device.type == "cpu":
         return ref.advance_batch(row_offsets, col_indices, base, sizes,
                                  cap_out)
     dev = row_offsets.device
-    _check_csr(row_offsets, col_indices, dev)
+    cols = _kernel_cols(row_offsets, col_indices, cache, dev)
     _require(base, "base", torch.int32, 2, dev)
     _require(sizes, "sizes", torch.int32, 2, dev)
     if base.shape != sizes.shape:
@@ -199,28 +275,28 @@ def advance_batch(row_offsets, col_indices, base, sizes, cap_out: int, *,
     b, cap_in = base.shape
     if cap_out > INT32_MAX:
         raise ValueError("cap_out beyond int32")
-    nthr = _threads("advance", cap_out, dev, threads)
+    nthr = _threads("advance", cap_out, dev, threads, cols.encoding)
     offsets = _offsets(sizes)
     out = [torch.empty((b, cap_out), dtype=torch.int32, device=dev)
            for _ in range(5)]
     valid = torch.empty((b, cap_out), dtype=torch.bool, device=dev)
     _launch("advance", "advance_batch", runtime.ptr(offsets),
             runtime.ptr(base), runtime.ptr(row_offsets),
-            runtime.ptr(col_indices), b, cap_in, cap_out,
-            int(col_indices.shape[0]), _iters(cap_in),
+            runtime.ptr(cols.cols), runtime.ptr(cols.anchor), cols.kind, b,
+            cap_in, cap_out, cols.m, _iters(cap_in),
             *(runtime.ptr(t) for t in out), runtime.ptr(valid), nthr,
             runtime.stream_ptr(dev))
-    KERNELS["advance_batch"].launches += 1
+    KERNELS["advance_batch"].count(cols.variant)
     totals = offsets[:, cap_in].clone()
     return (*out, valid, totals)
 
 
-@B.register("advance", B.CUDA)
-def advance(row_offsets, col_indices, base, sizes, cap_out: int, *,
-            threads: Optional[int] = None):
+@B.register("advance", B.CUDA, encodings=("dense", "delta"))
+def advance(row_offsets, col_indices, base, sizes, cap_out: int,
+            cache: Optional[dict] = None, *, threads: Optional[int] = None):
     """Single-lane "advance": a B=1 launch of K3."""
     out = advance_batch(row_offsets, col_indices, base[None], sizes[None],
-                        cap_out, threads=threads)
+                        cap_out, cache, threads=threads)
     return tuple(t[0] for t in out)
 
 
@@ -238,18 +314,19 @@ def _first_table(cache: Optional[dict], b: int, n: int,
     return table
 
 
-@B.register("advance_filter_batch", B.CUDA)
+@B.register("advance_filter_batch", B.CUDA, encodings=("dense", "delta"))
 def advance_filter_batch(row_offsets, col_indices, base, sizes,
                          visited: torch.Tensor, cap_out: int,
                          cap_front: int, cache: Optional[dict] = None, *,
                          threads: Optional[int] = None):
     """K1: fused advance → visited test → exact first-occurrence culling
-    → compaction. Returns (ids, srcs, lengths, totals)."""
+    → compaction. Returns (ids, srcs, lengths, totals). ``col_indices``
+    is a column store of any plan (see ``_kernel_cols``)."""
     if row_offsets.device.type == "cpu":
         return ref.advance_filter_batch(row_offsets, col_indices, base,
                                         sizes, visited, cap_out, cap_front)
     dev = row_offsets.device
-    _check_csr(row_offsets, col_indices, dev)
+    cols = _kernel_cols(row_offsets, col_indices, cache, dev)
     _require(base, "base", torch.int32, 2, dev)
     _require(sizes, "sizes", torch.int32, 2, dev)
     _require(visited, "visited", torch.bool, 2, dev)
@@ -259,7 +336,7 @@ def advance_filter_batch(row_offsets, col_indices, base, sizes,
         raise ValueError("bad cap_out / cap_front")
     b, cap_in = base.shape
     n = int(visited.shape[1])
-    nthr = _threads("advance_filter", cap_out, dev, threads)
+    nthr = _threads("advance_filter", cap_out, dev, threads, cols.encoding)
     offsets = _offsets(sizes)
     first = _first_table(cache, b, n, dev)
     nblk = -(-cap_out // nthr)
@@ -273,17 +350,17 @@ def advance_filter_batch(row_offsets, col_indices, base, sizes,
     lengths, totals = empty(b), empty(b)
     _launch("advance", "advance_filter_batch", runtime.ptr(offsets),
             runtime.ptr(base), runtime.ptr(row_offsets),
-            runtime.ptr(col_indices), runtime.ptr(visited), b, n, cap_in,
-            cap_out, int(col_indices.shape[0]), _iters(cap_in), cap_front,
-            runtime.ptr(first), runtime.ptr(kdst), runtime.ptr(ksrc),
-            runtime.ptr(bcount), runtime.ptr(boff), runtime.ptr(ids),
-            runtime.ptr(srcs), runtime.ptr(lengths), runtime.ptr(totals),
-            nthr, runtime.stream_ptr(dev))
-    KERNELS["advance_filter_batch"].launches += 1
+            runtime.ptr(cols.cols), runtime.ptr(cols.anchor), cols.kind,
+            runtime.ptr(visited), b, n, cap_in, cap_out, cols.m,
+            _iters(cap_in), cap_front, runtime.ptr(first), runtime.ptr(kdst),
+            runtime.ptr(ksrc), runtime.ptr(bcount), runtime.ptr(boff),
+            runtime.ptr(ids), runtime.ptr(srcs), runtime.ptr(lengths),
+            runtime.ptr(totals), nthr, runtime.stream_ptr(dev))
+    KERNELS["advance_filter_batch"].count(cols.variant)
     return ids, srcs, lengths, totals
 
 
-@B.register("advance_filter", B.CUDA)
+@B.register("advance_filter", B.CUDA, encodings=("dense", "delta"))
 def advance_filter(row_offsets, col_indices, base, sizes, visited,
                    cap_out: int, cap_front: int, cache=None, *,
                    threads: Optional[int] = None):
@@ -325,15 +402,16 @@ def compact(values: torch.Tensor, mask: torch.Tensor, *,
             runtime.ptr(mask), b, cap, runtime.ptr(bcount),
             runtime.ptr(boff), runtime.ptr(packed), runtime.ptr(totals),
             nthr, runtime.stream_ptr(dev))
-    KERNELS["compact"].launches += 1
+    KERNELS["compact"].count("int32")
     return packed, totals
 
 
 # K4 gives each row whose overflow passes this many edges a block of its
 # own (csrc/spmv.cu)
 SPMV_BLOCK_OVER = 2048
-# offsets tensor -> {width: (heavy rows by degree, largest first; how many
-# of them get a block)}, made once per graph and dropped with its offsets
+# offsets tensor -> {(width, the offsets' version): (heavy rows by degree,
+# largest first; how many of them get a block)}, made once per graph and
+# dropped with its offsets
 _heavy_lists = WeakIdKeyDictionary()
 
 
@@ -342,39 +420,62 @@ def spmv_heavy_rows(offsets: torch.Tensor, width: int):
     sorted by degree, largest first (ties in row order), and how many of
     them lead with an overflow of more than ``SPMV_BLOCK_OVER`` edges.
     Made on the offsets' device at the first call for (offsets, width)
-    and kept while the offsets tensor lives: a graph's offsets do not
-    change."""
+    and kept while the offsets tensor lives, keyed on its version
+    counter too: an in-place edit of the offsets gets a fresh
+    schedule."""
     per = _heavy_lists.get(offsets)
     if per is None:
         per = _heavy_lists[offsets] = {}
-    hit = per.get(width)
+    key = (width, offsets._version)
+    hit = per.get(key)
     if hit is None:
         deg = offsets[1:] - offsets[:-1]
         rows = torch.nonzero(deg > width).squeeze(1)
         rows = rows[torch.sort(deg[rows], descending=True,
                                stable=True).indices]
         nvery = int((deg[rows] - width > SPMV_BLOCK_OVER).sum())
-        hit = per[width] = (rows.to(torch.int32).contiguous(), nvery)
+        hit = per[key] = (rows.to(torch.int32).contiguous(), nvery)
     return hit
 
 
-@B.register("spmv", B.CUDA)
+def _spmv_operands(indices, values, cache: Optional[dict], dev):
+    """K4's and K4m's int32 columns and float32 values: a delta or narrow
+    store decoded, bfloat16 values widened — once per graph when a
+    ``cache`` is given."""
+    cols = S.dense_view(indices, cache)
+    _require(cols, "indices", torch.int32, 1, dev)
+    if values is not None and values.dtype == torch.bfloat16:
+        if cache is None:
+            values = values.to(torch.float32)
+        else:
+            # the entry keeps its source alive, so no other tensor takes
+            # its id
+            hit = cache.get(("values_fp32", id(values)))
+            if hit is None or hit[0] is not values:
+                hit = cache[("values_fp32", id(values))] = (
+                    values, values.to(torch.float32))
+            values = hit[1]
+    if values is not None:
+        _require(values, "values", torch.float32, 1, dev)
+        if values.shape != cols.shape:
+            raise ValueError("values and indices differ in length")
+    return cols, values
+
+
+@B.register("spmv", B.CUDA, encodings=("dense", "delta"))
 def spmv(offsets, indices, values, x, sr, ell_width, mask, row_seg=None,
-         over_pos=None, over_row=None, *, threads: Optional[int] = None):
+         over_pos=None, over_row=None, cache: Optional[dict] = None, *,
+         threads: Optional[int] = None):
     """K4: masked-semiring SpMV over the CSR with the reference's fixed
-    fold; the heavy rows first, ordered by ``spmv_heavy_rows`` (the
-    overflow lists are implied by the CSR)."""
+    fold, at the semiring's precision; the heavy rows first, ordered by
+    ``spmv_heavy_rows`` (the overflow lists are implied by the CSR)."""
     if offsets.device.type == "cpu":
         return ref.spmv(offsets, indices, values, x, sr, ell_width, mask,
                         row_seg, over_pos, over_row)
     dev = offsets.device
     _require(offsets, "offsets", torch.int32, 1, dev)
-    _require(indices, "indices", torch.int32, 1, dev)
+    cols, values = _spmv_operands(indices, values, cache, dev)
     _require(x, "x", torch.float32, 1, dev)
-    if values is not None:
-        _require(values, "values", torch.float32, 1, dev)
-        if values.shape != indices.shape:
-            raise ValueError("values and indices differ in length")
     n = int(offsets.shape[0]) - 1
     if mask is not None:
         _require(mask, "mask", torch.bool, 1, dev)
@@ -385,36 +486,34 @@ def spmv(offsets, indices, values, x, sr, ell_width, mask, row_seg=None,
     width = max(int(ell_width), 1)
     if width > 1024:
         raise ValueError("ELL width above 1024")
-    if int(indices.shape[0]) and int(x.shape[0]) == 0:
+    if int(cols.shape[0]) and int(x.shape[0]) == 0:
         raise ValueError("x is empty")
     nthr = _threads("spmv", n, dev, threads)
     heavy, nvery = spmv_heavy_rows(offsets, width)
     y = torch.empty((n,), dtype=torch.float32, device=dev)
     _launch("spmv", "spmv", sr.code, runtime.ptr(offsets),
-            runtime.ptr(indices), runtime.ptr(values), runtime.ptr(x),
+            runtime.ptr(cols), runtime.ptr(values), runtime.ptr(x),
             int(x.shape[0]), runtime.ptr(mask), n, width, runtime.ptr(heavy),
             int(heavy.shape[0]), nvery, runtime.ptr(y), nthr,
             runtime.stream_ptr(dev))
-    KERNELS["spmv"].launches += 1
+    KERNELS["spmv"].count(sr.precision)
     return y
 
 
-@B.register("spmm", B.CUDA)
-def spmm(offsets, indices, values, x, sr, ell_width, mask, row_seg=None):
+@B.register("spmm", B.CUDA, encodings=("dense", "delta"))
+def spmm(offsets, indices, values, x, sr, ell_width, mask, row_seg=None,
+         cache: Optional[dict] = None):
     """K4m: masked-semiring SpMM over the CSR and a dense (nx, k) block,
     one warp per (row, 32-column chunk), each output folded in a fixed
-    order (``ell_width`` and ``row_seg`` are unused: the CSR gives both)."""
+    order, at the semiring's precision (``ell_width`` and ``row_seg`` are
+    unused: the CSR gives both)."""
     if offsets.device.type == "cpu":
         return ref.spmm(offsets, indices, values, x, sr, ell_width, mask,
                         row_seg)
     dev = offsets.device
     _require(offsets, "offsets", torch.int32, 1, dev)
-    _require(indices, "indices", torch.int32, 1, dev)
+    cols, values = _spmv_operands(indices, values, cache, dev)
     _require(x, "x", torch.float32, 2, dev)
-    if values is not None:
-        _require(values, "values", torch.float32, 1, dev)
-        if values.shape != indices.shape:
-            raise ValueError("values and indices differ in length")
     n = int(offsets.shape[0]) - 1
     nx, k = (int(d) for d in x.shape)
     if mask is not None:
@@ -424,29 +523,28 @@ def spmm(offsets, indices, values, x, sr, ell_width, mask, row_seg=None):
     if max(n, nx) * k > INT32_MAX:
         raise ValueError(f"spmm indexes rows * k = {max(n, nx) * k:,} "
                          f"entries, beyond int32")
-    if int(indices.shape[0]) and nx == 0:
+    if int(cols.shape[0]) and nx == 0:
         raise ValueError("x is empty")
     y = torch.empty((n, k), dtype=torch.float32, device=dev)
     _launch("spmv", "spmm", sr.code, runtime.ptr(offsets),
-            runtime.ptr(indices), runtime.ptr(values), runtime.ptr(x), nx,
+            runtime.ptr(cols), runtime.ptr(values), runtime.ptr(x), nx,
             k, runtime.ptr(mask), n, runtime.ptr(y), runtime.stream_ptr(dev))
-    KERNELS["spmm"].launches += 1
+    KERNELS["spmm"].count(sr.precision)
     return y
 
 
 def _search(haystack, lo, hi, needles, locate: bool,
             threads: Optional[int]) -> torch.Tensor:
     """K5 on CUDA tensors: one launch in ``found`` (bool) or ``locate``
-    (int32 position, -1 where absent) mode."""
+    (int32 position, -1 where absent) mode, over a dense haystack of
+    int16, int32 or int64 (a graph's columns at its index dtype)."""
     dev = haystack.device
-    _require(haystack, "haystack", torch.int32, 1, dev)
+    kind, variant = _dense_cols(haystack, "haystack", dev)
     for t, name in ((lo, "lo"), (hi, "hi"), (needles, "needles")):
         _require(t, name, torch.int32, 1, dev)
     cap = int(needles.shape[0])
     if lo.shape[0] != cap or hi.shape[0] != cap:
         raise ValueError("lo, hi and needles must have one length")
-    if haystack.shape[0] > INT32_MAX:
-        raise ValueError("haystack beyond int32 positions")
     nthr = _threads("segment_search", cap, dev, threads)
     if locate:
         out = torch.empty((cap,), dtype=torch.int32, device=dev)
@@ -454,10 +552,11 @@ def _search(haystack, lo, hi, needles, locate: bool,
     else:
         out = torch.empty((cap,), dtype=torch.bool, device=dev)
         fn = "segment_search_found"
-    _launch("search", fn, runtime.ptr(haystack), int(haystack.shape[0]),
-            runtime.ptr(lo), runtime.ptr(hi), runtime.ptr(needles), cap,
-            runtime.ptr(out), nthr, runtime.stream_ptr(dev))
-    KERNELS["segment_search"].launches += 1
+    _launch("search", fn, runtime.ptr(haystack), kind,
+            int(haystack.shape[0]), runtime.ptr(lo), runtime.ptr(hi),
+            runtime.ptr(needles), cap, runtime.ptr(out), nthr,
+            runtime.stream_ptr(dev))
+    KERNELS["segment_search"].count(variant)
     return out
 
 
@@ -521,11 +620,15 @@ def lb_expand(sizes: torch.Tensor, cap_out: int, *,
     _launch("lb_expand", "lb_expand", runtime.ptr(offsets), cap_in, cap_out,
             _iters(cap_in), runtime.ptr(in_pos), runtime.ptr(rank),
             runtime.ptr(valid), nthr, runtime.stream_ptr(dev))
-    KERNELS["lb_expand"].launches += 1
+    KERNELS["lb_expand"].count("int32")
     return KExpansion(in_pos, rank, valid, offsets[-1])
 
 
 _ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
 _sm_counts: dict = {}
 
 
@@ -597,7 +700,7 @@ def attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             runtime.ptr(acc), runtime.ptr(ml), sq, sk, d,
             ctypes.c_float(1.0 / math.sqrt(d)), int(bool(causal)), nsplit,
             runtime.stream_ptr(dev))
-    KERNELS["flash_attention"].launches += 1
+    KERNELS["flash_attention"].count(_dtype_name(q.dtype))
     return acc, ml
 
 
@@ -620,7 +723,7 @@ def attention_combine(acc: torch.Tensor, ml: torch.Tensor,
     _launch("attention", "attention_combine", _ATTN_DTYPES[dtype],
             runtime.ptr(acc), runtime.ptr(ml), runtime.ptr(out), sq, d,
             nsplit, runtime.stream_ptr(dev))
-    KERNELS["attention_combine"].launches += 1
+    KERNELS["attention_combine"].count(_dtype_name(dtype))
     return out
 
 
@@ -652,7 +755,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             runtime.ptr(None), runtime.ptr(None), sq, sk, d,
             ctypes.c_float(1.0 / math.sqrt(d)), int(bool(causal)), 1,
             runtime.stream_ptr(dev))
-    KERNELS["flash_attention"].launches += 1
+    KERNELS["flash_attention"].count(_dtype_name(q.dtype))
     return out
 
 
@@ -678,7 +781,7 @@ def moe_gather(x: torch.Tensor, slot_token: torch.Tensor) -> torch.Tensor:
     _launch("moe_gather", "moe_gather", runtime.ptr(x), t,
             d * x.element_size(), x.element_size(), runtime.ptr(slot_token),
             s, runtime.ptr(out), runtime.stream_ptr(dev))
-    KERNELS["moe_gather"].launches += 1
+    KERNELS["moe_gather"].count(_dtype_name(x.dtype))
     return out
 
 
@@ -711,11 +814,13 @@ def _probe_time(fn) -> float:
     return start.elapsed_time(end) / 1e3 / _PROBE_REPS
 
 
-def _probe_graph(cap: int) -> dict:
+def _probe_graph(cap: int, encoding: str = "dense") -> dict:
     """A uniform CSR of degree 8 sized to ``cap`` and the frontier of its
-    first cap / 8 vertices, made once per capacity on the card."""
+    first cap / 8 vertices, made once per capacity on the card; with
+    ``encoding="delta"`` its columns as the anchored-delta stream (the
+    reference's probe graph, so the in-kernel decode is measured)."""
     dev = runtime.resolve_device(None)
-    key = (cap, str(dev))
+    key = (cap, encoding, str(dev))
     inp = _probe_inputs.get(key)
     if inp is None:
         gen = torch.Generator().manual_seed(0)
@@ -723,9 +828,14 @@ def _probe_graph(cap: int) -> dict:
         k = min(n, max(cap // 8, 1))
         cols = torch.sort(torch.randint(0, n, (n, 8), generator=gen,
                                         dtype=torch.int32), dim=1).values
-        inp = {"n": n,
-               "ro": (torch.arange(n + 1, dtype=torch.int32) * 8).to(dev),
-               "ci": cols.reshape(-1).to(dev),
+        ro = torch.arange(n + 1, dtype=torch.int32) * 8
+        ci = cols.reshape(-1)
+        if encoding == "delta":
+            ci = S.encode_delta(ro.numpy(), ci.numpy(),
+                                torch.arange(n).repeat_interleave(8).numpy(),
+                                dev)
+        inp = {"n": n, "ro": ro.to(dev),
+               "ci": ci if encoding == "delta" else ci.to(dev),
                "base": (torch.arange(k, dtype=torch.int32) % n).to(dev),
                "sizes": torch.full((k,), 8, dtype=torch.int32, device=dev),
                "visited": torch.zeros((n,), dtype=torch.bool, device=dev),
@@ -737,14 +847,15 @@ def _probe_graph(cap: int) -> dict:
     return inp
 
 
-def _probe_advance(cap: int, tile: int) -> float:
-    p = _probe_graph(cap)
+def _probe_advance(cap: int, tile: int, encoding: str = "dense") -> float:
+    p = _probe_graph(cap, encoding)
     return _probe_time(lambda: advance(p["ro"], p["ci"], p["base"],
                                        p["sizes"], cap, threads=tile))
 
 
-def _probe_advance_filter(cap: int, tile: int) -> float:
-    p = _probe_graph(cap)
+def _probe_advance_filter(cap: int, tile: int,
+                          encoding: str = "dense") -> float:
+    p = _probe_graph(cap, encoding)
     return _probe_time(lambda: advance_filter(
         p["ro"], p["ci"], p["base"], p["sizes"], p["visited"], cap,
         min(cap, p["n"]), p["cache"], threads=tile))

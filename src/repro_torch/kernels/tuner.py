@@ -26,8 +26,10 @@ Cache format (JSON, the reference's version 2)::
 
 ``tier`` is the power-of-two bucket of the capacity, ``platform`` is
 ``runtime.platform()`` (the card's compute capability and name), and
-``encoding`` is the column storage format, always ``dense`` until the
-port has storage plans. Other versions are ignored, never deleted.
+``encoding`` is the column storage format the launch read: ``dense``, or
+``delta`` for K1's and K3's in-kernel decode of an anchored-delta stream
+(the advance probes take ``encoding=`` and are measured under both).
+Other versions are ignored, never deleted.
 
 The cache is explicit: ``set_cache(path)`` points the tuner at a file,
 ``set_cache(None)`` — the default — ignores every cache (heuristic
@@ -191,12 +193,19 @@ def register_probe(op: str, fn: Callable[[int, int], float]) -> None:
     PROBES[op] = fn
 
 
+def _takes_encoding(probe: Callable) -> bool:
+    import inspect
+    return "encoding" in inspect.signature(probe).parameters
+
+
 def autotune(op: str, cap: int, probe: Optional[Callable] = None, *,
-             repeats: int = 3, force: bool = False, device=None) -> int:
+             repeats: int = 3, force: bool = False, device=None,
+             encoding: str = "dense") -> int:
     """Measure every candidate tile of ``op`` at ``cap`` (one warm-up
     call, then the best of ``repeats``) and persist the winner under
-    (op, tier, platform, dense). An existing entry is kept unless
-    ``force``. Returns the selected tile."""
+    (op, tier, platform, encoding); a probe that models the storage
+    encoding is given it. An existing entry is kept unless ``force``.
+    Returns the selected tile."""
     from . import runtime
     probe = probe or PROBES.get(op)
     if probe is None:
@@ -205,13 +214,15 @@ def autotune(op: str, cap: int, probe: Optional[Callable] = None, *,
         raise ValueError("autotune needs a cache file: call "
                          "set_cache(path) first")
     entries = _load()
-    key = _key(op, cap, runtime.platform(device), DEFAULT_MIN_TILE)
+    key = _key(op, cap, runtime.platform(device), DEFAULT_MIN_TILE,
+               encoding)
     if not force and _valid((entries.get(key) or {}).get("tile")):
         return int(entries[key]["tile"])
+    kw = {"encoding": encoding} if _takes_encoding(probe) else {}
     best_tile, best_s = None, float("inf")
     for tile in candidates(cap):
-        probe(cap, tile)                          # warm-up
-        s = min(probe(cap, tile) for _ in range(repeats))
+        probe(cap, tile, **kw)                    # warm-up
+        s = min(probe(cap, tile, **kw) for _ in range(repeats))
         if s < best_s:
             best_tile, best_s = tile, s
     entries[key] = {"tile": int(best_tile), "ms": best_s * 1e3,
@@ -222,21 +233,29 @@ def autotune(op: str, cap: int, probe: Optional[Callable] = None, *,
 
 def autotune_all(caps=DEFAULT_CAPS, ops=None, force: bool = True,
                  device=None) -> dict:
-    """Tune every registered probe (or ``ops``) over ``caps``. Returns
-    {(op, cap, "dense"): tile}; each pick's time is in the cache."""
+    """Tune every registered probe (or ``ops``) over ``caps``, a probe
+    that models the storage encoding once per encoding (dense, delta).
+    Returns {(op, cap, encoding): tile}; each pick's time is in the
+    cache."""
     picked = {}
     for op in (ops or sorted(PROBES)):
+        encodings = (("dense", "delta") if _takes_encoding(PROBES[op])
+                     else ("dense",))
         for cap in caps:
-            picked[(op, cap, "dense")] = autotune(op, cap, force=force,
-                                                  device=device)
+            for enc in encodings:
+                picked[(op, cap, enc)] = autotune(op, cap, force=force,
+                                                  device=device,
+                                                  encoding=enc)
     return picked
 
 
-def entry(op: str, cap: int, device=None) -> Optional[dict]:
-    """The cache entry ``tile_for`` reads for a dense launch, or None."""
+def entry(op: str, cap: int, device=None,
+          encoding: str = "dense") -> Optional[dict]:
+    """The cache entry ``tile_for`` reads for a launch of ``encoding``,
+    or None."""
     from . import runtime
     return _load().get(_key(op, cap, runtime.platform(device),
-                            DEFAULT_MIN_TILE))
+                            DEFAULT_MIN_TILE, encoding))
 
 
 def main(argv=None) -> None:
@@ -256,7 +275,7 @@ def main(argv=None) -> None:
     picked = autotune_all(caps, args.ops.split(",") if args.ops else None)
     for (op, cap, enc), tile in sorted(picked.items()):
         print(f"{op:16s} cap={cap:<8d} {enc:5s} -> tile {tile:4d} "
-              f"({entry(op, cap)['ms']:.4f} ms)")
+              f"({entry(op, cap, encoding=enc)['ms']:.4f} ms)")
     print(f"cache: {cache_path()}")
 
 

@@ -46,13 +46,18 @@ PRIMITIVES = ("bfs", "sssp", "pagerank", "cc", "bc", "tc", "reach",
 
 
 def make_graph(kind: str, scale: int, edge_factor: int, seed: int,
+               index_dtype: str | None = None, encoding: str = "dense",
                device=None) -> G.Graph:
+    """The CLI's graph under a storage plan (``index_dtype=None`` sizes
+    the ids to the graph, as the reference does)."""
+    plan = dict(index_dtype=index_dtype, encoding=encoding)
     if kind == "rmat":
         return G.rmat(scale, edge_factor, seed=seed, weighted=True,
-                      device=device)
+                      device=device, **plan)
     if kind == "grid":
         side = int((1 << scale) ** 0.5)
-        return G.grid2d(side, weighted=True, seed=seed, device=device)
+        return G.grid2d(side, weighted=True, seed=seed, device=device,
+                        **plan)
     raise ValueError(kind)
 
 

@@ -14,7 +14,11 @@ here replay it exactly:
 
 Empty rows and masked-out rows hold the ⊕-identity. ``values=None`` is a
 structural matrix (every entry the ⊗-identity, so the product is the
-gathered ``x``).
+gathered ``x``, rounded by the semiring's ``round_prod``). The column
+operand is a column store of any storage plan: the ``torch`` providers
+decode per touched edge (``storage.gather_cols``). ``precision="bf16"``
+on the public wrappers rounds each ⊗ to bfloat16
+(``semiring.with_precision``).
 
 Registry contracts (shared with the CUDA providers):
   "spmv" (offsets, indices, values|None, x (nx,), sr, ell_width,
@@ -42,6 +46,7 @@ import torch
 
 from ..core import backend as B
 from ..core import operators as O
+from ..core import storage as St
 from ..core.graph import Graph, row_segments_of
 from . import semiring as S
 from .semiring import Semiring, plus_times
@@ -51,8 +56,7 @@ def hybrid_ell_reduce(offsets, indices, values, x, sr: Semiring,
                       width: int, over_pos, over_row) -> torch.Tensor:
     """The fixed-grouping row fold (see the module docstring). Returns
     the raw (rows,) vector; callers clamp empty rows and apply masks."""
-    nrows = int(offsets.shape[0]) - 1
-    m = int(indices.shape[0])
+    m = St.store_num_edges(indices)
     width = max(int(width), 1)
     wp = 1
     while wp < width:
@@ -63,8 +67,8 @@ def hybrid_ell_reduce(offsets, indices, values, x, sr: Semiring,
     e = torch.clamp(starts[:, None] + lanes[None, :], max=max(m - 1, 0))
     e = e.long()
     lane_ok = lanes[None, :] < torch.clamp(deg, max=width)[:, None]
-    xi = x[torch.clamp(indices[e], 0, x.shape[0] - 1).long()]
-    prod = xi if values is None else sr.mul_op(values[e], xi)
+    xi = x[torch.clamp(St.gather_cols(indices, e), 0, x.shape[0] - 1).long()]
+    prod = sr.round_prod(xi) if values is None else sr.mul_op(values[e], xi)
     prod = torch.where(lane_ok, prod, sr.zero)
     k = wp
     while k > 1:                      # explicit halving: grouping fixed
@@ -73,20 +77,23 @@ def hybrid_ell_reduce(offsets, indices, values, x, sr: Semiring,
     y = prod[:, 0]
     if int(over_pos.shape[0]):
         pos = over_pos.long()
-        ov = x[indices[pos].long()]
-        ov = ov if values is None else sr.mul_op(values[pos], ov)
+        ov = x[St.gather_cols(indices, pos).long()]
+        ov = sr.round_prod(ov) if values is None else sr.mul_op(values[pos],
+                                                                ov)
         y = sr.scatter_accum(y, over_row, ov)
     return y
 
 
-@B.register("spmv", B.TORCH)
+@B.register("spmv", B.TORCH, encodings=("dense", "delta"))
 def _spmv_torch(offsets, indices, values, x, sr: Semiring, ell_width,
-                mask, row_seg=None, over_pos=None, over_row=None):
+                mask, row_seg=None, over_pos=None, over_row=None,
+                cache=None):
     """Plain SpMV, the twin of the reference's ``_spmv_xla`` hybrid
-    path (and the plain version of the CUDA SpMV kernel)."""
-    del row_seg
+    path (and the plain version of the CUDA SpMV kernel). ``cache`` is
+    unused here (the kernel keeps its decoded columns in it)."""
+    del row_seg, cache
     n = int(offsets.shape[0]) - 1
-    m = int(indices.shape[0])
+    m = St.store_num_edges(indices)
     if m == 0:
         y = torch.full((n,), sr.zero, dtype=torch.float32,
                        device=offsets.device)
@@ -122,20 +129,21 @@ def _segment_fold(sr: Semiring, seg: torch.Tensor, prod: torch.Tensor,
                              include_self=False)
 
 
-@B.register("spmm", B.TORCH)
+@B.register("spmm", B.TORCH, encodings=("dense", "delta"))
 def _spmm_torch(offsets, indices, values, x, sr: Semiring, ell_width,
-                mask, row_seg=None):
+                mask, row_seg=None, cache=None):
     """Plain SpMM, the twin of the reference's ``_spmm_xla`` (and the
     plain version of the CUDA SpMM kernel): gather ``x[cols]`` as (m, k),
     ⊗ with the stored values, ⊕-fold per row, the ⊕-identity on empty and
     masked-out rows."""
-    del ell_width
+    del ell_width, cache
     n = int(offsets.shape[0]) - 1
     deg = offsets[1:] - offsets[:-1]
     if row_seg is None:
         row_seg = row_segments_of(offsets)
-    xv = torch.index_select(x, 0, indices)
-    prod = xv if values is None else sr.mul_op(values[:, None], xv)
+    xv = torch.index_select(x, 0, St.decode_cols(indices))
+    prod = (sr.round_prod(xv) if values is None
+            else sr.mul_op(values[:, None], xv))
     y = _segment_fold(sr, row_seg, prod.to(torch.float32), n)
     y = torch.where((deg > 0)[:, None], y, sr.zero)
     if mask is not None:
@@ -144,10 +152,11 @@ def _spmm_torch(offsets, indices, values, x, sr: Semiring, ell_width,
 
 
 def _csr_side(a: Graph, transpose: bool):
-    """(offsets, indices, values, ell_width, row_seg, over_pos, over_row)
-    of a Graph's CSR, or of its CSC mirror with ``transpose=True``. Dense
-    int32 columns on one device only: storage plans and sharded
-    placements are not ported (ROADMAP A10, A13)."""
+    """(offsets, column store, values, ell_width, row_seg, over_pos,
+    over_row) of a Graph's CSR, or of its CSC mirror with
+    ``transpose=True``: the column slot is the graph's native store,
+    which the wrappers coerce for the provider that runs. One device
+    only: sharded placements are not ported (ROADMAP A13)."""
     if not isinstance(a, Graph):
         raise TypeError(
             f"expected a Graph, got {type(a).__name__}; sharded "
@@ -156,30 +165,32 @@ def _csr_side(a: Graph, transpose: bool):
         if not a.has_csc:
             raise ValueError("transpose=True needs the CSC mirror "
                              "(build_csc=True)")
-        return (a.csc_offsets, a.csc_indices, a.csc_edge_values,
+        return (a.csc_offsets, a.csc_store, a.csc_edge_values,
                 a.csc_ell_width, a.csc_row_seg, a.csc_over_pos,
                 a.csc_over_row)
-    return (a.row_offsets, a.col_indices, a.edge_values, a.ell_width,
+    return (a.row_offsets, a.col_store, a.edge_values, a.ell_width,
             a.row_seg, a.over_pos, a.over_row)
 
 
 def spmv(a: Graph, x, *, semiring=plus_times, mask=None,
          complement: bool = False, transpose: bool = False,
-         structural: bool = False,
-         backend: Optional[str] = None) -> torch.Tensor:
+         structural: bool = False, backend: Optional[str] = None,
+         precision: str = "fp32") -> torch.Tensor:
     """Masked semiring SpMV ``y⟨mask⟩ = A ⊗ x`` over a Graph.
     ``transpose=True`` multiplies by Aᵀ through the CSC mirror (the
     PageRank direction); ``structural=True`` ignores stored values;
-    ``complement=True`` flips the (n,) row mask."""
-    sr = S.get(semiring)
+    ``complement=True`` flips the (n,) row mask; ``precision="bf16"``
+    rounds each ⊗ to bfloat16 (plus semirings only)."""
+    sr = S.with_precision(semiring, precision)
     bk = B.resolve(backend, a.device)
     off, idx, vals, width, seg, opos, orow = _csr_side(a, transpose)
+    idx = B.coerce_store("spmv", bk, store=idx, cache=a.cache)
     if structural:
         vals = None
     mask = _row_mask(mask, complement, a.device)
     x = torch.as_tensor(x, dtype=torch.float32, device=a.device)
     return B.dispatch("spmv", bk)(off, idx, vals, x, sr, width, mask, seg,
-                                  opos, orow)
+                                  opos, orow, cache=a.cache)
 
 
 def _row_mask(mask, complement: bool, device) -> Optional[torch.Tensor]:
@@ -193,15 +204,16 @@ def _row_mask(mask, complement: bool, device) -> Optional[torch.Tensor]:
 
 def spmm(a: Graph, x, *, semiring=plus_times, mask=None,
          complement: bool = False, transpose: bool = False,
-         structural: bool = False,
-         backend: Optional[str] = None) -> torch.Tensor:
+         structural: bool = False, backend: Optional[str] = None,
+         precision: str = "fp32") -> torch.Tensor:
     """Dense-accumulator semiring SpMM ``Y⟨mask⟩ = A ⊗ X`` (X (nx, k)):
     each column of X is one lane (a reachability source, a label block).
-    Same mask, complement, transpose and structural semantics as
-    :func:`spmv`."""
-    sr = S.get(semiring)
+    Same mask, complement, transpose, structural and precision semantics
+    as :func:`spmv`."""
+    sr = S.with_precision(semiring, precision)
     bk = B.resolve(backend, a.device)
     off, idx, vals, width, seg, _, _ = _csr_side(a, transpose)
+    idx = B.coerce_store("spmm", bk, store=idx, cache=a.cache)
     if structural:
         vals = None
     mask = _row_mask(mask, complement, a.device)
@@ -210,7 +222,7 @@ def spmm(a: Graph, x, *, semiring=plus_times, mask=None,
         raise ValueError(f"spmm needs a dense (n, k) operand, got shape "
                          f"{tuple(x.shape)}")
     return B.dispatch("spmm", bk)(off, idx, vals, x.contiguous(), sr, width,
-                                  mask, seg)
+                                  mask, seg, cache=a.cache)
 
 
 def spmsv(a: Graph, ids, xvals=None, *, semiring=plus_times, mask=None,
@@ -227,6 +239,9 @@ def spmsv(a: Graph, ids, xvals=None, *, semiring=plus_times, mask=None,
     sr = S.get(semiring)
     bk = B.resolve(backend, a.device)
     off, idx, vals = _csr_side(a, transpose=False)[:3]
+    # the expansion runs the "advance" op, whose providers decode the
+    # delta stream themselves
+    idx = B.coerce_store("advance", bk, store=idx, cache=a.cache)
     if structural:
         vals = None
     n = int(off.shape[0]) - 1
@@ -238,7 +253,7 @@ def spmsv(a: Graph, ids, xvals=None, *, semiring=plus_times, mask=None,
     sizes = torch.where(valid_in, deg, 0).to(torch.int32)
     cap = int(sizes.sum()) if cap_out is None else int(cap_out)
     _, dst, eid, in_pos, _, valid, _ = B.dispatch("advance", bk)(
-        off, idx, base, sizes, max(cap, 1))
+        off, idx, base, sizes, max(cap, 1), a.cache)
     sv = (torch.tensor(sr.one, dtype=torch.float32, device=a.device)
           if xvals is None else torch.index_select(
               torch.as_tensor(xvals, dtype=torch.float32, device=a.device),
@@ -260,7 +275,7 @@ def _gather_vals(vals: Optional[torch.Tensor], idx: torch.Tensor,
     m = 0 if vals is None else int(vals.shape[0])
     if m == 0:
         return torch.tensor(one, dtype=torch.float32, device=idx.device)
-    return torch.index_select(vals, 0, idx.clamp(0, m - 1))
+    return torch.index_select(vals, 0, idx.clamp(0, m - 1)).to(torch.float32)
 
 
 def make_mxm_impl(expand, locate):
@@ -368,6 +383,10 @@ def mxm(a: Graph, b: Graph, mask, *, semiring=plus_times,
     (a_off, a_idx, a_vals), (bt_off, bt_idx, bt_vals), base, probe_rows, \
         cap = mxm_plan(a, b, mask, b_transpose=b_transpose)
     bk = B.resolve(backend, a_off.device)
+    # a delta store reaches the provider decoded (once per graph); a
+    # dense one at its index dtype
+    a_idx = B.coerce_store("mxm", bk, store=a_idx, cache=a.cache)
+    bt_idx = B.coerce_store("mxm", bk, store=bt_idx, cache=b.cache)
     if structural:
         a_vals = bt_vals = None
     cap = max(cap, 1) if cap_out is None else int(cap_out)

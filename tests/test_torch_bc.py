@@ -28,11 +28,17 @@ def _pair(jg):
         device="cpu")
 
 
-@pytest.fixture(scope="module", params=["rmat", "grid"])
+# the directed rmat's CSC differs from its CSR, so a CSR / CSC mix-up
+# shows there (the other two fixtures are symmetric)
+FIXTURES = {"rmat": lambda: JG.rmat(9, 8, seed=7, weighted=True),
+            "grid": lambda: JG.grid2d(20, weighted=True, seed=3),
+            "directed": lambda: JG.rmat(8, 8, seed=3, undirected=False,
+                                        weighted=True)}
+
+
+@pytest.fixture(scope="module", params=sorted(FIXTURES))
 def pair(request):
-    return _pair(JG.rmat(9, 8, seed=7, weighted=True)
-                 if request.param == "rmat"
-                 else JG.grid2d(20, weighted=True, seed=3))
+    return _pair(FIXTURES[request.param]())
 
 
 def _close(got, want):
@@ -43,7 +49,8 @@ def _close(got, want):
 def test_bc_batch_matches_reference(pair):
     jg, tg = pair
     deg = np.diff(tg.row_offsets.numpy())
-    srcs = [int(np.argmax(deg)), 0, 77, 77, 350]   # a duplicate lane
+    # a duplicate lane; 350 lies in each graph (the directed one has 256)
+    srcs = [int(np.argmax(deg)), 0, 77, 77, 350 % tg.num_vertices]
     weights = np.array([1.0, 0.5, 2.0, 1.0, 0.0], np.float32)
     jr = JB.bc_batch(jg, srcs, weights)
     tr = bc_batch(tg, srcs, weights)

@@ -21,11 +21,17 @@ def _pair(jg):
         device="cpu")
 
 
-@pytest.fixture(scope="module", params=["rmat", "grid"])
+# the directed rmat's CSC differs from its CSR, so a CSR / CSC mix-up
+# shows there (the other two fixtures are symmetric)
+FIXTURES = {"rmat": lambda: JG.rmat(9, 8, seed=7, weighted=True),
+            "grid": lambda: JG.grid2d(20, weighted=True, seed=3),
+            "directed": lambda: JG.rmat(8, 8, seed=3, undirected=False,
+                                        weighted=True)}
+
+
+@pytest.fixture(scope="module", params=sorted(FIXTURES))
 def pair(request):
-    return _pair(JG.rmat(9, 8, seed=7, weighted=True)
-                 if request.param == "rmat"
-                 else JG.grid2d(20, weighted=True, seed=3))
+    return _pair(FIXTURES[request.param]())
 
 
 def _assert_same(jr, tr):

@@ -465,10 +465,11 @@ def test_autotune_on_the_card(card, tmp_path):
     try:
         picked = tuner.autotune_all([512, 4096])
         assert sorted({op for op, _, _ in picked}) == sorted(tuner.PROBES)
-        for (op, cap, _), tile in picked.items():
+        assert ("advance", 512, "delta") in picked
+        for (op, cap, enc), tile in picked.items():
             assert tile in tuner.candidates(cap)
-            assert tuner.tile_for(op, cap, device=card) == tile
-            assert tuner.entry(op, cap, card)["ms"] > 0
+            assert tuner.tile_for(op, cap, encoding=enc, device=card) == tile
+            assert tuner.entry(op, cap, card, encoding=enc)["ms"] > 0
         assert tuner.tier_floor("advance", 512, device=card) >= 512
     finally:
         tuner.set_cache(None)
@@ -622,3 +623,163 @@ def test_flash_attention_parts_that_see_no_key(card, dtype):
                                P.attention_combine(acc, ml, dtype).float(),
                                rtol=rtol, atol=atol)
     assert (out[:sq - sk] == 0).all()
+
+
+# ---- storage plans: K1 / K3 column variants, K4 / K4m in bf16, K5 at the
+# plan's index dtype -------------------------------------------------------
+
+PLANS = {"int16": {}, "int32": {"index_dtype": "int32"},
+         "int64": {"index_dtype": "int64"}, "delta": {"encoding": "delta"}}
+
+
+@pytest.fixture(scope="module")
+def plan_graphs(card):
+    """One weighted grid (escape-free under delta) and one rmat whose
+    delta stream has escapes (n > 2^16, ids permuted), under each plan."""
+    out = {}
+    for kind, make in (("grid", lambda **kw: G.grid2d(40, weighted=True,
+                                                      seed=3, device=card,
+                                                      **kw)),
+                       ("rmat", lambda **kw: G.rmat(17, 2, seed=5,
+                                                    weighted=True,
+                                                    device=card, **kw))):
+        for plan, kw in PLANS.items():
+            if kind == "rmat" and plan == "int16":
+                continue
+            out[kind, plan] = make(**kw)
+    return out
+
+
+@pytest.mark.parametrize("kind,plan", [("grid", p) for p in PLANS]
+                         + [("rmat", "delta"), ("rmat", "int64")])
+def test_advance_kernels_column_variants(plan_graphs, kind, plan):
+    """K1 and K3 read every column store as their plain versions do; the
+    launch lands in its variant's counter (an escaped delta stream runs
+    the decoded dense view)."""
+    g = plan_graphs[kind, plan]
+    store = g.col_store
+    want_variant = plan
+    if plan == "delta" and store.num_escapes:
+        want_variant = "dense_fallback"
+    front = _frontier(g, 3, seed=1)
+    base, sizes = O._base_and_sizes(g, front.ids, front.valid_mask, "vertex")
+    visited = torch.rand((3, g.num_vertices), device=g.device) < 0.3
+    K.reset_launches()
+    for cap in (512, g.num_edges):
+        got = K.advance_batch(g.row_offsets, store, base, sizes, cap,
+                              g.cache)
+        want = P.advance_batch(g.row_offsets, store, base, sizes, cap)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        got = K.advance_filter_batch(g.row_offsets, store, base, sizes,
+                                     visited, cap, 100, g.cache)
+        want = P.advance_filter_batch(g.row_offsets, store, base, sizes,
+                                      visited, cap, 100)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    for name in ("advance_batch", "advance_filter_batch"):
+        assert K.KERNELS[name].variants == {want_variant: 2}, name
+
+
+def test_delta_grid_is_escape_free_and_rmat_is_not(plan_graphs):
+    assert plan_graphs["grid", "delta"].col_store.num_escapes == 0
+    assert plan_graphs["rmat", "delta"].col_store.num_escapes > 0
+
+
+@pytest.mark.parametrize("plan", ["int16", "int64", "delta"])
+def test_primitives_cuda_storage_plans_match_int32(plan_graphs, plan):
+    """bfs (push, pull, auto), sssp and pagerank on the cuda backend equal
+    the int32 graph's bit for bit under every plan."""
+    g, g32 = plan_graphs["grid", plan], plan_graphs["grid", "int32"]
+    srcs = [0, 777, 1599]
+    K.reset_launches()
+    for run in (lambda gg: bfs_batch(gg, srcs, backend="cuda"),
+                lambda gg: bfs_batch(gg, srcs, direction=False,
+                                     backend="cuda"),
+                lambda gg: sssp_batch(gg, srcs, delta=40.0,
+                                      backend="cuda"),
+                lambda gg: (pagerank(gg, max_iter=10,
+                                     backend="cuda").rank,)):
+        a, b = run(g), run(g32)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert K.KERNELS["advance_filter_batch"].variants.get(plan, 0) > 0
+    assert K.KERNELS["advance_batch"].variants.get(plan, 0) > 0
+
+
+@pytest.mark.parametrize("name", ["plus_times", "plus_and"])
+def test_spmv_kernel_bf16_bitwise(graph, name):
+    """K4 at bf16 precision bit for bit with its plain version on the CPU,
+    structural and weighted (bf16 values too), masked and not."""
+    g = graph
+    sr = SR.with_precision(name, "bf16")
+    x = torch.rand(g.num_vertices, device=g.device) * 3.0
+    mask = torch.rand(g.num_vertices, device=g.device) < 0.5
+    K.reset_launches()
+    for vals in (None, g.edge_values * 1.37,
+                 (g.edge_values * 1.37).to(torch.bfloat16)):
+        for m in (None, mask):
+            args = (g.row_offsets, g.col_indices, vals, x, sr, g.ell_width,
+                    m, None, g.over_pos, g.over_row)
+            got = K.spmv(*args).cpu()
+            want = P.spmv(*(a.cpu() if torch.is_tensor(a) else a
+                            for a in args))
+            assert torch.equal(got, want)
+    assert K.KERNELS["spmv"].variants == {"bf16": 6}
+    # the rounding shows: fp32 and bf16 sweeps differ
+    args = (g.row_offsets, g.col_indices, None, x)
+    rest = (g.ell_width, None, None, g.over_pos, g.over_row)
+    assert not torch.equal(K.spmv(*args, sr, *rest),
+                           K.spmv(*args, SR.get(name), *rest))
+
+
+@pytest.mark.parametrize("k", [1, 32])
+def test_spmm_kernel_bf16(heavy_graph, k):
+    """K4m at bf16: at k = 32 on rows of at most 1024 edges bit for bit
+    with the plain version on the CPU (same fold order), elsewhere within
+    the fold's regrouping."""
+    g = heavy_graph
+    sr = SR.with_precision(SR.plus_times, "bf16")
+    light = (g.degrees <= 1024).cpu()
+    x = torch.rand((g.num_vertices, k), device=g.device)
+    for vals in (None, g.edge_values):
+        args = (g.row_offsets, g.col_indices, vals, x, sr, g.ell_width,
+                None, g.row_seg)
+        got = K.spmm(*args).cpu()
+        want = P.spmm(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        if k == 32:
+            assert torch.equal(got[light], want[light])
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int64])
+def test_segment_search_kernel_index_dtypes(graph, dtype):
+    """K5 over a haystack at the plan's index dtype equals the int32
+    haystack's answers."""
+    g = graph
+    lo, hi, needles = _probes(g, 100_000, seed=3)
+    hay = g.cols().to(dtype)
+    K.reset_launches()
+    assert torch.equal(K.segment_search(hay, lo, hi, needles),
+                       P.segment_search(g.cols(), lo, hi, needles))
+    assert torch.equal(K.segment_locate(hay, lo, hi, needles),
+                       P.segment_locate(g.cols(), lo, hi, needles))
+    assert K.KERNELS["segment_search"].variants == {
+        str(dtype).replace("torch.", ""): 2}
+
+
+def test_spmv_heavy_rows_fresh_after_inplace_edit(card):
+    """The schedule is keyed on the offsets' version: an in-place edit of
+    the offsets gets a fresh one, and K4 writes every row."""
+    ro, ci, vals, x = _star_csr(7)
+    offsets = torch.from_numpy(ro).to(card)
+    cols = torch.from_numpy(ci).to(card)
+    xs = torch.from_numpy(x).to(card)
+    heavy, _ = K.spmv_heavy_rows(offsets, 16)
+    # move row 0's edges to row 1: row 0 empty, row 1 the hub
+    offsets[1] = 0
+    heavy2, _ = K.spmv_heavy_rows(offsets, 16)
+    assert heavy2 is not heavy and int(heavy2[0]) == 1
+    got = K.spmv(offsets, cols, None, xs, SR.plus_times, 16, None, None,
+                 None, None).cpu()
+    ro2 = offsets.cpu().numpy()
+    want = P.spmv(offsets.cpu(), cols.cpu(), None, xs.cpu(), SR.plus_times,
+                  16, None, None, *_over_lists(ro2, 16))
+    assert torch.equal(got, want)

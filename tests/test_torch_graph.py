@@ -42,7 +42,9 @@ def test_builder_fields_equal_reference(kind):
     assert tg.num_vertices == jg.num_vertices
     assert tg.num_edges == jg.num_edges
     assert tg.device.type == "cpu"
-    assert tg.col_indices.dtype == torch.int32
+    # the reference's default plan sizes the ids: both fixtures are int16
+    assert tg.plan.index_dtype == jg.plan.index_dtype == "int16"
+    assert tg.col_indices.dtype == torch.int16
 
 
 @pytest.mark.parametrize("kind", sorted(FIXTURES))

@@ -168,3 +168,48 @@ def test_plain_versions_are_the_wrappers_on_the_cpu():
                  "moe_gather"):
         assert name in K.KERNELS
     assert len(K.KERNELS) == 10
+
+
+def test_spmv_heavy_rows_follow_inplace_edits():
+    """K4's schedule is keyed on the offsets' version as well as the
+    tensor: an in-place edit of the offsets gets a fresh heavy-row list,
+    an unchanged tensor its cached one."""
+    deg = np.array([40, 3, 0, 25, 2, 40], np.int64)
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)])
+                               .astype(np.int32))
+    heavy, nvery = K.spmv_heavy_rows(offsets, 8)
+    assert heavy.tolist() == [0, 5, 3] and nvery == 0
+    assert K.spmv_heavy_rows(offsets, 8)[0] is heavy
+    offsets[1] = 0                  # row 0 empties into row 1
+    fresh, _ = K.spmv_heavy_rows(offsets, 8)
+    assert fresh is not heavy
+    assert fresh.tolist() == [1, 5, 3]
+
+
+def test_kernel_column_operands_by_plan():
+    """K1's and K3's column operand for each store (the reference's
+    ``_split_store``): a dense array at its index dtype, an escape-free
+    delta stream as (deltas, anchors), an escaped one as its decoded
+    int32 view, decoded once into the given cache."""
+    from repro_torch.core import graph as TG
+    cpu = torch.device("cpu")
+    for kw, kind, variant in (({}, 1, "int16"),
+                              ({"index_dtype": "int32"}, 0, "int32"),
+                              ({"index_dtype": "int64"}, 2, "int64"),
+                              ({"encoding": "delta"}, 3, "delta")):
+        g = TG.grid2d(12, device="cpu", **kw)
+        c = K._kernel_cols(g.row_offsets, g.col_store, g.cache, cpu)
+        assert (c.kind, c.variant, c.m) == (kind, variant, g.num_edges)
+        assert c.encoding == ("delta" if variant == "delta" else "dense")
+        assert (c.anchor is None) == (variant != "delta")
+    n = 70_000
+    g = TG.from_edge_list([0, 0, 1], [1, n - 1, 2], n=n, encoding="delta",
+                          device="cpu")
+    c = K._kernel_cols(g.row_offsets, g.col_store, g.cache, cpu)
+    assert (c.kind, c.variant) == (0, "dense_fallback")
+    assert c.cols.dtype == torch.int32
+    assert torch.equal(c.cols, g.cols())
+    assert K._kernel_cols(g.row_offsets, g.col_store, g.cache,
+                          cpu).cols is c.cols
+    with pytest.raises(ValueError, match="int16, int32 or int64"):
+        K._kernel_cols(g.row_offsets, g.cols().float(), None, cpu)

@@ -200,3 +200,32 @@ def test_cli_writes_the_cache_it_is_given(tmp_path, monkeypatch):
         assert tuner.cache_path() == path and not path.exists()
     finally:
         tuner.set_cache(None)
+
+
+def test_autotune_all_measures_delta_for_probes_that_model_it(cache,
+                                                              monkeypatch):
+    """A probe with an ``encoding`` parameter is measured once per
+    encoding and its picks land under both keys (the reference's
+    autotune_all); a probe without one is measured dense only."""
+    seen = []
+
+    def coded(cap, tile, encoding="dense"):
+        seen.append(encoding)
+        return 0.001 if (tile == 128) == (encoding == "delta") else 0.01
+
+    def plain(cap, tile):
+        return 0.001 if tile == 64 else 0.01
+
+    monkeypatch.setattr(tuner, "PROBES", {"coded": coded, "plain": plain})
+    picked = tuner.autotune_all([1024], device=CPU)
+    assert picked == {("coded", 1024, "dense"): 64,
+                      ("coded", 1024, "delta"): 128,
+                      ("plain", 1024, "dense"): 64}
+    assert set(seen) == {"dense", "delta"}
+    assert tuner.tile_for("coded", 1024, encoding="delta", device=CPU) == 128
+    assert tuner.tile_for("coded", 1024, device=CPU) == 64
+    assert tuner.entry("coded", 1024, CPU, encoding="delta")["tile"] == 128
+    # the port's advance probes model the encoding, as the reference's do
+    for op in ("advance", "advance_filter"):
+        assert tuner._takes_encoding(K.__dict__[f"_probe_{op}"])
+    assert not tuner._takes_encoding(K._probe_spmv)
