@@ -30,8 +30,11 @@ Phases:
      edge pairs of the scale-22 graph, and on an empty haystack; K4m
      (spmm) bit-equal to its plain version on integer-valued blocks over
      five semirings x (structural, weighted) x (masked, unmasked) x
-     k in {1, 4, 5, 32, 33}, and at reach's and label propagation's
-     shapes; K6 (lb_expand) bit-equal on every slot at rmat-22's
+     k in {1, 4, 5, 32, 33}, on uniform floats (plus_times) bit-equal
+     on every row it does not split at each of those k, and at reach's
+     and label propagation's shapes (the latter on the one-hot block and
+     on uniform floats, beside the index_select of the rows it gathers);
+     K6 (lb_expand) bit-equal on every slot at rmat-22's
      whole-graph expansion (2^27 slots), at a capacity that is no power
      of two, on zero-size segments and at cap_in = 0; K7
      (flash_attention) at Qwen2-VL-2B's and Kimi K2's head widths (128,
@@ -43,8 +46,10 @@ Phases:
      instantiation, and at the chunk its split form (kv parts) and its
      combine kernel each against their plain versions; K8 (moe_gather)
      bit-equal at Kimi K2's
-     dispatch (8192 x 7168 bf16 tokens, 384 experts x capacity 216) and
-     on rows that are no multiple of 16 bytes; every tuned kernel (K1,
+     dispatch (8192 x 7168 bf16 tokens, 384 experts x capacity 216), on
+     shuffled, repeated, -1 and past-the-end slot ids and on rows that
+     are no multiple of 16 bytes, its bytes beside those of a walk in
+     slot order; every tuned kernel (K1,
      K2, K3, K4 at k = 1, K5, K6) bit-equal to its plain version at
      every block size from 64 to 1024 threads; each kernel timed beside
      its plain version, one PyTorch library call where one computes the
@@ -123,7 +128,6 @@ WTF_K = 1000           # circle of trust
 WTF_TOL = 1e-5         # PPR / SALSA against float64 (atomic float sums)
 TRIANGLE = [(0, 1), (0, 2), (1, 2)]
 INT32_MAX = 2 ** 31 - 1
-K4M_HEAVY = 1024       # spmm splits longer rows over a block (spmv.cu)
 GRID_SIDE = 2048       # grid2d: n = 4,194,304, rmat-22's vertex count
 TIMING_ROUNDS = 5      # interleaved rounds when plans are compared
 PROFILE_GRID_SIDE = 512  # path (e)'s profiled BFS and SSSP
@@ -458,13 +462,38 @@ def _fourth_slice_kernels(torch, np, K, P, tuner, SR, g, gs, dev, record):
     del got
     ms, pms, lms = (_timed(torch, k8, 20), _timed(torch, p8, 5),
                     _timed(torch, lib8, 20))
-    nbytes = (MOE_TOKENS + nslots) * KIMI_D_MODEL * 2 + nslots * 4
+    row = KIMI_D_MODEL * 2
+    nbytes = (MOE_TOKENS + nslots) * row + nslots * 4
+    # what device memory moves when the slots are walked in slot
+    # (expert-major) order: x does not fit L2, so every filled slot reads
+    # its row again
+    slot_order = (filled + nslots) * row + nslots * 4
     print(f"K8 moe_gather x=({MOE_TOKENS}, {KIMI_D_MODEL}) bf16, "
           f"{KIMI_EXPERTS} experts x capacity {cap_e} = {nslots} slots, "
-          f"{filled} filled: {ms:.3f} ms, plain {pms:.3f} ms, index_select "
-          f"{lms:.3f} ms, bound {_bound_ms(nbytes, 0)[0]:.3f} ms; "
-          f"bit-equal")
+          f"{filled} filled: {ms:.3f} ms (its sort by token included), "
+          f"plain {pms:.3f} ms, index_select {lms:.3f} ms, bound "
+          f"{_bound_ms(nbytes, 0)[0]:.3f} ms ({nbytes / 1e9:.3f} GB: x once, "
+          f"the output, 4 B a slot); a walk in slot order moves "
+          f"{slot_order / 1e9:.3f} GB ({_bound_ms(slot_order, 0)[0]:.3f} ms "
+          f"at the memory rate); bit-equal")
     record("moe_gather", 0, ms, pms, nbytes, 0, lms)
+    # slot ids in no order: shuffled, repeated, -1 and past the last token
+    sgen = torch.Generator(device=dev).manual_seed(5)
+    shuffled = slot[torch.randperm(nslots, generator=sgen, device=dev)]
+    repeated = torch.randint(-1, 64, (nslots,), generator=sgen, device=dev,
+                             dtype=torch.int32)
+    odd = shuffled.clone()
+    odd[::13] = MOE_TOKENS + 7
+    for label, st in (("shuffled", shuffled), ("repeated", repeated),
+                      ("-1 and past the end", odd),
+                      ("all -1", torch.full_like(slot, -1))):
+        if not torch.equal(K.moe_gather(x, st), P.moe_gather(x, st)):
+            raise AssertionError(f"moe_gather on {label} slot ids differs "
+                                 f"from the plain version")
+    del shuffled, repeated, odd
+    print("K8 moe_gather on shuffled, repeated (64 tokens), -1 and "
+          "past-the-end, and all -1 slot ids: bit-equal to the plain "
+          "version")
     # rows whose bytes are no multiple of 16, an unaligned view, fp32
     dm = KIMI_D_MODEL
     for xi in (x[:, :dm - 1].contiguous(),
@@ -824,14 +853,14 @@ def _fifth_slice_kernels(torch, np, K, P, O, F, G, S, SR, g, dev, record):
     record("spmv:bf16", 0, ms, pms, nbytes, 3 * m)
     # K4m at bf16 at label propagation's shape (k = 32) on general floats:
     # bit-equal to the plain version on the CPU on the rows of at most
-    # K4M_HEAVY edges (the same fold order there), rtol 1e-5 elsewhere
+    # SPMM_SPLIT edges (the same fold order there), rtol 1e-5 elsewhere
     g16 = G.rmat(LP_SCALE, EDGE_FACTOR, seed=0, weighted=True, device=dev)
     x16 = torch.rand((g16.num_vertices, 32), generator=gen).to(dev)
     mm_args = (g16.row_offsets, g16.col_store, None, x16, sr16,
                g16.ell_width, None, g16.row_seg)
     got = K.spmm(*mm_args).cpu()
     want = P.spmm(*(a.cpu() if torch.is_tensor(a) else a for a in mm_args))
-    light = (g16.degrees <= K4M_HEAVY).cpu()
+    light = (g16.degrees <= K.SPMM_SPLIT).cpu()
     if not torch.equal(got[light], want[light]) or not torch.allclose(
             got, want, rtol=1e-5, atol=1e-5):
         raise AssertionError("spmm bf16 off its plain version")
@@ -846,7 +875,8 @@ def _fifth_slice_kernels(torch, np, K, P, O, F, G, S, SR, g, dev, record):
           f"floats): {ms:.3f} ms (fp32 {ms32:.3f} ms in the same turns), "
           f"plain {pms:.3f} ms, bound "
           f"{_bound_ms(nbytes, 3 * m16 * 32)[0]:.4f} ms; bit-equal on the "
-          f"rows of at most {K4M_HEAVY} edges, max |difference| {err:.3g}")
+          f"rows of at most {K.SPMM_SPLIT} edges, max |difference| "
+          f"{err:.3g}")
     record("spmm:bf16", err, ms, pms, nbytes, 3 * m16 * 32)
     del g16, x16, got, want
     torch.cuda.empty_cache()
@@ -1456,14 +1486,14 @@ def main(argv=None) -> int:
                     if not torch.equal(K.spmm(*args_k), P.spmm(*args_k)):
                         raise AssertionError(f"spmm {name} k={k} differs "
                                              f"from the plain version")
-    # general floats, plus_times: at k >= 32, on rows of at most
-    # K4M_HEAVY edges, each lane folds its column in ascending edge order,
-    # as the plain version on the CPU does (bit for bit); elsewhere the
-    # edge groups and a heavy row's per-warp shares regroup each sum
-    # (rtol 1e-5, the reference's own limit between its two providers)
-    light = (gs.degrees <= K4M_HEAVY).cpu()
+    # general floats, plus_times: a row of at most SPMM_SPLIT edges is
+    # folded by one group, each column in ascending edge order, as the
+    # plain version on the CPU does (bit for bit, at every k); a longer
+    # row's shares regroup its sums (rtol 1e-5, the reference's own limit
+    # between its two providers)
+    unsplit = (gs.degrees <= K.SPMM_SPLIT).cpu()
     float_err = 0.0
-    for k in (4, 32, 33):
+    for k in (1, 4, 5, 32, 33):
         xf = torch.rand((gs.num_vertices, k), generator=gen, device=dev)
         args_k = (gs.row_offsets, gs.col_indices, gs.edge_values, xf,
                   SR.plus_times, gs.ell_width, None, gs.row_seg)
@@ -1471,16 +1501,17 @@ def main(argv=None) -> int:
         want = P.spmm(*(a.cpu() if torch.is_tensor(a) else a
                         for a in args_k))
         rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
-        if (k >= 32 and not torch.equal(got[light], want[light])
-                or rel > 1e-5):
+        if not torch.equal(got[unsplit], want[unsplit]) or rel > 1e-5:
             raise AssertionError(f"spmm plus_times k={k} on floats off its "
                                  f"plain version by {rel:.3g} (relative)")
         float_err = max(float_err, rel)
     print(f"K4m spmm: five semirings x (structural, weighted) x (masked, "
           f"unmasked) x k in (1, 4, 5, 32, 33) bit-equal to the plain "
           f"version on integer-valued blocks (rmat scale 14); float "
-          f"plus_times bit-equal at k = 32, 33 on the rows of at most "
-          f"{K4M_HEAVY} edges, max relative error {float_err:.3g}")
+          f"plus_times bit-equal at every k on the "
+          f"{int(unsplit.sum())} rows of at most {K.SPMM_SPLIT} edges, max "
+          f"relative error {float_err:.3g} on the "
+          f"{int((~unsplit).sum())} split rows")
 
     rng = np.random.default_rng(0)
     sources = [hubs[0]] + [int(v) for v in rng.choice(
@@ -1532,15 +1563,21 @@ def main(argv=None) -> int:
 
     # K4m at label propagation's shape: rmat scale 16, k = 32, the
     # one-hot block of the first 32 labels of the first iteration
-    # (labels0 = arange(n)); plus_times, the vote counts
+    # (labels0 = arange(n)); plus_times, the vote counts. Timed again on
+    # uniform floats of the same shape (a kernel that gained only on zero
+    # rows of X would show there), beside cuSPARSE's product and the
+    # gathers alone: index_select of the m rows of X the kernel gathers
     lp_scale = min(args.scale, LP_SCALE)
     g16 = G.rmat(lp_scale, EDGE_FACTOR, seed=0, weighted=True, device=dev)
     n16, m16 = g16.num_vertices, g16.num_edges
     lanes32 = torch.arange(32, dtype=torch.int32, device=dev)
     onehot = (torch.arange(n16, dtype=torch.int32, device=dev)[:, None]
               == lanes32[None, :]).to(torch.float32)
+    uniform = torch.rand((n16, 32), generator=gen, device=dev)
     lp_args = (g16.row_offsets, g16.col_indices, None, onehot,
                SR.plus_times, g16.ell_width, None, g16.row_seg)
+    lpu_args = lp_args[:3] + (uniform,) + lp_args[4:]
+    cols16 = g16.col_indices.long()
 
     def k4l():
         return K.spmm(*lp_args)
@@ -1558,15 +1595,33 @@ def main(argv=None) -> int:
     y_k = k4l()
     equal_ints("spmm (label propagation shape)", [y_k], [p4l()])
     lib_err = float((y_k - lib4l()).abs().max())
-    ms, pms, lms = (_timed(torch, k4l, 50), _timed(torch, p4l, 5),
-                    _timed(torch, lib4l, 50))
+    unsplit16 = g16.degrees <= K.SPMM_SPLIT
+    y_u = K.spmm(*lpu_args)
+    want_u = P.spmm(*(a.cpu() if torch.is_tensor(a) else a
+                      for a in lpu_args)).to(dev)
+    if not torch.equal(y_u[unsplit16], want_u[unsplit16]) or not (
+            torch.allclose(y_u, want_u, rtol=1e-5, atol=1e-5)):
+        raise AssertionError("spmm (label propagation shape, uniform "
+                             "floats) off its plain version")
+    ms, ms_u = _in_turns(torch, (k4l, lambda: K.spmm(*lpu_args)), 50)
+    pms = _timed(torch, p4l, 5)
+    lms, lms_u, gms = (_timed(torch, lib4l, 50),
+                       _timed(torch, lambda: torch.sparse.mm(a16, uniform),
+                              50),
+                       _timed(torch, lambda: torch.index_select(
+                           uniform, 0, cols16), 20))
     nbytes = (n16 + 1) * 4 + m16 * 4 + 2 * n16 * 32 * 4
     print(f"K4m spmm plus_times k=32 (label propagation, rmat scale "
-          f"{lp_scale}: n={n16} m={m16}): {ms:.3f} ms, plain {pms:.3f} ms, "
-          f"torch.sparse.mm {lms:.3f} ms (max |difference| {lib_err:g}), "
-          f"bound {_bound_ms(nbytes, 2 * m16 * 32)[0]:.3f} ms")
+          f"{lp_scale}: n={n16} m={m16}): one-hot block {ms:.4f} ms, uniform "
+          f"floats {ms_u:.4f} ms (in turns), plain {pms:.3f} ms, "
+          f"torch.sparse.mm {lms:.4f} / {lms_u:.4f} ms (max |difference| "
+          f"{lib_err:g}), index_select of the {m16} gathered rows of X "
+          f"{gms:.4f} ms ({m16 * 128 / 1e6:.1f} MB of 128-byte rows), bound "
+          f"{_bound_ms(nbytes, 2 * m16 * 32)[0]:.4f} ms; uniform floats "
+          f"bit-equal to the plain version on the CPU on the "
+          f"{int(unsplit16.sum())} rows of at most {K.SPMM_SPLIT} edges")
     record("spmm", 0, ms, pms, nbytes, 2 * m16 * 32, lms)
-    del a16, y_k, onehot, lp_args
+    del a16, y_k, y_u, want_u, onehot, uniform, lp_args, lpu_args, cols16
     torch.cuda.empty_cache()
 
     # ---- phase 2 (d): the fourth slice's kernels, K6-K8, at full width,

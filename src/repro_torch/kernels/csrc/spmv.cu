@@ -63,40 +63,43 @@
 // semiring_spmm (src/repro/kernels/ops.py:143) runs it on a (k, tiles)
 // grid, with that wrapper's ELL pack and its COO-overflow segment reduce
 // over all m edges x k columns: Y<mask>[i, c] = (+)_{e in row i}
-// vals[e] (x) X[cols[e], c], X row-major float32, the (+)-identity on
-// empty and masked-out rows. Reach runs it with or_and at k = B sources,
-// label propagation with plus_times at k = 32 one-hot label columns.
-//  * One warp per (row, 32-column chunk): lanes split into G = 32 / KP
-//    edge groups x KP columns, KP = pow2(k) capped at 32 (one group of 32
-//    columns when k >= 32). The warp reads 32 of the row's columns (and
-//    values) at once, coalesced; group g then takes edges g, g + G, ...
-//    of the chunk by shuffles, so its lanes read KP consecutive floats of
-//    one row of X and issue KP independent loads per chunk (32 at
-//    k >= 32); the next chunk's columns are loaded before this chunk's
-//    rows of X.
-//  * Heavy rows: a row of d edges costs one warp d / 32 chunk steps, and
-//    the hubs of a power-law graph (9,699 edges at rmat scale 16, 163,558
-//    at 22) would leave one warp running long after the rest of the grid.
-//    A row of more than kHeavy edges is split over the block's 8 warps
-//    instead, one contiguous share each.
-//  * Each group folds its edges in ascending order starting from the
-//    fold's identity (0 for plus, as the reference's segment_sum starts
-//    there; -inf for or_and's max, so a row's result is the max of its
-//    own products, as segment_max gives it); the groups merge by a fixed
-//    shuffle tree, a heavy row's shares in warp order. Every output is
-//    folded in one fixed order: the kernel is deterministic. At k >= 32,
-//    on rows of at most kHeavy edges, the fold IS the ascending edge
-//    order of the plain version (index_add_ on the CPU). For min, max
-//    and plus over integer values below 2^24 any order gives the same
-//    bits, which covers reach (0/1) and label propagation (vote counts
-//    at most the degree).
+// vals[e] (x) X[cols[e], c], X row-major, the (+)-identity on empty and
+// masked-out rows. Reach runs it with or_and at k = B sources, label
+// propagation with plus_times at k = 32 one-hot label columns.
+//  * A group of L lanes folds one (row, 32-column chunk), a lane 4
+//    consecutive columns: L = pow2(ceil(min(k, 32) / 4)), at most 8, so
+//    a warp folds 32 / L rows at once (4 at k >= 17, 32 at k <= 4) and
+//    no lane walks empty slots of a short row. Where k is a multiple of
+//    4 and X is 16-byte aligned, a lane gathers its 4 columns as one
+//    16-byte load, and 8 lanes read one 128-byte line of X per edge.
+//  * A lane walks its row's edges kMmDepth at a time: the batch's
+//    column ids were loaded during the previous batch, its kMmDepth rows
+//    of X are gathered at once, then folded in edge order. Each column is
+//    folded in ascending edge order from the fold's identity (0 for plus,
+//    as the reference's segment_sum starts there; -inf for or_and's max,
+//    so a row's result is the max of its own products, as segment_max
+//    gives it): the order of the reference's _spmm_xla and of the plain
+//    version on the CPU (index_add_), so every row that one group folds
+//    alone is bit-equal to it, at every k.
+//  * Long rows first: the wrapper lists the rows of more than SPMM_LONG
+//    edges by degree, largest first, once per graph (kernels/ops.py,
+//    heavy_rows). The first blocks take the rows of more than SPMM_SPLIT
+//    edges, one (row, chunk) a block: its G = kThreads / L groups each
+//    fold one contiguous share of ceil(d / G) edges, and the block's
+//    first L threads merge the G partials in share order through shared
+//    memory. The next blocks fold the other listed rows, one group each,
+//    consecutive in the list (so a warp's rows are of similar length);
+//    the rest fold the rows of at most SPMM_LONG edges in row order. Only
+//    a split row's block synchronises, and only with itself.
 //  * Indices are int32: the wrapper refuses n*k or nx*k past 2^31.
-//  * Blocks are always kThreads = 256 threads: the heavy-row split folds
-//    the block's 8 warps' shares in a fixed order, so another block size
-//    would change float sums. spmm has no tuner probe.
+//  * Blocks are always kThreads = 256 threads: a split row's share count
+//    is G, so another block size would change its float sums. spmm has no
+//    tuner probe.
 // Bound by bytes: per edge a 4-byte column (plus 4 of value) and k*4
-// bytes of X gathered (through L2 where X fits its 50 MB), per row 4 of
-// offsets, 1 of mask and k*4 of output.
+// bytes of X gathered (through L2 where X fits its 50 MB: at label
+// propagation's shape X is 8.4 MB and the gathers 233 MB of 128-byte
+// lines, the practical floor), per row 4 of offsets, 1 of mask and k*4
+// of output.
 
 // ---- Precision (both kernels) ----------------------------------------
 //
@@ -112,8 +115,17 @@
 // fp32 product once gives the bfloat16 product. The folds are the fp32
 // folds above, unchanged. Both kernels take their columns as int32 and
 // their values as fp32: the wrapper decodes a delta or narrow column
-// store and widens bfloat16 values once per graph.
+// store and widens bfloat16 values once per graph. K4m rounds each
+// operand once: under the bf16 codes the wrapper passes the values
+// rounded to bfloat16 (once per graph, not once per lane that shares an
+// edge), and a lane rounds its 4 gathered entries of X in two packed
+// conversions (cvt.rn.bf16x2.f32) and widens them with a shift, so the
+// inner loop converts only X and the product. (A bfloat16 copy of X made
+// by the wrapper gathered 64-byte rows and measured slower than this on
+// the fp32 X's 128-byte lines.)
 #include <cuda_bf16.h>
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -578,184 +590,257 @@ __device__ __forceinline__ float fold_init() {
   return SR == kOrAnd ? __int_as_float(0xff800000) : Ring<SR>::zero();
 }
 
-// rows longer than this are split over the block's warps
-constexpr int kHeavy = 1024;
+constexpr int kMmDepth = 8;   // edges a lane gathers before it folds them
 
-// One warp's fold of column c over the edges [start, end) of one row:
-// lanes split into 32 / KP edge groups x KP columns, group g takes edges
-// g, g + G, ... of each 32-edge chunk in ascending order, then the groups
-// merge by a fixed shuffle tree. The result is valid in group 0's lanes.
-// KP = columns per edge group (a power of two, at most 32).
-template <int SR, int KP>
-__device__ __forceinline__ float fold_range(
-    const int* __restrict__ cols, const float* __restrict__ vals,
-    const float* __restrict__ x, int nx, int k, int c, bool col_ok,
-    int start, int end) {
+// four floats rounded to bfloat16 (to nearest even) and widened back, in
+// two packed conversions
+__device__ __forceinline__ float4 bf16_round4(float4 x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  const unsigned a = *reinterpret_cast<const unsigned*>(&lo);
+  const unsigned b = *reinterpret_cast<const unsigned*>(&hi);
+  return make_float4(__uint_as_float(a << 16), __uint_as_float(a & 0xffff0000u),
+                     __uint_as_float(b << 16), __uint_as_float(b & 0xffff0000u));
+}
+
+// K4m's operands (see Precision): prep rounds a lane's 4 gathered
+// entries of X under the bf16 codes; mul is the (x) of a value that
+// arrives rounded and a prepped x; a structural product is the prepped x
+// itself
+template <int SR>
+struct MmOps {
+  static __device__ float4 prep(float4 x) { return x; }
+  static __device__ float mul(float a, float x) { return Ring<SR>::mul(a, x); }
+};
+template <>
+struct MmOps<kPlusTimesBf16> {
+  static __device__ float4 prep(float4 x) { return bf16_round4(x); }
+  static __device__ float mul(float a, float x) {
+    return bf16_round(__fmul_rn(a, x));
+  }
+};
+template <>
+struct MmOps<kPlusAndBf16> {
+  static __device__ float4 prep(float4 x) { return bf16_round4(x); }
+  static __device__ float mul(float a, float x) { return fminf(a, x); }
+};
+
+// four consecutive entries of a row of X: one vector load when V4 (k a
+// multiple of 4, X 16-byte aligned), else up to `live` scalar loads (0
+// past them)
+template <bool V4>
+__device__ __forceinline__ float4 load_x4(const float* __restrict__ p,
+                                          int live) {
+  if (V4) return __ldg(reinterpret_cast<const float4*>(p));
+  float4 r = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (live > 0) r.x = __ldg(p);
+  if (live > 1) r.y = __ldg(p + 1);
+  if (live > 2) r.z = __ldg(p + 2);
+  if (live > 3) r.w = __ldg(p + 3);
+  return r;
+}
+template <int SR>
+__device__ __forceinline__ float4 add4(float4 v, float4 p) {
   using R = Ring<SR>;
-  constexpr int G = 32 / KP;                  // edge groups per warp
-  const int lane = threadIdx.x & 31;
-  const int g = lane / KP;
-  float v = fold_init<SR>();
-  // lane l holds edge e0 + l of the current chunk; the next chunk's
-  // column and value are loaded before this one's X rows, so the column
-  // load's latency overlaps the gathers
-  int nxt_col = 0;
-  float nxt_val = 0.0f;
-  if (start + lane < end) {
-    nxt_col = cols[start + lane];
-    if (vals != nullptr) nxt_val = vals[start + lane];
+  return make_float4(R::add(v.x, p.x), R::add(v.y, p.y), R::add(v.z, p.z),
+                     R::add(v.w, p.w));
+}
+
+// The fold of columns c0 .. c0 + 3 (those below k) over the edges
+// [s, e) of one row, each column in ascending edge order from
+// fold_init. The lane loads kMmDepth column ids a batch (the next
+// batch's while this one's rows of X are in flight), gathers the batch's
+// rows of X, then folds them in order.
+template <int SR, bool V4>
+__device__ __forceinline__ float4 fold_edges(
+    const int* __restrict__ cols, const float* __restrict__ vals,
+    const float* __restrict__ x, int nx, int k, int c0,
+    int s, int e) {
+  using M = MmOps<SR>;
+  const float z = fold_init<SR>();
+  float4 v = make_float4(z, z, z, z);
+  const int live = k - c0;
+  int c[kMmDepth];
+#pragma unroll
+  for (int u = 0; u < kMmDepth; ++u) {
+    c[u] = s + u < e ? min(max(__ldg(cols + s + u), 0), nx - 1) : -1;
   }
-  for (int e0 = start; e0 < end; e0 += 32) {
-    const int cnt = min(32, end - e0);
-    const int my_col = min(max(nxt_col, 0), nx - 1);
-    const float my_val = nxt_val;
-    if (e0 + 32 + lane < end) {
-      nxt_col = cols[e0 + 32 + lane];
-      if (vals != nullptr) nxt_val = vals[e0 + 32 + lane];
-    }
-    float p[KP];
+  for (int e0 = s; e0 < e; e0 += kMmDepth) {
+    float4 xv[kMmDepth];
+    float a[kMmDepth];
 #pragma unroll
-    for (int t = 0; t < KP; ++t) {            // independent loads first
-      const int j = t * G + g;
-      const int col = __shfl_sync(kFull, my_col, j);
-      const float a = __shfl_sync(kFull, my_val, j);
-      const float xv = (j < cnt && col_ok) ? x[col * k + c] : 0.0f;
-      p[t] = vals != nullptr ? R::mul(a, xv) : R::lone(xv);
+    for (int u = 0; u < kMmDepth; ++u) {      // the batch's gathers
+      xv[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      a[u] = 0.0f;
+      if (c[u] >= 0) {
+        xv[u] = load_x4<V4>(x + static_cast<long long>(c[u]) * k + c0, live);
+        if (vals != nullptr) a[u] = __ldg(vals + e0 + u);
+      }
+    }
+    const int nxt = e0 + kMmDepth;
+#pragma unroll
+    for (int u = 0; u < kMmDepth; ++u) {      // the next batch's ids
+      c[u] = nxt + u < e ? min(max(__ldg(cols + nxt + u), 0), nx - 1) : -1;
     }
 #pragma unroll
-    for (int t = 0; t < KP; ++t) {            // then the ordered fold
-      if (t * G + g < cnt) v = R::add(v, p[t]);
+    for (int u = 0; u < kMmDepth; ++u) {      // then the ordered fold
+      if (e0 + u < e) {
+        float4 p = M::prep(xv[u]);
+        if (vals != nullptr) {
+          p = make_float4(M::mul(a[u], p.x), M::mul(a[u], p.y),
+                          M::mul(a[u], p.z), M::mul(a[u], p.w));
+        }
+        v = add4<SR>(v, p);
+      }
     }
-  }
-  // merge the groups: lane l takes lane l + off, a fixed tree
-#pragma unroll
-  for (int off = 16; off >= KP; off >>= 1) {
-    v = R::add(v, __shfl_down_sync(kFull, v, off));
   }
   return v;
 }
 
-// Warp w of the grid owns (row, 32-column chunk) w. A row of at most
-// kHeavy edges is folded by its warp alone; a longer one by all the
-// block's warps, each over one contiguous share of the row, the shares'
-// partials then folded in warp order through shared memory.
-template <int SR, int KP>
-__global__ void spmm_rows(const int* __restrict__ offsets,
-                          const int* __restrict__ cols,
-                          const float* __restrict__ vals,
-                          const float* __restrict__ x, int nx, int k,
-                          const unsigned char* __restrict__ mask, int n,
-                          int nchunk, float* __restrict__ y) {
+template <bool V4>
+__device__ __forceinline__ void store_y4(float* __restrict__ p, float4 v,
+                                         int live) {
+  if (V4) {
+    *reinterpret_cast<float4*>(p) = v;
+    return;
+  }
+  if (live > 0) p[0] = v.x;
+  if (live > 1) p[1] = v.y;
+  if (live > 2) p[2] = v.z;
+  if (live > 3) p[3] = v.w;
+}
+
+// Blocks [0, nsplit * nchunk): the split rows long_rows[0 .. nsplit),
+// one (row, chunk) a block; the next ceil((nlong - nsplit) * nchunk / G)
+// blocks the other listed rows, one (row, chunk) a group; the rest every
+// row of at most `tlong` edges, one (row, chunk) a group, in row order.
+// L lanes a group, G = kThreads / L groups a block.
+template <int SR, bool V4>
+__global__ void __launch_bounds__(kThreads)
+spmm_rows(const int* __restrict__ offsets, const int* __restrict__ cols,
+          const float* __restrict__ vals,
+          const float* __restrict__ x, int nx, int k,
+          const unsigned char* __restrict__ mask, int n, int nchunk, int L,
+          const int* __restrict__ long_rows, int nlong, int nsplit,
+          int tlong, float* __restrict__ y) {
   using R = Ring<SR>;
-  __shared__ int heavy_row[kWarps];           // -1 = none
-  __shared__ float part[kWarps][32];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane / KP;
-  const long long w = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  const bool have = w < static_cast<long long>(n) * nchunk;
-  const int row = have ? static_cast<int>(w / nchunk) : 0;
-  const int c = (have ? static_cast<int>(w % nchunk) : 0) * 32 + lane % KP;
-  const bool col_ok = c < k;
-  int start = 0, end = 0;
-  bool live = false;
-  if (have) {                                 // warp-uniform
-    start = offsets[row];
-    end = offsets[row + 1];
-    live = end > start && (mask == nullptr || mask[row]);
-  }
-  const bool heavy = live && end - start > kHeavy;
-  if (lane == 0) heavy_row[warp] = heavy ? row : -1;
-  if (have && !heavy) {
-    float v = R::zero();
-    if (live) v = fold_range<SR, KP>(cols, vals, x, nx, k, c, col_ok, start,
-                                     end);
-    if (g == 0 && col_ok) y[row * k + c] = v;
-  }
-  __syncthreads();
-  for (int h = 0; h < kWarps; ++h) {          // block-uniform loop
-    const int hrow = heavy_row[h];
-    if (hrow < 0) continue;
-    const long long wh = static_cast<long long>(blockIdx.x) * kWarps + h;
-    const int hc = static_cast<int>(wh % nchunk) * 32 + lane % KP;
-    const int hs = offsets[hrow], he = offsets[hrow + 1];
-    const int share = (he - hs + kWarps * 32 - 1) / (kWarps * 32) * 32;
-    const int s0 = min(hs + warp * share, he);
-    const float pv = fold_range<SR, KP>(cols, vals, x, nx, k, hc, hc < k,
-                                        s0, min(s0 + share, he));
-    if (g == 0) part[warp][lane] = pv;
-    __syncthreads();
-    if (warp == h && g == 0 && hc < k) {
-      float t = part[0][lane];
-#pragma unroll
-      for (int q = 1; q < kWarps; ++q) t = R::add(t, part[q][lane]);
-      y[hrow * k + hc] = t;
+  __shared__ float4 part[kThreads];
+  const int groups = kThreads / L;
+  const int g = threadIdx.x / L, sub = threadIdx.x % L;
+  const float zr = R::zero();
+  const float4 zero4 = make_float4(zr, zr, zr, zr);
+  long long b = blockIdx.x;
+  const long long split_blocks = static_cast<long long>(nsplit) * nchunk;
+  if (b < split_blocks) {                     // block-uniform
+    const int row = long_rows[b / nchunk];
+    const int c0 = static_cast<int>(b % nchunk) * 32 + sub * 4;
+    float* yr = y + static_cast<long long>(row) * k + c0;
+    if (mask != nullptr && !mask[row]) {
+      if (g == 0 && c0 < k) store_y4<V4>(yr, zero4, k - c0);
+      return;
     }
+    const int s = offsets[row], e = offsets[row + 1];
+    const int len = (e - s + groups - 1) / groups;
+    const int s0 = min(s + g * len, e);
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (c0 < k) {
+      v = fold_edges<SR, V4>(cols, vals, x, nx, k, c0, s0, min(s0 + len, e));
+    }
+    part[threadIdx.x] = v;
     __syncthreads();
+    if (g == 0 && c0 < k) {                   // the shares in order
+      float4 t = part[sub];
+      for (int q = 1; q < groups; ++q) t = add4<SR>(t, part[q * L + sub]);
+      store_y4<V4>(yr, t, k - c0);
+    }
+    return;
   }
+  b -= split_blocks;
+  const long long listed = static_cast<long long>(nlong - nsplit) * nchunk;
+  const long long listed_blocks = (listed + groups - 1) / groups;
+  long long item;
+  int row;
+  bool light = false;
+  if (b < listed_blocks) {
+    item = b * groups + g;
+    if (item >= listed) return;
+    row = long_rows[nsplit + item / nchunk];
+  } else {
+    item = (b - listed_blocks) * groups + g;
+    if (item >= static_cast<long long>(n) * nchunk) return;
+    row = static_cast<int>(item / nchunk);
+    light = true;
+  }
+  const int c0 = static_cast<int>(item % nchunk) * 32 + sub * 4;
+  if (c0 >= k) return;
+  const int s = offsets[row], e = offsets[row + 1];
+  if (light && e - s > tlong) return;         // a listed row, folded above
+  float4 v = zero4;
+  if (e > s && (mask == nullptr || mask[row])) {
+    v = fold_edges<SR, V4>(cols, vals, x, nx, k, c0, s, e);
+  }
+  store_y4<V4>(y + static_cast<long long>(row) * k + c0, v, k - c0);
 }
 
 template <int SR>
 int launch_mm(const int* offsets, const int* cols, const float* vals,
               const float* x, int nx, int k, const unsigned char* mask,
-              int n, float* y, cudaStream_t st) {
-  int kp = 1;
-  while (kp < k && kp < 32) kp *= 2;
+              int n, const int* long_rows, int nlong, int nsplit, int tlong,
+              float* y, cudaStream_t st) {
+  int L = 1;
+  while (L * 4 < min(k, 32)) L *= 2;
+  const int groups = kThreads / L;
   const int nchunk = (k + 31) / 32;
-  const long long warps = static_cast<long long>(n) * nchunk;
-  const int grid = static_cast<int>((warps + kWarps - 1) / kWarps);
-#define REPRO_SPMM_CASE(KK)                                               \
-  case KK:                                                                \
-    spmm_rows<SR, KK><<<grid, kThreads, 0, st>>>(offsets, cols, vals, x,  \
-                                                 nx, k, mask, n, nchunk,  \
-                                                 y);                      \
-    break;
-  switch (kp) {
-    REPRO_SPMM_CASE(1)
-    REPRO_SPMM_CASE(2)
-    REPRO_SPMM_CASE(4)
-    REPRO_SPMM_CASE(8)
-    REPRO_SPMM_CASE(16)
-    REPRO_SPMM_CASE(32)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks =
+      static_cast<long long>(nsplit) * nchunk +
+      ((static_cast<long long>(nlong - nsplit) * nchunk + groups - 1) /
+       groups) +
+      (static_cast<long long>(n) * nchunk + groups - 1) / groups;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const bool v4 = k % 4 == 0 &&
+                  reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
+  if (v4) {
+    spmm_rows<SR, true><<<static_cast<int>(blocks), kThreads, 0, st>>>(
+        offsets, cols, vals, x, nx, k, mask, n, nchunk, L, long_rows, nlong,
+        nsplit, tlong, y);
+  } else {
+    spmm_rows<SR, false><<<static_cast<int>(blocks), kThreads, 0, st>>>(
+        offsets, cols, vals, x, nx, k, mask, n, nchunk, L, long_rows, nlong,
+        nsplit, tlong, y);
   }
-#undef REPRO_SPMM_CASE
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// x: (nx, k) and y: (n, k) fp32, row-major; long_rows: the rows of more
+// than tlong edges by degree, largest first, the first nsplit of them
+// split over a block.
 EXPORT int spmm(int semiring, const int* offsets, const int* cols,
                 const float* vals, const float* x, int nx, int k,
-                const unsigned char* mask, int n, float* y, void* stream) {
+                const unsigned char* mask, int n, const int* long_rows,
+                int nlong, int nsplit, int tlong, float* y, void* stream) {
+  if (nsplit < 0 || nsplit > nlong) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n == 0 || k == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_SPMM_SR(SR)                                                 \
+  case SR:                                                                \
+    return launch_mm<SR>(offsets, cols, vals, x, nx, k, mask, n,         \
+                         long_rows, nlong, nsplit, tlong, y, st);
   switch (semiring) {
-    case kPlusTimes:
-      return launch_mm<kPlusTimes>(offsets, cols, vals, x, nx, k, mask, n,
-                                   y, st);
-    case kMinPlus:
-      return launch_mm<kMinPlus>(offsets, cols, vals, x, nx, k, mask, n, y,
-                                 st);
-    case kOrAnd:
-      return launch_mm<kOrAnd>(offsets, cols, vals, x, nx, k, mask, n, y,
-                               st);
-    case kMaxMin:
-      return launch_mm<kMaxMin>(offsets, cols, vals, x, nx, k, mask, n, y,
-                                st);
-    case kPlusAnd:
-      return launch_mm<kPlusAnd>(offsets, cols, vals, x, nx, k, mask, n, y,
-                                 st);
-    case kPlusTimesBf16:
-      return launch_mm<kPlusTimesBf16>(offsets, cols, vals, x, nx, k, mask,
-                                       n, y, st);
-    case kPlusAndBf16:
-      return launch_mm<kPlusAndBf16>(offsets, cols, vals, x, nx, k, mask, n,
-                                     y, st);
+    REPRO_SPMM_SR(kPlusTimes)
+    REPRO_SPMM_SR(kMinPlus)
+    REPRO_SPMM_SR(kOrAnd)
+    REPRO_SPMM_SR(kMaxMin)
+    REPRO_SPMM_SR(kPlusAnd)
+    REPRO_SPMM_SR(kPlusTimesBf16)
+    REPRO_SPMM_SR(kPlusAndBf16)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_SPMM_SR
 }
 
 EXPORT int spmv(int semiring, const int* offsets, const int* cols,

@@ -119,7 +119,8 @@ _SIGNATURES = {
         [_P, _L, _P, _I, _I] + [_P] * 4 + [_I, _P]),
     ("spmv", "spmv"): ([_I] + [_P] * 4 + [_I, _P, _I, _I, _P, _I, _I, _P,
                                           _I, _P]),
-    ("spmv", "spmm"): [_I] + [_P] * 4 + [_I, _I, _P, _I, _P, _P],
+    ("spmv", "spmm"): ([_I] + [_P] * 4 + [_I, _I, _P, _I, _P, _I, _I, _I,
+                                          _P, _P]),
     ("search", "segment_search_found"): (
         [_P, _I, _I] + [_P] * 3 + [_L, _P, _I, _P]),
     ("search", "segment_search_locate"): (
@@ -128,7 +129,7 @@ _SIGNATURES = {
     ("attention", "flash_attention"): (
         [_I] + [_P] * 6 + [_I, _I, _I, ctypes.c_float, _I, _I, _P]),
     ("attention", "attention_combine"): [_I] + [_P] * 3 + [_I] * 3 + [_P],
-    ("moe_gather", "moe_gather"): [_P, _I, _L, _I, _P, _L, _P, _P],
+    ("moe_gather", "moe_gather"): [_P, _I, _L, _I, _P, _L, _P, _P, _P],
 }
 _fns: dict = {}
 
@@ -409,52 +410,81 @@ def compact(values: torch.Tensor, mask: torch.Tensor, *,
 # K4 gives each row whose overflow passes this many edges a block of its
 # own (csrc/spmv.cu)
 SPMV_BLOCK_OVER = 2048
-# offsets tensor -> {(width, the offsets' version): (heavy rows by degree,
-# largest first; how many of them get a block)}, made once per graph and
-# dropped with its offsets
+# K4m folds the rows of more than SPMM_LONG edges first, from the list by
+# degree, and splits those of more than SPMM_SPLIT edges over a block of
+# SPMM_THREADS threads (csrc/spmv.cu)
+SPMM_LONG = 64
+SPMM_SPLIT = 256
+SPMM_THREADS = 256
+# offsets tensor -> {(above, split, the offsets' version): (rows of degree
+# > above by degree, largest first; how many of them have degree >
+# split)}, made once per graph and dropped with its offsets
 _heavy_lists = WeakIdKeyDictionary()
 
 
-def spmv_heavy_rows(offsets: torch.Tensor, width: int):
-    """K4's schedule of a CSR: the rows of degree > ``width`` as int32,
-    sorted by degree, largest first (ties in row order), and how many of
-    them lead with an overflow of more than ``SPMV_BLOCK_OVER`` edges.
-    Made on the offsets' device at the first call for (offsets, width)
-    and kept while the offsets tensor lives, keyed on its version
-    counter too: an in-place edit of the offsets gets a fresh
-    schedule."""
+def heavy_rows(offsets: torch.Tensor, above: int, split: int):
+    """A CSR's long-row schedule: the rows of degree > ``above`` as
+    int32, sorted by degree, largest first (ties in row order), and how
+    many of them (the leading ones) have degree > ``split``. Made on the
+    offsets' device at the first call for (offsets, above, split) and
+    kept while the offsets tensor lives, keyed on its version counter
+    too: an in-place edit of the offsets gets a fresh schedule."""
     per = _heavy_lists.get(offsets)
     if per is None:
         per = _heavy_lists[offsets] = {}
-    key = (width, offsets._version)
+    key = (above, split, offsets._version)
     hit = per.get(key)
     if hit is None:
         deg = offsets[1:] - offsets[:-1]
-        rows = torch.nonzero(deg > width).squeeze(1)
+        rows = torch.nonzero(deg > above).squeeze(1)
         rows = rows[torch.sort(deg[rows], descending=True,
                                stable=True).indices]
-        nvery = int((deg[rows] - width > SPMV_BLOCK_OVER).sum())
-        hit = per[key] = (rows.to(torch.int32).contiguous(), nvery)
+        nsplit = int((deg[rows] > split).sum())
+        hit = per[key] = (rows.to(torch.int32).contiguous(), nsplit)
     return hit
 
 
-def _spmv_operands(indices, values, cache: Optional[dict], dev):
+def spmv_heavy_rows(offsets: torch.Tensor, width: int):
+    """K4's schedule: the rows of degree > ``width`` by degree, largest
+    first, and how many of them lead with an overflow of more than
+    ``SPMV_BLOCK_OVER`` edges (``heavy_rows``)."""
+    return heavy_rows(offsets, width, width + SPMV_BLOCK_OVER)
+
+
+def spmm_shares(k: int) -> int:
+    """The shares K4m cuts a split row into at k columns: its groups a
+    block, SPMM_THREADS / L with L = pow2(ceil(min(k, 32) / 4)) lanes a
+    group (csrc/spmv.cu)."""
+    lanes = 1
+    while lanes * 4 < min(k, 32):
+        lanes *= 2
+    return SPMM_THREADS // lanes
+
+
+def _cached(cache: Optional[dict], name: str, src: torch.Tensor, make):
+    """``make(src)``, kept in ``cache`` under (name, id(src)) while src
+    lives unedited: the entry holds src, so no other tensor takes its id,
+    and src's version."""
+    if cache is None:
+        return make(src)
+    hit = cache.get((name, id(src)))
+    if hit is None or hit[0] is not src or hit[1] != src._version:
+        hit = cache[(name, id(src))] = (src, src._version, make(src))
+    return hit[2]
+
+
+def _spmv_operands(indices, values, cache: Optional[dict], dev,
+                   bf16: bool = False):
     """K4's and K4m's int32 columns and float32 values: a delta or narrow
-    store decoded, bfloat16 values widened — once per graph when a
-    ``cache`` is given."""
+    store decoded, bfloat16 values widened — and with ``bf16`` (K4m's bf16
+    codes) float32 values rounded to bfloat16 first — once per graph when
+    a ``cache`` is given."""
     cols = S.dense_view(indices, cache)
     _require(cols, "indices", torch.int32, 1, dev)
-    if values is not None and values.dtype == torch.bfloat16:
-        if cache is None:
-            values = values.to(torch.float32)
-        else:
-            # the entry keeps its source alive, so no other tensor takes
-            # its id
-            hit = cache.get(("values_fp32", id(values)))
-            if hit is None or hit[0] is not values:
-                hit = cache[("values_fp32", id(values))] = (
-                    values, values.to(torch.float32))
-            values = hit[1]
+    if values is not None and (bf16 or values.dtype == torch.bfloat16):
+        # bfloat16 values widen to the same floats
+        values = _cached(cache, "values_bf16", values,
+                         lambda v: v.to(torch.bfloat16).to(torch.float32))
     if values is not None:
         _require(values, "values", torch.float32, 1, dev)
         if values.shape != cols.shape:
@@ -504,15 +534,18 @@ def spmv(offsets, indices, values, x, sr, ell_width, mask, row_seg=None,
 def spmm(offsets, indices, values, x, sr, ell_width, mask, row_seg=None,
          cache: Optional[dict] = None):
     """K4m: masked-semiring SpMM over the CSR and a dense (nx, k) block,
-    one warp per (row, 32-column chunk), each output folded in a fixed
-    order, at the semiring's precision (``ell_width`` and ``row_seg`` are
-    unused: the CSR gives both)."""
+    a group of lanes per (row, 32-column chunk), each column folded in
+    ascending edge order, the rows of more than ``SPMM_SPLIT`` edges
+    split over a block (their shares merged in order), the long rows
+    first (``heavy_rows``), at the semiring's precision (``ell_width``
+    and ``row_seg`` are unused: the CSR gives both)."""
     if offsets.device.type == "cpu":
         return ref.spmm(offsets, indices, values, x, sr, ell_width, mask,
                         row_seg)
     dev = offsets.device
     _require(offsets, "offsets", torch.int32, 1, dev)
-    cols, values = _spmv_operands(indices, values, cache, dev)
+    bf16 = sr.precision == "bf16"
+    cols, values = _spmv_operands(indices, values, cache, dev, bf16)
     _require(x, "x", torch.float32, 2, dev)
     n = int(offsets.shape[0]) - 1
     nx, k = (int(d) for d in x.shape)
@@ -525,10 +558,13 @@ def spmm(offsets, indices, values, x, sr, ell_width, mask, row_seg=None,
                          f"entries, beyond int32")
     if int(cols.shape[0]) and nx == 0:
         raise ValueError("x is empty")
+    long_rows, nsplit = heavy_rows(offsets, SPMM_LONG, SPMM_SPLIT)
     y = torch.empty((n, k), dtype=torch.float32, device=dev)
     _launch("spmv", "spmm", sr.code, runtime.ptr(offsets),
             runtime.ptr(cols), runtime.ptr(values), runtime.ptr(x), nx,
-            k, runtime.ptr(mask), n, runtime.ptr(y), runtime.stream_ptr(dev))
+            k, runtime.ptr(mask), n, runtime.ptr(long_rows),
+            int(long_rows.shape[0]), nsplit, SPMM_LONG, runtime.ptr(y),
+            runtime.stream_ptr(dev))
     KERNELS["spmm"].count(sr.precision)
     return y
 
@@ -763,7 +799,10 @@ def moe_gather(x: torch.Tensor, slot_token: torch.Tensor) -> torch.Tensor:
     """K8: out[s] = x[slot_token[s]] for x (T, D) and slot_token (S,)
     int32, a zero row where slot_token[s] < 0; an id past the last token
     reads the last row (JAX clamps gather indices, and the reference's
-    gather relies on it; no host check). Output (S, D) in x's type."""
+    gather relies on it; no host check). Output (S, D) in x's type. The
+    kernel orders the slots by token first (a counting sort on the card),
+    so it copies each token row to all of its slots while the row is on
+    chip."""
     if x.device.type == "cpu":
         return ref.moe_gather(x, slot_token)
     dev = x.device
@@ -777,10 +816,17 @@ def moe_gather(x: torch.Tensor, slot_token: torch.Tensor) -> torch.Tensor:
     if t > INT32_MAX:
         raise ValueError("more tokens than int32 ids")
     s = int(slot_token.shape[0])
+    if s > INT32_MAX:
+        raise ValueError("more slots than int32 positions")
+    # the counting sort's bins (counts and starts), its total and the
+    # slots in token order
+    scratch = torch.empty((2 * (t + 1) + 1 + s,), dtype=torch.int32,
+                          device=dev)
     out = torch.empty((s, d), dtype=x.dtype, device=dev)
     _launch("moe_gather", "moe_gather", runtime.ptr(x), t,
             d * x.element_size(), x.element_size(), runtime.ptr(slot_token),
-            s, runtime.ptr(out), runtime.stream_ptr(dev))
+            s, runtime.ptr(scratch), runtime.ptr(out),
+            runtime.stream_ptr(dev))
     KERNELS["moe_gather"].count(_dtype_name(x.dtype))
     return out
 

@@ -27,8 +27,10 @@ Registry contracts (shared with the CUDA providers):
           mask|None, row_seg|None) → y (n, k) float32 — the torch
          provider ⊕-folds each row's products in ascending edge order
          (the reference's ``_spmm_xla`` segment reduce), the CUDA kernel
-         in another fixed order (the same bits for min, max and exact
-         sums); no ELL tree, so ``ell_width`` is unused;
+         too on rows of at most ``kernels.ops.SPMM_SPLIT`` edges, and a
+         longer row in contiguous shares merged in order (the same bits
+         for min, max and exact sums); no ELL tree, so ``ell_width`` is
+         unused;
   "mxm"  (a_off, a_idx, a_vals|None, bt_off, bt_idx, bt_vals|None,
           base (E,), probe_rows (E,), sr, cap_out) → c (E,) float32 —
          the dot formulation over a mask pattern: row ``base[e]`` of the

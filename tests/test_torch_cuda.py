@@ -253,7 +253,8 @@ def test_cc_bc_on_the_card_match_oracles(graph):
 
 @pytest.fixture(scope="module")
 def heavy_graph(card):
-    """rmat scale 14: rows above and below the kernel's 1024-edge split."""
+    """rmat scale 14: rows above and below K4m's split threshold
+    (SPMM_SPLIT edges)."""
     return G.rmat(14, 16, seed=1, weighted=True, device=card)
 
 
@@ -279,24 +280,58 @@ def test_spmm_kernel_matches_plain_bitwise(heavy_graph, name, k):
     assert K.KERNELS["spmm"].launches == 4
 
 
-@pytest.mark.parametrize("k", [4, 32, 33])
+@pytest.mark.parametrize("k", [1, 3, 4, 5, 32, 33, 64])
 def test_spmm_kernel_float_plus_times(heavy_graph, k):
-    """General floats: at k >= 32, on rows of at most 1024 edges, a lane
-    folds its column in ascending edge order, the plain version's order
-    on the CPU, so the two are bit-equal there; below 32 the edge groups,
-    and on longer rows the block's per-warp shares, regroup the sum (rtol
-    1e-5, the reference's own limit between its providers)."""
+    """General floats: a row of at most SPMM_SPLIT edges is folded by one
+    group, each column in ascending edge order, the plain version's order
+    on the CPU, so the two are bit-equal there at every k; a longer row's
+    shares regroup the sum (rtol 1e-5, the reference's own limit between
+    its providers)."""
     g = heavy_graph
-    light = (g.degrees <= 1024).cpu()
-    assert 0 < int((~light).sum()) < g.num_vertices
+    unsplit = (g.degrees <= K.SPMM_SPLIT).cpu()
+    assert 0 < int((~unsplit).sum()) < g.num_vertices
     x = torch.rand((g.num_vertices, k), device=g.device)
     args = (g.row_offsets, g.col_indices, g.edge_values, x, SR.plus_times,
             g.ell_width, None, g.row_seg)
     got = K.spmm(*args).cpu()
     want = P.spmm(*(a.cpu() if torch.is_tensor(a) else a for a in args))
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    if k >= 32:
-        assert torch.equal(got[light], want[light])
+    assert torch.equal(got[unsplit], want[unsplit])
+    # an X that is no 16-byte aligned view takes the scalar gathers
+    if k % 4 == 0:
+        xv = torch.rand(g.num_vertices * k + 1, device=g.device)[1:].view(
+            g.num_vertices, k)
+        args = args[:3] + (xv,) + args[4:]
+        got = K.spmm(*args).cpu()
+        want = P.spmm(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+        assert torch.equal(got[unsplit], want[unsplit])
+
+
+def test_spmm_long_rows_fresh_after_inplace_edit(card):
+    """K4m's long-row list is keyed on the offsets' version: after an
+    in-place edit that moves a long row, the kernel gets a fresh list and
+    writes every row as the plain version does."""
+    rng = np.random.default_rng(4)
+    n = 3000
+    deg = rng.integers(0, 20, n)
+    deg[0], deg[7] = 5000, 300
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)])
+                               .astype(np.int32)).to(card)
+    m = int(deg.sum())
+    cols = torch.from_numpy(rng.integers(0, n, m).astype(np.int32)).to(card)
+    x = torch.randint(0, 5, (n, 32), device=card).to(torch.float32)
+    args = (cols, None, x, SR.plus_times, 1, None)
+    rows, nsplit = K.heavy_rows(offsets, K.SPMM_LONG, K.SPMM_SPLIT)
+    assert rows[:2].tolist() == [0, 7] and nsplit == 2
+    assert torch.equal(K.spmm(offsets, *args).cpu(),
+                       P.spmm(offsets.cpu(), *(a.cpu() if torch.is_tensor(a)
+                                               else a for a in args)))
+    offsets[1] = 0                  # row 0 empties into row 1
+    fresh, nsplit = K.heavy_rows(offsets, K.SPMM_LONG, K.SPMM_SPLIT)
+    assert fresh is not rows and fresh[:2].tolist() == [1, 7]
+    assert torch.equal(K.spmm(offsets, *args).cpu(),
+                       P.spmm(offsets.cpu(), *(a.cpu() if torch.is_tensor(a)
+                                               else a for a in args)))
 
 
 def test_spmm_kernel_refusals(graph):
@@ -418,6 +453,32 @@ def test_moe_gather_kernel_matches_plain_bitwise(card, dtype, t, d, s):
     # an unaligned view of x takes the narrow copy
     xv = x.reshape(-1)[1:1 + (t - 1) * d].view(t - 1, d)
     assert torch.equal(K.moe_gather(xv, slot), P.moe_gather(xv, slot))
+
+
+@pytest.mark.parametrize("case", ["unsorted_repeated", "all_empty",
+                                  "odd_width"])
+def test_moe_gather_kernel_slot_orders(card, case):
+    """K8 orders the slots by token (a counting sort) and copies each row
+    to its slots: an unsorted slot_token with repeated ids, one that is
+    all -1, and rows of an odd bf16 width (the 2-byte copies), bit-equal
+    to the plain version."""
+    gen = torch.Generator(device=card).manual_seed(len(case))
+    t, d = 200, 7 if case == "odd_width" else 512
+    x = torch.randn((t, d), generator=gen, device=card).to(torch.bfloat16)
+    if case == "all_empty":
+        slot = torch.full((333,), -1, dtype=torch.int32, device=card)
+    else:
+        slot = torch.randint(0, 6, (500,), generator=gen, device=card,
+                             dtype=torch.int32)
+        slot[::7] = -1
+        slot[::11] = t + 5
+        slot = slot[torch.randperm(500, generator=gen, device=card)]
+    K.reset_launches()
+    got = K.moe_gather(x, slot)
+    assert K.KERNELS["moe_gather"].launches == 1
+    assert torch.equal(got, P.moe_gather(x, slot))
+    if case == "all_empty":
+        assert not got.any()
 
 
 @pytest.mark.parametrize("threads", [64, 128, 256, 512, 1024])
@@ -730,23 +791,26 @@ def test_spmv_kernel_bf16_bitwise(graph, name):
                            K.spmv(*args, SR.get(name), *rest))
 
 
-@pytest.mark.parametrize("k", [1, 32])
+@pytest.mark.parametrize("k", [1, 4, 32, 33])
 def test_spmm_kernel_bf16(heavy_graph, k):
-    """K4m at bf16: at k = 32 on rows of at most 1024 edges bit for bit
-    with the plain version on the CPU (same fold order), elsewhere within
-    the fold's regrouping."""
+    """K4m at bf16 (plus_times and plus_and, structural, fp32 and bf16
+    values): bit for bit with the plain version on the CPU on the rows of
+    at most SPMM_SPLIT edges (the same fold order), elsewhere within the
+    shares' regrouping."""
     g = heavy_graph
-    sr = SR.with_precision(SR.plus_times, "bf16")
-    light = (g.degrees <= 1024).cpu()
-    x = torch.rand((g.num_vertices, k), device=g.device)
-    for vals in (None, g.edge_values):
-        args = (g.row_offsets, g.col_indices, vals, x, sr, g.ell_width,
-                None, g.row_seg)
-        got = K.spmm(*args).cpu()
-        want = P.spmm(*(a.cpu() if torch.is_tensor(a) else a for a in args))
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-        if k == 32:
-            assert torch.equal(got[light], want[light])
+    unsplit = (g.degrees <= K.SPMM_SPLIT).cpu()
+    x = torch.rand((g.num_vertices, k), device=g.device) * 3.0
+    for name in ("plus_times", "plus_and"):
+        sr = SR.with_precision(name, "bf16")
+        for vals in (None, g.edge_values * 1.37,
+                     (g.edge_values * 1.37).to(torch.bfloat16)):
+            args = (g.row_offsets, g.col_indices, vals, x, sr, g.ell_width,
+                    None, g.row_seg)
+            got = K.spmm(*args).cpu()
+            want = P.spmm(*(a.cpu() if torch.is_tensor(a) else a
+                            for a in args))
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            assert torch.equal(got[unsplit], want[unsplit])
 
 
 @pytest.mark.parametrize("dtype", [torch.int16, torch.int64])

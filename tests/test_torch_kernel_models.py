@@ -17,6 +17,20 @@ a seed and handed to both.
     edge order) bit for bit against ``repro.linalg.ops.hybrid_ell_reduce``
     for the five semirings, structural and signed weights, on the
     reference's rmat(9, 8, seed=7) and grid2d(20) and at other widths.
+  * K4m's fold as the card runs it (every column of a row of at most
+    ``SPMM_SPLIT`` edges in ascending edge order from the fold's
+    identity; a longer row cut into ``spmm_shares(k)`` contiguous shares,
+    each folded so, then merged in share order) against the public
+    ``repro.linalg.ops.spmm`` (xla provider): bit for bit on the unsplit
+    rows, and within rtol 1e-5 (atol 1e-5) on the split ones, the limit
+    the reference keeps between its providers; the five fp32 semirings
+    and bf16 plus_times, structural and signed weights, k in {1, 3, 4, 5,
+    32, 33, 64}, on rmat(9, 8, seed=7), the directed rmat(8, 8, seed=3)
+    and a graph with one row above the split threshold.
+  * K8's walk (the slots ordered by token by a counting sort, each row
+    gathered in that order and scattered to its slots) bit for bit against the reference
+    kernel ``repro.kernels.ops.moe_gather`` in interpret mode on shuffled,
+    repeated, -1 and out-of-range slot ids.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -215,3 +229,141 @@ def test_narrow_fold_matches_hybrid_ell_reduce_bitwise(csr, sr, weights):
                               want.view(np.int32)), width
     # rows of exactly width and width + 1 edges are among them
     assert (deg == 3).any() and (deg == 4).any()
+
+
+# ---- K4m: each column in edge order, split rows in shares -----------------
+
+def spmm_fold(offsets: np.ndarray, indices: np.ndarray, values, x, sr,
+              mask=None) -> torch.Tensor:
+    """K4m's (n, k) result as the kernel folds it (csrc/spmv.cu)."""
+    off = torch.from_numpy(offsets.astype(np.int64))
+    deg = off[1:] - off[:-1]
+    n, k = len(deg), x.shape[1]
+    xv = torch.from_numpy(x)[torch.from_numpy(indices.astype(np.int64))]
+    prod = (sr.round_prod(xv) if values is None
+            else sr.mul_op(torch.from_numpy(values)[:, None], xv))
+    prod = prod.to(torch.float32)
+    init = float("-inf") if sr.name == "or_and" else sr.zero
+    unsplit = torch.nonzero(deg <= K.SPMM_SPLIT).squeeze(1)
+    split = torch.nonzero(deg > K.SPMM_SPLIT).squeeze(1)
+    shares = K.spmm_shares(k)
+    # fold segments: every unsplit row whole, then each split row's shares
+    starts, lens = [off[unsplit]], [deg[unsplit]]
+    for r in split.tolist():
+        s, e = int(off[r]), int(off[r + 1])
+        ln = -(-(e - s) // shares)
+        s0 = torch.clamp(s + torch.arange(shares) * ln, max=e)
+        starts.append(s0)
+        lens.append(torch.clamp(s0 + ln, max=e) - s0)
+    starts, lens = torch.cat(starts), torch.cat(lens)
+    v = torch.full((len(starts), k), init, dtype=torch.float32)
+    for r in range(int(lens.max()) if len(lens) else 0):
+        live = lens > r
+        v[live] = sr.add_op(v[live], prod[starts[live] + r])
+    y = torch.full((n, k), sr.zero, dtype=torch.float32)
+    y[unsplit] = v[:len(unsplit)]
+    parts = v[len(unsplit):].reshape(len(split), shares, k)
+    if len(split):
+        t = parts[:, 0]
+        for q in range(1, shares):                # the shares in order
+            t = sr.add_op(t, parts[:, q])
+        y[split] = t
+    y[deg == 0] = sr.zero
+    if mask is not None:
+        y[~torch.from_numpy(mask)] = sr.zero
+    return y
+
+
+def _one_long_row_csr():
+    """600 vertices: row 0 holds 400 edges (above SPMM_SPLIT), the rest
+    0-12 each; columns sorted and distinct within a row."""
+    rng = np.random.default_rng(11)
+    n = 600
+    deg = rng.integers(0, 13, n)
+    deg[0] = 400
+    assert (deg > K.SPMM_SPLIT).sum() == 1
+    cols = [np.sort(rng.choice(np.arange(1, n), d, replace=False))
+            for d in deg]
+    offsets = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    return offsets, np.concatenate(cols).astype(np.int32)
+
+
+@pytest.fixture(scope="module", params=["rmat", "directed", "long_row"])
+def spmm_csr(request):
+    if request.param == "long_row":
+        return _one_long_row_csr()
+    g = (JG.rmat(9, 8, seed=7, weighted=True) if request.param == "rmat"
+         else JG.rmat(8, 8, seed=3, weighted=True, undirected=False))
+    return np.asarray(g.row_offsets), np.asarray(g.col_indices)
+
+
+@pytest.mark.parametrize("sr,precision", [(s, "fp32") for s in SEMIRINGS]
+                         + [("plus_times", "bf16")])
+@pytest.mark.parametrize("weights", ["structural", "signed"])
+def test_spmm_fold_matches_reference(spmm_csr, sr, precision, weights):
+    offsets, indices = spmm_csr
+    n, m = len(offsets) - 1, len(indices)
+    rng = np.random.default_rng(23)
+    values = rng.standard_normal(m).astype(np.float32)
+    jg = JG.Graph.from_csr(offsets, indices, values)
+    tsr = TS.with_precision(sr, precision)
+    deg = np.diff(offsets)
+    unsplit = deg <= K.SPMM_SPLIT
+    mask = rng.random(n) < 0.7
+    for k in (1, 3, 4, 5, 32, 33, 64):
+        x = rng.random((n, k)).astype(np.float32)
+        m_k = mask if k == 5 else None
+        want = np.asarray(JL.spmm(jg, x, semiring=JS.get(sr),
+                                  structural=weights == "structural",
+                                  mask=m_k, backend="xla",
+                                  precision=precision))
+        got = spmm_fold(offsets, indices,
+                        None if weights == "structural" else values, x, tsr,
+                        m_k).numpy()
+        assert np.array_equal(got[unsplit].view(np.int32),
+                              want[unsplit].view(np.int32)), k
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    # the long-row graph has one split row, the rmat graphs none
+    assert int((~unsplit).sum()) == (1 if n == 600 else 0)
+
+
+def test_spmm_shares():
+    """A group is pow2(ceil(min(k, 32) / 4)) lanes, at most 8; a block
+    of SPMM_THREADS threads has SPMM_THREADS / lanes groups."""
+    want = {1: 256, 3: 256, 4: 256, 5: 128, 8: 128, 9: 64, 16: 64, 17: 32,
+            32: 32, 33: 32, 64: 32}
+    assert {k: K.spmm_shares(k) for k in want} == want
+
+
+# ---- K8: gather in token order, scatter to the slots ----------------------
+
+def moe_walk(x: torch.Tensor, slot_token: torch.Tensor) -> torch.Tensor:
+    """K8's walk: the slots ordered by bin (0 for an empty slot, 1 + the
+    clamped token otherwise), as its counting sort orders them; position
+    j copies its bin's row (zeros for bin 0) to slot order_j."""
+    t = x.shape[0]
+    bins = torch.where(slot_token < 0, 0, slot_token.clamp(max=t - 1) + 1)
+    bins, order = torch.sort(bins)
+    rows = x[(bins - 1).clamp(min=0).long()]
+    rows[bins == 0] = 0
+    out = torch.empty((len(slot_token), x.shape[1]), dtype=x.dtype)
+    out[order] = rows
+    return out
+
+
+@pytest.mark.parametrize("case", ["shuffled", "repeated", "empty",
+                                  "past_end", "mixed"])
+def test_moe_walk_matches_reference_kernel(case):
+    rng = np.random.default_rng(len(case))
+    t, d = 37, 24
+    x = rng.standard_normal((t, d)).astype(np.float32)
+    slot = {"shuffled": rng.permutation(t),
+            "repeated": rng.integers(0, 4, 90),
+            "empty": np.full(40, -1),
+            "past_end": rng.integers(t - 2, t + 9, 50),
+            "mixed": np.concatenate([rng.permutation(t), np.full(7, -1),
+                                     [t, t + 100, 0, 0, 5]])}[case]
+    slot = rng.permutation(slot).astype(np.int32)
+    got = moe_walk(torch.from_numpy(x), torch.from_numpy(slot))
+    want = np.asarray(JK.moe_gather(jnp.asarray(x), jnp.asarray(slot)))
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
