@@ -24,7 +24,13 @@ Phases:
      B = 4), integer outputs equal and the SpMV bit-equal to its plain
      version run on the CPU, timed whole and on its light and heavy rows
      beside its byte bound and the serial-chain floor of its longest
-     overflow; K3 (B = 1) and K5 (locate) at triangle
+     overflow; K1 and K2 also with the device operations one call puts
+     on the card and their device time (torch.profiler), and a practical
+     floor beside the byte bound (streamed bytes at the rate of a device
+     copy, the random accesses the function needs at the rate of an
+     index_select from an L2-resident table, both measured in the run),
+     and K1's first-slot table checked all INT32_MAX after every call
+     (its storage-plan variants too); K3 (B = 1) and K5 (locate) at triangle
      counting's shape, the mxm expansion of the oriented rmat scale-18
      graph (6.6e8 slots); K5 (found) on segmented_intersect's probes of
      edge pairs of the scale-22 graph, and on an empty haystack; K4m
@@ -210,6 +216,93 @@ def _bound_ms(nbytes: float, ops: float,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _device_ops(torch, fn) -> tuple:
+    """The device operations (kernels, memsets, copies) one warm call of
+    ``fn`` puts on the card, by torch.profiler: ([(name, count)], their
+    device ms). A session that records no device event is taken again,
+    up to three times (the profiler drops a session's kernel records now
+    and then)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    rows = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.count, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        if rows:
+            break
+    return [(k, c) for k, c, _ in rows], sum(r[2] for r in rows) / 1e3
+
+
+def _ops_text(ops) -> str:
+    """'3 device ops a call (lb_offsets, af_expand, af_emit)'."""
+    names = [re.sub(r"^(?:void )?(?:\(anonymous namespace\)::)?"
+                    r"([A-Za-z_0-9]+).*$", r"\1", k) for k, _ in ops]
+    return (f"{sum(c for _, c in ops)} device ops a call "
+            f"({', '.join(names)})")
+
+
+def _yardsticks(torch, dev) -> dict:
+    """Two rates the card reaches in this run, the yardsticks of the
+    practical floors: ``copy`` bytes a second of a device-to-device copy
+    of 256 MB (each byte read and written once), and ``gather`` elements
+    a second of index_select from a 16 MB int32 table (it stays in L2)
+    at 2^25 random int32 indices (the 8 streamed bytes of an element
+    included)."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    a = torch.empty(2 ** 26, dtype=torch.int32, device=dev)
+    b = torch.empty_like(a)
+    copy_ms = _timed(torch, lambda: b.copy_(a), 10)
+    table = torch.randint(0, 2 ** 30, (2 ** 22,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    idx = torch.randint(0, 2 ** 22, (2 ** 25,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    gather_ms = _timed(torch, lambda: torch.index_select(table, 0, idx), 10)
+    out = {"copy": 2 * a.numel() * 4 / (copy_ms * 1e-3),
+           "gather": idx.numel() / (gather_ms * 1e-3)}
+    print(f"yardsticks: copy {out['copy'] / 1e12:.3f} TB/s "
+          f"({copy_ms:.3f} ms for 2 x 256 MB), random gather from an "
+          f"L2-resident table {out['gather'] / 1e9:.1f} G elements/s "
+          f"({gather_ms:.3f} ms for {idx.numel()})")
+    del a, b, table, idx
+    torch.cuda.empty_cache()
+    return out
+
+
+def _k1_traffic(torch, row_seg, cols, front_mask, visited):
+    """(live slots, kept slots) of a K1 call whose frontier is
+    ``front_mask`` (B, n) with every lane at its full degree: the slots,
+    and those whose destination is unvisited."""
+    live = kept = 0
+    for b in range(front_mask.shape[0]):
+        on = front_mask[b][row_seg.long()]
+        live += int(on.sum())
+        kept += int((on & ~visited[b][cols.long()]).sum())
+    return live, kept
+
+
+def _first_clean(torch, cache) -> bool:
+    """Every K1 first-slot table in ``cache`` is all INT32_MAX."""
+    return all(bool((t == INT32_MAX).all()) for k, t in cache.items()
+               if isinstance(k, tuple) and k[0] == "advance_filter_first")
+
+
+def _k1_floor_ms(ys, nbytes, live, kept, survivors) -> float:
+    """K1's practical floor: its streamed bytes at the copy rate, plus the
+    random accesses the function needs at the gather rate — a bitmap
+    byte a live slot, a first-slot access a kept slot (to cull it), a
+    reset a survivor."""
+    return (nbytes / ys["copy"] + (live + kept + survivors)
+            / ys["gather"]) * 1e3
 
 
 def _moe_slots(torch, tokens, experts, top_k, capacity, dev):
@@ -629,7 +722,8 @@ def _fourth_slice_path(torch, K, P, tuner, runtime, root, dev, fourth):
     return launches4, variants4
 
 
-def _fifth_slice_kernels(torch, np, K, P, O, F, G, S, SR, g, dev, record):
+def _fifth_slice_kernels(torch, np, K, P, O, F, G, S, SR, g, dev, record,
+                         ys):
     """K1 and K3 in each column form of the storage plans (delta at the
     grid's shape, int16 at rmat scale 15, int64 on a small explicit-int64
     graph) and K4 / K4m at bf16 against their plain versions, timed beside
@@ -700,7 +794,7 @@ def _fifth_slice_kernels(torch, np, K, P, O, F, G, S, SR, g, dev, record):
     # needs; each plan checked against its plain version, then the plans
     # timed in turns (the median of TIMING_ROUNDS rounds, the order
     # rotated each round), as a comparison within one call must be
-    def expand_group(label, plans, front, visited):
+    def expand_group(label, plans, front, front_mask, visited):
         """plans: (variant, graph, column bytes a slot, bytes a live input
         lane besides its 16) → {variant: {kernel: (ms, plain ms, bytes,
         operations)}}."""
@@ -742,7 +836,8 @@ def _fifth_slice_kernels(torch, np, K, P, O, F, G, S, SR, g, dev, record):
             }
             K.reset_launches()
             for name, (kf, pf, _, _) in fns.items():
-                for i, (x, y) in enumerate(zip(kf(), pf())):
+                got = kf()
+                for i, (x, y) in enumerate(zip(got, pf())):
                     if not torch.equal(x, y):
                         raise AssertionError(f"{name} ({variant}, {label}): "
                                              f"output {i} differs from the "
@@ -751,6 +846,20 @@ def _fifth_slice_kernels(torch, np, K, P, O, F, G, S, SR, g, dev, record):
                     raise AssertionError(f"{name} on {label} ran "
                                          f"{K.KERNELS[name].variants}, not "
                                          f"{variant}")
+                if name == "advance_filter_batch":
+                    if not _first_clean(torch, gr.cache):
+                        raise AssertionError(f"K1 ({variant}, {label}) left "
+                                             f"its first-slot table dirty")
+                    _, kept = _k1_traffic(torch, gr.row_seg, gr.cols(),
+                                          front_mask, visited)
+                    devops, dev_ms = _device_ops(torch, kf)
+                    floor = _k1_floor_ms(ys, fns[name][2], slots, kept,
+                                         int(got[3].sum()))
+                    print(f"K1 {variant} ({label}): kept={kept} survivors="
+                          f"{int(got[3].sum())}, practical floor "
+                          f"{floor:.3f} ms; {_ops_text(devops)}, device "
+                          f"{dev_ms:.3f} ms; first-slot table all "
+                          f"INT32_MAX")
             runs[variant] = (fns, bl, cap, slots)
         for name in ("advance_filter_batch", "advance_batch"):
             times = {v: [] for v in runs}
@@ -776,32 +885,33 @@ def _fifth_slice_kernels(torch, np, K, P, O, F, G, S, SR, g, dev, record):
         nn = gr.num_vertices
         mask = torch.rand((BATCH, nn), generator=gen, device=dev) < 0.25
         visited = torch.rand((BATCH, nn), generator=gen, device=dev) < 0.5
-        return F.compact_indices_batch(mask, nn, backend="torch"), visited
+        return (F.compact_indices_batch(mask, nn, backend="torch"), mask,
+                visited)
 
     # int32: 4 B a column; delta: 2 B a delta and a 4 B anchor a live lane
-    front, visited = quarter(gg, 11)
+    front, fmask, visited = quarter(gg, 11)
     got = expand_group(f"grid {GRID_SIDE}",
                        (("int32", gg, 4, 0),
                         ("delta", graphs["grid-delta"], 2, 4)),
-                       front, visited)
+                       front, fmask, visited)
     for name, row in got["delta"].items():
         record(f"{name}:delta", 0, *row)
-    front, visited = quarter(graphs["rmat15-int32"], 12)
+    front, fmask, visited = quarter(graphs["rmat15-int32"], 12)
     got = expand_group(f"rmat {INT16_SCALE}",
                        (("int32", graphs["rmat15-int32"], 4, 0),
                         ("int16", graphs["rmat15-int16"], 2, 0),
                         ("int64", graphs["rmat15-int64"], 8, 0)),
-                       front, visited)
+                       front, fmask, visited)
     for v in ("int16", "int64"):
         for name, row in got[v].items():
             record(f"{name}:{v}", 0, *row)
     # rmat-22's delta stream: escaped, so the dense fallback runs the int32
     # kernels on its decoded view
-    front, visited = quarter(g, 13)
+    front, fmask, visited = quarter(g, 13)
     expand_group("rmat 22 delta", ((
         "dense_fallback" if d22.col_store.num_escapes else "delta", d22, 4,
-        0),), front, visited)
-    del front, visited
+        0),), front, fmask, visited)
+    del front, fmask, visited
     torch.cuda.empty_cache()
 
     # K4 at bf16: all of the small graph's plus semirings, structural and
@@ -1139,6 +1249,7 @@ def main(argv=None) -> int:
         caps = F.tier_caps(m)
         return caps[F.tier_index(need, caps)]
 
+    ys = _yardsticks(torch, dev)
     for lanes in (hubs[:1], hubs):
         bl = len(lanes)
         nbr = level1_masks(lanes)
@@ -1168,15 +1279,26 @@ def main(argv=None) -> int:
                 return P.advance_filter_batch(ro, ci, base, sizes, visited,
                                               cap_out, cap_v)
 
-            equal_ints("advance_filter_batch", k1(), p1())
+            got1 = k1()
+            equal_ints("advance_filter_batch", got1, p1())
+            if not _first_clean(torch, g.cache):
+                raise AssertionError("K1 left its first-slot table "
+                                     "dirty")
             reps = 3 if cap_out == m else 20
             ms = _timed(torch, k1, reps)
             pms = _timed(torch, p1, 2 if cap_out == m else 5)
             nbytes = live * 16 + slots * 5 + bl * cap_v * 8 + bl * 8
             ops = slots * (iters * 4 + 8)
+            devops, dev_ms = _device_ops(torch, k1)
+            _, kept = _k1_traffic(torch, g.row_seg, ci, front_mask, visited)
+            floor = _k1_floor_ms(ys, nbytes, slots, kept,
+                                 int(got1[3].sum()))
             print(f"K1 advance_filter_batch B={bl} cap_out={cap_out} "
-                  f"slots={slots}: {ms:.3f} ms, plain {pms:.3f} ms, "
-                  f"bound {_bound_ms(nbytes, ops)[0]:.3f} ms")
+                  f"slots={slots} kept={kept} survivors="
+                  f"{int(got1[3].sum())}: {ms:.3f} ms, plain {pms:.3f} ms, "
+                  f"bound {_bound_ms(nbytes, ops)[0]:.3f} ms, practical "
+                  f"floor {floor:.3f} ms; {_ops_text(devops)}, device "
+                  f"{dev_ms:.3f} ms; first-slot table all INT32_MAX")
             if bl == b and cap_out == m:
                 record("advance_filter_batch", 0, ms, pms, nbytes, ops)
             del front
@@ -1231,9 +1353,13 @@ def main(argv=None) -> int:
             pms = _timed(torch, p2, 5)
             lms = _timed(torch, lib2, 5)
             nbytes = bl * n * 5 + kept * 4 + bl * 4
+            devops, dev_ms = _device_ops(torch, k2)
             print(f"K2 compact B={bl} cap={n} kept={kept}: {ms:.3f} ms, "
                   f"plain {pms:.3f} ms, masked_select {lms:.3f} ms, "
-                  f"bound {_bound_ms(nbytes, bl * n * 4)[0]:.3f} ms")
+                  f"bound {_bound_ms(nbytes, bl * n * 4)[0]:.3f} ms, "
+                  f"practical floor {nbytes / ys['copy'] * 1e3:.3f} ms "
+                  f"(its bytes at the copy rate); {_ops_text(devops)}, "
+                  f"device {dev_ms:.3f} ms")
             if bl == b and mask is nbr:
                 record("compact", 0, ms, pms, nbytes, bl * n * 4, lms)
         del nbr, seed
@@ -1932,7 +2058,7 @@ def main(argv=None) -> int:
     # form of the storage plans, K4 and K4m at bf16 ----
     t0 = time.monotonic()
     graphs5 = _fifth_slice_kernels(torch, np, K, P, O, F, G, S, SR, g, dev,
-                                   record)
+                                   record, ys)
     print(f"storage-plan kernels checked and timed in "
           f"{time.monotonic() - t0:.1f} s")
 
@@ -1940,10 +2066,13 @@ def main(argv=None) -> int:
     # cuda backend (the grid dense and delta, rmat-15 int16 / int32 /
     # int64, rmat-22 delta, bf16 PageRank) ----
     t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
     launches5, variants5 = _fifth_slice_path(torch, np, K, R, G, S,
                                              graphs5, g, sources, dev)
     tally(variants5)
-    print(f"path (e) run and validated in {time.monotonic() - t0:.1f} s")
+    print(f"path (e) run and validated in {time.monotonic() - t0:.1f} s; "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
     # ---- where the time goes: each slice's path once more under
     # torch.profiler (its overhead inflates the wall time; the device

@@ -15,24 +15,43 @@
 // (src/repro/kernels/advance_filter_fused.py:196; advance_filter_fused_
 // kernel, :117, is a launch with B = 1). The TPU kernel culls duplicates
 // exactly by walking its grid in order with the bitmap carried across
-// tiles; CUDA blocks run concurrently, so this is the reference's XLA
-// algorithm in four launches:
-//   1. af_expand: search + gathers + visited test; a kept slot does
-//      atomicMin(first[b, dst], slot) and records (dst, src);
-//   2. af_count:  a slot survives iff first[b, dst] == slot; per-block
-//      survivor counts (warp ballot + popc);
-//   3. scan_rows: exclusive scan of the block counts per lane → totals,
-//      lengths = min(total, cap_front);
-//   4. af_emit:   survivors land at block offset + in-block rank — in
-//      ascending slot order, clamped at cap_front — each survivor resets
-//      first[b, dst] to INT_MAX (work ∝ frontier, not B·n), and the tail
-//      of ids/srcs is filled with -1.
-// `first` is a (B, n) table the caller keeps filled with INT_MAX between
-// calls. Both launchers take their threads per block from the wrapper
-// (the tuner's ops "advance" and "advance_filter"); blocks of any size
-// give the same outputs. Bound by bytes: ~8 bytes of gathers plus 16
-// bytes of scratch traffic per slot, and random 4-byte atomics into
-// `first`.
+// tiles; CUDA blocks run concurrently, so the winner of each destination
+// is its smallest unvisited slot (atomicMin into `first`), as in the
+// reference's XLA algorithm. Three launches:
+//   1. lb_offsets: the (B, cap_in + 1) exclusive degree scans in one
+//      single-pass int32 scan (decoupled look-back, common.cuh); with
+//      them each live input lane's edge base, each slot tile's first
+//      input lane (Gunrock's load-balanced search, done once a tile by
+//      the scan tile that holds the tile's first slot) and each lane's
+//      live end;
+//   2. af_expand:  an unvisited slot that reads a larger first[b, dst]
+//      lowers it to its slot (no atomic when a smaller slot already
+//      holds it) and sets its bit in a one-bit-a-slot candidate mask;
+//   3. af_emit:    only a candidate can hold first[b, dst]; a slot
+//      survives iff it does. Survivors land at tile prefix (look-back)
+//      + in-tile rank, in ascending slot order, clamped at cap_front;
+//      each survivor resets first[b, dst] to INT_MAX; the last tile
+//      writes totals and lengths, and then the lane's blocks fill the
+//      tail of ids / srcs with -1.
+// Both passes walk only the live slots, min(offs[cap_in], cap_out) of
+// each lane, in tiles of T·V slots (kTileSlots at most) on a persistent
+// grid. A tile stages the start, source, edge base (and anchor) of each
+// input lane it spans in shared memory and gives each slot its lane by
+// a running maximum; its threads then take the slots in stride T, so
+// column reads stay coalesced along a row. Pass 3 recomputes (dst, src)
+// that way, only for candidates and only in tiles that have one, in
+// place of (B, cap_out) scratch. `first` is a (B, n) table the caller
+// keeps filled with INT_MAX between calls.
+//
+// Bound: bytes, 16 a live input lane (sizes, offsets, base, row
+// offsets), the column bytes and 1 bitmap byte a live slot, and 8 an
+// output slot. In practice the random accesses set the time: a bitmap
+// byte a live slot, a first read a kept slot (then an atomic where it
+// is smaller), a first read a candidate and a reset a survivor. They go
+// through L2, which holds a lane's table (16 MB at n = 4M) while the
+// persistent grid works through that lane's tiles.
+// The launcher takes its threads per block from the wrapper (the tuner's
+// op "advance_filter"); blocks of any size give the same outputs.
 //
 // Column storage (the graph's storage plan, repro_torch/core/storage.py).
 // Both kernels are templates on how they read a column, as the TPU
@@ -51,23 +70,32 @@
 // `cols` and `anchor` (anchor only for kColDelta).
 #include "common.cuh"
 
+#include <algorithm>
+
 namespace {
 
 enum { kColInt32 = 0, kColInt16 = 1, kColInt64 = 2, kColDelta = 3 };
 
+// A column reader: row(src) is what the row contributes to every id of
+// it (the anchor of a delta row, nothing for a dense one), at(e, row) the
+// id at edge e.
 template <typename T>
 struct DenseCols {
+  static constexpr bool kRows = false;
   const T* __restrict__ cols;
+  __device__ __forceinline__ int row(int) const { return 0; }
   __device__ __forceinline__ int at(int e, int) const {
     return static_cast<int>(cols[e]);
   }
 };
 
 struct DeltaCols {
+  static constexpr bool kRows = true;
   const unsigned short* __restrict__ delta;
   const int* __restrict__ anchor;
-  __device__ __forceinline__ int at(int e, int src) const {
-    return anchor[src] + static_cast<int>(delta[e]);
+  __device__ __forceinline__ int row(int src) const { return anchor[src]; }
+  __device__ __forceinline__ int at(int e, int a) const {
+    return a + static_cast<int>(delta[e]);
   }
 };
 
@@ -103,87 +131,434 @@ __global__ void adv_kernel(const int* __restrict__ offsets,
   const int s = base[b * cap_in + pos];
   const int e = row_offsets[s] + rk;
   src[o] = s;
-  dst[o] = cols.at(min(max(e, 0), m - 1), s);
+  dst[o] = cols.at(min(max(e, 0), m - 1), cols.row(s));
   eid[o] = e;
   in_pos[o] = pos;
   rank[o] = rk;
   valid[o] = 1;
 }
 
-template <typename Cols>
-__global__ void af_expand(const int* __restrict__ offsets,
-                          const int* __restrict__ base,
-                          const int* __restrict__ row_offsets,
-                          const Cols cols,
-                          const unsigned char* __restrict__ visited, int n,
-                          int cap_in, int cap_out, int m, int iters,
-                          int* __restrict__ first, int* __restrict__ kdst,
-                          int* __restrict__ ksrc) {
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  if (slot >= cap_out) return;
-  const size_t b = blockIdx.y;
-  const int* offs = offsets + b * (cap_in + 1);
-  int d = -1, s = -1;
-  if (slot < offs[cap_in]) {
-    const int pos = lb_search(offs, cap_in, slot, iters);
-    s = base[b * cap_in + pos];
-    const int e = row_offsets[s] + (slot - offs[pos]);
-    const int v = cols.at(min(max(e, 0), m - 1), s);
-    if (!visited[b * n + v]) {
-      d = v;
-      atomicMin(first + b * n + v, slot);
-    }
-  }
-  kdst[b * cap_out + slot] = d;
-  ksrc[b * cap_out + slot] = s;
+// ---- K1 ------------------------------------------------------------------
+
+constexpr int kScanThreads = 256;
+constexpr int kScanItems = 16;
+constexpr int kScanTile = kScanThreads * kScanItems;   // sizes a scan tile
+constexpr int kTileSlots = 2048;         // slots a K1 tile, at most
+constexpr int kFillChunk = 8192;         // tail entries a block, at least
+constexpr int kMinThreads = 1536;        // resident threads an SM, at least
+
+// Slots a thread takes in a K1 tile of T threads: 8, fewer where the
+// tile would pass kTileSlots.
+template <int T>
+struct Tile {
+  static constexpr int V = (8 * T <= kTileSlots) ? 8 : kTileSlots / T;
+  static constexpr int kSlots = T * V;
+};
+
+__device__ __forceinline__ int lane_end(u64 w, unsigned epoch) {
+  return static_cast<unsigned>(w >> 32) == epoch
+             ? static_cast<int>(static_cast<unsigned>(w)) : 0;
 }
 
-template <int T>
-__global__ void af_count(const int* __restrict__ first, int n, int cap_out,
-                         int* __restrict__ kdst, int* __restrict__ bcount) {
-  __shared__ int warp_sums[T / 32];
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+// One tile of kScanTile sizes a block, tiles in ticket order with
+// decoupled look-back:
+//   offsets[b] = [0, exclusive scan of sizes[b], total];
+//   ebase[b][i] = row_offsets[base[b][i]] - offsets[b][i] for every
+//     non-empty input lane i (slot s of lane i reads edge ebase + s);
+//   tile_lane[b][k] = the input lane that holds slot k * slot_tile, for
+//     k <= slot_tiles and k * slot_tile < total (a binary search of the
+//     scan tile's inclusive sums in shared memory);
+//   live_end[b] lifted to (epoch << 32 | one past the last non-empty
+//     lane).
+__global__ void __launch_bounds__(kScanThreads)
+lb_offsets(const int* __restrict__ sizes, const int* __restrict__ base,
+           const int* __restrict__ row_offsets, int cap_in, int slot_tile,
+           int slot_tiles, int* __restrict__ offsets,
+           int* __restrict__ ebase, int* __restrict__ tile_lane,
+           u64* counters, u64* live_end, u64* status, unsigned epoch) {
+  __shared__ int buf[kScanTile + kScanTile / 32];
+  __shared__ int warp_sums[kScanThreads / 32];
+  __shared__ int s_ticket, s_last, s_prefix;
   const size_t b = blockIdx.y;
-  bool survive = false;
-  if (slot < cap_out) {
-    const size_t o = b * cap_out + slot;
-    const int d = kdst[o];
-    if (d >= 0) {
-      survive = first[b * n + d] == slot;
-      if (!survive) kdst[o] = -1;
+  const int t = threadIdx.x;
+  if (t == 0) {
+    s_ticket = next_ticket(counters + b, enter_epoch(counters + b, epoch));
+    s_last = -1;
+  }
+  __syncthreads();
+  const int j = s_ticket;
+  const long long first = static_cast<long long>(j) * kScanTile;
+  const int* row = sizes + b * cap_in;
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k) {
+    const long long i = first + t + k * kScanThreads;
+    buf[pad32(t + k * kScanThreads)] = i < cap_in ? row[i] : 0;
+  }
+  __syncthreads();
+  int run[kScanItems];
+  int sum = 0, last = -1;
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k) {
+    const int v = buf[pad32(t * kScanItems + k)];
+    sum += v;
+    run[k] = sum;
+    if (v != 0) last = t * kScanItems + k;
+  }
+  if (last >= 0) atomicMax(&s_last, last);
+  int tile_sum;
+  const int before = block_excl_sum<kScanThreads>(sum, warp_sums, &tile_sum);
+  if (t < 32) {
+    const int prefix =
+        tile_prefix(status + b * gridDim.x, j, epoch, tile_sum);
+    if (t == 0) {
+      s_prefix = prefix;
+      if (s_last >= 0) {
+        atomicMax(live_end + b, (static_cast<u64>(epoch) << 32) |
+                                    static_cast<u64>(first + s_last + 1));
+      }
     }
   }
-  int count;
-  block_rank<T / 32>(survive, warp_sums, &count);
-  if (threadIdx.x == 0) bcount[b * gridDim.x + blockIdx.x] = count;
+  __syncthreads();
+  const int start = s_prefix;
+  const int off = start + before;
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k) {
+    buf[pad32(t * kScanItems + k)] = off + run[k];
+  }
+  __syncthreads();
+  int* out = offsets + b * (static_cast<size_t>(cap_in) + 1) + 1;
+  int* eb = ebase + b * cap_in;
+  const int* bs = base + b * cap_in;
+#pragma unroll 4
+  for (int k = 0; k < kScanItems; ++k) {
+    const int i = t + k * kScanThreads;
+    if (first + i < cap_in) {
+      const int inc = buf[pad32(i)];
+      const int exc = i > 0 ? buf[pad32(i - 1)] : start;
+      out[first + i] = inc;
+      if (inc > exc) eb[first + i] = row_offsets[bs[first + i]] - exc;
+    }
+  }
+  if (j == 0 && t == 0) out[-1] = 0;
+  if (tile_sum > 0) {
+    // the slot tiles that start inside this scan tile
+    const long long lo = (static_cast<long long>(start) + slot_tile - 1) /
+                         slot_tile;
+    const long long hi =
+        min((static_cast<long long>(start) + tile_sum - 1) / slot_tile,
+            static_cast<long long>(slot_tiles));
+    int* tl = tile_lane + b * (static_cast<size_t>(slot_tiles) + 1);
+    for (long long k = lo + t; k <= hi; k += kScanThreads) {
+      const long long s = k * slot_tile;
+      int a = 0, z = kScanTile - 1;           // the first inclusive sum > s
+      while (a < z) {
+        const int mid = (a + z) >> 1;
+        if (buf[pad32(mid)] > s) z = mid; else a = mid + 1;
+      }
+      tl[k] = static_cast<int>(first + a);
+    }
+  }
 }
 
-template <int T>
-__global__ void af_emit(const int* __restrict__ kdst,
-                        const int* __restrict__ ksrc,
-                        const int* __restrict__ boff,
-                        const int* __restrict__ lengths, int n, int cap_out,
-                        int cap_front, int* __restrict__ first,
-                        int* __restrict__ ids, int* __restrict__ srcs) {
-  __shared__ int warp_sums[T / 32];
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t b = blockIdx.y;
-  const int d = slot < cap_out ? kdst[b * cap_out + slot] : -1;
-  int count;
-  const int r = block_rank<T / 32>(d >= 0, warp_sums, &count);
-  if (d >= 0) {
-    const int pos = boff[b * gridDim.x + blockIdx.x] + r;
-    if (pos < cap_front) {
-      ids[b * cap_front + pos] = d;
-      srcs[b * cap_front + pos] = ksrc[b * cap_out + slot];
+// The shared memory of one K1 tile of S slots.
+template <int S, bool kRows>
+struct TileLanes {
+  int mark[S + S / 32];    // lane start at its slot, then its running max
+  int src[S];              // at a lane's start: its source vertex
+  int ebase[S];            //   its edge base (edge = ebase + slot)
+  int row[kRows ? S : 1];  //   cols.row(src)
+  int warp_buf[32];
+};
+
+// What a pass knows of its lane: the scan's outputs for it.
+struct Lane {
+  const int* offs;         // offsets[b]
+  const int* base;         // base[b]
+  const int* ebase;        // ebase[b]
+  const int* tile_lane;    // tile_lane[b]
+  int total, live, le;
+};
+
+// Partitions tile j, slots [s0, s_end) of a lane: afterwards
+// sh.mark[pad32(i)] is the tile position where the input lane of slot
+// s0 + i starts (0 for the lane that holds s0), and sh.src / ebase / row
+// at that position describe the lane. The input lanes come from the
+// scan's tile_lane (the lane of s0; the lane of the next tile's first
+// slot, or the live end, bounds the walk). The caller synchronises
+// before reusing sh.
+template <int T, int V, typename Cols, typename Sh>
+__device__ __forceinline__ void lb_partition(Sh& sh, const Lane& ln,
+                                             const Cols& cols, int j,
+                                             int s0, int s_end) {
+  constexpr int S = T * V;
+  const int p0 = ln.tile_lane[j];
+  const int p1 = static_cast<long long>(j + 1) * S < ln.total
+                     ? ln.tile_lane[j + 1] : ln.le - 1;
+#pragma unroll
+  for (int k = 0; k < V; ++k) sh.mark[pad32(threadIdx.x + k * T)] = -1;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int s = ln.base[p0];
+    sh.mark[0] = 0;
+    sh.src[0] = s;
+    sh.ebase[0] = ln.ebase[p0];
+    if constexpr (Cols::kRows) sh.row[0] = cols.row(s);
+  }
+  // the non-empty lanes after p0 that start inside the tile (offs > s0)
+  for (int l = p0 + 1 + threadIdx.x; l <= p1; l += T) {
+    const int o = ln.offs[l];
+    if (ln.offs[l + 1] > o && o < s_end) {
+      const int p = o - s0;
+      const int s = ln.base[l];
+      sh.mark[pad32(p)] = p;
+      sh.src[p] = s;
+      sh.ebase[p] = ln.ebase[l];
+      if constexpr (Cols::kRows) sh.row[p] = cols.row(s);
     }
-    first[b * n + d] = INT_MAX;
   }
-  const int stride = gridDim.x * blockDim.x;
-  for (int j = lengths[b] + slot; j < cap_front; j += stride) {
-    ids[b * cap_front + j] = -1;
-    srcs[b * cap_front + j] = -1;
+  __syncthreads();
+  int run[V];
+  int mx = -1;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    mx = max(mx, sh.mark[pad32(threadIdx.x * V + k)]);
+    run[k] = mx;
   }
+  const int before = block_excl_max<T>(mx, sh.warp_buf);
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    sh.mark[pad32(threadIdx.x * V + k)] = max(before, run[k]);
+  }
+  __syncthreads();
+}
+
+// The destination of tile slot i (slot s0 + i, live).
+template <typename Cols, typename Sh>
+__device__ __forceinline__ int slot_dst(const Sh& sh, const Cols& cols,
+                                        int i, int slot, int m) {
+  const int q = sh.mark[pad32(i)];
+  const int e = sh.ebase[q] + slot;
+  int r = 0;
+  if constexpr (Cols::kRows) r = sh.row[q];
+  return cols.at(min(max(e, 0), m - 1), r);
+}
+
+__device__ __forceinline__ Lane lane_of(
+    const int* offsets, const int* base, const int* ebase,
+    const int* tile_lane, const u64* live_end, unsigned scan_epoch,
+    int cap_in, int cap_out, int slot_tiles) {
+  const size_t b = blockIdx.y;
+  Lane ln;
+  ln.offs = offsets + b * (static_cast<size_t>(cap_in) + 1);
+  ln.base = base + b * cap_in;
+  ln.ebase = ebase + b * cap_in;
+  ln.tile_lane = tile_lane + b * (static_cast<size_t>(slot_tiles) + 1);
+  ln.total = ln.offs[cap_in];
+  ln.live = min(ln.total, cap_out);
+  ln.le = lane_end(live_end[b], scan_epoch);
+  return ln;
+}
+
+// Tiles of a lane with `live` slots: ceil(live / S).
+template <int S>
+__device__ __forceinline__ int tiles_of(int live) {
+  return live > 0 ? (live - 1) / S + 1 : 0;
+}
+
+template <int T, typename Cols>
+__global__ void __launch_bounds__(T, kMinThreads / T)
+af_expand(const int* __restrict__ offsets, const int* __restrict__ base,
+          const int* __restrict__ ebase, const int* __restrict__ tile_lane,
+          const Cols cols, const unsigned char* __restrict__ visited, int n,
+          int cap_in, int cap_out, int m, int slot_tiles,
+          const u64* __restrict__ live_end, unsigned scan_epoch,
+          int* __restrict__ first, unsigned* __restrict__ cand) {
+  constexpr int V = Tile<T>::V, S = Tile<T>::kSlots;
+  __shared__ TileLanes<S, Cols::kRows> sh;
+  const Lane ln = lane_of(offsets, base, ebase, tile_lane, live_end,
+                          scan_epoch, cap_in, cap_out, slot_tiles);
+  const size_t b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned char* vis = visited + b * n;
+  int* fst = first + b * n;
+  unsigned* cw = cand + b * (static_cast<size_t>(slot_tiles) * (S / 32));
+  const int ntiles = tiles_of<S>(ln.live);
+  for (int j = blockIdx.x; j < ntiles; j += gridDim.x) {
+    const int s0 = j * S;
+    const int s_end = s0 + min(S, ln.live - s0);
+    lb_partition<T, V>(sh, ln, cols, j, s0, s_end);
+    int d[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int i = threadIdx.x + k * T, slot = s0 + i;
+      d[k] = slot < s_end ? slot_dst(sh, cols, i, slot, m) : -1;
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      if (d[k] >= 0 && __ldg(vis + d[k])) d[k] = -1;
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int slot = s0 + threadIdx.x + k * T;
+      // a candidate read a larger first: only it can end up holding it
+      const bool c = d[k] >= 0 && slot < __ldcg(fst + d[k]);
+      if (c) atomicMin(fst + d[k], slot);
+      const unsigned w = __ballot_sync(kFull, c);
+      if (lane == 0) cw[(s0 + k * T) / 32 + warp] = w;
+    }
+    __syncthreads();
+  }
+}
+
+template <int T, typename Cols>
+__global__ void __launch_bounds__(T, kMinThreads / T)
+af_emit(const int* __restrict__ offsets, const int* __restrict__ base,
+        const int* __restrict__ ebase, const int* __restrict__ tile_lane,
+        const Cols cols, int n, int cap_in, int cap_out, int m,
+        int slot_tiles, const u64* __restrict__ live_end,
+        unsigned scan_epoch, int cap_front, u64* counters, u64* status,
+        unsigned epoch, int* __restrict__ first,
+        const unsigned* __restrict__ cand, int* __restrict__ ids,
+        int* __restrict__ srcs, int* __restrict__ lengths,
+        int* __restrict__ totals) {
+  constexpr int V = Tile<T>::V, S = Tile<T>::kSlots, W = T / 32;
+  __shared__ TileLanes<S, Cols::kRows> sh;
+  __shared__ int counts[V * W];
+  __shared__ int s_ticket, s_prefix, s_total;
+  const Lane ln = lane_of(offsets, base, ebase, tile_lane, live_end,
+                          scan_epoch, cap_in, cap_out, slot_tiles);
+  const size_t b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* fst = first + b * n;
+  int* ids_b = ids + b * cap_front;
+  int* srcs_b = srcs + b * cap_front;
+  u64* st = status + b * slot_tiles;
+  const unsigned* cw =
+      cand + b * (static_cast<size_t>(slot_tiles) * (S / 32));
+  const int ntiles = tiles_of<S>(ln.live);
+  u64 tag = 0;
+  if (threadIdx.x == 0) tag = enter_epoch(counters + b, epoch);
+  for (;;) {
+    if (threadIdx.x == 0) s_ticket = next_ticket(counters + b, tag);
+    __syncthreads();
+    const int j = s_ticket;
+    if (j >= ntiles) break;
+    const int s0 = j * S;
+    const int s_end = s0 + min(S, ln.live - s0);
+    // only a candidate of the expand pass (it read a larger first) can
+    // hold first[b, dst]; a tile without one needs no partition
+    unsigned word[V];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      word[k] = cw[(s0 + k * T) / 32 + warp];
+      any |= ((word[k] >> lane) & 1u) != 0;
+    }
+    if (__syncthreads_or(any)) lb_partition<T, V>(sh, ln, cols, j, s0, s_end);
+    int d[V];
+    unsigned bal[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int i = threadIdx.x + k * T, slot = s0 + i;
+      d[k] = ((word[k] >> lane) & 1u) ? slot_dst(sh, cols, i, slot, m) : -1;
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int slot = s0 + threadIdx.x + k * T;
+      bal[k] = __ballot_sync(kFull, d[k] >= 0 && fst[d[k]] == slot);
+      if (lane == 0) counts[k * W + warp] = __popc(bal[k]);
+    }
+    __syncthreads();
+    if (warp == 0) {                 // exclusive scan of the V·W counts
+      int carry = 0;
+      for (int c0 = 0; c0 < V * W; c0 += 32) {
+        const int c = c0 + lane < V * W ? counts[c0 + lane] : 0;
+        int x = c;
+#pragma unroll
+        for (int dd = 1; dd < 32; dd <<= 1) {
+          const int y = __shfl_up_sync(kFull, x, dd);
+          if (lane >= dd) x += y;
+        }
+        if (c0 + lane < V * W) counts[c0 + lane] = carry + x - c;
+        carry += __shfl_sync(kFull, x, 31);
+      }
+      const int prefix = tile_prefix(st, j, epoch, carry);
+      if (lane == 0) {
+        s_prefix = prefix;
+        if (j == ntiles - 1) {
+          totals[b] = prefix + carry;
+          lengths[b] = min(prefix + carry, cap_front);
+        }
+      }
+    }
+    __syncthreads();
+    const int prefix = s_prefix;
+    const unsigned lt = (1u << lane) - 1u;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      if ((bal[k] >> lane) & 1u) {
+        const int pos = prefix + counts[k * W + warp] + __popc(bal[k] & lt);
+        if (pos < cap_front) {
+          ids_b[pos] = d[k];
+          srcs_b[pos] = sh.src[sh.mark[pad32(threadIdx.x + k * T)]];
+        }
+        fst[d[k]] = INT_MAX;
+      }
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    s_total = ntiles > 0 ? wait_prefix(st + ntiles - 1, epoch) : 0;
+    if (ntiles == 0 && blockIdx.x == 0) {
+      totals[b] = 0;
+      lengths[b] = 0;
+    }
+  }
+  __syncthreads();
+  const int len = min(s_total, cap_front);
+  fill_tail(ids_b, len, cap_front);
+  fill_tail(srcs_b, len, cap_front);
+}
+
+template <int T, typename Cols>
+int af_launch(const Cols& cols, const int* sizes, const int* base,
+              const int* row_offsets, const unsigned char* visited,
+              int batch, int n, int cap_in, int cap_out, int m,
+              int cap_front, int* first, int* offsets, int* ebase,
+              int* tile_lane, long long tile_lane_cap, unsigned* cand,
+              long long cand_cap, u64* counters,
+              u64* live_end, u64* status, long long status_cap,
+              unsigned epoch, int* ids, int* srcs, int* lengths,
+              int* totals, cudaStream_t st) {
+  constexpr int S = Tile<T>::kSlots;
+  const long long scan_tiles = cap_in > 0 ? (cap_in - 1LL) / kScanTile + 1
+                                          : 1;
+  const long long slot_tiles = cap_out > 0 ? (cap_out - 1LL) / S + 1 : 1;
+  const long long fill_tiles = (cap_front - 1LL) / kFillChunk + 1;
+  if (batch * std::max(scan_tiles, slot_tiles) > status_cap ||
+      batch * (slot_tiles + 1) > tile_lane_cap ||
+      batch * slot_tiles * (S / 32) > cand_cap ||
+      epoch + 1 >= (1u << 30)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int nt = static_cast<int>(slot_tiles);
+  lb_offsets<<<dim3(static_cast<unsigned>(scan_tiles), batch),
+               kScanThreads, 0, st>>>(sizes, base, row_offsets, cap_in, S,
+                                      nt, offsets, ebase, tile_lane,
+                                      counters, live_end, status, epoch);
+  const int x1 = static_cast<int>(std::min<long long>(
+      slot_tiles, resident_blocks(af_expand<T, Cols>, T)));
+  af_expand<T, Cols><<<dim3(x1, batch), T, 0, st>>>(
+      offsets, base, ebase, tile_lane, cols, visited, n, cap_in, cap_out,
+      m, nt, live_end, epoch, first, cand);
+  const int x2 = static_cast<int>(std::min<long long>(
+      std::max(slot_tiles, fill_tiles),
+      resident_blocks(af_emit<T, Cols>, T)));
+  af_emit<T, Cols><<<dim3(x2, batch), T, 0, st>>>(
+      offsets, base, ebase, tile_lane, cols, n, cap_in, cap_out, m, nt,
+      live_end, epoch, cap_front, counters, status, epoch + 1, first, cand,
+      ids, srcs, lengths, totals);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Calls LAUNCH(cols) with the column reader of `kind`; any other kind
@@ -229,37 +604,37 @@ EXPORT int advance_batch(const int* offsets, const int* base,
   return static_cast<int>(cudaGetLastError());
 }
 
-EXPORT int advance_filter_batch(const int* offsets, const int* base,
+EXPORT int advance_filter_batch(const int* sizes, const int* base,
                                 const int* row_offsets, const void* cols,
                                 const int* anchor, int kind,
                                 const unsigned char* visited, int batch,
                                 int n, int cap_in, int cap_out, int m,
-                                int iters, int cap_front, int* first,
-                                int* kdst, int* ksrc, int* bcount, int* boff,
+                                int cap_front, int* first, int* offsets,
+                                int* ebase, int* tile_lane,
+                                long long tile_lane_cap, unsigned* cand,
+                                long long cand_cap, u64* counters,
+                                u64* live_end, u64* status,
+                                long long status_cap, unsigned epoch,
                                 int* ids, int* srcs, int* lengths,
                                 int* totals, int threads, void* stream) {
-  if (!valid_threads(threads)) {
+  if (!valid_threads(threads) || cap_front < 1 || batch < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nblk = (cap_out + threads - 1) / threads;
-  const dim3 grid(nblk, batch);
-#define REPRO_AF_EXPAND(C)                                                 \
-  af_expand<<<grid, threads, 0, st>>>(offsets, base, row_offsets, C,      \
-                                      visited, n, cap_in, cap_out, m,     \
-                                      iters, first, kdst, ksrc)
-  REPRO_FOR_COLS(kind, cols, anchor, REPRO_AF_EXPAND)
-#undef REPRO_AF_EXPAND
-#define REPRO_AF_COUNT(T) \
-  af_count<T><<<grid, T, 0, st>>>(first, n, cap_out, kdst, bcount)
-  REPRO_FOR_THREADS(threads, REPRO_AF_COUNT)
-#undef REPRO_AF_COUNT
-  scan_rows<<<batch, 1024, 0, st>>>(bcount, nblk, boff, totals, lengths,
-                                    cap_front);
-#define REPRO_AF_EMIT(T)                                                 \
-  af_emit<T><<<grid, T, 0, st>>>(kdst, ksrc, boff, lengths, n, cap_out,  \
-                                 cap_front, first, ids, srcs)
-  REPRO_FOR_THREADS(threads, REPRO_AF_EMIT)
-#undef REPRO_AF_EMIT
-  return static_cast<int>(cudaGetLastError());
+#define REPRO_AF(C)                                                        \
+  return af_launch<T>(C, sizes, base, row_offsets, visited, batch, n,      \
+                      cap_in, cap_out, m, cap_front, first, offsets,       \
+                      ebase, tile_lane, tile_lane_cap, cand, cand_cap,     \
+                      counters, live_end,                                  \
+                      status, status_cap, epoch, ids, srcs, lengths,       \
+                      totals, st)
+#define REPRO_AF_T(TT)                                                     \
+  {                                                                        \
+    constexpr int T = TT;                                                  \
+    REPRO_FOR_COLS(kind, cols, anchor, REPRO_AF)                           \
+  }
+  REPRO_FOR_THREADS(threads, REPRO_AF_T)
+#undef REPRO_AF_T
+#undef REPRO_AF
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,6 +8,9 @@
 
 #include <cuda_runtime.h>
 #include <climits>
+#include <cstdint>
+#include <mutex>
+#include <unordered_map>
 
 #define EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -53,30 +56,6 @@ __device__ __forceinline__ int lb_search(const int* __restrict__ offs,
   return max(min(lo - 1, cap_in - 1), 0);
 }
 
-// Exclusive rank of `flag` among the flagged threads of the block (in
-// thread order) and the block's flag count, for a block of W warps. Every
-// thread of the block must call it; `warp_sums` is shared memory of W
-// ints.
-template <int W>
-__device__ __forceinline__ int block_rank(bool flag, int* warp_sums,
-                                          int* total) {
-  const unsigned ballot = __ballot_sync(kFull, flag);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int rank = __popc(ballot & ((1u << lane) - 1u));
-  if (lane == 0) warp_sums[warp] = __popc(ballot);
-  __syncthreads();
-  int before = 0, all = 0;
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    const int c = warp_sums[w];
-    before += (w < warp) ? c : 0;
-    all += c;
-  }
-  __syncthreads();                        // warp_sums may be reused
-  *total = all;
-  return before + rank;
-}
-
 // Exclusive scan of each row of counts (rows × nblk) into offs, one block
 // of 1024 threads per row; writes the row total and, when `lengths` is
 // given, min(total, clamp).
@@ -110,4 +89,211 @@ __global__ void scan_rows(const int* __restrict__ counts, int nblk,
     totals[row] = total;
     if (lengths != nullptr) lengths[row] = min(total, clamp);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Single-pass ordered scans with decoupled look-back (Merrill & Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", 2016), as
+// K1's offsets scan and emit and K2 run them over the tiles of each lane.
+//
+// Blocks run in no order, so a tile takes its index (its ticket) from the
+// lane's counter: every tile before it was taken by a block that is
+// already running, and a tile waits only on those. Each tile publishes
+// its status word, hi32 = epoch << 2 | flag and lo32 = the tile's own
+// count (flag kAggregate) or its inclusive prefix in the lane (flag
+// kPrefix), then walks back over its predecessors until a prefix. The
+// counters, statuses and K1's lane ends persist between calls (the
+// wrapper keeps them per device); every launch takes a fresh epoch
+// (< 2^30) from the wrapper and reads any word of another epoch as "not
+// yet written", so no call ever sees an earlier call's flags, and
+// nothing is reset between calls.
+// ---------------------------------------------------------------------------
+
+typedef unsigned long long u64;
+constexpr unsigned kAggregate = 1u;
+constexpr unsigned kPrefix = 2u;
+
+// Enters a launch's epoch on a lane's tile counter, once per block before
+// its first ticket: the first call of an epoch lifts the counter to
+// epoch << 32 (count 0); atomicMax never lowers a counter of the same
+// epoch, so each launch counts from 0.
+__device__ __forceinline__ u64 enter_epoch(u64* counter, unsigned epoch) {
+  const u64 tag = static_cast<u64>(epoch) << 32;
+  atomicMax(counter, tag);
+  return tag;
+}
+
+// The next tile of a lane in this launch (after enter_epoch).
+__device__ __forceinline__ int next_ticket(u64* counter, u64 tag) {
+  return static_cast<int>(atomicAdd(counter, 1ull) - tag);
+}
+
+__device__ __forceinline__ void publish(u64* status, unsigned epoch,
+                                        unsigned flag, int value) {
+  atomicExch(status, (static_cast<u64>((epoch << 2) | flag) << 32) |
+                         static_cast<unsigned>(value));
+}
+
+__device__ __forceinline__ u64 peek(const u64* p) {
+  return *reinterpret_cast<const volatile u64*>(p);
+}
+
+// Exclusive prefix of tile j > 0 of a lane whose statuses start at
+// `status`, found by one whole warp: each step reads the 32 statuses
+// below the window's top at once, waits until those down to the nearest
+// published prefix are all written, and adds them (tile 0 always
+// publishes a prefix).
+__device__ __forceinline__ int look_back(const u64* status, int j,
+                                         unsigned epoch) {
+  const int lane = threadIdx.x & 31;
+  int prefix = 0;
+  for (int top = j - 1;;) {
+    const int q = top - lane;
+    unsigned flag = kPrefix;
+    int value = 0;
+    if (q >= 0) {
+      const u64 w = peek(status + q);
+      const unsigned hi = static_cast<unsigned>(w >> 32);
+      flag = (hi >> 2) == epoch ? (hi & 3u) : 0u;
+      value = static_cast<int>(static_cast<unsigned>(w));
+    }
+    const unsigned pre = __ballot_sync(kFull, flag == kPrefix);
+    const unsigned need = pre ? (2u << (__ffs(pre) - 1)) - 1u : kFull;
+    if (__ballot_sync(kFull, flag == 0) & need) continue;   // not written
+    int v = ((need >> lane) & 1u) ? value : 0;
+#pragma unroll
+    for (int d = 16; d; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+    prefix += v;
+    if (pre) return prefix;
+    top -= 32;
+  }
+}
+
+// Publishes tile j's count and returns its exclusive prefix; called by
+// all 32 lanes of one warp, with the same arguments.
+__device__ __forceinline__ int tile_prefix(u64* status, int j,
+                                           unsigned epoch, int count) {
+  const bool lead = (threadIdx.x & 31) == 0;
+  if (j == 0) {
+    if (lead) publish(status, epoch, kPrefix, count);
+    return 0;
+  }
+  if (lead) publish(status + j, epoch, kAggregate, count);
+  const int prefix = look_back(status, j, epoch);
+  if (lead) publish(status + j, epoch, kPrefix, prefix + count);
+  return prefix;
+}
+
+// The inclusive prefix of a tile once it is published: a lane's total
+// from its last tile. Waited on only by a block whose own ticket passed
+// the lane's tile count, so every tile is held by a running block.
+__device__ __forceinline__ int wait_prefix(const u64* status,
+                                           unsigned epoch) {
+  for (;;) {
+    const u64 w = peek(status);
+    const unsigned hi = static_cast<unsigned>(w >> 32);
+    if ((hi >> 2) == epoch && (hi & 3u) == kPrefix) {
+      return static_cast<int>(static_cast<unsigned>(w));
+    }
+    __nanosleep(64);
+  }
+}
+
+// Shared-memory index with one pad word every 32: a thread reading V
+// consecutive entries and a warp reading 32 consecutive ones are both
+// free of bank conflicts (V a power of two).
+__device__ __forceinline__ int pad32(int i) { return i + (i >> 5); }
+
+// Exclusive block-wide sum of `v` over the T threads in thread order;
+// `warp_buf` holds T / 32 ints. Every thread must call it.
+template <int T>
+__device__ __forceinline__ int block_excl_sum(int v, int* warp_buf,
+                                              int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_buf[warp] = x;
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < T / 32; ++w) {
+    const int c = warp_buf[w];
+    before += (w < warp) ? c : 0;
+    all += c;
+  }
+  __syncthreads();                        // warp_buf may be reused
+  *total = all;
+  return before + x - v;
+}
+
+// Exclusive block-wide running maximum of `v` (identity -1), as above.
+template <int T>
+__device__ __forceinline__ int block_excl_max(int v, int* warp_buf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x = max(x, y);
+  }
+  const int excl = max(__shfl_up_sync(kFull, x, 1), -1);
+  if (lane == 31) warp_buf[warp] = x;
+  __syncthreads();
+  int before = -1;
+#pragma unroll
+  for (int w = 0; w < T / 32; ++w) {
+    if (w < warp) before = max(before, warp_buf[w]);
+  }
+  __syncthreads();
+  return max(before, lane == 0 ? -1 : excl);
+}
+
+// p[lo, hi) = -1 by thread t of nt: 16-byte stores between the
+// unaligned ends.
+__device__ __forceinline__ void fill_neg1(int* __restrict__ p, long long lo,
+                                          long long hi, int t, int nt) {
+  if (lo >= hi) return;
+  const long long mis = (reinterpret_cast<uintptr_t>(p + lo) >> 2) & 3;
+  const long long a = min(hi, lo + ((4 - mis) & 3));
+  for (long long i = lo + t; i < a; i += nt) p[i] = -1;
+  const long long nvec = (hi - a) >> 2;
+  int4* v = reinterpret_cast<int4*>(p + a);
+  for (long long i = t; i < nvec; i += nt) v[i] = make_int4(-1, -1, -1, -1);
+  for (long long i = a + nvec * 4 + t; i < hi; i += nt) p[i] = -1;
+}
+
+// A lane's tail [lo, hi) = -1, split in contiguous parts over the
+// gridDim.x blocks of the lane.
+__device__ __forceinline__ void fill_tail(int* __restrict__ row, int lo,
+                                          int hi) {
+  const long long len = hi - lo;
+  if (len <= 0) return;
+  const long long part = (len + gridDim.x - 1) / gridDim.x;
+  const long long a = lo + part * blockIdx.x;
+  fill_neg1(row, a, min(a + part, static_cast<long long>(hi)),
+            threadIdx.x, blockDim.x);
+}
+
+// Blocks of `kernel` the card holds at once (its SMs times the blocks an
+// SM takes at `threads` threads), measured once per kernel: the grid of
+// a persistent launch.
+template <typename K>
+int resident_blocks(K kernel, int threads) {
+  static std::mutex lock;
+  static std::unordered_map<const void*, int> seen;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> guard(lock);
+  const auto it = seen.find(key);
+  if (it != seen.end()) return it->second;
+  int dev = 0, sms = 0, per = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, threads, 0);
+  const int blocks = max(1, per) * max(1, sms);
+  seen[key] = blocks;
+  return blocks;
 }

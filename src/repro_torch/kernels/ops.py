@@ -8,7 +8,8 @@ Each wrapper takes the registry op's arguments, and
   * on CUDA tensors checks device, dtype, shape and contiguity, allocates
     every output and scratch buffer, launches the kernel on PyTorch's
     current stream, raises if the launch returned a CUDA error, and adds
-    one to the kernel's launch counter. It never falls back.
+    one to the kernel's launch counter. It never falls back. (K1 and K2
+    also use the look-back words kept per device, ``_lookback_state``.)
 
 ``KERNELS`` lists the ten kernels with their sources, the TPU kernels
 they replace and their launch counters (``chip_smoke.py`` reads and
@@ -109,14 +110,16 @@ def reset_launches() -> None:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
 # every tuned launcher takes its threads per block just before the stream
 _SIGNATURES = {
     ("advance", "advance_batch"): (
         [_P] * 5 + [_I] * 6 + [_P] * 6 + [_I, _P]),
     ("advance", "advance_filter_batch"): (
-        [_P] * 5 + [_I] + [_P] + [_I] * 7 + [_P] * 9 + [_I, _P]),
+        [_P] * 5 + [_I] + [_P] + [_I] * 6 + [_P] * 4 + [_L, _P, _L]
+        + [_P] * 3 + [_L, _U] + [_P] * 4 + [_I, _P]),
     ("compact", "compact_batch"): (
-        [_P, _L, _P, _I, _I] + [_P] * 4 + [_I, _P]),
+        [_P, _L, _P, _I, _I, _P, _P, _L, _U, _P, _P, _I, _P]),
     ("spmv", "spmv"): ([_I] + [_P] * 4 + [_I, _P, _I, _I, _P, _I, _I, _P,
                                           _I, _P]),
     ("spmv", "spmm"): ([_I] + [_P] * 4 + [_I, _I, _P, _I, _P, _I, _I, _I,
@@ -315,6 +318,57 @@ def _first_table(cache: Optional[dict], b: int, n: int,
     return table
 
 
+# K1's offsets scan and emit and K2 are single-pass scans over tiles
+# (csrc/common.cuh): per lane a tile counter, per tile a status word, and
+# K1's live lane ends, every word tagged with the launch's epoch. They
+# persist between calls, one set per device (calls on one stream), and
+# grow as needed; a fresh set is all zeros, which no epoch (>= 1) reads as
+# written. Tile sizes as in csrc/advance.cu and csrc/compact.cu.
+SCAN_TILE = 4096              # sizes a tile of K1's offsets scan
+K1_TILE_SLOTS = 2048          # slots a K1 tile, at most (8 a thread)
+COMPACT_ITEMS = 16            # mask bytes a thread of K2
+_EPOCH_LIMIT = 2 ** 30
+
+
+def k1_tile(threads: int) -> int:
+    """Slots a K1 tile takes at ``threads`` threads per block."""
+    return min(8 * threads, K1_TILE_SLOTS)
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass
+class _LookBack:
+    counters: torch.Tensor      # (lanes,) int64, read as uint64
+    live_end: torch.Tensor      # (lanes,)
+    status: torch.Tensor        # (tiles,)
+    epoch: int = 0              # the last epoch handed out
+
+
+_lookback: dict = {}
+
+
+def _lookback_state(dev: torch.device, lanes: int, tiles: int,
+                    launches: int) -> tuple[_LookBack, int]:
+    """The device's look-back words, with room for ``lanes`` lanes and
+    ``tiles`` tiles, and the first of ``launches`` fresh epochs."""
+    st = _lookback.get(dev)
+    if (st is None or st.counters.numel() < lanes
+            or st.status.numel() < tiles
+            or st.epoch + launches >= _EPOCH_LIMIT):
+        if st is not None:
+            lanes = max(lanes, st.counters.numel())
+            tiles = max(tiles, st.status.numel())
+        st = _LookBack(*(torch.zeros((k,), dtype=torch.int64, device=dev)
+                         for k in (lanes, lanes, tiles)))
+        _lookback[dev] = st
+    epoch = st.epoch + 1
+    st.epoch += launches
+    return st, epoch
+
+
 @B.register("advance_filter_batch", B.CUDA, encodings=("dense", "delta"))
 def advance_filter_batch(row_offsets, col_indices, base, sizes,
                          visited: torch.Tensor, cap_out: int,
@@ -322,7 +376,8 @@ def advance_filter_batch(row_offsets, col_indices, base, sizes,
                          threads: Optional[int] = None):
     """K1: fused advance → visited test → exact first-occurrence culling
     → compaction. Returns (ids, srcs, lengths, totals). ``col_indices``
-    is a column store of any plan (see ``_kernel_cols``)."""
+    is a column store of any plan (see ``_kernel_cols``). Three kernel
+    launches: the offsets scan, the expand pass and the emit pass."""
     if row_offsets.device.type == "cpu":
         return ref.advance_filter_batch(row_offsets, col_indices, base,
                                         sizes, visited, cap_out, cap_front)
@@ -338,23 +393,28 @@ def advance_filter_batch(row_offsets, col_indices, base, sizes,
     b, cap_in = base.shape
     n = int(visited.shape[1])
     nthr = _threads("advance_filter", cap_out, dev, threads, cols.encoding)
-    offsets = _offsets(sizes)
     first = _first_table(cache, b, n, dev)
-    nblk = -(-cap_out // nthr)
+    slot_tiles = max(_ceil_div(cap_out, k1_tile(nthr)), 1)
+    tiles = max(_ceil_div(cap_in, SCAN_TILE), slot_tiles)
+    lb, epoch = _lookback_state(dev, b, b * tiles, 2)
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.int32, device=dev)
 
-    kdst, ksrc = empty(b, cap_out), empty(b, cap_out)
-    bcount, boff = empty(b, nblk), empty(b, nblk)
+    offsets, ebase = empty(b, cap_in + 1), empty(b, cap_in)
+    tile_lane = empty(b, slot_tiles + 1)
+    cand = empty(b, slot_tiles * k1_tile(nthr) // 32)
     ids, srcs = empty(b, cap_front), empty(b, cap_front)
     lengths, totals = empty(b), empty(b)
-    _launch("advance", "advance_filter_batch", runtime.ptr(offsets),
+    _launch("advance", "advance_filter_batch", runtime.ptr(sizes),
             runtime.ptr(base), runtime.ptr(row_offsets),
             runtime.ptr(cols.cols), runtime.ptr(cols.anchor), cols.kind,
-            runtime.ptr(visited), b, n, cap_in, cap_out, cols.m,
-            _iters(cap_in), cap_front, runtime.ptr(first), runtime.ptr(kdst),
-            runtime.ptr(ksrc), runtime.ptr(bcount), runtime.ptr(boff),
+            runtime.ptr(visited), b, n, cap_in, cap_out, cols.m, cap_front,
+            runtime.ptr(first), runtime.ptr(offsets), runtime.ptr(ebase),
+            runtime.ptr(tile_lane), tile_lane.numel(), runtime.ptr(cand),
+            cand.numel(),
+            runtime.ptr(lb.counters), runtime.ptr(lb.live_end),
+            runtime.ptr(lb.status), lb.status.numel(), epoch,
             runtime.ptr(ids), runtime.ptr(srcs), runtime.ptr(lengths),
             runtime.ptr(totals), nthr, runtime.stream_ptr(dev))
     KERNELS["advance_filter_batch"].count(cols.variant)
@@ -376,7 +436,8 @@ def advance_filter(row_offsets, col_indices, base, sizes, visited,
 def compact(values: torch.Tensor, mask: torch.Tensor, *,
             threads: Optional[int] = None):
     """K2: stable per-row compaction → (packed (B, cap), totals (B,)).
-    ``values`` is (B, cap) or one (1, cap) row shared by every lane."""
+    ``values`` is (B, cap) or one (1, cap) row shared by every lane. One
+    kernel launch."""
     if mask.device.type == "cpu":
         return ref.compact(values, mask)
     dev = mask.device
@@ -394,15 +455,15 @@ def compact(values: torch.Tensor, mask: torch.Tensor, *,
     else:
         raise ValueError("values must have B rows or one row")
     nthr = _threads("compact", cap, dev, threads)
-    nblk = -(-cap // nthr)
-    bcount = torch.empty((b, nblk), dtype=torch.int32, device=dev)
-    boff = torch.empty_like(bcount)
+    tiles = max(_ceil_div(cap, COMPACT_ITEMS * nthr), 1)
+    lb, epoch = _lookback_state(dev, b, b * tiles, 1)
     packed = torch.empty((b, cap), dtype=torch.int32, device=dev)
     totals = torch.empty((b,), dtype=torch.int32, device=dev)
     _launch("compact", "compact_batch", runtime.ptr(values), vstride,
-            runtime.ptr(mask), b, cap, runtime.ptr(bcount),
-            runtime.ptr(boff), runtime.ptr(packed), runtime.ptr(totals),
-            nthr, runtime.stream_ptr(dev))
+            runtime.ptr(mask), b, cap, runtime.ptr(lb.counters),
+            runtime.ptr(lb.status), lb.status.numel(), epoch,
+            runtime.ptr(packed), runtime.ptr(totals), nthr,
+            runtime.stream_ptr(dev))
     KERNELS["compact"].count("int32")
     return packed, totals
 

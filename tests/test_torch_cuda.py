@@ -847,3 +847,156 @@ def test_spmv_heavy_rows_fresh_after_inplace_edit(card):
     want = P.spmv(offsets.cpu(), cols.cpu(), None, xs.cpu(), SR.plus_times,
                   16, None, None, *_over_lists(ro2, 16))
     assert torch.equal(got, want)
+
+
+# ---- K1 and K2 redesigned: live slots, block-level LB partition, one
+# ordered single-pass emit (decoupled look-back) -------------------------
+
+INT32_MAX = 2 ** 31 - 1
+
+
+def _first_clean(cache) -> bool:
+    return all(bool((t == INT32_MAX).all()) for k, t in cache.items()
+               if isinstance(k, tuple) and k[0] == "advance_filter_first")
+
+
+def _k1_inputs(g, case, seed):
+    """(base, sizes, visited, cap_out, cap_front) for K1 on ``g``."""
+    rng = np.random.default_rng(seed)
+    n, m = g.num_vertices, g.num_edges
+    deg = g.degrees.cpu().numpy()
+    b, cap_in, cap_out, cap_front = 3, 400, m, n
+    base = rng.integers(0, n, (b, cap_in))
+    live = rng.random((b, cap_in)) < 0.6
+    if case == "duplicates":       # one vertex twice in a lane, one frontier
+        base[:, 1::2] = base[:, ::2]                 # in every lane
+        base[1:] = base[0]
+        live[:] = True
+    elif case == "cap_in_0":
+        base, live = base[:, :0], live[:, :0]
+    elif case == "clamped":        # totals past cap_out, survivors past front
+        cap_out, cap_front = 500, 30
+    elif case == "many_lanes":     # tiles spanning thousands of lanes
+        cap_in = 3 * K.SCAN_TILE + 77
+        base = rng.integers(0, n, (b, cap_in))
+        live = rng.random((b, cap_in)) < 0.05
+        live[1, 2000:9000] = False
+    sizes = np.where(live, deg[base], 0)
+    if case == "many_lanes":
+        sizes = np.minimum(sizes, 1)
+    visited = rng.random((b, n)) < 0.3
+    dev = g.device
+
+    def t(a, dtype=torch.int32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(dev)
+    return (t(base), t(sizes), t(visited, torch.bool), cap_out, cap_front)
+
+
+@pytest.mark.parametrize("case", ["duplicates", "zero_lanes", "cap_in_0",
+                                  "clamped", "many_lanes"])
+@pytest.mark.parametrize("plan", ["int16", "int32", "int64", "delta"])
+def test_advance_filter_kernel_cases(plan_graphs, plan, case):
+    """K1 under every column kind at every block size equals its plain
+    version (at cap_in = 0, where the plain version refuses the shape,
+    nothing survives), and leaves ``first`` all INT32_MAX."""
+    g = plan_graphs["grid", plan]
+    store = g.col_store
+    base, sizes, visited, cap_out, cap_front = _k1_inputs(g, case, 7)
+    b = base.shape[0]
+    if case == "cap_in_0":
+        want = (torch.full((b, cap_front), -1, dtype=torch.int32),
+                torch.full((b, cap_front), -1, dtype=torch.int32),
+                torch.zeros(b, dtype=torch.int32),
+                torch.zeros(b, dtype=torch.int32))
+    else:
+        want = tuple(x.cpu() for x in P.advance_filter_batch(
+            g.row_offsets, store, base, sizes, visited, cap_out, cap_front))
+    if case == "clamped":
+        assert (want[3] > cap_front).any()
+        assert (sizes.sum(dim=1) > cap_out).any()
+    for threads in (64, 128, 256, 512, 1024):
+        got = K.advance_filter_batch(g.row_offsets, store, base, sizes,
+                                     visited, cap_out, cap_front, g.cache,
+                                     threads=threads)
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(got, want)), \
+            threads
+        assert _first_clean(g.cache), threads
+
+
+@pytest.mark.parametrize("threads", [64, 128, 256, 512, 1024])
+def test_compact_kernel_cases(card, threads):
+    """K2 at every block size: all-true, all-false and random masks,
+    lengths that are no multiple of 16, rows that are not 16-byte
+    aligned, a shared values row, cap = 0."""
+    gen = torch.Generator(device=card).manual_seed(threads)
+    for b, cap, p in ((3, 5000, 0.4), (2, 4099, 1.0), (4, 13, 0.5),
+                      (3, 70_000, 0.0), (5, 16 * 1024 + 1, 0.9), (2, 0, 0.5),
+                      (1, 1, 1.0)):
+        mask = torch.rand((b, cap), generator=gen, device=card) < p
+        vals = torch.randint(-9, 10 ** 6, (b, cap), generator=gen,
+                             device=card, dtype=torch.int32)
+        for v in (vals, vals[:1]):
+            got = K.compact(v, mask, threads=threads)
+            want = P.compact(v, mask)
+            assert all(torch.equal(x, y) for x, y in zip(got, want)), (
+                b, cap, p)
+    flat = torch.rand(3 * 4096 + 1, generator=gen, device=card) < 0.5
+    mask = flat[1:].view(3, 4096)            # every row 1 byte off
+    vals = torch.arange(4096, dtype=torch.int32, device=card)[None]
+    assert all(torch.equal(x, y) for x, y in zip(
+        K.compact(vals, mask, threads=threads), P.compact(vals, mask)))
+
+
+def test_lookback_state_across_calls(plan_graphs):
+    """Calls in a row with other batch sizes and capacities, K1 and K2
+    taking turns, each equal to its plain version: no call reads the
+    tile flags or counters an earlier one left."""
+    g = plan_graphs["grid", "int32"]
+    gen = torch.Generator(device=g.device).manual_seed(5)
+    for i, (case, cap) in enumerate((("zero_lanes", 70_000), ("clamped", 9),
+                                     ("many_lanes", 300),
+                                     ("duplicates", 5000))):
+        base, sizes, visited, cap_out, cap_front = _k1_inputs(g, case, i)
+        keep = 1 + i % 3
+        base, sizes, visited = base[:keep], sizes[:keep], visited[:keep]
+        got = K.advance_filter_batch(g.row_offsets, g.col_store, base, sizes,
+                                     visited, cap_out, cap_front, g.cache,
+                                     threads=(64, 1024, 256, 128)[i])
+        want = P.advance_filter_batch(g.row_offsets, g.col_store, base,
+                                      sizes, visited, cap_out, cap_front)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), case
+        assert _first_clean(g.cache)
+        mask = torch.rand((5 - i, cap), generator=gen, device=g.device) < 0.5
+        vals = torch.randint(0, 99, (5 - i, cap), generator=gen,
+                             device=g.device, dtype=torch.int32)
+        assert all(torch.equal(x, y) for x, y in zip(
+            K.compact(vals, mask, threads=(1024, 64, 512, 256)[i]),
+            P.compact(vals, mask)))
+
+
+def test_advance_filter_kernel_launches(plan_graphs):
+    """One K1 call is three device operations (the offsets scan, the
+    expand pass, the emit pass) and one K2 call one, with no memset or
+    PyTorch kernel beside them."""
+    from torch.profiler import ProfilerActivity, profile
+    g = plan_graphs["grid", "int32"]
+    base, sizes, visited, cap_out, cap_front = _k1_inputs(g, "zero_lanes", 3)
+    mask = torch.rand((3, 5000), device=g.device) < 0.5
+    vals = torch.arange(5000, dtype=torch.int32, device=g.device)[None]
+    calls = {"k1": lambda: K.advance_filter_batch(
+        g.row_offsets, g.col_store, base, sizes, visited, cap_out,
+        cap_front, g.cache), "k2": lambda: K.compact(vals, mask)}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0}
+        want = (("lb_offsets", "af_expand", "af_emit") if name == "k1"
+                else ("cp_kernel",))
+        assert sum(ops.values()) == len(want), ops
+        assert all(any(k in o for o in ops) for k in want), ops

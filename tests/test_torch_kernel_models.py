@@ -31,6 +31,17 @@ a seed and handed to both.
     gathered in that order and scattered to its slots) bit for bit against the reference
     kernel ``repro.kernels.ops.moe_gather`` in interpret mode on shuffled,
     repeated, -1 and out-of-range slot ids.
+  * K1's and K2's single-pass arithmetic: the decoupled look-back (tiles
+    stepping in a random interleaving over statuses an earlier call
+    left), K1's offsets scan with each slot tile's first lane, its tile
+    partition (lane starts marked, a running maximum), its expand and
+    emit passes over live slots with the candidate mask and the tail
+    fill, and K2's 16-byte mask groups and staged emit, bit for bit
+    against ``kernels/ref.py`` (and K1 against the reference's xla
+    provider, K2 against ``repro.kernels.ref.filter_compact_ref``) on
+    zero-size lanes, cap_in = 0, totals past cap_out, survivors past
+    cap_front, tiles spanning thousands of lanes, and masks whose length
+    is no multiple of 16.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -39,8 +50,10 @@ import torch
 
 from repro.core import graph as JG
 from repro.kernels import ops as JK
+from repro.kernels import ref as JF
 from repro.linalg import ops as JL
 from repro.linalg import semiring as JS
+from repro_torch.core import graph as TG
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import ref as P
 from repro_torch.linalg import semiring as TS
@@ -367,3 +380,333 @@ def test_moe_walk_matches_reference_kernel(case):
     got = moe_walk(torch.from_numpy(x), torch.from_numpy(slot))
     want = np.asarray(JK.moe_gather(jnp.asarray(x), jnp.asarray(slot)))
     assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
+
+
+# ---- K1 and K2: block-level LB partition, look-back compaction ----------
+
+INT32_MAX = 2 ** 31 - 1
+
+
+def look_back(counts, rng, epoch=7):
+    """Exclusive prefixes of tiles with ``counts`` by decoupled look-back
+    (csrc/common.cuh ``tile_prefix``): every tile runs from the start and
+    one random tile takes one step at a time — publish its aggregate
+    (tile 0: its prefix), read one predecessor's status (a word of
+    another epoch, or none, reads as not written: the step is spent
+    spinning), publish its inclusive prefix. The status words start as
+    the words an earlier call left (epoch - 1, prefix flag)."""
+    n = len(counts)
+    status = [(epoch - 1, 2, 10_000)] * n
+    prefix = [None] * n
+    state = {j: None for j in range(n)}            # None: not published
+    while state:
+        j = int(rng.choice(list(state)))
+        if state[j] is None:
+            if j == 0:
+                status[0] = (epoch, 2, int(counts[0]))
+                prefix[0] = 0
+                del state[0]
+            else:
+                status[j] = (epoch, 1, int(counts[j]))
+                state[j] = (j - 1, 0)
+            continue
+        p, acc = state[j]
+        e, flag, value = status[p]
+        if e != epoch or flag == 0:
+            continue
+        acc += value
+        if flag == 2:
+            prefix[j] = acc
+            status[j] = (epoch, 2, acc + int(counts[j]))
+            del state[j]
+        else:
+            state[j] = (p - 1, acc)
+    return np.asarray(prefix, np.int64)
+
+
+def offsets_scan(sizes_row, slot_tile, slot_tiles, rng):
+    """K1's offsets scan of one lane: tiles of ``K.SCAN_TILE`` sizes, each
+    scanned alone and shifted by its look-back prefix; the lane's live
+    end (one past its last non-empty input lane); and each slot tile's
+    first input lane, found by the scan tile that holds the slot tile's
+    first slot (the first of its inclusive sums above the slot), -1
+    where no slot tile starts below the total."""
+    cap_in = len(sizes_row)
+    ntiles = max(-(-cap_in // K.SCAN_TILE), 1)
+    tiles = [sizes_row[t * K.SCAN_TILE:(t + 1) * K.SCAN_TILE]
+             for t in range(ntiles)]
+    pre = look_back([int(t.sum()) for t in tiles], rng)
+    offs = np.concatenate([[0]] + [p + np.cumsum(t) for p, t in
+                                   zip(pre, tiles)]).astype(np.int64)
+    tile_lane = np.full(slot_tiles + 1, -1, np.int64)
+    for t, (p, part) in enumerate(zip(pre, tiles)):
+        if part.sum() == 0:
+            continue
+        inc = p + np.cumsum(np.pad(part, (0, K.SCAN_TILE - len(part))))
+        lo = -(-int(p) // slot_tile)
+        hi = min((int(p) + int(part.sum()) - 1) // slot_tile, slot_tiles)
+        for k in range(lo, hi + 1):
+            tile_lane[k] = t * K.SCAN_TILE + np.searchsorted(
+                inc, k * slot_tile, side="right")
+    nz = np.flatnonzero(sizes_row)
+    return offs, int(nz[-1]) + 1 if len(nz) else 0, tile_lane
+
+
+def tile_lanes(offs, le, tile_lane, j, tile, s0, s_end):
+    """K1's partition of tile j, the slots [s0, s_end): the lane of s0
+    from the scan, each non-empty lane after it that starts below s_end
+    (up to the next tile's first lane, or the live end) marked at its
+    start, the tile's lane for each slot by a running maximum."""
+    p0 = tile_lane[j]
+    p1 = tile_lane[j + 1] if (j + 1) * tile < offs[-1] else le - 1
+    assert p0 >= 0 and p1 >= p0
+    mark = np.full(s_end - s0, -1)
+    lane_at = np.zeros(s_end - s0, np.int64)
+    mark[0], lane_at[0] = 0, p0
+    for lane in range(p0 + 1, p1 + 1):
+        if offs[lane + 1] > offs[lane] and offs[lane] < s_end:
+            p = offs[lane] - s0
+            assert 0 < p < s_end - s0
+            mark[p], lane_at[p] = p, lane
+    return lane_at[np.maximum.accumulate(mark)]
+
+
+def fill_tail(row, lo, hi, blocks):
+    """``fill_tail``: [lo, hi) = -1 in ``blocks`` contiguous parts."""
+    part = -(-(hi - lo) // blocks) if hi > lo else 0
+    for x in range(blocks):
+        a = lo + part * x
+        row[a:min(a + part, hi)] = -1
+
+
+def advance_filter_model(ro, col_at, base, sizes, visited, cap_out,
+                         cap_front, threads, rng):
+    """K1 as the card runs it: the offsets scan, then the expand pass and
+    the emit pass over the live slots in tiles of ``K.k1_tile(threads)``,
+    the tiles of each pass in a random order; a slot that reads a larger
+    first is a candidate, and only candidates are tested in the emit
+    pass; the emit's prefixes by look-back, the tail by the lane's
+    blocks. Returns (ids, srcs, lengths, totals, first)."""
+    b, cap_in = sizes.shape
+    n = visited.shape[1]
+    tile = K.k1_tile(threads)
+    ids = np.full((b, cap_front), 777, np.int32)     # torch.empty
+    srcs = np.full((b, cap_front), 777, np.int32)
+    lengths = np.zeros(b, np.int32)
+    totals = np.zeros(b, np.int32)
+    first = np.full((b, n), INT32_MAX, np.int64)
+    slot_tiles = max(-(-cap_out // tile), 1)
+    for lane in range(b):
+        offs, le, tile_lane = offsets_scan(sizes[lane], tile, slot_tiles,
+                                           rng)
+        live = min(int(offs[cap_in]), cap_out)
+        ntiles = -(-live // tile)
+
+        def expand(j):
+            s0 = j * tile
+            s_end = min(s0 + tile, live)
+            slots = np.arange(s0, s_end)
+            lanes = tile_lanes(offs, le, tile_lane, j, tile, s0, s_end)
+            src = base[lane][lanes]
+            eid = ro[src] + slots - offs[lanes]
+            return slots, src, np.array([col_at(e, s) for e, s in
+                                         zip(eid, src)], np.int64)
+
+        cand = np.zeros(ntiles * tile, bool)
+        for j in rng.permutation(ntiles):            # expand pass
+            for slot, _, d in zip(*expand(j)):
+                if not visited[lane, d] and slot < first[lane, d]:
+                    cand[slot] = True                # read a larger first
+                    first[lane, d] = slot
+        keep = {}
+        for j in rng.permutation(ntiles):            # emit pass, reads
+            slots, src, d = expand(j)
+            won = cand[slots] & (first[lane, d] == slots)
+            keep[j] = (src[won], d[won])
+            first[lane, d[won]] = INT32_MAX          # the survivors reset
+        pre = look_back([len(keep[j][0]) for j in range(ntiles)], rng)
+        total = int(pre[-1]) + len(keep[ntiles - 1][0]) if ntiles else 0
+        for j in range(ntiles):
+            s, d = keep[j]
+            pos = pre[j] + np.arange(len(s))
+            ok = pos < cap_front
+            ids[lane, pos[ok]] = d[ok]
+            srcs[lane, pos[ok]] = s[ok]
+        totals[lane], lengths[lane] = total, min(total, cap_front)
+        blocks = int(rng.integers(1, 9))
+        fill_tail(ids[lane], lengths[lane], cap_front, blocks)
+        fill_tail(srcs[lane], lengths[lane], cap_front, blocks)
+    return ids, srcs, lengths, totals, first
+
+
+def compact_model(values, mask, threads, rng):
+    """K2 as the card runs it: tiles of 16·threads entries, each thread's
+    16 mask bytes as a bit mask, the kept positions staged in rank order
+    and stored at the tile's look-back prefix; tiles in a random order;
+    the tail by the lane's blocks."""
+    b, cap = mask.shape
+    tile = K.COMPACT_ITEMS * threads
+    packed = np.full((b, cap), 777, np.int32)
+    totals = np.zeros(b, np.int32)
+    ntiles = -(-cap // tile)
+    for lane in range(b):
+        vrow = values[lane if values.shape[0] == b else 0]
+        staged = {}
+        for j in rng.permutation(ntiles):
+            m = np.zeros(tile, bool)
+            part = mask[lane, j * tile:(j + 1) * tile]
+            m[:len(part)] = part
+            bits = m.reshape(threads, K.COMPACT_ITEMS)
+            rank = np.cumsum(bits.sum(axis=1)) - bits.sum(axis=1)
+            stage = np.zeros(int(bits.sum()), np.int64)
+            for t in range(threads):
+                stage[rank[t] + np.arange(bits[t].sum())] = (
+                    t * K.COMPACT_ITEMS + np.flatnonzero(bits[t]))
+            staged[j] = vrow[j * tile + stage]
+        pre = look_back([len(staged[j]) for j in range(ntiles)], rng)
+        for j in range(ntiles):
+            packed[lane, pre[j]:pre[j] + len(staged[j])] = staged[j]
+        total = int(pre[-1]) + len(staged[ntiles - 1]) if ntiles else 0
+        totals[lane] = total
+        fill_tail(packed[lane], total, cap, int(rng.integers(1, 9)))
+    return packed, totals
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_look_back_prefixes_in_any_order(seed):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 50, size=int(rng.integers(1, 40)))
+    want = np.cumsum(counts) - counts
+    assert np.array_equal(look_back(counts, rng, epoch=seed + 1), want)
+
+
+@pytest.mark.parametrize("tile", [512, 2048])
+@pytest.mark.parametrize("seed", range(3))
+def test_tile_lanes_are_the_upper_bound(tile, seed):
+    """Zero-size lanes between live ones, scan tiles without a slot tile
+    and slot tiles spanning scan tiles: each slot tile's first lane is
+    the non-empty lane that holds its first slot, as searchsorted(right)
+    - 1 finds it."""
+    rng = np.random.default_rng(seed)
+    cap_in = 3 * K.SCAN_TILE + 123
+    sizes = rng.integers(0, 4, cap_in) * (rng.random(cap_in) < 0.4)
+    sizes[rng.integers(0, cap_in, 3)] = 3000
+    sizes[K.SCAN_TILE:2 * K.SCAN_TILE] = 0
+    slot_tiles = -(-int(sizes.sum()) // tile)
+    offs, le, tile_lane = offsets_scan(sizes, tile, slot_tiles, rng)
+    assert le == np.flatnonzero(sizes)[-1] + 1
+    for k in range(slot_tiles):
+        want = np.searchsorted(offs[:-1], k * tile, side="right") - 1
+        assert tile_lane[k] == want and sizes[want] > 0
+    assert tile_lane[slot_tiles] == -1
+
+
+def _k1_case(case):
+    """(graph, base, sizes, visited, cap_out, cap_front) on the CPU."""
+    rng = np.random.default_rng(len(case))
+    g = (TG.grid2d(24, weighted=True, seed=3, encoding="delta",
+                   device="cpu")
+         if case == "delta" else TG.rmat(8, 8, seed=3, weighted=True, device="cpu"))
+    n, m = g.num_vertices, g.num_edges
+    deg = g.degrees.numpy()
+    b, cap_in, cap_out, cap_front = 3, 300, m, n
+    base = rng.integers(0, n, (b, cap_in))
+    live = rng.random((b, cap_in)) < 0.5             # zero-size lanes between
+    if case == "cap_in_0":
+        cap_in = 0
+        base, live = base[:, :0], live[:, :0]
+    elif case == "clamped":        # totals past cap_out, survivors past front
+        cap_out, cap_front = 700, 40
+    elif case == "many_lanes":     # tiles spanning thousands of lanes
+        cap_in = 3 * K.SCAN_TILE + 77
+        base = rng.integers(0, n, (b, cap_in))
+        live = rng.random((b, cap_in)) < 0.05
+        live[1, 2000:9000] = False                   # a long empty run
+    sizes = np.where(live, deg[base], 0).astype(np.int32)
+    if case == "many_lanes":
+        sizes = np.minimum(sizes, 1).astype(np.int32)
+    visited = rng.random((b, n)) < 0.3
+    return g, base.astype(np.int32), sizes, visited, cap_out, cap_front
+
+
+@pytest.mark.parametrize("threads", [64, 256, 1024])
+@pytest.mark.parametrize("case", ["dense", "delta", "cap_in_0", "clamped",
+                                  "many_lanes"])
+def test_advance_filter_model_matches_plain_version(case, threads):
+    """K1's partition, passes, look-back and tail against kernels/ref.py,
+    every output bit for bit and ``first`` all INT32_MAX afterwards;
+    the int16 rmat and the escape-free delta grid."""
+    g, base, sizes, visited, cap_out, cap_front = _k1_case(case)
+    store = g.col_store
+    ro = g.row_offsets.numpy().astype(np.int64)
+    if case == "delta":
+        assert store.num_escapes == 0
+        anchor, delta = store.anchor.numpy(), store.delta.numpy()
+
+        def col_at(e, s):
+            return int(anchor[s]) + int(delta[e])
+    else:
+        cols = store.numpy()
+
+        def col_at(e, s):
+            return int(cols[e])
+    rng = np.random.default_rng(threads)
+    *got, first = advance_filter_model(ro, col_at, base, sizes, visited,
+                                       cap_out, cap_front, threads, rng)
+    if case == "cap_in_0":
+        # no input lane: both plain versions (and the reference's xla
+        # provider) refuse the shape in their gathers; nothing survives
+        b = base.shape[0]
+        want = (np.full((b, cap_front), -1), np.full((b, cap_front), -1),
+                np.zeros(b), np.zeros(b))
+    else:
+        want = [t.numpy() for t in P.advance_filter_batch(
+            g.row_offsets, store, torch.from_numpy(base),
+            torch.from_numpy(sizes), torch.from_numpy(visited), cap_out,
+            cap_front)]
+    for x, y in zip(got, want):
+        assert np.array_equal(x, y)
+    assert (first == INT32_MAX).all()
+    if case == "clamped":
+        assert (want[3] > cap_front).any() and (
+            sizes.sum(axis=1) > cap_out).any()
+
+
+def test_advance_filter_model_matches_reference():
+    """The same model against the JAX package's xla provider."""
+    from repro.core import backend as JB
+    g, base, sizes, visited, cap_out, cap_front = _k1_case("clamped")
+    cols = g.col_store.numpy().astype(np.int32)
+    ro = g.row_offsets.numpy()
+    *got, _ = advance_filter_model(ro.astype(np.int64),
+                                   lambda e, s: int(cols[e]), base, sizes,
+                                   visited, cap_out, cap_front, 256,
+                                   np.random.default_rng(0))
+    want = JB.dispatch("advance_filter_batch", "xla")(
+        jnp.asarray(ro), jnp.asarray(cols), jnp.asarray(base),
+        jnp.asarray(sizes), jnp.asarray(visited), cap_out, cap_front)
+    for x, y in zip(got, want):
+        assert np.array_equal(x, np.asarray(y))
+
+
+@pytest.mark.parametrize("threads", [64, 256, 1024])
+@pytest.mark.parametrize("cap,p,shared", [
+    (5000, 0.4, False), (16_387, 0.5, True), (13, 0.5, False),
+    (4096, 1.0, False), (40_000, 0.0, True), (0, 0.5, False)])
+def test_compact_model_matches_plain_version(cap, p, shared, threads):
+    """K2's tiles, 16-byte mask groups, staging, look-back and tail
+    against kernels/ref.py: lengths that are no multiple of 16, all-kept
+    and all-dropped masks, a shared values row, cap = 0."""
+    rng = np.random.default_rng(cap + threads)
+    mask = rng.random((3, cap)) < p
+    values = rng.integers(-5, 1000, (1 if shared else 3, cap)).astype(
+        np.int32)
+    got = compact_model(values, mask, threads, rng)
+    want = P.compact(torch.from_numpy(values), torch.from_numpy(mask))
+    for x, y in zip(got, want):
+        assert np.array_equal(x, y.numpy())
+    if cap:
+        jpacked, jcount = JF.filter_compact_ref(jnp.asarray(values[0]),
+                                                jnp.asarray(mask[0]))
+        assert np.array_equal(got[0][0], np.asarray(jpacked))
+        assert got[1][0] == int(jcount)

@@ -40,8 +40,8 @@ def _forbidden(name: str) -> bool:
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py",
-                          ROOT / "tools" / "ab_paths.py"],
+                         [ROOT / "chip_smoke.py"] +
+                         sorted((ROOT / "tools").glob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_never_imports_jax_or_reference(path):
     bad = [name for name in _imports(path) if _forbidden(name)]

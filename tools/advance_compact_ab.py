@@ -1,0 +1,294 @@
+"""A/B of K1 (advance_filter_batch) and K2 (compact) between two checkouts
+of this repo on one card, at the shapes of ``chip_smoke.py``.
+
+  python tools/advance_compact_ab.py BASE_DIR [--pairs 10] [--bfs-pairs 3]
+      [--grid-depth 256] [--profile]
+
+BASE_DIR is another checkout (for example the parent commit, unpacked
+with ``git archive``). One worker process per tree imports that tree's
+``repro_torch`` (``PYTHONPATH=<tree>/src``) and makes the same inputs
+from the same seeds:
+
+  * ``k1_top4`` / ``k1_top1``: K1 at rmat-22's top tier (cap_out = m,
+    cap_front = n) on the level-1 frontier of its 4 (1) largest hubs,
+    visited = that frontier and the hubs (phase 2 of ``chip_smoke.py``);
+  * ``k1_grid`` / ``k1_grid_delta``: K1 on grid2d(2048) under int32 and
+    escape-free delta columns, a quarter of the vertices in each of 4
+    lanes, half of them visited, at the tier the expansion needs;
+  * ``k2``: K2 on rmat-22's (4, n) level-1 bitmap with the shared ids
+    row (BFS pull's ``to_sparse``);
+  * ``bfs_rmat``: one ``bfs_batch`` on rmat-22 from the max-degree vertex
+    and three random ones (path (a)'s sources), host clock;
+  * ``bfs_grid_push`` / ``bfs_grid_pull``: ``bfs_batch`` on the int32
+    grid from path (e)'s four sources (push only; pull only), the BSP
+    loop cut at ``--grid-depth`` levels (the full run takes ~4,100),
+    host clock.
+
+The workers take turns, base first in even pairs: each kernel case is
+the mean of ``--reps`` calls by CUDA events after a warm-up call; the
+``bfs_*`` cases run in the first ``--bfs-pairs`` pairs. Each worker
+checks its kernels against their plain versions first (and that K1
+leaves its first-slot table all INT32_MAX). Prints every run, then per
+case the median of each tree and of the change-minus-base differences;
+with ``--profile``, each tree's device time per call by kernel name for
+every kernel case (``torch.profiler`` over ``--reps`` calls). Each
+tree's peak device memory over one ``k1_top4`` call and one
+``bfs_rmat`` run is printed too (its inputs and graphs included).
+"""
+from __future__ import annotations
+
+import argparse
+import importlib
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+KERNEL_CASES = ("k1_top4", "k1_top1", "k1_grid", "k1_grid_delta", "k2")
+BFS_CASES = ("bfs_rmat", "bfs_grid_push", "bfs_grid_pull")
+INT32_MAX = 2 ** 31 - 1
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def worker(reps: int, grid_depth: int) -> None:
+    """Make the inputs, check and warm every case, then time the case
+    named on each line of standard input and answer with its ms."""
+    import numpy as np
+    import torch
+    from repro_torch.core import frontier as F
+    from repro_torch.core import graph as G
+    from repro_torch.core import operators as O
+    bfs_mod = importlib.import_module("repro_torch.core.primitives.bfs")
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import ref as P
+
+    print(f"worker: {K.__file__}", file=sys.stderr, flush=True)
+    dev = torch.device("cuda")
+    g = G.rmat(22, 16, seed=0, weighted=True, device=dev)
+    n, m = g.num_vertices, g.num_edges
+    deg = g.degrees.cpu().numpy()
+    hubs = [int(v) for v in np.argsort(-deg, kind="stable")[:4]]
+    rng = np.random.default_rng(0)
+    sources = [hubs[0]] + [int(v) for v in rng.choice(
+        np.flatnonzero(deg > 0), 3, replace=False)]
+    ro, ci = g.row_offsets, g.col_indices
+
+    def hub_case(lanes):
+        mask = torch.zeros((len(lanes), n), dtype=torch.bool, device=dev)
+        for i, h in enumerate(lanes):
+            mask[i, ci[int(ro[h]):int(ro[h + 1])].long()] = True
+        seed = torch.zeros_like(mask)
+        seed[torch.arange(len(lanes), device=dev),
+             torch.tensor(lanes, device=dev)] = True
+        front = F.compact_indices_batch(mask, n, backend="torch")
+        base, sizes = O._base_and_sizes(g, front.ids, front.valid_mask,
+                                        "vertex")
+        return (ro, ci, base, sizes, mask | seed, m, n), mask
+
+    top4, nbr4 = hub_case(hubs)
+    top1, _ = hub_case(hubs[:1])
+    ids_row = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
+
+    grids = {enc: G.grid2d(2048, weighted=True, seed=0, device=dev,
+                           **({"encoding": "delta"} if enc == "delta"
+                              else {}))
+             for enc in ("int32", "delta")}
+    gg = grids["int32"]
+    ng = gg.num_vertices
+    gen = torch.Generator(device=dev).manual_seed(11)
+    qmask = torch.rand((4, ng), generator=gen, device=dev) < 0.25
+    gvisited = torch.rand((4, ng), generator=gen, device=dev) < 0.5
+    gfront = F.compact_indices_batch(qmask, ng, backend="torch")
+
+    def grid_case(gr):
+        base, sizes = O._base_and_sizes(gr, gfront.ids, gfront.valid_mask,
+                                        "vertex")
+        caps = F.tier_caps(gr.num_edges)
+        cap = caps[F.tier_index(int(sizes.sum(dim=1).max()), caps)]
+        return (gr.row_offsets, gr.col_store, base, sizes, gvisited, cap,
+                ng)
+
+    k1 = {"k1_top4": (top4, g.cache), "k1_top1": (top1, g.cache),
+          "k1_grid": (grid_case(gg), gg.cache),
+          "k1_grid_delta": (grid_case(grids["delta"]),
+                            grids["delta"].cache)}
+    run = {name: (lambda a=a, c=c: K.advance_filter_batch(*a, c))
+           for name, (a, c) in k1.items()}
+    run["k2"] = lambda: K.compact(ids_row, nbr4)
+    gsrc = [0, ng // 2 + 1024, 12345, ng - 1]
+    real_loop = bfs_mod.run_until_any
+
+    def cut_loop(cond, plan, body, state, max_iter):
+        return real_loop(cond, plan, body, state, min(max_iter, grid_depth))
+
+    def on_grid(**kw):
+        bfs_mod.run_until_any = cut_loop
+        try:
+            return bfs_mod.bfs_batch(gg, gsrc, backend="cuda", **kw)
+        finally:
+            bfs_mod.run_until_any = real_loop
+
+    bfs_runs = {
+        "bfs_rmat": lambda: bfs_mod.bfs_batch(g, sources, backend="cuda"),
+        "bfs_grid_push": lambda: on_grid(direction=False),
+        "bfs_grid_pull": lambda: on_grid(do_a=0.0, do_b=0.0),
+    }
+
+    for name, (a, c) in k1.items():
+        got, want = K.advance_filter_batch(*a, c), P.advance_filter_batch(*a)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"{name} differs from its plain version")
+    for key, table in list(g.cache.items()) + list(gg.cache.items()) + list(
+            grids["delta"].cache.items()):
+        if isinstance(key, tuple) and key[0] == "advance_filter_first":
+            if not bool((table == INT32_MAX).all()):
+                raise AssertionError("first-slot table not INT32_MAX")
+    if not all(torch.equal(x, y) for x, y in zip(
+            run["k2"](), P.compact(ids_row, nbr4))):
+        raise AssertionError("k2 differs from its plain version")
+    out = {name: fn() for name, fn in bfs_runs.items()}
+    torch.cuda.synchronize()
+    sums = {name: int(r.labels.to(torch.int64).sum()) for name, r in
+            out.items()}
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def profile(name):
+        from torch.profiler import ProfilerActivity, profile as prof
+        run[name]()
+        torch.cuda.synchronize()
+        with prof(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as pr:
+            for _ in range(reps):
+                run[name]()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.device_time_total / reps, e.count / reps)
+                for e in pr.key_averages() if e.device_time_total > 0]
+        rows.sort(key=lambda r: -r[1])
+        return "; ".join(f"{k[:50]} {us:.1f} us x{c:g}" for k, us, c in
+                         rows[:8])
+
+    print(f"n={n} m={m} grid n={ng}; bfs label sums {sums}; K1 slots "
+          f"{ {k: int(a[3].sum()) for k, (a, _) in k1.items()} }",
+          file=sys.stderr, flush=True)
+    print("ready", flush=True)
+    for line in sys.stdin:
+        name = line.strip()
+        if name.startswith("profile "):
+            print(profile(name.split()[1]), flush=True)
+        elif name.startswith("peak "):
+            fn = {**run, **bfs_runs}[name.split()[1]]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            print(f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f}",
+                  flush=True)
+        elif name in bfs_runs:
+            print(f"{wall(bfs_runs[name]):.4f}", flush=True)
+        else:
+            print(f"{timed(run[name]):.4f}", flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("base", type=Path, nargs="?")
+    ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--bfs-pairs", type=int, default=3)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--grid-depth", type=int, default=256)
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        worker(args.reps, args.grid_depth)
+        return 0
+    if args.base is None:
+        ap.error("BASE_DIR is required")
+    print(f"card: {_smi()}", flush=True)
+    procs = {}
+    for label, root in (("base", args.base), ("change", HERE)):
+        env = dict(os.environ, PYTHONPATH=str(root.resolve() / "src"))
+        procs[label] = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--worker",
+             "--reps", str(args.reps), "--grid-depth",
+             str(args.grid_depth)], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, text=True, env=env, cwd=root)
+
+    def ask(label, name):
+        p = procs[label]
+        p.stdin.write(name + "\n")
+        p.stdin.flush()
+        line = p.stdout.readline()
+        return line.strip() if name.startswith("profile ") else float(line)
+
+    cases = KERNEL_CASES + BFS_CASES
+    runs = {(t, c): [] for t in procs for c in cases}
+    try:
+        for label, p in procs.items():
+            if p.stdout.readline().strip() != "ready":
+                raise SystemExit(f"{label} worker failed")
+        for i in range(args.pairs):
+            order = ("base", "change") if i % 2 == 0 else ("change", "base")
+            for name in cases:
+                if name in BFS_CASES and i >= args.bfs_pairs:
+                    continue
+                for label in order:
+                    ms = ask(label, name)
+                    runs[(label, name)].append(ms)
+                    print(f"pair {i:2d} {label:6s} {name:14s} {ms:10.4f} ms",
+                          flush=True)
+        for name in ("k1_top4", "bfs_rmat"):
+            for label in procs:
+                print(f"peak   {label:6s} {name:14s} "
+                      f"{ask(label, 'peak ' + name):.3f} GiB of device "
+                      f"memory (the worker's graphs included)", flush=True)
+        if args.profile:
+            for name in KERNEL_CASES:
+                for label in procs:
+                    print(f"profile {label:6s} {name:14s} "
+                          f"{ask(label, 'profile ' + name)}", flush=True)
+    finally:
+        for p in procs.values():
+            p.stdin.close()
+            p.wait(timeout=300)
+    for name in cases:
+        b, c = runs[("base", name)], runs[("change", name)]
+        if not b:
+            continue
+        diff = [y - x for x, y in zip(b, c)]
+        print(f"{name:14s} median base {statistics.median(b):.4f} ms, "
+              f"change {statistics.median(c):.4f} ms, change - base "
+              f"{statistics.median(diff):+.4f} ms (pairs {len(diff)}, "
+              f"change slower in {sum(d > 0 for d in diff)})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
