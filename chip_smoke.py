@@ -24,13 +24,18 @@ Phases:
      B = 4), integer outputs equal and the SpMV bit-equal to its plain
      version run on the CPU, timed whole and on its light and heavy rows
      beside its byte bound and the serial-chain floor of its longest
-     overflow; K1 and K2 also with the device operations one call puts
-     on the card and their device time (torch.profiler), and a practical
+     overflow; K1, K2, K3 and K6 also with the device operations one call
+     puts on the card and their device time (torch.profiler; a K3 or K6
+     call may show nothing but its two kernels, and at least one K3 call
+     and the K6 call must show exactly those), K1 and K2 with a practical
      floor beside the byte bound (streamed bytes at the rate of a device
      copy, the random accesses the function needs at the rate of an
      index_select from an L2-resident table, both measured in the run),
      and K1's first-slot table checked all INT32_MAX after every call
-     (its storage-plan variants too); K3 (B = 1) and K5 (locate) at triangle
+     (its storage-plan variants too); K3 bit-equal on every slot, dead
+     ones included, at every block size at each of its shapes (the SSSP
+     near pile at cap_in = n, the grid, rmat-15 and the dense fallback,
+     the TC shape); K3 (B = 1) and K5 (locate) at triangle
      counting's shape, the mxm expansion of the oriented rmat scale-18
      graph (6.6e8 slots); K5 (found) on segmented_intersect's probes of
      edge pairs of the scale-22 graph, and on an empty haystack; K4m
@@ -40,9 +45,10 @@ Phases:
      on every row it does not split at each of those k, and at reach's
      and label propagation's shapes (the latter on the one-hot block and
      on uniform floats, beside the index_select of the rows it gathers);
-     K6 (lb_expand) bit-equal on every slot at rmat-22's
-     whole-graph expansion (2^27 slots), at a capacity that is no power
-     of two, on zero-size segments and at cap_in = 0; K7
+     K6 (lb_expand) bit-equal on every slot at every block size at
+     rmat-22's whole-graph expansion (2^27 slots), at a capacity that is
+     no power of two, on zero-size segments, on a segment spanning 40
+     tiles and at cap_in = 0; K7
      (flash_attention) at Qwen2-VL-2B's and Kimi K2's head widths (128,
      112) in bf16 and fp32 — prefill 8192 x 8192 causal, a 128-query
      chunk against 8192 keys, more queries than keys, non-causal —
@@ -137,6 +143,7 @@ INT32_MAX = 2 ** 31 - 1
 GRID_SIDE = 2048       # grid2d: n = 4,194,304, rmat-22's vertex count
 TIMING_ROUNDS = 5      # interleaved rounds when plans are compared
 PROFILE_GRID_SIDE = 512  # path (e)'s profiled BFS and SSSP
+DEVICE_OPS_PAD = 0.25  # s of host idle around a one-call profiler session
 INT16_SCALE = 15       # rmat scale 15: n = 32,768, the int16 ladder's top
 # triangles of rmat(scale, 16, seed=0), counted by a chunked scipy product
 TRIANGLES = {14: 2_808_907, 16: 15_681_649, 18: 82_931_365}
@@ -221,34 +228,72 @@ def _bound_ms(nbytes: float, ops: float,
 def _device_ops(torch, fn) -> tuple:
     """The device operations (kernels, memsets, copies) one warm call of
     ``fn`` puts on the card, by torch.profiler: ([(name, count)], their
-    device ms). A session that records no device event is taken again,
-    up to three times (the profiler drops a session's kernel records now
-    and then)."""
+    device ms, the operations a host and device session without the pad
+    recorded). A session of one short call loses some or all of its
+    device records minutes into a run, with most of the card's memory
+    free; so the measured session traces the device alone and keeps the
+    host idle ``DEVICE_OPS_PAD`` s before and after the call, and one
+    host and device session without the pad is taken first, for
+    comparison."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    rows = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    sessions = []
+    for acts, pad in (([ProfilerActivity.CPU, ProfilerActivity.CUDA], 0.0),
+                      ([ProfilerActivity.CUDA], DEVICE_OPS_PAD)):
+        with profile(activities=acts) as prof:
+            time.sleep(pad)
             fn()
             torch.cuda.synchronize()
-        rows = [(e.key, e.count, e.self_device_time_total)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        if rows:
-            break
-    return [(k, c) for k, c, _ in rows], sum(r[2] for r in rows) / 1e3
+            time.sleep(pad)
+        sessions.append([(e.key, e.count, e.self_device_time_total)
+                         for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA
+                         and e.self_device_time_total > 0])
+    bare, rows = sessions
+    return ([(k, c) for k, c, _ in rows], sum(r[2] for r in rows) / 1e3,
+            sum(c for _, c, _ in bare))
 
 
-def _ops_text(ops) -> str:
-    """'3 device ops a call (lb_offsets, af_expand, af_emit)'."""
+LB_OPS = ("lb_offsets", "lb_expand_tiles")     # K3's and K6's two kernels
+
+
+def _check_blocks(torch, what, kf, want, blocks) -> None:
+    """Raises unless ``kf(t=t)`` equals ``want`` on every output and every
+    slot at each block size t of ``blocks``."""
+    for t in blocks:
+        got = kf(t=t)
+        for i, (x, y) in enumerate(zip(got, want)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what} at {t} threads per block: "
+                                     f"output {i} differs from the plain "
+                                     f"version")
+        del got
+
+
+def _lb_ops(ops, bare, what, seen) -> str:
+    """The device-ops text of a K3 or K6 call. Raises if the profiler
+    recorded any operation but K3's / K6's two kernels, or one of them
+    twice; ``seen`` collects the calls it recorded as exactly the two
+    (a session that lost a record shows fewer and raises nothing)."""
+    names = _ops_text(ops, bare)
+    if any(c != 1 or not any(k in o for k in LB_OPS) for o, c in ops):
+        raise AssertionError(f"{what}: {names}, expected exactly "
+                             f"{LB_OPS}")
+    if len(ops) == 2:
+        seen.append(what)
+    return names
+
+
+def _ops_text(ops, bare) -> str:
+    """'3 device ops a call (lb_offsets, af_expand, af_emit; 0 in a session
+    without the idle pad)'."""
     names = [re.sub(r"^(?:void )?(?:\(anonymous namespace\)::)?"
                     r"([A-Za-z_0-9]+).*$", r"\1", k) for k, _ in ops]
     return (f"{sum(c for _, c in ops)} device ops a call "
-            f"({', '.join(names)})")
+            f"({', '.join(names)}; {bare} in a session without the idle "
+            f"pad)")
 
 
 def _yardsticks(torch, dev) -> dict:
@@ -398,9 +443,11 @@ def _hmma_counts(runtime) -> dict:
     return counts
 
 
-def _fourth_slice_kernels(torch, np, K, P, tuner, SR, g, gs, dev, record):
+def _fourth_slice_kernels(torch, np, K, P, tuner, SR, g, gs, dev, record,
+                          k6_ops):
     """K6, K7 and K8 against their plain versions at full width, timed
-    beside one PyTorch library call and their bounds; every tuned kernel
+    beside one PyTorch library call and their bounds (``k6_ops``: K6's
+    device-ops text, taken at the start of phase 2); every tuned kernel
     at every candidate block size. Returns the entry points' inputs for
     path (d)."""
     import torch.nn.functional as TF
@@ -410,34 +457,37 @@ def _fourth_slice_kernels(torch, np, K, P, tuner, SR, g, gs, dev, record):
     sizes = g.degrees.to(torch.int32).contiguous()
     cap = tuner.pow2_ceil(m)
     slots = torch.arange(cap, dtype=torch.int32, device=dev)
-    offsets = K.lb_offsets(sizes)
+    offsets = P.lb_offsets(sizes)
     prefix = offsets[:-1].contiguous()
 
-    def k6():
-        return K.lb_expand(sizes, cap)
+    def k6(t=None):
+        return K.lb_expand(sizes, cap, threads=t)
 
     def p6():
-        return P.lb_expand(K.lb_offsets(sizes), cap)
+        return P.lb_expand(P.lb_offsets(sizes), cap)
 
     def lib6():
         return torch.searchsorted(prefix, slots, right=True)
 
-    got = k6()
     want = p6()
-    for i, name in enumerate(("in_pos", "rank", "valid")):
-        if not torch.equal(got[i], want[i]):
-            raise AssertionError(f"lb_expand {name} differs from the plain "
-                                 f"version")
+    for t in (None,) + tuple(tuner.candidates(tuner.MAX_THREADS)):
+        got = k6(t)
+        for i, name in enumerate(("in_pos", "rank", "valid")):
+            if not torch.equal(got[i], want[i]):
+                raise AssertionError(f"lb_expand {name} differs from the "
+                                     f"plain version at {t} threads")
     if int(got.total) != m or int(got.valid.sum()) != m or not torch.equal(
             lib6()[:m] - 1, got.in_pos[:m].long()):
         raise AssertionError("lb_expand differs from torch.searchsorted")
     del got, want
     ms, pms, lms = (_timed(torch, k6, 20), _timed(torch, p6, 5),
                     _timed(torch, lib6, 5))
-    nbytes, ops = cap * 9 + (n + 1) * 4, cap * K._iters(n) * 4
+    # the sizes read once, 9 bytes written a slot and the total
+    nbytes, ops = cap * 9 + n * 4 + 4, cap * 2
     print(f"K6 lb_expand cap_in={n} cap_out={cap} total={m}: {ms:.3f} ms, "
           f"plain {pms:.3f} ms, torch.searchsorted {lms:.3f} ms, bound "
-          f"{_bound_ms(nbytes, ops)[0]:.3f} ms; bit-equal on every slot")
+          f"{_bound_ms(nbytes, ops)[0]:.3f} ms; bit-equal on every slot at "
+          f"every block size; {k6_ops}")
     record("lb_expand", 0, ms, pms, nbytes, ops, lms)
     del slots, prefix, offsets
     torch.cuda.empty_cache()
@@ -445,16 +495,24 @@ def _fourth_slice_kernels(torch, np, K, P, tuner, SR, g, gs, dev, record):
     rng = np.random.default_rng(4)
     zs = torch.from_numpy(rng.integers(0, 9, 300_000).astype(np.int32))
     zs[torch.from_numpy(rng.random(300_000) < 0.4)] = 0
+    # a segment spanning many tiles among tiles spanning many segments,
+    # and a trailing empty one
+    ls = (torch.from_numpy(rng.random(300_000) < 0.05)).to(torch.int32)
+    ls[1234], ls[-1] = 40 * K.LB_TILE_SLOTS + 7, 0
     for sz, c in ((sizes, m + 777_777), (zs.to(dev), 1_000_003),
-                  (zs.to(dev), 999), (sizes[:0], 4097)):
-        got = K.lb_expand(sz, c)
-        want = P.lb_expand(K.lb_offsets(sz), c)
-        if not all(torch.equal(a, b) for a, b in zip(got[:3], want)):
-            raise AssertionError(f"lb_expand cap_in={sz.numel()} cap_out={c} "
-                                 f"differs from the plain version")
+                  (zs.to(dev), 999), (ls.to(dev), int(ls.sum()) + 4099),
+                  (sizes[:0], 4097)):
+        want = P.lb_expand(P.lb_offsets(sz), c)
+        for t in tuner.candidates(tuner.MAX_THREADS):
+            got = K.lb_expand(sz, c, threads=t)
+            if not all(torch.equal(a, b) for a, b in zip(got[:3], want)):
+                raise AssertionError(f"lb_expand cap_in={sz.numel()} "
+                                     f"cap_out={c} differs from the plain "
+                                     f"version at {t} threads")
     print("K6 lb_expand at cap_out = m + 777,777, on 40 % zero-size "
-          "segments (cap_out 1,000,003 and 999) and at cap_in = 0: "
-          "bit-equal to the plain version on every slot")
+          "segments (cap_out 1,000,003 and 999), on a segment spanning 40 "
+          "tiles among 5 % one-slot segments and at cap_in = 0: bit-equal "
+          "to the plain version on every slot at every block size")
 
     # K7 at two published head widths, bf16 and fp32
     attention = []
@@ -642,7 +700,7 @@ def _fourth_slice_kernels(torch, np, K, P, tuner, SR, g, gs, dev, record):
                      P.segment_locate(ci, lo, hi, needles))),
         "lb_expand": (lambda t: K.lb_expand(gs.degrees.to(torch.int32),
                                             ms_ + 999, threads=t)[:3],
-                      lambda: P.lb_expand(K.lb_offsets(
+                      lambda: P.lb_expand(P.lb_offsets(
                           gs.degrees.to(torch.int32)), ms_ + 999)),
     }
     blocks = tuner.candidates(tuner.MAX_THREADS)
@@ -705,7 +763,7 @@ def _fourth_slice_path(torch, K, P, tuner, runtime, root, dev, fourth):
     for (op, cap, enc), e in sorted(picks.items()):
         print(f"  {op:15s} cap={cap:<7d} {enc:5s} -> {e['tile']:4d} "
               f"threads, {e['ms']:.5f} ms")
-    want = P.lb_expand(K.lb_offsets(fourth["sizes"]), fourth["cap"])
+    want = P.lb_expand(P.lb_offsets(fourth["sizes"]), fourth["cap"])
     if not all(torch.equal(a, b) for a, b in zip(exp[:3], want)):
         raise AssertionError("path (d) lb_expand differs from the plain "
                              "version")
@@ -722,8 +780,8 @@ def _fourth_slice_path(torch, K, P, tuner, runtime, root, dev, fourth):
     return launches4, variants4
 
 
-def _fifth_slice_kernels(torch, np, K, P, O, F, G, S, SR, g, dev, record,
-                         ys):
+def _fifth_slice_kernels(torch, np, K, P, O, F, G, S, SR, tuner, g, dev,
+                         record, ys, lb_seen):
     """K1 and K3 in each column form of the storage plans (delta at the
     grid's shape, int16 at rmat scale 15, int64 on a small explicit-int64
     graph) and K4 / K4m at bf16 against their plain versions, timed beside
@@ -799,17 +857,17 @@ def _fifth_slice_kernels(torch, np, K, P, O, F, G, S, SR, g, dev, record,
         lane besides its 16) → {variant: {kernel: (ms, plain ms, bytes,
         operations)}}."""
         runs, out = {}, {}
+        blocks = tuner.candidates(tuner.MAX_THREADS)
         for variant, gr, col_bytes, lane_bytes in plans:
             store = gr.col_store
             base, sizes = O._base_and_sizes(gr, front.ids, front.valid_mask,
                                             "vertex")
-            bl = int(base.shape[0])
+            bl, cap_in = (int(d) for d in base.shape)
             caps = F.tier_caps(gr.num_edges)
             cap = caps[F.tier_index(int(sizes.sum(dim=1).max()), caps)]
             live = int(front.lengths.sum())
             slots = int(torch.clamp(sizes.sum(dim=1), max=cap).sum())
             cap_v = gr.num_vertices
-            iters = K._iters(cap_v)
             fns = {
                 "advance_filter_batch": (
                     lambda gr=gr, store=store, base=base, sizes=sizes,
@@ -820,24 +878,26 @@ def _fifth_slice_kernels(torch, np, K, P, O, F, G, S, SR, g, dev, record,
                     cap=cap: P.advance_filter_batch(
                         gr.row_offsets, store, base, sizes, visited, cap,
                         gr.num_vertices),
-                    live * (16 + lane_bytes) + slots * (col_bytes + 1)
-                    + bl * cap_v * 8 + bl * 8,
-                    slots * (iters * 4 + 8)),
+                    bl * cap_in * 4 + live * (8 + lane_bytes)
+                    + slots * (col_bytes + 1) + bl * cap_v * 8 + bl * 8,
+                    slots * 8),
                 "advance_batch": (
                     lambda gr=gr, store=store, base=base, sizes=sizes,
-                    cap=cap: K.advance_batch(gr.row_offsets, store, base,
-                                             sizes, cap, gr.cache),
+                    cap=cap, t=None: K.advance_batch(
+                        gr.row_offsets, store, base, sizes, cap, gr.cache,
+                        threads=t),
                     lambda gr=gr, store=store, base=base, sizes=sizes,
                     cap=cap: P.advance_batch(gr.row_offsets, store, base,
                                              sizes, cap),
-                    live * (16 + lane_bytes) + slots * col_bytes
-                    + bl * cap * 21 + bl * 4,
-                    bl * cap * (iters * 4 + 8)),
+                    bl * cap_in * 4 + live * (8 + lane_bytes)
+                    + slots * col_bytes + bl * cap * 21 + bl * 4,
+                    bl * cap * 4),
             }
             K.reset_launches()
             for name, (kf, pf, _, _) in fns.items():
                 got = kf()
-                for i, (x, y) in enumerate(zip(got, pf())):
+                want = pf()
+                for i, (x, y) in enumerate(zip(got, want)):
                     if not torch.equal(x, y):
                         raise AssertionError(f"{name} ({variant}, {label}): "
                                              f"output {i} differs from the "
@@ -852,14 +912,24 @@ def _fifth_slice_kernels(torch, np, K, P, O, F, G, S, SR, g, dev, record,
                                              f"its first-slot table dirty")
                     _, kept = _k1_traffic(torch, gr.row_seg, gr.cols(),
                                           front_mask, visited)
-                    devops, dev_ms = _device_ops(torch, kf)
+                    devops, dev_ms, bare = _device_ops(torch, kf)
                     floor = _k1_floor_ms(ys, fns[name][2], slots, kept,
                                          int(got[3].sum()))
                     print(f"K1 {variant} ({label}): kept={kept} survivors="
                           f"{int(got[3].sum())}, practical floor "
-                          f"{floor:.3f} ms; {_ops_text(devops)}, device "
-                          f"{dev_ms:.3f} ms; first-slot table all "
+                          f"{floor:.3f} ms; {_ops_text(devops, bare)}, "
+                          f"device {dev_ms:.3f} ms; first-slot table all "
                           f"INT32_MAX")
+                else:
+                    del got
+                    _check_blocks(torch, f"K3 ({variant}, {label})", kf,
+                                  want, blocks)
+                    devops, dev_ms, bare = _device_ops(torch, kf)
+                    ops_k3 = _lb_ops(devops, bare, f"K3 {variant}", lb_seen)
+                    print(f"K3 {variant} ({label}): bit-equal on every slot "
+                          f"at {blocks} threads per block; {ops_k3}, device "
+                          f"{dev_ms:.3f} ms")
+                del want
             runs[variant] = (fns, bl, cap, slots)
         for name in ("advance_filter_batch", "advance_batch"):
             times = {v: [] for v in runs}
@@ -1250,6 +1320,17 @@ def main(argv=None) -> int:
         return caps[F.tier_index(need, caps)]
 
     ys = _yardsticks(torch, dev)
+    blocks = tuner.candidates(tuner.MAX_THREADS)
+    lb_seen = []                 # the K3 / K6 calls shown as two kernels
+    # K6's device operations at rmat-22's expansion (phase 2 (d) checks
+    # and times it), taken with the run's first profiler sessions: later
+    # one-call sessions lose records (PERF.md §7)
+    deg32 = g.degrees.to(torch.int32).contiguous()
+    devops, dev_ms, bare = _device_ops(
+        torch, lambda: K.lb_expand(deg32, tuner.pow2_ceil(m)))
+    k6_ops = (f"{_lb_ops(devops, bare, 'K6', lb_seen)}, device "
+              f"{dev_ms:.3f} ms")
+    del deg32
     for lanes in (hubs[:1], hubs):
         bl = len(lanes)
         nbr = level1_masks(lanes)
@@ -1268,7 +1349,6 @@ def main(argv=None) -> int:
             cap_out = cap_out or tier_of(need)
             live = int(front.lengths.sum())
             slots = int(torch.clamp(sizes.sum(dim=1), max=cap_out).sum())
-            iters = K._iters(cap_v)
 
             # K1: fused advance + filter
             def k1():
@@ -1287,9 +1367,12 @@ def main(argv=None) -> int:
             reps = 3 if cap_out == m else 20
             ms = _timed(torch, k1, reps)
             pms = _timed(torch, p1, 2 if cap_out == m else 5)
-            nbytes = live * 16 + slots * 5 + bl * cap_v * 8 + bl * 8
-            ops = slots * (iters * 4 + 8)
-            devops, dev_ms = _device_ops(torch, k1)
+            # every input lane's size, a live lane's base and row offset,
+            # a live slot's column and bitmap byte, the ids / srcs rows
+            nbytes = (bl * cap_v * 4 + live * 8 + slots * 5 + bl * cap_v * 8
+                      + bl * 8)
+            ops = slots * 8
+            devops, dev_ms, bare = _device_ops(torch, k1)
             _, kept = _k1_traffic(torch, g.row_seg, ci, front_mask, visited)
             floor = _k1_floor_ms(ys, nbytes, slots, kept,
                                  int(got1[3].sum()))
@@ -1297,8 +1380,8 @@ def main(argv=None) -> int:
                   f"slots={slots} kept={kept} survivors="
                   f"{int(got1[3].sum())}: {ms:.3f} ms, plain {pms:.3f} ms, "
                   f"bound {_bound_ms(nbytes, ops)[0]:.3f} ms, practical "
-                  f"floor {floor:.3f} ms; {_ops_text(devops)}, device "
-                  f"{dev_ms:.3f} ms; first-slot table all INT32_MAX")
+                  f"floor {floor:.3f} ms; {_ops_text(devops, bare)}, "
+                  f"device {dev_ms:.3f} ms; first-slot table all INT32_MAX")
             if bl == b and cap_out == m:
                 record("advance_filter_batch", 0, ms, pms, nbytes, ops)
             del front
@@ -1308,20 +1391,33 @@ def main(argv=None) -> int:
             base3, sizes3 = O._base_and_sizes(g, near.ids, near.valid_mask,
                                               "vertex")
 
-            def k3():
-                return K.advance_batch(ro, ci, base3, sizes3, cap_out)
+            def k3(t=None):
+                return K.advance_batch(ro, ci, base3, sizes3, cap_out,
+                                       threads=t)
 
             def p3():
                 return P.advance_batch(ro, ci, base3, sizes3, cap_out)
 
-            equal_ints("advance_batch", k3(), p3())
+            want3 = p3()
+            equal_ints("advance_batch", k3(), want3)
+            _check_blocks(torch, f"K3 B={bl} cap_out={cap_out}", k3, want3,
+                          blocks)
+            del want3
             ms = _timed(torch, k3, reps)
             pms = _timed(torch, p3, 2 if cap_out == m else 5)
-            nbytes = live * 16 + slots * 4 + bl * cap_out * 21 + bl * 4
-            ops = bl * cap_out * (K._iters(n) * 4 + 8)
-            print(f"K3 advance_batch B={bl} cap_out={cap_out} "
+            # every input lane's size (cap_in = n), a live lane's base and
+            # row offset, a live slot's column, 21 bytes an output slot
+            nbytes = (bl * n * 4 + live * 8 + slots * 4 + bl * cap_out * 21
+                      + bl * 4)
+            ops = bl * cap_out * 4
+            devops, dev_ms, bare = _device_ops(torch, k3)
+            ops_k3 = _lb_ops(devops, bare, f"K3 B={bl} cap_out={cap_out}",
+                             lb_seen)
+            print(f"K3 advance_batch B={bl} cap_out={cap_out} cap_in={n} "
                   f"slots={slots}: {ms:.3f} ms, plain {pms:.3f} ms, "
-                  f"bound {_bound_ms(nbytes, ops)[0]:.3f} ms")
+                  f"bound {_bound_ms(nbytes, ops)[0]:.3f} ms; bit-equal on "
+                  f"every slot at {blocks} threads per block; "
+                  f"{ops_k3}, device {dev_ms:.3f} ms")
             if bl == b and cap_out == m:
                 record("advance_batch", 0, ms, pms, nbytes, ops)
             del near, base3, sizes3, base, sizes
@@ -1353,12 +1449,13 @@ def main(argv=None) -> int:
             pms = _timed(torch, p2, 5)
             lms = _timed(torch, lib2, 5)
             nbytes = bl * n * 5 + kept * 4 + bl * 4
-            devops, dev_ms = _device_ops(torch, k2)
+            devops, dev_ms, bare = _device_ops(torch, k2)
             print(f"K2 compact B={bl} cap={n} kept={kept}: {ms:.3f} ms, "
                   f"plain {pms:.3f} ms, masked_select {lms:.3f} ms, "
                   f"bound {_bound_ms(nbytes, bl * n * 4)[0]:.3f} ms, "
                   f"practical floor {nbytes / ys['copy'] * 1e3:.3f} ms "
-                  f"(its bytes at the copy rate); {_ops_text(devops)}, "
+                  f"(its bytes at the copy rate); "
+                  f"{_ops_text(devops, bare)}, "
                   f"device {dev_ms:.3f} ms")
             if bl == b and mask is nbr:
                 record("compact", 0, ms, pms, nbytes, bl * n * 4, lms)
@@ -1469,19 +1566,29 @@ def main(argv=None) -> int:
           f"m'={m_sub}, mxm expansion {cap} slots (host "
           f"{time.monotonic() - t0:.1f} s)")
 
-    def k3t():
-        return K.advance(a_off, a_idx, base, sizes, cap)
+    def k3t(t=None):
+        return K.advance(a_off, a_idx, base, sizes, cap, threads=t)
 
     def p3t():
         return O._advance_torch(a_off, a_idx, base, sizes, cap)
 
-    equal_ints("advance (B=1, TC shape)", k3t(), p3t())
+    want3 = p3t()
+    equal_ints("advance (B=1, TC shape)", k3t(), want3)
+    _check_blocks(torch, "K3 (B=1, TC shape)", k3t, want3, blocks)
+    del want3
     torch.cuda.empty_cache()
     ms, pms = _timed(torch, k3t, 3), _timed(torch, p3t, 1)
-    nbytes = m_sub * 16 + cap * 4 + cap * 21
-    print(f"K3 advance B=1 cap_out={cap} (TC shape): {ms:.3f} ms, plain "
-          f"{pms:.3f} ms, bound "
-          f"{_bound_ms(nbytes, cap * (K._iters(m_sub) * 4 + 8))[0]:.3f} ms")
+    cap_in = int(base.shape[0])
+    live = int((sizes != 0).sum())
+    nbytes = cap_in * 4 + live * 8 + cap * 4 + cap * 21 + 4
+    devops, dev_ms, bare = _device_ops(torch, k3t)
+    print(f"K3 advance B=1 cap_out={cap} cap_in={cap_in} (TC shape): "
+          f"{ms:.3f} ms, plain {pms:.3f} ms, bound "
+          f"{_bound_ms(nbytes, cap * 4)[0]:.3f} ms; bit-equal on every "
+          f"slot at {blocks} threads per block; "
+          f"{_lb_ops(devops, bare, 'K3 TC shape', lb_seen)}, device "
+          f"{dev_ms:.3f} ms")
+    torch.cuda.empty_cache()
     _, needles, _, pair, _, _, _ = k3t()
     rows = torch.index_select(probe, 0, pair)
     del pair
@@ -1754,7 +1861,7 @@ def main(argv=None) -> int:
     # and every tuned kernel at every block size ----
     t0 = time.monotonic()
     fourth = _fourth_slice_kernels(torch, np, K, P, tuner, SR, g, gs, dev,
-                                   record)
+                                   record, k6_ops)
     torch.cuda.empty_cache()
     print(f"K6-K8 and the block sizes checked and timed in "
           f"{time.monotonic() - t0:.1f} s")
@@ -2057,8 +2164,12 @@ def main(argv=None) -> int:
     # ---- phase 2 (e): the fifth slice's kernels: K1 and K3 in each column
     # form of the storage plans, K4 and K4m at bf16 ----
     t0 = time.monotonic()
-    graphs5 = _fifth_slice_kernels(torch, np, K, P, O, F, G, S, SR, g, dev,
-                                   record, ys)
+    graphs5 = _fifth_slice_kernels(torch, np, K, P, O, F, G, S, SR, tuner,
+                                   g, dev, record, ys, lb_seen)
+    if "K6" not in lb_seen or len(lb_seen) < 2:
+        raise AssertionError(f"the profiler recorded no K3 call, or not "
+                             f"the K6 call, as exactly {LB_OPS}: {lb_seen}")
+    print(f"K3 and K6 calls recorded as exactly {LB_OPS}: {lb_seen}")
     print(f"storage-plan kernels checked and timed in "
           f"{time.monotonic() - t0:.1f} s")
 

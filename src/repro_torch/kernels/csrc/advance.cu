@@ -2,14 +2,16 @@
 //
 // K3 advance_batch replaces the TPU kernel advance_fused_batch_kernel
 // (src/repro/kernels/advance_fused.py:210; its single-lane form
-// advance_fused_kernel, :134, is a launch with B = 1). One thread per
-// (lane, output slot): the LB upper-bound search over the lane's degree
-// scan, then the CSR gathers, writing (src, dst, edge_id, in_pos, rank,
-// valid). Bound by bytes: it writes 21 bytes per slot and reads ~8 (the
-// column and row-offset gathers; the search's probes hit L1/L2 because
-// neighbouring slots walk the same path). The design keeps every write
-// coalesced (slot-major rows) and skips the search on dead slots, whose
-// outputs are constants.
+// advance_fused_kernel, :134, is a launch with B = 1, and so is mxm's
+// expansion). It writes, for every (lane, output slot), (src, dst,
+// edge_id, in_pos, rank, valid): 21 bytes a slot, live or dead, against
+// 4 a lane's size and the column bytes of a live slot, so its bound is
+// the bytes it writes. Two launches (lb_tiles.cuh): the int32 offsets
+// scan K1 runs, which also writes the totals, and lb_expand_tiles, which
+// walks only the live slots in tiles whose lanes are staged in shared
+// memory (no per-slot search), stores each output row coalesced with
+// evict-first stores, and fills each lane's dead tail with its constants
+// in 16-byte stores. No PyTorch op runs between or after them.
 //
 // K1 advance_filter_batch replaces advance_filter_fused_batch_kernel
 // (src/repro/kernels/advance_filter_fused.py:196; advance_filter_fused_
@@ -18,7 +20,7 @@
 // tiles; CUDA blocks run concurrently, so the winner of each destination
 // is its smallest unvisited slot (atomicMin into `first`), as in the
 // reference's XLA algorithm. Three launches:
-//   1. lb_offsets: the (B, cap_in + 1) exclusive degree scans in one
+//   1. lb_offsets (lb_tiles.cuh): the exclusive degree scans in one
 //      single-pass int32 scan (decoupled look-back, common.cuh); with
 //      them each live input lane's edge base, each slot tile's first
 //      input lane (Gunrock's load-balanced search, done once a tile by
@@ -43,15 +45,16 @@
 // place of (B, cap_out) scratch. `first` is a (B, n) table the caller
 // keeps filled with INT_MAX between calls.
 //
-// Bound: bytes, 16 a live input lane (sizes, offsets, base, row
-// offsets), the column bytes and 1 bitmap byte a live slot, and 8 an
+// Bound: bytes, 4 an input lane (its size), 8 a live one (base, row
+// offset), the column bytes and 1 bitmap byte a live slot, and 8 an
 // output slot. In practice the random accesses set the time: a bitmap
 // byte a live slot, a first read a kept slot (then an atomic where it
 // is smaller), a first read a candidate and a reset a survivor. They go
 // through L2, which holds a lane's table (16 MB at n = 4M) while the
 // persistent grid works through that lane's tiles.
-// The launcher takes its threads per block from the wrapper (the tuner's
-// op "advance_filter"); blocks of any size give the same outputs.
+// The launchers take their threads per block from the wrapper (the
+// tuner's ops "advance" for K3, "advance_filter" for K1); blocks of any
+// size give the same outputs.
 //
 // Column storage (the graph's storage plan, repro_torch/core/storage.py).
 // Both kernels are templates on how they read a column, as the TPU
@@ -60,7 +63,7 @@
 //   * DenseCols<T>: a dense array of int16, int32 or int64 ids, widened
 //     to int32 after the gather (2, 4 or 8 bytes a slot);
 //   * DeltaCols: the anchored-delta stream, dst = anchor[src] + delta[e]
-//     with delta uint16 and `src` the row the LB search just produced
+//     with delta uint16 and `src` the row of the slot's input lane
 //     (2 bytes a slot plus a 4-byte anchor gather that neighbouring slots
 //     of one row share).
 // A delta stream with escapes (a delta past 0xFFFE, kept in a side list)
@@ -68,9 +71,7 @@
 // the reference's `_split_store` does. The launchers take the storage as
 // `kind` (kColInt32, kColInt16, kColInt64, kColDelta) and the pointers
 // `cols` and `anchor` (anchor only for kColDelta).
-#include "common.cuh"
-
-#include <algorithm>
+#include "lb_tiles.cuh"
 
 namespace {
 
@@ -99,238 +100,7 @@ struct DeltaCols {
   }
 };
 
-template <typename Cols>
-__global__ void adv_kernel(const int* __restrict__ offsets,
-                           const int* __restrict__ base,
-                           const int* __restrict__ row_offsets,
-                           const Cols cols, int cap_in,
-                           int cap_out, int m, int iters,
-                           int* __restrict__ src, int* __restrict__ dst,
-                           int* __restrict__ eid, int* __restrict__ in_pos,
-                           int* __restrict__ rank,
-                           unsigned char* __restrict__ valid) {
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  if (slot >= cap_out) return;
-  const size_t b = blockIdx.y;
-  const int* offs = offsets + b * (cap_in + 1);
-  const size_t o = b * cap_out + slot;
-  const int total = offs[cap_in];
-  if (slot >= total) {
-    // every probe of a dead slot goes right: the search ends on the last
-    // input lane, and the masked outputs are constants
-    src[o] = -1;
-    dst[o] = -1;
-    eid[o] = -1;
-    in_pos[o] = max(cap_in - 1, 0);
-    rank[o] = 0;
-    valid[o] = 0;
-    return;
-  }
-  const int pos = lb_search(offs, cap_in, slot, iters);
-  const int rk = slot - offs[pos];
-  const int s = base[b * cap_in + pos];
-  const int e = row_offsets[s] + rk;
-  src[o] = s;
-  dst[o] = cols.at(min(max(e, 0), m - 1), cols.row(s));
-  eid[o] = e;
-  in_pos[o] = pos;
-  rank[o] = rk;
-  valid[o] = 1;
-}
-
 // ---- K1 ------------------------------------------------------------------
-
-constexpr int kScanThreads = 256;
-constexpr int kScanItems = 16;
-constexpr int kScanTile = kScanThreads * kScanItems;   // sizes a scan tile
-constexpr int kTileSlots = 2048;         // slots a K1 tile, at most
-constexpr int kFillChunk = 8192;         // tail entries a block, at least
-constexpr int kMinThreads = 1536;        // resident threads an SM, at least
-
-// Slots a thread takes in a K1 tile of T threads: 8, fewer where the
-// tile would pass kTileSlots.
-template <int T>
-struct Tile {
-  static constexpr int V = (8 * T <= kTileSlots) ? 8 : kTileSlots / T;
-  static constexpr int kSlots = T * V;
-};
-
-__device__ __forceinline__ int lane_end(u64 w, unsigned epoch) {
-  return static_cast<unsigned>(w >> 32) == epoch
-             ? static_cast<int>(static_cast<unsigned>(w)) : 0;
-}
-
-// One tile of kScanTile sizes a block, tiles in ticket order with
-// decoupled look-back:
-//   offsets[b] = [0, exclusive scan of sizes[b], total];
-//   ebase[b][i] = row_offsets[base[b][i]] - offsets[b][i] for every
-//     non-empty input lane i (slot s of lane i reads edge ebase + s);
-//   tile_lane[b][k] = the input lane that holds slot k * slot_tile, for
-//     k <= slot_tiles and k * slot_tile < total (a binary search of the
-//     scan tile's inclusive sums in shared memory);
-//   live_end[b] lifted to (epoch << 32 | one past the last non-empty
-//     lane).
-__global__ void __launch_bounds__(kScanThreads)
-lb_offsets(const int* __restrict__ sizes, const int* __restrict__ base,
-           const int* __restrict__ row_offsets, int cap_in, int slot_tile,
-           int slot_tiles, int* __restrict__ offsets,
-           int* __restrict__ ebase, int* __restrict__ tile_lane,
-           u64* counters, u64* live_end, u64* status, unsigned epoch) {
-  __shared__ int buf[kScanTile + kScanTile / 32];
-  __shared__ int warp_sums[kScanThreads / 32];
-  __shared__ int s_ticket, s_last, s_prefix;
-  const size_t b = blockIdx.y;
-  const int t = threadIdx.x;
-  if (t == 0) {
-    s_ticket = next_ticket(counters + b, enter_epoch(counters + b, epoch));
-    s_last = -1;
-  }
-  __syncthreads();
-  const int j = s_ticket;
-  const long long first = static_cast<long long>(j) * kScanTile;
-  const int* row = sizes + b * cap_in;
-#pragma unroll
-  for (int k = 0; k < kScanItems; ++k) {
-    const long long i = first + t + k * kScanThreads;
-    buf[pad32(t + k * kScanThreads)] = i < cap_in ? row[i] : 0;
-  }
-  __syncthreads();
-  int run[kScanItems];
-  int sum = 0, last = -1;
-#pragma unroll
-  for (int k = 0; k < kScanItems; ++k) {
-    const int v = buf[pad32(t * kScanItems + k)];
-    sum += v;
-    run[k] = sum;
-    if (v != 0) last = t * kScanItems + k;
-  }
-  if (last >= 0) atomicMax(&s_last, last);
-  int tile_sum;
-  const int before = block_excl_sum<kScanThreads>(sum, warp_sums, &tile_sum);
-  if (t < 32) {
-    const int prefix =
-        tile_prefix(status + b * gridDim.x, j, epoch, tile_sum);
-    if (t == 0) {
-      s_prefix = prefix;
-      if (s_last >= 0) {
-        atomicMax(live_end + b, (static_cast<u64>(epoch) << 32) |
-                                    static_cast<u64>(first + s_last + 1));
-      }
-    }
-  }
-  __syncthreads();
-  const int start = s_prefix;
-  const int off = start + before;
-#pragma unroll
-  for (int k = 0; k < kScanItems; ++k) {
-    buf[pad32(t * kScanItems + k)] = off + run[k];
-  }
-  __syncthreads();
-  int* out = offsets + b * (static_cast<size_t>(cap_in) + 1) + 1;
-  int* eb = ebase + b * cap_in;
-  const int* bs = base + b * cap_in;
-#pragma unroll 4
-  for (int k = 0; k < kScanItems; ++k) {
-    const int i = t + k * kScanThreads;
-    if (first + i < cap_in) {
-      const int inc = buf[pad32(i)];
-      const int exc = i > 0 ? buf[pad32(i - 1)] : start;
-      out[first + i] = inc;
-      if (inc > exc) eb[first + i] = row_offsets[bs[first + i]] - exc;
-    }
-  }
-  if (j == 0 && t == 0) out[-1] = 0;
-  if (tile_sum > 0) {
-    // the slot tiles that start inside this scan tile
-    const long long lo = (static_cast<long long>(start) + slot_tile - 1) /
-                         slot_tile;
-    const long long hi =
-        min((static_cast<long long>(start) + tile_sum - 1) / slot_tile,
-            static_cast<long long>(slot_tiles));
-    int* tl = tile_lane + b * (static_cast<size_t>(slot_tiles) + 1);
-    for (long long k = lo + t; k <= hi; k += kScanThreads) {
-      const long long s = k * slot_tile;
-      int a = 0, z = kScanTile - 1;           // the first inclusive sum > s
-      while (a < z) {
-        const int mid = (a + z) >> 1;
-        if (buf[pad32(mid)] > s) z = mid; else a = mid + 1;
-      }
-      tl[k] = static_cast<int>(first + a);
-    }
-  }
-}
-
-// The shared memory of one K1 tile of S slots.
-template <int S, bool kRows>
-struct TileLanes {
-  int mark[S + S / 32];    // lane start at its slot, then its running max
-  int src[S];              // at a lane's start: its source vertex
-  int ebase[S];            //   its edge base (edge = ebase + slot)
-  int row[kRows ? S : 1];  //   cols.row(src)
-  int warp_buf[32];
-};
-
-// What a pass knows of its lane: the scan's outputs for it.
-struct Lane {
-  const int* offs;         // offsets[b]
-  const int* base;         // base[b]
-  const int* ebase;        // ebase[b]
-  const int* tile_lane;    // tile_lane[b]
-  int total, live, le;
-};
-
-// Partitions tile j, slots [s0, s_end) of a lane: afterwards
-// sh.mark[pad32(i)] is the tile position where the input lane of slot
-// s0 + i starts (0 for the lane that holds s0), and sh.src / ebase / row
-// at that position describe the lane. The input lanes come from the
-// scan's tile_lane (the lane of s0; the lane of the next tile's first
-// slot, or the live end, bounds the walk). The caller synchronises
-// before reusing sh.
-template <int T, int V, typename Cols, typename Sh>
-__device__ __forceinline__ void lb_partition(Sh& sh, const Lane& ln,
-                                             const Cols& cols, int j,
-                                             int s0, int s_end) {
-  constexpr int S = T * V;
-  const int p0 = ln.tile_lane[j];
-  const int p1 = static_cast<long long>(j + 1) * S < ln.total
-                     ? ln.tile_lane[j + 1] : ln.le - 1;
-#pragma unroll
-  for (int k = 0; k < V; ++k) sh.mark[pad32(threadIdx.x + k * T)] = -1;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int s = ln.base[p0];
-    sh.mark[0] = 0;
-    sh.src[0] = s;
-    sh.ebase[0] = ln.ebase[p0];
-    if constexpr (Cols::kRows) sh.row[0] = cols.row(s);
-  }
-  // the non-empty lanes after p0 that start inside the tile (offs > s0)
-  for (int l = p0 + 1 + threadIdx.x; l <= p1; l += T) {
-    const int o = ln.offs[l];
-    if (ln.offs[l + 1] > o && o < s_end) {
-      const int p = o - s0;
-      const int s = ln.base[l];
-      sh.mark[pad32(p)] = p;
-      sh.src[p] = s;
-      sh.ebase[p] = ln.ebase[l];
-      if constexpr (Cols::kRows) sh.row[p] = cols.row(s);
-    }
-  }
-  __syncthreads();
-  int run[V];
-  int mx = -1;
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    mx = max(mx, sh.mark[pad32(threadIdx.x * V + k)]);
-    run[k] = mx;
-  }
-  const int before = block_excl_max<T>(mx, sh.warp_buf);
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    sh.mark[pad32(threadIdx.x * V + k)] = max(before, run[k]);
-  }
-  __syncthreads();
-}
 
 // The destination of tile slot i (slot s0 + i, live).
 template <typename Cols, typename Sh>
@@ -343,40 +113,20 @@ __device__ __forceinline__ int slot_dst(const Sh& sh, const Cols& cols,
   return cols.at(min(max(e, 0), m - 1), r);
 }
 
-__device__ __forceinline__ Lane lane_of(
-    const int* offsets, const int* base, const int* ebase,
-    const int* tile_lane, const u64* live_end, unsigned scan_epoch,
-    int cap_in, int cap_out, int slot_tiles) {
-  const size_t b = blockIdx.y;
-  Lane ln;
-  ln.offs = offsets + b * (static_cast<size_t>(cap_in) + 1);
-  ln.base = base + b * cap_in;
-  ln.ebase = ebase + b * cap_in;
-  ln.tile_lane = tile_lane + b * (static_cast<size_t>(slot_tiles) + 1);
-  ln.total = ln.offs[cap_in];
-  ln.live = min(ln.total, cap_out);
-  ln.le = lane_end(live_end[b], scan_epoch);
-  return ln;
-}
-
-// Tiles of a lane with `live` slots: ceil(live / S).
-template <int S>
-__device__ __forceinline__ int tiles_of(int live) {
-  return live > 0 ? (live - 1) / S + 1 : 0;
-}
-
 template <int T, typename Cols>
 __global__ void __launch_bounds__(T, kMinThreads / T)
-af_expand(const int* __restrict__ offsets, const int* __restrict__ base,
+af_expand(const int* __restrict__ sizes, const int* __restrict__ offsets,
+          const int* __restrict__ base,
           const int* __restrict__ ebase, const int* __restrict__ tile_lane,
           const Cols cols, const unsigned char* __restrict__ visited, int n,
           int cap_in, int cap_out, int m, int slot_tiles,
           const u64* __restrict__ live_end, unsigned scan_epoch,
           int* __restrict__ first, unsigned* __restrict__ cand) {
   constexpr int V = Tile<T>::V, S = Tile<T>::kSlots;
-  __shared__ TileLanes<S, Cols::kRows> sh;
-  const Lane ln = lane_of(offsets, base, ebase, tile_lane, live_end,
-                          scan_epoch, cap_in, cap_out, slot_tiles);
+  __shared__ TileLanes<S, true, Cols::kRows, false> sh;
+  const Lane ln = lane_of(sizes, offsets, base, ebase, tile_lane,
+                          live_end, scan_epoch, cap_in, cap_out,
+                          slot_tiles);
   const size_t b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned char* vis = visited + b * n;
@@ -412,7 +162,8 @@ af_expand(const int* __restrict__ offsets, const int* __restrict__ base,
 
 template <int T, typename Cols>
 __global__ void __launch_bounds__(T, kMinThreads / T)
-af_emit(const int* __restrict__ offsets, const int* __restrict__ base,
+af_emit(const int* __restrict__ sizes, const int* __restrict__ offsets,
+        const int* __restrict__ base,
         const int* __restrict__ ebase, const int* __restrict__ tile_lane,
         const Cols cols, int n, int cap_in, int cap_out, int m,
         int slot_tiles, const u64* __restrict__ live_end,
@@ -422,11 +173,12 @@ af_emit(const int* __restrict__ offsets, const int* __restrict__ base,
         int* __restrict__ srcs, int* __restrict__ lengths,
         int* __restrict__ totals) {
   constexpr int V = Tile<T>::V, S = Tile<T>::kSlots, W = T / 32;
-  __shared__ TileLanes<S, Cols::kRows> sh;
+  __shared__ TileLanes<S, true, Cols::kRows, false> sh;
   __shared__ int counts[V * W];
   __shared__ int s_ticket, s_prefix, s_total;
-  const Lane ln = lane_of(offsets, base, ebase, tile_lane, live_end,
-                          scan_epoch, cap_in, cap_out, slot_tiles);
+  const Lane ln = lane_of(sizes, offsets, base, ebase, tile_lane,
+                          live_end, scan_epoch, cap_in, cap_out,
+                          slot_tiles);
   const size_t b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int* fst = first + b * n;
@@ -545,17 +297,18 @@ int af_launch(const Cols& cols, const int* sizes, const int* base,
   lb_offsets<<<dim3(static_cast<unsigned>(scan_tiles), batch),
                kScanThreads, 0, st>>>(sizes, base, row_offsets, cap_in, S,
                                       nt, offsets, ebase, tile_lane,
-                                      counters, live_end, status, epoch);
+                                      counters, live_end, status, epoch,
+                                      nullptr);
   const int x1 = static_cast<int>(std::min<long long>(
       slot_tiles, resident_blocks(af_expand<T, Cols>, T)));
   af_expand<T, Cols><<<dim3(x1, batch), T, 0, st>>>(
-      offsets, base, ebase, tile_lane, cols, visited, n, cap_in, cap_out,
+      sizes, offsets, base, ebase, tile_lane, cols, visited, n, cap_in, cap_out,
       m, nt, live_end, epoch, first, cand);
   const int x2 = static_cast<int>(std::min<long long>(
       std::max(slot_tiles, fill_tiles),
       resident_blocks(af_emit<T, Cols>, T)));
   af_emit<T, Cols><<<dim3(x2, batch), T, 0, st>>>(
-      offsets, base, ebase, tile_lane, cols, n, cap_in, cap_out, m, nt,
+      sizes, offsets, base, ebase, tile_lane, cols, n, cap_in, cap_out, m, nt,
       live_end, epoch, cap_front, counters, status, epoch + 1, first, cand,
       ids, srcs, lengths, totals);
   return static_cast<int>(cudaGetLastError());
@@ -584,24 +337,34 @@ int af_launch(const Cols& cols, const int* sizes, const int* base,
 
 }  // namespace
 
-EXPORT int advance_batch(const int* offsets, const int* base,
+EXPORT int advance_batch(const int* sizes, const int* base,
                          const int* row_offsets, const void* cols,
                          const int* anchor, int kind, int batch, int cap_in,
-                         int cap_out, int m, int iters, int* src, int* dst,
-                         int* eid, int* in_pos, int* rank,
-                         unsigned char* valid, int threads, void* stream) {
+                         int cap_out, int m, int* offsets, int* ebase,
+                         int* tile_lane, long long tile_lane_cap,
+                         u64* counters, u64* live_end, u64* status,
+                         long long status_cap, unsigned epoch, int* src,
+                         int* dst, int* eid, int* in_pos, int* rank,
+                         unsigned char* valid, int* totals, int threads,
+                         void* stream) {
   if (!valid_threads(threads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((cap_out + threads - 1) / threads, batch);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_ADV(C)                                                        \
-  adv_kernel<<<grid, threads, 0, st>>>(offsets, base, row_offsets, C,      \
-                                       cap_in, cap_out, m, iters, src, dst, \
-                                       eid, in_pos, rank, valid)
-  REPRO_FOR_COLS(kind, cols, anchor, REPRO_ADV)
+#define REPRO_ADV(C)                                                       \
+  return lb_tiles_launch<T, true>(                                         \
+      C, sizes, base, row_offsets, batch, cap_in, cap_out, m, offsets,     \
+      ebase, tile_lane, tile_lane_cap, counters, live_end, status,         \
+      status_cap, epoch, src, dst, eid, in_pos, rank, valid, totals, st)
+#define REPRO_ADV_T(TT)                                                    \
+  {                                                                        \
+    constexpr int T = TT;                                                  \
+    REPRO_FOR_COLS(kind, cols, anchor, REPRO_ADV)                          \
+  }
+  REPRO_FOR_THREADS(threads, REPRO_ADV_T)
+#undef REPRO_ADV_T
 #undef REPRO_ADV
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 EXPORT int advance_filter_batch(const int* sizes, const int* base,

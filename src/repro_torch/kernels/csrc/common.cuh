@@ -42,20 +42,6 @@ EXPORT const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Load-balanced expansion search, the reference's `_lb_body`
-// (repro/kernels/advance_fused.py:67-82): the upper bound of `slot` in the
-// exclusive degree scan offs[0..cap_in), as a bounded binary search of at
-// most `iters` steps, clamped to a valid input lane.
-__device__ __forceinline__ int lb_search(const int* __restrict__ offs,
-                                         int cap_in, int slot, int iters) {
-  int lo = 0, hi = cap_in;
-  for (int it = 0; it < iters && lo < hi; ++it) {
-    const int mid = lo + ((hi - lo) >> 1);
-    if (offs[mid] <= slot) lo = mid + 1; else hi = mid;
-  }
-  return max(min(lo - 1, cap_in - 1), 0);
-}
-
 // Exclusive scan of each row of counts (rows × nblk) into offs, one block
 // of 1024 threads per row; writes the row total and, when `lengths` is
 // given, min(total, clamp).
@@ -252,18 +238,58 @@ __device__ __forceinline__ int block_excl_max(int v, int* warp_buf) {
   return max(before, lane == 0 ? -1 : excl);
 }
 
-// p[lo, hi) = -1 by thread t of nt: 16-byte stores between the
-// unaligned ends.
-__device__ __forceinline__ void fill_neg1(int* __restrict__ p, long long lo,
-                                          long long hi, int t, int nt) {
+// *p = v; with kStream an evict-first store (data the kernel writes once
+// and does not read again).
+template <bool kStream, typename X>
+__device__ __forceinline__ void store(X* p, X v) {
+  if constexpr (kStream) __stcs(p, v); else *p = v;
+}
+
+// p[i] = v0 + step * i (int32, wrapping) for i in [lo, hi), by thread t of
+// nt: 16-byte stores between the unaligned ends.
+template <bool kStream = false>
+__device__ __forceinline__ void fill_run(int* __restrict__ p, long long lo,
+                                         long long hi, int v0, int step,
+                                         int t, int nt) {
   if (lo >= hi) return;
+  const auto at = [&](long long i) {
+    return static_cast<int>(static_cast<unsigned>(v0) +
+                            static_cast<unsigned>(step) *
+                                static_cast<unsigned>(i));
+  };
   const long long mis = (reinterpret_cast<uintptr_t>(p + lo) >> 2) & 3;
   const long long a = min(hi, lo + ((4 - mis) & 3));
-  for (long long i = lo + t; i < a; i += nt) p[i] = -1;
+  for (long long i = lo + t; i < a; i += nt) store<kStream>(p + i, at(i));
   const long long nvec = (hi - a) >> 2;
   int4* v = reinterpret_cast<int4*>(p + a);
-  for (long long i = t; i < nvec; i += nt) v[i] = make_int4(-1, -1, -1, -1);
-  for (long long i = a + nvec * 4 + t; i < hi; i += nt) p[i] = -1;
+  for (long long i = t; i < nvec; i += nt) {
+    const long long e = a + 4 * i;
+    store<kStream>(v + i,
+                   make_int4(at(e), at(e + 1), at(e + 2), at(e + 3)));
+  }
+  for (long long i = a + nvec * 4 + t; i < hi; i += nt) {
+    store<kStream>(p + i, at(i));
+  }
+}
+
+// p[lo, hi) = v, as fill_run.
+template <bool kStream>
+__device__ __forceinline__ void fill_bytes(unsigned char* __restrict__ p,
+                                           long long lo, long long hi,
+                                           unsigned char v, int t, int nt) {
+  if (lo >= hi) return;
+  const long long mis = reinterpret_cast<uintptr_t>(p + lo) & 15;
+  const long long a = min(hi, lo + ((16 - mis) & 15));
+  for (long long i = lo + t; i < a; i += nt) store<kStream>(p + i, v);
+  const long long nvec = (hi - a) >> 4;
+  const int w = v * 0x01010101;
+  int4* q = reinterpret_cast<int4*>(p + a);
+  for (long long i = t; i < nvec; i += nt) {
+    store<kStream>(q + i, make_int4(w, w, w, w));
+  }
+  for (long long i = a + nvec * 16 + t; i < hi; i += nt) {
+    store<kStream>(p + i, v);
+  }
 }
 
 // A lane's tail [lo, hi) = -1, split in contiguous parts over the
@@ -274,8 +300,8 @@ __device__ __forceinline__ void fill_tail(int* __restrict__ row, int lo,
   if (len <= 0) return;
   const long long part = (len + gridDim.x - 1) / gridDim.x;
   const long long a = lo + part * blockIdx.x;
-  fill_neg1(row, a, min(a + part, static_cast<long long>(hi)),
-            threadIdx.x, blockDim.x);
+  fill_run(row, a, min(a + part, static_cast<long long>(hi)), -1, 0,
+           threadIdx.x, blockDim.x);
 }
 
 // Blocks of `kernel` the card holds at once (its SMs times the blocks an

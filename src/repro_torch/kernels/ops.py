@@ -8,8 +8,9 @@ Each wrapper takes the registry op's arguments, and
   * on CUDA tensors checks device, dtype, shape and contiguity, allocates
     every output and scratch buffer, launches the kernel on PyTorch's
     current stream, raises if the launch returned a CUDA error, and adds
-    one to the kernel's launch counter. It never falls back. (K1 and K2
-    also use the look-back words kept per device, ``_lookback_state``.)
+    one to the kernel's launch counter. It never falls back. (K1, K2, K3
+    and K6 also use the look-back words kept per device,
+    ``_lookback_state``.)
 
 ``KERNELS`` lists the ten kernels with their sources, the TPU kernels
 they replace and their launch counters (``chip_smoke.py`` reads and
@@ -114,7 +115,8 @@ _U = ctypes.c_uint
 # every tuned launcher takes its threads per block just before the stream
 _SIGNATURES = {
     ("advance", "advance_batch"): (
-        [_P] * 5 + [_I] * 6 + [_P] * 6 + [_I, _P]),
+        [_P] * 5 + [_I] * 5 + [_P] * 3 + [_L] + [_P] * 3 + [_L, _U]
+        + [_P] * 7 + [_I, _P]),
     ("advance", "advance_filter_batch"): (
         [_P] * 5 + [_I] + [_P] + [_I] * 6 + [_P] * 4 + [_L, _P, _L]
         + [_P] * 3 + [_L, _U] + [_P] * 4 + [_I, _P]),
@@ -128,7 +130,9 @@ _SIGNATURES = {
         [_P, _I, _I] + [_P] * 3 + [_L, _P, _I, _P]),
     ("search", "segment_search_locate"): (
         [_P, _I, _I] + [_P] * 3 + [_L, _P, _I, _P]),
-    ("lb_expand", "lb_expand"): [_P, _I, _I, _I, _P, _P, _P, _I, _P],
+    ("lb_expand", "lb_expand"): (
+        [_P, _I, _I] + [_P] * 2 + [_L] + [_P] * 3 + [_L, _U] + [_P] * 4
+        + [_I, _P]),
     ("attention", "flash_attention"): (
         [_I] + [_P] * 6 + [_I, _I, _I, ctypes.c_float, _I, _I, _P]),
     ("attention", "attention_combine"): [_I] + [_P] * 3 + [_I] * 3 + [_P],
@@ -182,26 +186,6 @@ def _threads(op: str, cap: int, dev: torch.device,
         raise ValueError(f"threads per block must be a power of two in "
                          f"[64, 1024], not {t}")
     return t
-
-
-def _offsets(sizes: torch.Tensor) -> torch.Tensor:
-    """(B, cap_in+1) exclusive degree scans with the total last. One
-    int64 scan of the flattened rows, minus each row's starting sum:
-    PyTorch's scan along the last axis of a few long rows is far slower
-    on the card than one long scan."""
-    b, cap_in = sizes.shape
-    flat = torch.cumsum(sizes.reshape(-1), dim=0, dtype=torch.int64)
-    flat = flat.view(b, cap_in)
-    start = torch.cat([flat.new_zeros(1), flat[:-1, -1]]) if cap_in else (
-        flat.new_zeros(b))
-    zero = torch.zeros((b, 1), dtype=torch.int32, device=sizes.device)
-    return torch.cat([zero, (flat - start[:, None]).to(torch.int32)],
-                     dim=1).contiguous()
-
-
-def _iters(cap_in: int) -> int:
-    """Search steps of the reference's LB body."""
-    return max(math.ceil(math.log2(max(cap_in, 2))) + 1, 1)
 
 
 # the kernels' column kinds (csrc/advance.cu, csrc/search.cu)
@@ -260,50 +244,6 @@ def _kernel_cols(row_offsets, store, cache: Optional[dict], dev) -> _Cols:
     return _Cols(store, None, kind, variant, int(store.shape[0]))
 
 
-@B.register("advance_batch", B.CUDA, encodings=("dense", "delta"))
-def advance_batch(row_offsets, col_indices, base, sizes, cap_out: int,
-                  cache: Optional[dict] = None, *,
-                  threads: Optional[int] = None):
-    """K3: batched LB advance → (src, dst, edge_id, in_pos, rank, valid,
-    totals), (B, cap_out) each and totals (B,). ``col_indices`` is a
-    column store of any plan (see ``_kernel_cols``)."""
-    if row_offsets.device.type == "cpu":
-        return ref.advance_batch(row_offsets, col_indices, base, sizes,
-                                 cap_out)
-    dev = row_offsets.device
-    cols = _kernel_cols(row_offsets, col_indices, cache, dev)
-    _require(base, "base", torch.int32, 2, dev)
-    _require(sizes, "sizes", torch.int32, 2, dev)
-    if base.shape != sizes.shape:
-        raise ValueError("base and sizes must have one shape (B, cap_in)")
-    b, cap_in = base.shape
-    if cap_out > INT32_MAX:
-        raise ValueError("cap_out beyond int32")
-    nthr = _threads("advance", cap_out, dev, threads, cols.encoding)
-    offsets = _offsets(sizes)
-    out = [torch.empty((b, cap_out), dtype=torch.int32, device=dev)
-           for _ in range(5)]
-    valid = torch.empty((b, cap_out), dtype=torch.bool, device=dev)
-    _launch("advance", "advance_batch", runtime.ptr(offsets),
-            runtime.ptr(base), runtime.ptr(row_offsets),
-            runtime.ptr(cols.cols), runtime.ptr(cols.anchor), cols.kind, b,
-            cap_in, cap_out, cols.m, _iters(cap_in),
-            *(runtime.ptr(t) for t in out), runtime.ptr(valid), nthr,
-            runtime.stream_ptr(dev))
-    KERNELS["advance_batch"].count(cols.variant)
-    totals = offsets[:, cap_in].clone()
-    return (*out, valid, totals)
-
-
-@B.register("advance", B.CUDA, encodings=("dense", "delta"))
-def advance(row_offsets, col_indices, base, sizes, cap_out: int,
-            cache: Optional[dict] = None, *, threads: Optional[int] = None):
-    """Single-lane "advance": a B=1 launch of K3."""
-    out = advance_batch(row_offsets, col_indices, base[None], sizes[None],
-                        cap_out, cache, threads=threads)
-    return tuple(t[0] for t in out)
-
-
 def _first_table(cache: Optional[dict], b: int, n: int,
                  dev: torch.device) -> torch.Tensor:
     """The (B, n) first-slot table of K1, INT32_MAX everywhere between
@@ -318,21 +258,23 @@ def _first_table(cache: Optional[dict], b: int, n: int,
     return table
 
 
-# K1's offsets scan and emit and K2 are single-pass scans over tiles
-# (csrc/common.cuh): per lane a tile counter, per tile a status word, and
-# K1's live lane ends, every word tagged with the launch's epoch. They
-# persist between calls, one set per device (calls on one stream), and
-# grow as needed; a fresh set is all zeros, which no epoch (>= 1) reads as
-# written. Tile sizes as in csrc/advance.cu and csrc/compact.cu.
-SCAN_TILE = 4096              # sizes a tile of K1's offsets scan
-K1_TILE_SLOTS = 2048          # slots a K1 tile, at most (8 a thread)
+# The offsets scan of K1, K3 and K6, K1's emit and K2 are single-pass
+# scans over tiles (csrc/common.cuh): per lane a tile counter, per tile a
+# status word, and the live lane ends, every word tagged with the launch's
+# epoch. They persist between calls, one set per device (calls on one
+# stream), and grow as needed; a fresh set is all zeros, which no epoch
+# (>= 1) reads as written. Tile sizes as in csrc/lb_tiles.cuh and
+# csrc/compact.cu.
+SCAN_TILE = 4096              # sizes a tile of the offsets scan
+LB_TILE_SLOTS = 2048          # slots a tile of K1, K3, K6, at most
 COMPACT_ITEMS = 16            # mask bytes a thread of K2
 _EPOCH_LIMIT = 2 ** 30
 
 
-def k1_tile(threads: int) -> int:
-    """Slots a K1 tile takes at ``threads`` threads per block."""
-    return min(8 * threads, K1_TILE_SLOTS)
+def lb_tile(threads: int) -> int:
+    """Slots a tile of K1, K3 and K6 takes at ``threads`` threads per
+    block (8 a thread)."""
+    return min(8 * threads, LB_TILE_SLOTS)
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -369,6 +311,79 @@ def _lookback_state(dev: torch.device, lanes: int, tiles: int,
     return st, epoch
 
 
+def _lb_scratch(b: int, cap_in: int, cap_out: int, threads: int,
+                ebase: bool, dev: torch.device):
+    """The scratch of the LB scan (csrc/lb_tiles.cuh) in one int32
+    allocation → (the allocation, its pointers: offsets (B, cap_in + 1),
+    ebase (B, cap_in; null unless ``ebase``), tile_lane (B, slot_tiles +
+    1), tile_lane's length), with the look-back words and the call's
+    epoch."""
+    slot_tiles = max(_ceil_div(cap_out, lb_tile(threads)), 1)
+    lb, epoch = _lookback_state(
+        dev, b, b * max(_ceil_div(cap_in, SCAN_TILE), 1), 1)
+    n_off, n_eb = b * (cap_in + 1), b * cap_in if ebase else 0
+    n_tl = b * (slot_tiles + 1)
+    flat = torch.empty((n_off + n_eb + n_tl,), dtype=torch.int32,
+                       device=dev)
+    p = flat.data_ptr()
+    ptrs = (ctypes.c_void_p(p), ctypes.c_void_p(p + 4 * n_off if ebase
+                                                 else 0),
+            ctypes.c_void_p(p + 4 * (n_off + n_eb)), n_tl)
+    return flat, ptrs, lb, epoch
+
+
+@B.register("advance_batch", B.CUDA, encodings=("dense", "delta"))
+def advance_batch(row_offsets, col_indices, base, sizes, cap_out: int,
+                  cache: Optional[dict] = None, *,
+                  threads: Optional[int] = None):
+    """K3: batched LB advance → (src, dst, edge_id, in_pos, rank, valid,
+    totals), (B, cap_out) each and totals (B,). ``col_indices`` is a
+    column store of any plan (see ``_kernel_cols``). Two kernel launches,
+    the offsets scan and the expand pass, and no other device work. Each
+    output has an allocation of its own: callers keep some and drop the
+    rest (the operator layer drops rank, mxm src and rank)."""
+    if row_offsets.device.type == "cpu":
+        return ref.advance_batch(row_offsets, col_indices, base, sizes,
+                                 cap_out)
+    dev = row_offsets.device
+    cols = _kernel_cols(row_offsets, col_indices, cache, dev)
+    _require(base, "base", torch.int32, 2, dev)
+    _require(sizes, "sizes", torch.int32, 2, dev)
+    if base.shape != sizes.shape:
+        raise ValueError("base and sizes must have one shape (B, cap_in)")
+    b, cap_in = base.shape
+    if not 0 <= cap_out <= INT32_MAX:
+        raise ValueError(f"cap_out {cap_out:,} is outside int32")
+    nthr = _threads("advance", cap_out, dev, threads, cols.encoding)
+    # the scratch lives until the launches are enqueued on the stream
+    scratch, ptrs, lb, epoch = _lb_scratch(b, cap_in, cap_out, nthr, True,
+                                           dev)
+    rows = [torch.empty((b, cap_out), dtype=torch.int32, device=dev)
+            for _ in range(5)]
+    valid = torch.empty((b, cap_out), dtype=torch.bool, device=dev)
+    totals = torch.empty((b,), dtype=torch.int32, device=dev)
+    _launch("advance", "advance_batch", runtime.ptr(sizes),
+            runtime.ptr(base), runtime.ptr(row_offsets),
+            runtime.ptr(cols.cols), runtime.ptr(cols.anchor), cols.kind, b,
+            cap_in, cap_out, cols.m, *ptrs, runtime.ptr(lb.counters),
+            runtime.ptr(lb.live_end), runtime.ptr(lb.status),
+            lb.status.numel(), epoch, *(runtime.ptr(t) for t in rows),
+            runtime.ptr(valid), runtime.ptr(totals), nthr,
+            runtime.stream_ptr(dev))
+    del scratch
+    KERNELS["advance_batch"].count(cols.variant)
+    return (*rows, valid, totals)
+
+
+@B.register("advance", B.CUDA, encodings=("dense", "delta"))
+def advance(row_offsets, col_indices, base, sizes, cap_out: int,
+            cache: Optional[dict] = None, *, threads: Optional[int] = None):
+    """Single-lane "advance": a B=1 launch of K3."""
+    out = advance_batch(row_offsets, col_indices, base[None], sizes[None],
+                        cap_out, cache, threads=threads)
+    return tuple(t[0] for t in out)
+
+
 @B.register("advance_filter_batch", B.CUDA, encodings=("dense", "delta"))
 def advance_filter_batch(row_offsets, col_indices, base, sizes,
                          visited: torch.Tensor, cap_out: int,
@@ -394,7 +409,7 @@ def advance_filter_batch(row_offsets, col_indices, base, sizes,
     n = int(visited.shape[1])
     nthr = _threads("advance_filter", cap_out, dev, threads, cols.encoding)
     first = _first_table(cache, b, n, dev)
-    slot_tiles = max(_ceil_div(cap_out, k1_tile(nthr)), 1)
+    slot_tiles = max(_ceil_div(cap_out, lb_tile(nthr)), 1)
     tiles = max(_ceil_div(cap_in, SCAN_TILE), slot_tiles)
     lb, epoch = _lookback_state(dev, b, b * tiles, 2)
 
@@ -403,7 +418,7 @@ def advance_filter_batch(row_offsets, col_indices, base, sizes,
 
     offsets, ebase = empty(b, cap_in + 1), empty(b, cap_in)
     tile_lane = empty(b, slot_tiles + 1)
-    cand = empty(b, slot_tiles * k1_tile(nthr) // 32)
+    cand = empty(b, slot_tiles * lb_tile(nthr) // 32)
     ids, srcs = empty(b, cap_front), empty(b, cap_front)
     lengths, totals = empty(b), empty(b)
     _launch("advance", "advance_filter_batch", runtime.ptr(sizes),
@@ -685,24 +700,19 @@ B.register("mxm", B.CUDA)(make_mxm_impl(advance, segment_locate))
 # ---------------------------------------------------------------------------
 
 
-def lb_offsets(sizes: torch.Tensor) -> torch.Tensor:
-    """(cap_in+1,) int32 exclusive scan of ``sizes`` with the total last
-    (the reference wrapper's int32 cumsum)."""
-    return torch.cat([sizes.new_zeros(1, dtype=torch.int32),
-                      torch.cumsum(sizes, 0, dtype=torch.int32)])
-
-
 def lb_expand(sizes: torch.Tensor, cap_out: int, *,
               threads: Optional[int] = None) -> KExpansion:
     """K6: load-balanced expansion geometry of segments of ``sizes``
     (cap_in,) int32 over ``cap_out`` output slots → KExpansion(in_pos,
     rank, valid, total): each slot's segment, its rank there, whether it
     lies below the total (bool), and the total (0-d int32). Every slot,
-    the invalid ones too, equals the plain version's."""
+    the invalid ones too, equals the plain version's. Two kernel
+    launches, the scan of ``sizes`` and the expand pass, and no other
+    device work."""
     if sizes.dim() != 1:
         raise ValueError("sizes must be (cap_in,)")
-    offsets = lb_offsets(sizes)
     if sizes.device.type == "cpu":
+        offsets = ref.lb_offsets(sizes)
         return KExpansion(*ref.lb_expand(offsets, cap_out),
                           total=offsets[-1])
     dev = sizes.device
@@ -711,14 +721,21 @@ def lb_expand(sizes: torch.Tensor, cap_out: int, *,
         raise ValueError(f"cap_out {cap_out:,} is outside int32")
     cap_in = int(sizes.shape[0])
     nthr = _threads("lb_expand", cap_out, dev, threads)
-    in_pos = torch.empty((cap_out,), dtype=torch.int32, device=dev)
-    rank = torch.empty_like(in_pos)
+    # the scratch lives until the launches are enqueued on the stream
+    scratch, (offsets, _, tile_lane, n_tl), lb, epoch = _lb_scratch(
+        1, cap_in, cap_out, nthr, False, dev)
+    out = torch.empty((2 * cap_out + 1,), dtype=torch.int32, device=dev)
+    in_pos, rank, total = out[:cap_out], out[cap_out:-1], out[-1]
     valid = torch.empty((cap_out,), dtype=torch.bool, device=dev)
-    _launch("lb_expand", "lb_expand", runtime.ptr(offsets), cap_in, cap_out,
-            _iters(cap_in), runtime.ptr(in_pos), runtime.ptr(rank),
-            runtime.ptr(valid), nthr, runtime.stream_ptr(dev))
+    _launch("lb_expand", "lb_expand", runtime.ptr(sizes), cap_in, cap_out,
+            offsets, tile_lane, n_tl, runtime.ptr(lb.counters),
+            runtime.ptr(lb.live_end), runtime.ptr(lb.status),
+            lb.status.numel(), epoch, runtime.ptr(in_pos), runtime.ptr(rank),
+            runtime.ptr(valid), runtime.ptr(total), nthr,
+            runtime.stream_ptr(dev))
+    del scratch
     KERNELS["lb_expand"].count("int32")
-    return KExpansion(in_pos, rank, valid, offsets[-1])
+    return KExpansion(in_pos, rank, valid, total)
 
 
 _ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

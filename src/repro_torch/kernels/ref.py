@@ -31,8 +31,8 @@ from ..linalg.ops import _spmv_torch as spmv
 
 __all__ = ["ATTN_BQ", "KExpansion", "advance_batch", "advance_filter_batch",
            "attention_combine", "attention_kv_tile", "attention_partials",
-           "compact", "flash_attention", "lb_expand", "moe_gather",
-           "segment_locate", "segment_search", "spmm", "spmv",
+           "compact", "flash_attention", "lb_expand", "lb_offsets",
+           "moe_gather", "segment_locate", "segment_search", "spmm", "spmv",
            "tf32_round"]
 
 ATTN_BQ = 64                   # K7's queries per block (kBQ)
@@ -45,6 +45,14 @@ class KExpansion(NamedTuple):
     rank: torch.Tensor
     valid: torch.Tensor
     total: torch.Tensor
+
+
+def lb_offsets(sizes: torch.Tensor) -> torch.Tensor:
+    """(cap_in+1,) int32 exclusive scan of ``sizes`` with the total last
+    (the reference wrapper's int32 cumsum): the plain version's input
+    where K6's wrapper takes the sizes."""
+    return torch.cat([sizes.new_zeros(1, dtype=torch.int32),
+                      torch.cumsum(sizes, 0, dtype=torch.int32)])
 
 
 def lb_expand(offsets: torch.Tensor, cap_out: int):

@@ -60,9 +60,11 @@ def test_advance_kernels_match_plain(graph, b, cap_out):
     cap = cap_out or g.num_edges
     front = _frontier(g, b, seed=b)
     base, sizes = O._base_and_sizes(g, front.ids, front.valid_mask, "vertex")
-    got = K.advance_batch(g.row_offsets, g.col_indices, base, sizes, cap)
     want = P.advance_batch(g.row_offsets, g.col_indices, base, sizes, cap)
-    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    for threads in (None, 64, 128, 256, 512, 1024):   # K3, every slot
+        got = K.advance_batch(g.row_offsets, g.col_indices, base, sizes, cap,
+                              threads=threads)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), threads
     visited = torch.rand((b, g.num_vertices), device=g.device) < 0.3
     for _ in range(2):         # the first-slot table is reused clean
         got = K.advance_filter_batch(g.row_offsets, g.col_indices, base,
@@ -387,17 +389,28 @@ def test_third_slice_primitives_cuda_match_torch_backend(graph):
 
 @pytest.mark.parametrize("cap_in,cap_out", [(0, 5), (1, 8), (17, 100),
                                             (500, 513), (3000, 70_000),
-                                            (40, 7)])
+                                            (40, 7), (20_000, 9_000),
+                                            (0, 0)])
 def test_lb_expand_kernel_matches_plain_on_every_slot(card, cap_in,
                                                       cap_out):
+    """K6 at every block size, every slot (past the total too): zero-size
+    segments, totals past cap_out, a segment spanning many tiles, tiles
+    spanning many segments, a trailing empty segment."""
     rng = np.random.default_rng(cap_in + cap_out)
     sizes = torch.from_numpy(rng.integers(0, 40, cap_in).astype(np.int32))
     sizes[::7] = 0                              # zero-size segments
-    K.reset_launches()
-    got = K.lb_expand(sizes.to(card), cap_out)
+    if cap_in == 20_000:
+        sizes = (torch.rand(cap_in, generator=torch.Generator().manual_seed(
+            1)) < 0.05).to(torch.int32)         # tiles spanning many
+        sizes[5] = 3 * K.LB_TILE_SLOTS + 11     # a segment spanning many
+        sizes[-1] = 0
     want = K.lb_expand(sizes, cap_out)
-    assert K.KERNELS["lb_expand"].launches == 1
-    assert all(torch.equal(x.cpu(), y) for x, y in zip(got, want))
+    K.reset_launches()
+    for threads in (None, 64, 128, 256, 512, 1024):
+        got = K.lb_expand(sizes.to(card), cap_out, threads=threads)
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(got, want)), \
+            threads
+    assert K.KERNELS["lb_expand"].launches == 6
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -731,13 +744,17 @@ def test_advance_kernels_column_variants(plan_graphs, kind, plan):
                               g.cache)
         want = P.advance_batch(g.row_offsets, store, base, sizes, cap)
         assert all(torch.equal(x, y) for x, y in zip(got, want))
+        for threads in (64, 128, 512, 1024):     # K3 at every block size
+            assert all(torch.equal(x, y) for x, y in zip(K.advance_batch(
+                g.row_offsets, store, base, sizes, cap, g.cache,
+                threads=threads), want)), threads
         got = K.advance_filter_batch(g.row_offsets, store, base, sizes,
                                      visited, cap, 100, g.cache)
         want = P.advance_filter_batch(g.row_offsets, store, base, sizes,
                                       visited, cap, 100)
         assert all(torch.equal(x, y) for x, y in zip(got, want))
-    for name in ("advance_batch", "advance_filter_batch"):
-        assert K.KERNELS[name].variants == {want_variant: 2}, name
+    assert K.KERNELS["advance_batch"].variants == {want_variant: 10}
+    assert K.KERNELS["advance_filter_batch"].variants == {want_variant: 2}
 
 
 def test_delta_grid_is_escape_free_and_rmat_is_not(plan_graphs):
@@ -884,6 +901,9 @@ def _k1_inputs(g, case, seed):
     sizes = np.where(live, deg[base], 0)
     if case == "many_lanes":
         sizes = np.minimum(sizes, 1)
+    elif case == "long_lane":      # a lane spanning many tiles (K3: its
+        sizes[0, 7] = 5 * K.LB_TILE_SLOTS + 3        # edge ids run on)
+        cap_out = int(sizes.sum(axis=1).max()) + 5
     visited = rng.random((b, n)) < 0.3
     dev = g.device
 
@@ -921,6 +941,34 @@ def test_advance_filter_kernel_cases(plan_graphs, plan, case):
         assert all(torch.equal(x.cpu(), y) for x, y in zip(got, want)), \
             threads
         assert _first_clean(g.cache), threads
+
+
+@pytest.mark.parametrize("case", ["duplicates", "zero_lanes", "cap_in_0",
+                                  "clamped", "many_lanes", "long_lane"])
+@pytest.mark.parametrize("plan", ["int16", "int32", "int64", "delta"])
+def test_advance_kernel_cases(plan_graphs, plan, case):
+    """K3 under every column kind at every block size equals its plain
+    version on every slot, dead ones included (at cap_in = 0, where the
+    plain version refuses the shape, every slot is dead with in_pos 0)."""
+    g = plan_graphs["grid", plan]
+    store = g.col_store
+    base, sizes, _, cap_out, _ = _k1_inputs(g, case, 11)
+    b = base.shape[0]
+    if case == "cap_in_0":
+        want = tuple(torch.full((b, cap_out), v, dtype=torch.int32)
+                     for v in (-1, -1, -1, 0, 0)) + (
+            torch.zeros((b, cap_out), dtype=torch.bool),
+            torch.zeros(b, dtype=torch.int32))
+    else:
+        want = tuple(x.cpu() for x in P.advance_batch(
+            g.row_offsets, store, base, sizes, cap_out))
+    if case == "clamped":
+        assert (sizes.sum(dim=1) > cap_out).any()
+    for threads in (64, 128, 256, 512, 1024):
+        got = K.advance_batch(g.row_offsets, store, base, sizes, cap_out,
+                              g.cache, threads=threads)
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(got, want)), \
+            threads
 
 
 @pytest.mark.parametrize("threads", [64, 128, 256, 512, 1024])
@@ -1000,3 +1048,28 @@ def test_advance_filter_kernel_launches(plan_graphs):
                 else ("cp_kernel",))
         assert sum(ops.values()) == len(want), ops
         assert all(any(k in o for o in ops) for k in want), ops
+
+
+def test_advance_and_lb_expand_kernel_launches(plan_graphs):
+    """One K3 call and one K6 call are each exactly two device operations
+    (the offsets scan and the expand pass), with no memset or PyTorch
+    kernel beside them."""
+    from torch.profiler import ProfilerActivity, profile
+    g = plan_graphs["grid", "delta"]
+    base, sizes, _, cap_out, _ = _k1_inputs(g, "zero_lanes", 3)
+    calls = {"k3": lambda: K.advance_batch(g.row_offsets, g.col_store, base,
+                                           sizes, cap_out, g.cache),
+             "k6": lambda: K.lb_expand(sizes[0], cap_out)}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0}
+        assert sum(ops.values()) == 2, (name, ops)
+        assert all(any(k in o for o in ops)
+                   for k in ("lb_offsets", "lb_expand_tiles")), (name, ops)

@@ -42,6 +42,15 @@ a seed and handed to both.
     zero-size lanes, cap_in = 0, totals past cap_out, survivors past
     cap_front, tiles spanning thousands of lanes, and masks whose length
     is no multiple of 16.
+  * K3's and K6's tile arithmetic: the same offsets scan and partition,
+    then each live slot's outputs with no search (in_pos its lane, rank
+    from its lane's start in the tile, K3's CSR gathers) and the dead
+    tail's constants (K6: rank slot - offsets[cap_in - 1]) filled by the
+    lane's blocks, at 64, 256 and 1024 threads, bit for bit against
+    ``kernels/ref.py`` and the reference's ``advance_fused_batch_kernel``
+    and ``lb_expand_kernel`` in interpret mode: int16 / int32 / int64 and
+    delta columns, cap_in = 0, zero-size lanes, totals past cap_out, a
+    lane spanning many tiles, tiles spanning many lanes.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -452,11 +461,12 @@ def offsets_scan(sizes_row, slot_tile, slot_tiles, rng):
     return offs, int(nz[-1]) + 1 if len(nz) else 0, tile_lane
 
 
-def tile_lanes(offs, le, tile_lane, j, tile, s0, s_end):
-    """K1's partition of tile j, the slots [s0, s_end): the lane of s0
-    from the scan, each non-empty lane after it that starts below s_end
-    (up to the next tile's first lane, or the live end) marked at its
-    start, the tile's lane for each slot by a running maximum."""
+def tile_lanes(sizes_row, offs, le, tile_lane, j, tile, s0, s_end):
+    """The partition of tile j (K1, K3, K6), the slots [s0, s_end): the
+    lane of s0 from the scan, each non-empty lane after it (its size is
+    not 0) that starts below s_end (up to the next tile's first lane, or
+    the live end) marked at its start; for each slot, by a running
+    maximum, the tile position q where its lane starts, and that lane."""
     p0 = tile_lane[j]
     p1 = tile_lane[j + 1] if (j + 1) * tile < offs[-1] else le - 1
     assert p0 >= 0 and p1 >= p0
@@ -464,32 +474,36 @@ def tile_lanes(offs, le, tile_lane, j, tile, s0, s_end):
     lane_at = np.zeros(s_end - s0, np.int64)
     mark[0], lane_at[0] = 0, p0
     for lane in range(p0 + 1, p1 + 1):
-        if offs[lane + 1] > offs[lane] and offs[lane] < s_end:
+        if sizes_row[lane] != 0 and offs[lane] < s_end:
             p = offs[lane] - s0
             assert 0 < p < s_end - s0
             mark[p], lane_at[p] = p, lane
-    return lane_at[np.maximum.accumulate(mark)]
+    q = np.maximum.accumulate(mark)
+    return q, lane_at[q]
 
 
-def fill_tail(row, lo, hi, blocks):
-    """``fill_tail``: [lo, hi) = -1 in ``blocks`` contiguous parts."""
+def fill_tail(row, lo, hi, blocks, value=-1):
+    """``fill_tail`` and the fills of K3's and K6's dead tails: row[i] =
+    value (or value(i) for an array of indices) on [lo, hi), in
+    ``blocks`` contiguous parts."""
     part = -(-(hi - lo) // blocks) if hi > lo else 0
     for x in range(blocks):
-        a = lo + part * x
-        row[a:min(a + part, hi)] = -1
+        a = min(lo + part * x, hi)
+        z = min(a + part, hi)
+        row[a:z] = value(np.arange(a, z)) if callable(value) else value
 
 
 def advance_filter_model(ro, col_at, base, sizes, visited, cap_out,
                          cap_front, threads, rng):
     """K1 as the card runs it: the offsets scan, then the expand pass and
-    the emit pass over the live slots in tiles of ``K.k1_tile(threads)``,
+    the emit pass over the live slots in tiles of ``K.lb_tile(threads)``,
     the tiles of each pass in a random order; a slot that reads a larger
     first is a candidate, and only candidates are tested in the emit
     pass; the emit's prefixes by look-back, the tail by the lane's
     blocks. Returns (ids, srcs, lengths, totals, first)."""
     b, cap_in = sizes.shape
     n = visited.shape[1]
-    tile = K.k1_tile(threads)
+    tile = K.lb_tile(threads)
     ids = np.full((b, cap_front), 777, np.int32)     # torch.empty
     srcs = np.full((b, cap_front), 777, np.int32)
     lengths = np.zeros(b, np.int32)
@@ -506,7 +520,8 @@ def advance_filter_model(ro, col_at, base, sizes, visited, cap_out,
             s0 = j * tile
             s_end = min(s0 + tile, live)
             slots = np.arange(s0, s_end)
-            lanes = tile_lanes(offs, le, tile_lane, j, tile, s0, s_end)
+            _, lanes = tile_lanes(sizes[lane], offs, le, tile_lane, j,
+                                  tile, s0, s_end)
             src = base[lane][lanes]
             eid = ro[src] + slots - offs[lanes]
             return slots, src, np.array([col_at(e, s) for e, s in
@@ -710,3 +725,202 @@ def test_compact_model_matches_plain_version(cap, p, shared, threads):
                                                 jnp.asarray(mask[0]))
         assert np.array_equal(got[0][0], np.asarray(jpacked))
         assert got[1][0] == int(jcount)
+
+
+def lb_tiles_model(sizes, cap_out, threads, rng, gather=None):
+    """K3 (``gather`` = (row offsets, base, column reader, m)) and K6
+    (``gather`` None) as the card runs them: per lane the offsets scan,
+    then the live tiles in a random order, each slot's outputs from its
+    tile's partition with no search — in_pos its lane, rank i - q (plus
+    s0 less the lane's start for the tile's first lane), and the CSR
+    gathers (src = base[lane], eid = the lane's edge base + slot, dst =
+    the column at the clamped edge) — then valid and the dead tail filled
+    by a random number of the lane's blocks in contiguous parts. Returns
+    the K3 tuple, or K6's (in_pos, rank, valid, total) for one lane."""
+    b, cap_in = sizes.shape
+    tile = K.lb_tile(threads)
+    slot_tiles = max(-(-cap_out // tile), 1)
+    rows = np.full((5, b, cap_out), 777, np.int64)     # torch.empty
+    valid = np.full((b, cap_out), 7, np.int64)
+    totals = np.zeros(b, np.int64)
+    for lane in range(b):
+        src, dst, eid, ip, rk = rows[:, lane]
+        offs, le, tile_lane = offsets_scan(sizes[lane], tile, slot_tiles,
+                                           rng)
+        total = totals[lane] = int(offs[cap_in])
+        live = max(min(total, cap_out), 0)
+        for j in rng.permutation(-(-live // tile)):
+            s0 = j * tile
+            s_end = min(s0 + tile, live)
+            q, lanes = tile_lanes(sizes[lane], offs, le, tile_lane, j, tile,
+                                  s0, s_end)
+            i = np.arange(s_end - s0)
+            ip[s0 + i] = lanes
+            rk[s0 + i] = i - q + np.where(q == 0, s0 - offs[lanes[0]], 0)
+            if gather is not None:
+                ro, base, cols_at, m = gather
+                s = base[lane][lanes]
+                e = ro[s] - offs[lanes] + s0 + i          # ebase + slot
+                src[s0 + i], eid[s0 + i] = s, e
+                dst[s0 + i] = cols_at(np.clip(e, 0, m - 1), s)
+        blocks = int(rng.integers(1, 9))
+        fill_tail(valid[lane], 0, live, 1, 1)
+        fill_tail(valid[lane], live, cap_out, blocks, 0)
+        fill_tail(ip, live, cap_out, blocks, max(cap_in - 1, 0))
+        if gather is None:
+            last = total - sizes[lane, -1] if cap_in else 0
+            fill_tail(rk, live, cap_out, blocks, lambda s: s - last)
+        else:
+            for r in (src, dst, eid):
+                fill_tail(r, live, cap_out, blocks, -1)
+            fill_tail(rk, live, cap_out, blocks, 0)
+    if gather is None:
+        return rows[3, 0], rows[4, 0], valid[0] == 1, totals[0]
+    return (*rows, valid == 1, totals)
+
+
+def _k3_case(case):
+    """(graph, base, sizes, cap_out) on the CPU: the int16 rmat (int32 /
+    int64 columns of the same graph), the escape-free delta grid; zero-size
+    lanes between live ones in every case."""
+    rng = np.random.default_rng(len(case))
+    kw = {"index_dtype": case} if case in ("int32", "int64") else {}
+    g = (TG.grid2d(24, weighted=True, seed=3, encoding="delta",
+                   device="cpu")
+         if case == "delta" else TG.rmat(8, 8, seed=3, weighted=True,
+                                         device="cpu", **kw))
+    n, m = g.num_vertices, g.num_edges
+    deg = g.degrees.numpy()
+    b, cap_in, cap_out = 3, 300, m
+    base = rng.integers(0, n, (b, cap_in))
+    live = rng.random((b, cap_in)) < 0.5
+    if case == "cap_in_0":
+        cap_in = 0
+        base, live = base[:, :0], live[:, :0]
+    elif case == "clamped":                    # totals past cap_out
+        cap_out = 700
+    elif case == "many_lanes":                 # tiles spanning many lanes
+        cap_in = 3 * K.SCAN_TILE + 77
+        base = rng.integers(0, n, (b, cap_in))
+        live = rng.random((b, cap_in)) < 0.05
+        live[1, 2000:9000] = False
+    sizes = np.where(live, deg[base], 0).astype(np.int32)
+    if case == "many_lanes":
+        sizes = np.minimum(sizes, 1).astype(np.int32)
+    elif case == "long_lane":                  # a lane spanning many tiles
+        sizes[0, 7] = 5 * K.LB_TILE_SLOTS + 3  # (edge ids run past its row)
+        cap_out = int(sizes.sum(axis=1).max()) + 5
+    return g, base.astype(np.int32), sizes, cap_out
+
+
+def _cols_reader(store):
+    """Vectorised column reader (edge ids, source rows) → int64 ids."""
+    if hasattr(store, "anchor"):
+        anchor = store.anchor.numpy().astype(np.int64)
+        delta = store.delta.numpy().astype(np.int64)
+        return lambda e, s: anchor[s] + delta[e]
+    cols = store.numpy().astype(np.int64)
+    return lambda e, s: cols[e]
+
+
+K3_CASES = ["int16", "int32", "int64", "delta", "cap_in_0", "clamped",
+            "many_lanes", "long_lane"]
+
+
+@pytest.mark.parametrize("threads", [64, 256, 1024])
+@pytest.mark.parametrize("case", K3_CASES)
+def test_advance_model_matches_plain_version(case, threads):
+    """K3's scan, partition, live writes and dead-tail constants against
+    kernels/ref.py, every output bit for bit: int16 / int32 / int64 and
+    delta columns, cap_in = 0, zero-size lanes, totals past cap_out, a
+    lane spanning many tiles, tiles spanning many lanes."""
+    g, base, sizes, cap_out = _k3_case(case)
+    store = g.col_store
+    if case in ("int16", "int32", "int64"):
+        assert store.dtype == getattr(torch, case)
+    ro = g.row_offsets.numpy().astype(np.int64)
+    got = lb_tiles_model(sizes, cap_out, threads,
+                         np.random.default_rng(threads),
+                         (ro, base, _cols_reader(store), g.num_edges))
+    b = base.shape[0]
+    if case == "cap_in_0":
+        # no input lane: the plain version refuses the shape in its
+        # gathers; every slot is dead, in_pos 0
+        want = [np.full((b, cap_out), v) for v in (-1, -1, -1, 0, 0)] + [
+            np.zeros((b, cap_out), bool), np.zeros(b)]
+    else:
+        want = [t.numpy() for t in P.advance_batch(
+            g.row_offsets, store, torch.from_numpy(base),
+            torch.from_numpy(sizes), cap_out)]
+    for i, (x, y) in enumerate(zip(got, want)):
+        assert np.array_equal(x, y), i
+    if case == "clamped":
+        assert (sizes.sum(axis=1) > cap_out).any()
+
+
+@pytest.mark.parametrize("case", ["int16", "int32", "clamped", "long_lane"])
+def test_advance_model_matches_reference_kernel(case):
+    """The same model against the JAX package's advance_fused_batch_kernel
+    (the "advance_batch" pallas provider, interpret mode on the CPU)."""
+    from repro.core import backend as JB
+    g, base, sizes, cap_out = _k3_case(case)
+    cols = g.col_store.numpy()
+    ro = g.row_offsets.numpy()
+    got = lb_tiles_model(sizes, cap_out, 256, np.random.default_rng(0),
+                         (ro.astype(np.int64), base,
+                          lambda e, s: cols[e].astype(np.int64),
+                          g.num_edges))
+    want = JB.dispatch("advance_batch", "pallas")(
+        jnp.asarray(ro), jnp.asarray(cols), jnp.asarray(base),
+        jnp.asarray(sizes), cap_out)
+    for i, (x, y) in enumerate(zip(got, want)):
+        assert np.array_equal(x, np.asarray(y)), i
+
+
+def _k6_sizes(case):
+    rng = np.random.default_rng(len(case))
+    if case == "cap_in_0":
+        return np.zeros(0, np.int32), 4097
+    sizes = rng.integers(0, 9, 3000).astype(np.int32)
+    sizes[rng.random(3000) < 0.4] = 0                 # zero-size segments
+    cap_out = int(sizes.sum()) + 777                  # slots past the total
+    if case == "clamped":
+        cap_out = int(sizes.sum()) // 3
+    elif case == "many_lanes":
+        sizes = (rng.random(3 * K.SCAN_TILE + 77) < 0.05).astype(np.int32)
+        sizes[2000:9000] = 0
+        cap_out = int(sizes.sum()) + 5
+    elif case == "long_lane":
+        sizes[11] = 5 * K.LB_TILE_SLOTS + 3
+        sizes[-1] = 0                                 # a trailing empty one
+        cap_out = int(sizes.sum()) + 999
+    return sizes, cap_out
+
+
+K6_CASES = ["zero_lanes", "cap_in_0", "clamped", "many_lanes", "long_lane"]
+
+
+@pytest.mark.parametrize("threads", [64, 256, 1024])
+@pytest.mark.parametrize("case", K6_CASES)
+def test_lb_expand_model_matches_plain_version(case, threads):
+    """K6's scan, partition, live writes and dead tail (in_pos cap_in - 1,
+    rank slot - offsets[cap_in - 1]) against kernels/ref.py on every
+    slot."""
+    sizes, cap_out = _k6_sizes(case)
+    got = lb_tiles_model(sizes[None], cap_out, threads,
+                         np.random.default_rng(threads))
+    want = K.lb_expand(torch.from_numpy(sizes), cap_out)
+    for i, (x, y) in enumerate(zip(got, want)):
+        assert np.array_equal(x, y.numpy()), i
+
+
+@pytest.mark.parametrize("case", K6_CASES)
+def test_lb_expand_model_matches_reference_kernel(case):
+    """The same model against the JAX package's lb_expand_kernel
+    (interpret mode on the CPU) and its oracle."""
+    sizes, cap_out = _k6_sizes(case)
+    got = lb_tiles_model(sizes[None], cap_out, 128,
+                         np.random.default_rng(1))
+    want = JK.lb_expand(jnp.asarray(sizes), cap_out)
+    for i, (x, y) in enumerate(zip(got, want)):
+        assert np.array_equal(x, np.asarray(y)), i
