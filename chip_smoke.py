@@ -38,7 +38,12 @@ Phases:
      the TC shape); K3 (B = 1) and K5 (locate) at triangle
      counting's shape, the mxm expansion of the oriented rmat scale-18
      graph (6.6e8 slots); K5 (found) on segmented_intersect's probes of
-     edge pairs of the scale-22 graph, and on an empty haystack; K4m
+     edge pairs of the scale-22 graph, on an empty haystack, and at
+     subgraph_match's join on rmat-16 (its one probe launch, 1.2e9
+     lanes); K5 (locate) at rmat-15's TC probes over int16, int32 and
+     int64 columns; every K5 call bit-equal to its plain version at every
+     block size, with the device operations one call puts on the card
+     (K5's one kernel, nothing else; printed); K4m
      (spmm) bit-equal to its plain version on integer-valued blocks over
      five semirings x (structural, weighted) x (masked, unmasked) x
      k in {1, 4, 5, 32, 33}, on uniform floats (plus_times) bit-equal
@@ -282,6 +287,21 @@ def _lb_ops(ops, bare, what, seen) -> str:
         raise AssertionError(f"{what}: {names}, expected exactly "
                              f"{LB_OPS}")
     if len(ops) == 2:
+        seen.append(what)
+    return names
+
+
+K5_OP = "search_rows"                          # K5's one kernel
+
+
+def _k5_ops(ops, bare, what, seen) -> str:
+    """The device-ops text of a K5 call. Raises if the profiler recorded
+    any operation but K5's kernel, or it twice; ``seen`` collects the
+    calls recorded as exactly that one kernel."""
+    names = _ops_text(ops, bare)
+    if any(c != 1 or K5_OP not in o for o, c in ops):
+        raise AssertionError(f"{what}: {names}, expected exactly {K5_OP}")
+    if len(ops) == 1:
         seen.append(what)
     return names
 
@@ -1206,12 +1226,14 @@ def main(argv=None) -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(root / "src"))
+    sys.path.insert(0, str(root / "tools"))
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 2
 
+    from repro_torch.core import backend as B
     from repro_torch.core import frontier as F
     from repro_torch.core import graph as G
     from repro_torch.core import operators as O
@@ -1231,6 +1253,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import runtime, tuner
     from repro_torch.linalg import ops as L
     from repro_torch.linalg import semiring as SR
+    from search_steps import join_probe
 
     t_start = time.monotonic()
     dev = runtime.resolve_device(None)
@@ -1322,6 +1345,7 @@ def main(argv=None) -> int:
     ys = _yardsticks(torch, dev)
     blocks = tuner.candidates(tuner.MAX_THREADS)
     lb_seen = []                 # the K3 / K6 calls shown as two kernels
+    k5_seen = []                 # the K5 calls shown as its one kernel
     # K6's device operations at rmat-22's expansion (phase 2 (d) checks
     # and times it), taken with the run's first profiler sessions: later
     # one-call sessions lose records (PERF.md §7)
@@ -1596,14 +1620,16 @@ def main(argv=None) -> int:
     hi = torch.index_select(bt_off, 0, rows + 1)
     torch.cuda.empty_cache()
 
-    def k5l():
-        return K.segment_locate(bt_idx, lo, hi, needles)
+    def k5l(t=None):
+        return K.segment_locate(bt_idx, lo, hi, needles, threads=t)
 
     def p5l():
         return P.segment_locate(bt_idx, lo, hi, needles)
 
-    pos = k5l()
-    equal_ints("segment_search (locate)", [pos], [p5l()])
+    pos = p5l()
+    _check_blocks(torch, "K5 locate (TC shape)", lambda t: [k5l(t)], [pos],
+                  blocks)
+    equal_ints("segment_search (locate)", [k5l()], [pos])
     # the library call: in mxm every [lo, hi) is one whole CSR row, so
     # torch.searchsorted over (row, column) keys finds the same positions
     keys = sub.row_seg.long() * n_tc + bt_idx.long()
@@ -1623,6 +1649,7 @@ def main(argv=None) -> int:
     del lpos, hit, pos
     ms, pms, lms = (_timed(torch, k5l, 10), _timed(torch, p5l, 1),
                     _timed(torch, lib5, 3))
+    devops, dev_ms, bare = _device_ops(torch, k5l)
     # each lane reads needle, lo, hi and writes one int32; the haystack
     # once. Operations: at most floor(log2 len) + 1 steps of ~5 per lane
     seg = (hi - lo).clamp(min=1).to(torch.float32)
@@ -1631,7 +1658,9 @@ def main(argv=None) -> int:
     nbytes, ops = cap * 16 + m_sub * 4, steps * 5 + cap * 4
     print(f"K5 segment_search locate cap={cap} hits={n_hit} (TC shape): "
           f"{ms:.3f} ms, plain {pms:.3f} ms, torch.searchsorted {lms:.3f} "
-          f"ms, bound {_bound_ms(nbytes, ops)[0]:.3f} ms")
+          f"ms, bound {_bound_ms(nbytes, ops)[0]:.3f} ms; "
+          f"{_k5_ops(devops, bare, 'K5 TC locate', k5_seen)}, device "
+          f"{dev_ms:.3f} ms; bit-equal at {blocks} threads per block")
     record("segment_search", 0, ms, pms, nbytes, ops, lms)
     del keys, query, seg, needles, lo, hi, base, probe, sizes
     torch.cuda.empty_cache()
@@ -1651,14 +1680,16 @@ def main(argv=None) -> int:
     fb = F.SparseFrontier(ids=pv[:npairs].contiguous(), length=length)
     needles, lo, hi, _, _ = O._intersect_probes(g, fa, fb, need, "cuda")
 
-    def k5f():
-        return K.segment_search(ci, lo, hi, needles)
+    def k5f(t=None):
+        return K.segment_search(ci, lo, hi, needles, threads=t)
 
     def p5f():
         return P.segment_search(ci, lo, hi, needles)
 
-    found = k5f()
-    equal_ints("segment_search (found)", [found], [p5f()])
+    found = p5f()
+    _check_blocks(torch, "K5 found (rmat-22 probes)", lambda t: [k5f(t)],
+                  [found], blocks)
+    equal_ints("segment_search (found)", [k5f()], [found])
     keys = g.row_seg.long() * n + ci.long()
     query = ((torch.searchsorted(ro, lo, right=True) - 1).long() * n
              + needles.long())
@@ -1673,13 +1704,16 @@ def main(argv=None) -> int:
     del lfound
     ms, pms, lms = (_timed(torch, k5f, 10), _timed(torch, p5f, 1),
                     _timed(torch, lib5f, 3))
+    devops, dev_ms, bare = _device_ops(torch, k5f)
     # 13 B per lane (needle, lo, hi, one bool); no haystack term: each
     # probe reads ~log2(deg) entries of one row, a small part of the
     # 513 MB of columns, and which entries it reads is not counted
     print(f"K5 segment_search found pairs={npairs} cap={need} hits="
           f"{int(found.sum())} (scale {args.scale}): {ms:.3f} ms, plain "
           f"{pms:.3f} ms, torch.searchsorted {lms:.3f} ms, bound "
-          f"{_bound_ms(need * 13, 0)[0]:.3f} ms")
+          f"{_bound_ms(need * 13, 0)[0]:.3f} ms; "
+          f"{_k5_ops(devops, bare, 'K5 found', k5_seen)}, device "
+          f"{dev_ms:.3f} ms; bit-equal at {blocks} threads per block")
     del keys, query, found, needles, lo, hi
     torch.cuda.empty_cache()
     r_k = O.segmented_intersect(g, fa, fb, need, backend="cuda")
@@ -1700,6 +1734,80 @@ def main(argv=None) -> int:
                 P.segment_locate(empty, lo0, lo0 + 1, nd0)])
     print("K5 on an empty haystack: equal to the plain version")
     torch.cuda.empty_cache()
+
+    # K5 (found) at subgraph_match's join on rmat-16: the triangle query's
+    # one probe launch (path (c)'s), its inputs kept from a run. The plain
+    # version runs in pieces of 2^27 lanes (lanes are independent)
+    g16 = G.rmat(min(args.scale, LP_SCALE), EDGE_FACTOR, seed=0,
+                 weighted=True, device=dev)
+    cap16 = max(6 * int(triangle_count(g16, backend="cuda").total),
+                g16.num_edges)
+    j_hay, j_lo, j_hi, j_nd = join_probe(B, subgraph_match, g16, cap16)
+    nj = int(j_nd.shape[0])
+    piece = 1 << 27
+
+    def k5j(t=None):
+        return K.segment_search(j_hay, j_lo, j_hi, j_nd, threads=t)
+
+    def p5j():
+        return [P.segment_search(j_hay, j_lo[a:a + piece], j_hi[a:a + piece],
+                                 j_nd[a:a + piece])
+                for a in range(0, nj, piece)]
+
+    for t in (None, *blocks):
+        got = k5j(t)
+        for a in range(0, nj, piece):
+            if not torch.equal(got[a:a + piece], P.segment_search(
+                    j_hay, j_lo[a:a + piece], j_hi[a:a + piece],
+                    j_nd[a:a + piece])):
+                raise AssertionError(f"K5 at subgraph_match's join differs "
+                                     f"from the plain version at {t} "
+                                     f"threads per block")
+        del got
+    torch.cuda.empty_cache()
+    ms, pms = _timed(torch, k5j, 10), _timed(torch, p5j, 1)
+    devops, dev_ms, bare = _device_ops(torch, k5j)
+    print(f"K5 segment_search found at subgraph_match's join (rmat scale "
+          f"{min(args.scale, LP_SCALE)}, cap {cap16}): {nj} lanes, "
+          f"{ms:.3f} ms, plain {pms:.3f} ms (in pieces of 2^27 lanes), "
+          f"bound {_bound_ms(nj * 13, 0)[0]:.3f} ms (13 B a lane); "
+          f"{_k5_ops(devops, bare, 'K5 subgraph join', k5_seen)}, device "
+          f"{dev_ms:.3f} ms; bit-equal at {blocks} threads per block")
+    del j_hay, j_lo, j_hi, j_nd, g16
+    torch.cuda.empty_cache()
+
+    # K5 (locate) at TC's probes on rmat scale 15 over the int16, int32
+    # and int64 columns of one graph (path (e)'s storage plans)
+    g15 = G.rmat(min(args.scale, INT16_SCALE), EDGE_FACTOR, seed=0,
+                 weighted=True, device=dev)
+    sub15, s15, d15 = TC._orient(g15)
+    (a15, ai15, _), (b15, bi15, _), base15, probe15, cap15 = L.mxm_plan(
+        sub15, sub15, (s15, d15), b_transpose=True)
+    sz15 = (torch.index_select(a15, 0, base15 + 1)
+            - torch.index_select(a15, 0, base15)).to(torch.int32)
+    _, nd15, _, pair15, _, _, _ = K.advance(a15, ai15, base15, sz15, cap15)
+    rows15 = torch.index_select(probe15, 0, pair15)
+    lo15 = torch.index_select(b15, 0, rows15)
+    hi15 = torch.index_select(b15, 0, rows15 + 1)
+    want15 = P.segment_locate(bi15.to(torch.int32), lo15, hi15, nd15)
+    times15 = {}
+    for dt in (torch.int16, torch.int32, torch.int64):
+        hay15 = bi15.to(dt)
+        _check_blocks(torch, f"K5 locate {dt} (rmat-15 TC)",
+                      lambda t: [K.segment_locate(hay15, lo15, hi15, nd15,
+                                                  threads=t)],
+                      [want15], blocks)
+        times15[str(dt).replace("torch.", "")] = _timed(
+            torch, lambda: K.segment_locate(hay15, lo15, hi15, nd15), 20)
+    print(f"K5 segment_search locate at rmat-15's TC probes ({cap15} "
+          f"lanes): " + ", ".join(f"{k} {v:.4f} ms"
+                                  for k, v in times15.items())
+          + f"; each bit-equal to the plain version at {blocks} threads "
+          f"per block")
+    del g15, sub15, a15, ai15, b15, bi15, base15, probe15, sz15, nd15
+    del pair15, rows15, lo15, hi15, want15
+    torch.cuda.empty_cache()
+    print(f"K5 calls recorded as exactly {K5_OP}: {k5_seen}")
 
     # K4m: the SpMM kernel against its plain version (run on the card,
     # whose plus fold is an atomic index_add_). Integer-valued blocks and

@@ -645,11 +645,16 @@ def spmm(offsets, indices, values, x, sr, ell_width, mask, row_seg=None,
     return y
 
 
+SEARCH_LANES = 4              # lanes a thread of K5 (csrc/search.cu)
+
+
 def _search(haystack, lo, hi, needles, locate: bool,
             threads: Optional[int]) -> torch.Tensor:
     """K5 on CUDA tensors: one launch in ``found`` (bool) or ``locate``
     (int32 position, -1 where absent) mode, over a dense haystack of
-    int16, int32 or int64 (a graph's columns at its index dtype)."""
+    int16, int32 or int64 (a graph's columns at its index dtype): each
+    warp takes chunks of 32 · ``SEARCH_LANES`` lanes, a thread's
+    ``SEARCH_LANES`` searches interleaved."""
     dev = haystack.device
     kind, variant = _dense_cols(haystack, "haystack", dev)
     for t, name in ((lo, "lo"), (hi, "hi"), (needles, "needles")):

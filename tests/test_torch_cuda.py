@@ -24,6 +24,8 @@ from repro_torch.kernels import ref as P
 from repro_torch.linalg import ops as L
 from repro_torch.linalg import semiring as SR
 
+from _k5_cases import K5_CASES, k5_case
+
 pytestmark = pytest.mark.cuda
 
 # the kernels of the graph paths; lb_expand is the kernel API's and the
@@ -1073,3 +1075,100 @@ def test_advance_and_lb_expand_kernel_launches(plan_graphs):
         assert sum(ops.values()) == 2, (name, ops)
         assert all(any(k in o for o in ops)
                    for k in ("lb_offsets", "lb_expand_tiles")), (name, ops)
+
+
+# ---- K5 redesigned: one block a tile of lanes, each run's segment (or
+# its top levels) read once into shared memory --------------------------
+
+BLOCKS = (64, 128, 256, 512, 1024)
+
+
+def _k5_equal(hay, lo, hi, needles):
+    """K5 in both modes at every block size against its plain version on
+    the same card tensors, every lane."""
+    want_f = P.segment_search(hay, lo, hi, needles)
+    want_l = P.segment_locate(hay, lo, hi, needles)
+    for t in BLOCKS:
+        assert torch.equal(K.segment_search(hay, lo, hi, needles,
+                                            threads=t), want_f), t
+        assert torch.equal(K.segment_locate(hay, lo, hi, needles,
+                                            threads=t), want_l), t
+    return want_f
+
+
+@pytest.mark.parametrize("dtype", ["int16", "int32", "int64"])
+@pytest.mark.parametrize("case", K5_CASES)
+def test_segment_search_kernel_model_cases(card, case, dtype):
+    """The tile model's cases (tests/test_torch_kernel_models.py): runs
+    sharing a segment, broken runs, a run over many tiles, a hub past the
+    budget, short and empty segments, unsorted segments, lo / hi outside
+    the haystack, an empty haystack, needles past every value."""
+    hay, lo, hi, nd = k5_case(case)
+    if dtype == "int16" and case == "hub":
+        hay, nd = hay // 32, (nd // 32).astype(np.int32)
+    t = [torch.from_numpy(a).to(card) for a in
+         (hay.astype(dtype), lo, hi, nd)]
+    _k5_equal(*t)
+    # unaligned views take the kernel's scalar loads and stores
+    _k5_equal(t[0], *(a[1:] for a in t[1:]))
+
+
+def test_segment_search_kernel_real_probes(graph):
+    """TC's mxm probes (every [lo, hi) a row of the oriented graph, the
+    needles a row's sorted columns) and segmented_intersect's probes of
+    edge pairs, at every block size, bit for bit."""
+    from repro_torch.core.primitives import tc as TC
+    g = graph
+    sub, ssrc, sdst = TC._orient(g)
+    (a_off, a_idx, _), (bt_off, bt_idx, _), base, probe, cap = L.mxm_plan(
+        sub, sub, (ssrc, sdst), b_transpose=True)
+    sizes = (a_off[base.long() + 1] - a_off[base.long()]).to(torch.int32)
+    _, needles, _, pair, _, _, _ = K.advance(a_off, a_idx, base, sizes, cap)
+    rows = torch.index_select(probe, 0, pair)
+    pos = _k5_equal(bt_idx, torch.index_select(bt_off, 0, rows),
+                    torch.index_select(bt_off, 0, rows + 1), needles)
+    assert int(pos.sum()) > 0
+    rng = np.random.default_rng(4)
+    e = torch.from_numpy(rng.integers(0, g.num_edges, 4000)).to(g.device)
+    length = torch.tensor(4000, dtype=torch.int32, device=g.device)
+    fa = F.SparseFrontier(ids=torch.index_select(g.row_seg, 0, e),
+                          length=length)
+    fb = F.SparseFrontier(ids=torch.index_select(g.col_indices, 0, e),
+                          length=length)
+    need = int(torch.minimum(g.degrees[fa.ids.long()],
+                             g.degrees[fb.ids.long()]).sum())
+    needles, lo, hi, _, _ = O._intersect_probes(g, fa, fb, need, "cuda")
+    assert int(_k5_equal(g.col_indices, lo, hi, needles).sum()) > 0
+
+
+def test_segment_search_kernel_launches(graph):
+    """One K5 call, in either mode, is one device operation: the row
+    kernel, with no memset or PyTorch kernel beside it. A profiler
+    session of one short call can lose its device records, so each mode
+    gets up to three device-only sessions, the host idle around the call;
+    any operation but K5's kernel fails at once."""
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    g = graph
+    lo, hi, needles = _probes(g, 100_000, seed=5)
+    for fn in (K.segment_search, K.segment_locate):
+        fn(g.col_indices, lo, hi, needles)
+        torch.cuda.synchronize()
+        seen = []
+        for _ in range(3):
+            K.reset_launches()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                time.sleep(0.25)
+                fn(g.col_indices, lo, hi, needles)
+                torch.cuda.synchronize()
+                time.sleep(0.25)
+            ops = {e.key: e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0}
+            assert all("search_rows" in o and c == 1
+                       for o, c in ops.items()), ops
+            assert K.KERNELS["segment_search"].launches == 1
+            seen.append(sum(ops.values()))
+            if seen[-1] == 1:
+                break
+        assert seen[-1] == 1, seen

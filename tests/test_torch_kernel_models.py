@@ -51,6 +51,12 @@ a seed and handed to both.
     and ``lb_expand_kernel`` in interpret mode: int16 / int32 / int64 and
     delta columns, cap_in = 0, zero-size lanes, totals past cap_out, a
     lane spanning many tiles, tiles spanning many lanes.
+  * K5's rows: chunks of 32 lanes a row, a thread's rows searched in
+    rounds, the clamp skipped in a warp whose segments all lie inside the
+    haystack, the answer from the value read at the last move of hi, bit
+    for bit against ``kernels/ref.py`` (int16 / int32 / int64 haystacks)
+    and the reference's ``segment_search_kernel`` in interpret mode, in
+    both modes, on the cases of ``tests/_k5_cases.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -66,6 +72,8 @@ from repro_torch.core import graph as TG
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import ref as P
 from repro_torch.linalg import semiring as TS
+
+from _k5_cases import K5_CASES, K5_PATHS, k5_case
 
 SEMIRINGS = sorted(TS.SEMIRINGS)
 
@@ -924,3 +932,114 @@ def test_lb_expand_model_matches_reference_kernel(case):
     want = JK.lb_expand(jnp.asarray(sizes), cap_out)
     for i, (x, y) in enumerate(zip(got, want)):
         assert np.array_equal(x, np.asarray(y)), i
+
+
+# ---- K5: warp rows of 32 lanes, a thread's searches interleaved ---------
+
+def search_model(hay: np.ndarray, lo, hi, needles, locate: bool, rng,
+                 stats: dict = None) -> np.ndarray:
+    """K5 as the card runs it (csrc/search.cu): chunks of 32 · V lanes in
+    a random order, row j of a chunk lanes base + 32 j + lane (a thread
+    carries its V rows); the clamp skipped in a warp whose lanes with a
+    segment all lie inside [0, m) (and every such read checked to fall
+    inside); the searches in rounds, one read a live lane a round; the
+    answer from the value read where a search last moved hi (l < hi).
+    ``stats`` counts lanes by path: "fast", "clamped", "empty" (no
+    segment: lo >= hi, or m = 0)."""
+    m, cap = len(hay), len(needles)
+    hay = hay.astype(np.int64)
+    chunk = 32 * K.SEARCH_LANES
+    out = np.full(cap, 12345, np.int64)         # torch.empty
+    for base in rng.permutation(-(-cap // chunk)) * chunk:
+        i = np.arange(base, min(base + chunk, cap))
+        l = lo[i].astype(np.int64)
+        h0 = hi[i].astype(np.int64)
+        x = needles[i].astype(np.int64)
+        h = np.where((m > 0) & (l < h0), h0, l)   # no segment: no reads
+        fast = bool(np.all((l >= h) | ((l >= 0) & (h <= m))))
+        hv = np.zeros(len(i), np.int64)
+        while True:                              # one round
+            live = l < h
+            if not live.any():
+                break
+            mid = l + ((h - l) >> 1)
+            if fast:
+                assert (mid[live] >= 0).all() and (mid[live] < m).all()
+                val = hay[np.where(live, mid, 0)]
+            else:
+                val = hay[np.clip(mid, 0, max(m - 1, 0))]
+            right = live & (val < x)
+            left = live & ~(val < x)
+            l = np.where(right, mid + 1, l)
+            h = np.where(left, mid, h)
+            hv = np.where(left, val, hv)
+        found = (m > 0) & (l < h0) & (hv == x)
+        out[i] = np.where(found, l, -1) if locate else found
+        if stats is not None:
+            seg = (m > 0) & (lo[i] < hi[i])
+            path = "fast" if fast else "clamped"
+            stats[path] = stats.get(path, 0) + int(seg.sum())
+            stats["empty"] = stats.get("empty", 0) + int((~seg).sum())
+    return out.astype(np.int32) if locate else out.astype(bool)
+
+
+@pytest.mark.parametrize("dtype", ["int16", "int32", "int64"])
+@pytest.mark.parametrize("case", K5_CASES)
+def test_search_model_matches_plain_version(case, dtype):
+    """K5's rows against kernels/ref.py's segment_search and
+    segment_locate on every lane, at each haystack dtype: runs sharing a
+    segment, runs broken by lanes of another segment, a run over many
+    chunks and chunks of many runs, a hub segment, segments of 0 and 1
+    entries and lo >= hi, unsorted segments with descending needles,
+    lo / hi outside [0, m), an empty haystack, and needles below and
+    above every value."""
+    hay, lo, hi, nd = k5_case(case)
+    if dtype == "int16" and case == "hub":
+        hay, nd = hay // 32, (nd // 32).astype(np.int32)   # still sorted
+    hay = hay.astype(dtype)
+    t = [torch.from_numpy(a) for a in (hay, lo, hi, nd)]
+    stats = {}
+    rng = np.random.default_rng(len(case))
+    found = search_model(hay, lo, hi, nd, False, rng, stats=stats)
+    pos = search_model(hay, lo, hi, nd, True, rng)
+    assert np.array_equal(found, P.segment_search(*t).numpy())
+    assert np.array_equal(pos, P.segment_locate(*t).numpy())
+    assert all(stats.get(w, 0) > 0 for w in K5_PATHS[case]), stats
+    if case not in ("empty", "extremes"):
+        assert 0 < found.sum() < len(found)
+
+
+@pytest.mark.parametrize("locate", [False, True], ids=["found", "locate"])
+@pytest.mark.parametrize("case", K5_CASES)
+def test_search_model_matches_reference_kernel(case, locate):
+    """The same model against the JAX package's segment_search_kernel in
+    interpret mode and its xla provider's plain search (int32 haystack;
+    an empty one against the contract, nothing found, which the
+    kernel's whole-haystack block cannot take)."""
+    from repro.core import operators as JO
+    from repro.kernels.segment_search import segment_search_kernel
+    hay, lo, hi, nd = k5_case(case)
+    hay = hay.astype(np.int32)
+    got = search_model(hay, lo, hi, nd, locate, np.random.default_rng(5))
+    j = [jnp.asarray(a) for a in (hay, lo, hi, nd)]
+    if case == "empty":
+        want = np.full(len(nd), -1 if locate else 0)
+    else:
+        want = np.asarray(segment_search_kernel(*j, interpret=True,
+                                                locate=locate))
+        assert np.array_equal(want, np.asarray(JO._searchsorted_segment(
+            *j, locate=locate)).astype(np.int32))
+    assert np.array_equal(got.astype(np.int32), want)
+
+
+@pytest.mark.parametrize("cap", [1, 127, 128, 129, 1000])
+def test_search_model_rows_cover_every_lane(cap):
+    """Chunks of 32 · SEARCH_LANES lanes cover every lane once, at caps
+    below, at and past one chunk (the model writes each lane once over
+    an output that starts as garbage)."""
+    hay, lo, hi, nd = (a[:cap] if len(a) > 1000 else a
+                       for a in k5_case("shared"))
+    got = search_model(hay, lo, hi, nd, True, np.random.default_rng(cap))
+    want = P.segment_locate(*(torch.from_numpy(a)
+                              for a in (hay, lo, hi, nd))).numpy()
+    assert len(got) == cap and np.array_equal(got, want)

@@ -1,6 +1,6 @@
-"""A/B of K1 (advance_filter_batch), K2 (compact), K3 (advance_batch) and
-K6 (lb_expand) between two checkouts of this repo on one card, at the
-shapes of ``chip_smoke.py``.
+"""A/B of K1 (advance_filter_batch), K2 (compact), K3 (advance_batch), K5
+(segment_search / segment_locate) and K6 (lb_expand) between two
+checkouts of this repo on one card, at the shapes of ``chip_smoke.py``.
 
   python tools/advance_compact_ab.py BASE_DIR [--pairs 10] [--bfs-pairs 3]
       [--grid-depth 256] [--profile] [--only k3,k6,sssp]
@@ -28,6 +28,13 @@ from the same seeds:
     of the oriented rmat scale-18 graph (659,157,569 slots);
   * ``k6``: K6 at rmat-22's whole-graph expansion (its out-degrees over
     2^27 slots);
+  * ``k5_tc_locate``: K5 (locate) at triangle counting's probes, the mxm
+    expansion's needles searched in the rows of rmat-18's oriented graph;
+    ``k5_found22``: K5 (found) on segmented_intersect's probes of random
+    edge pairs of rmat-22, up to 3e8 lanes (chip_smoke.py's);
+    ``k5_subgraph16``: K5 (found) at subgraph_match's join on rmat-16,
+    the triangle query's one probe launch (its inputs kept from a run;
+    1.2e9 lanes, so run it with ``--only k5_subgraph16``);
   * ``bfs_rmat``: one ``bfs_batch`` on rmat-22 from the max-degree vertex
     and three random ones (path (a)'s sources), host clock;
   * ``bfs_grid_push`` / ``bfs_grid_pull``: ``bfs_batch`` on the int32
@@ -36,15 +43,17 @@ from the same seeds:
     host clock;
   * ``sssp_rmat``: one ``sssp_batch`` on rmat-22 from path (a)'s sources;
     ``sssp_grid``: ``sssp_batch`` on the int32 grid from path (e)'s
-    sources, its loop cut at ``--grid-depth`` steps; host clock.
+    sources, its loop cut at ``--grid-depth`` steps; host clock;
+  * ``tc18``: one ``triangle_count`` at rmat scale 18, host clock.
 
 The workers take turns, base first in even pairs: each kernel case is
 the mean of ``--reps`` calls by CUDA events after a warm-up call; the
-``bfs_*`` and ``sssp_*`` cases run in the first ``--bfs-pairs`` pairs.
+``bfs_*``, ``sssp_*`` and ``tc18`` cases run in the first ``--bfs-pairs`` pairs.
 Each worker checks its kernels against their plain versions first (K1
 leaving its first-slot table all INT32_MAX; K3 at rmat-22's top tier
 lane by lane, K3 at the TC shape, whose plain version would not fit
-beside the other worker, only through the checksums below), and answers
+beside the other worker, only through the checksums below; K5 on its
+first 2^24 lanes), and answers
 with a checksum of every case's outputs: the two trees' checksums must
 agree, or the tool stops. ``--only`` keeps the cases whose names start
 with one of the given prefixes. Prints every run, then per
@@ -52,7 +61,8 @@ case the median of each tree and of the change-minus-base differences;
 with ``--profile``, each tree's device time per call by kernel name for
 every kernel case (``torch.profiler`` over ``--reps`` calls). Each
 tree's peak device memory over one ``k1_top4`` call and one
-``bfs_rmat`` run is printed too (its inputs and graphs included).
+``bfs_rmat`` run is printed too (its inputs and graphs included). The
+grid is made only when a case on it is kept.
 """
 from __future__ import annotations
 
@@ -69,9 +79,9 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 KERNEL_CASES = ("k1_top4", "k1_top1", "k1_grid", "k1_grid_delta", "k2",
                 "k3_top4", "k3_top1", "k3_small4", "k3_grid", "k3_grid_delta",
-                "k3_tc", "k6")
+                "k3_tc", "k6", "k5_tc_locate", "k5_found22", "k5_subgraph16")
 BFS_CASES = ("bfs_rmat", "bfs_grid_push", "bfs_grid_pull", "sssp_rmat",
-             "sssp_grid")
+             "sssp_grid", "tc18")
 INT32_MAX = 2 ** 31 - 1
 
 
@@ -155,38 +165,42 @@ def worker(reps: int, grid_depth: int, only) -> None:
     b3, s3 = near_pile(g, seed4)
     k3_in["k3_small4"] = (g, (b3, s3), tier(g, s3))
 
-    grids = {enc: G.grid2d(2048, weighted=True, seed=0, device=dev,
-                           **({"encoding": "delta"} if enc == "delta"
-                              else {}))
-             for enc in ("int32", "delta")}
-    gg = grids["int32"]
-    ng = gg.num_vertices
-    gen = torch.Generator(device=dev).manual_seed(11)
-    qmask = torch.rand((4, ng), generator=gen, device=dev) < 0.25
-    gvisited = torch.rand((4, ng), generator=gen, device=dev) < 0.5
-    gfront = F.compact_indices_batch(qmask, ng, backend="torch")
+    k1 = {"k1_top4": (top4, g.cache), "k1_top1": (top1, g.cache)}
+    grids, ng = {}, 0         # the grid, made only for its cases
+    grid_cases = ("k1_grid", "k3_grid", "bfs_grid", "sssp_grid")
+    if any(_kept(c, only) for c in grid_cases):
+        grids = {enc: G.grid2d(2048, weighted=True, seed=0, device=dev,
+                               **({"encoding": "delta"} if enc == "delta"
+                                  else {}))
+                 for enc in ("int32", "delta")}
+        gg = grids["int32"]
+        ng = gg.num_vertices
+        gen = torch.Generator(device=dev).manual_seed(11)
+        qmask = torch.rand((4, ng), generator=gen, device=dev) < 0.25
+        gvisited = torch.rand((4, ng), generator=gen, device=dev) < 0.5
+        gfront = F.compact_indices_batch(qmask, ng, backend="torch")
 
-    def grid_case(gr):
-        base, sizes = O._base_and_sizes(gr, gfront.ids, gfront.valid_mask,
-                                        "vertex")
-        caps = F.tier_caps(gr.num_edges)
-        cap = caps[F.tier_index(int(sizes.sum(dim=1).max()), caps)]
-        return (gr.row_offsets, gr.col_store, base, sizes, gvisited, cap,
-                ng)
+        def grid_case(gr):
+            base, sizes = O._base_and_sizes(gr, gfront.ids, gfront.valid_mask,
+                                            "vertex")
+            caps = F.tier_caps(gr.num_edges)
+            cap = caps[F.tier_index(int(sizes.sum(dim=1).max()), caps)]
+            return (gr.row_offsets, gr.col_store, base, sizes, gvisited, cap,
+                    ng)
 
-    k1 = {"k1_top4": (top4, g.cache), "k1_top1": (top1, g.cache),
-          "k1_grid": (grid_case(gg), gg.cache),
-          "k1_grid_delta": (grid_case(grids["delta"]),
-                            grids["delta"].cache)}
-    for name, gr in (("k3_grid", gg), ("k3_grid_delta", grids["delta"])):
-        base, sizes = O._base_and_sizes(gr, gfront.ids, gfront.valid_mask,
-                                        "vertex")
-        k3_in[name] = (gr, (base, sizes), tier(gr, sizes))
+        k1.update({"k1_grid": (grid_case(gg), gg.cache),
+                   "k1_grid_delta": (grid_case(grids["delta"]),
+                                     grids["delta"].cache)})
+        for name, gr in (("k3_grid", gg), ("k3_grid_delta", grids["delta"])):
+            base, sizes = O._base_and_sizes(gr, gfront.ids, gfront.valid_mask,
+                                            "vertex")
+            k3_in[name] = (gr, (base, sizes), tier(gr, sizes))
+        gsrc = [0, ng // 2 + 1024, 12345, ng - 1]
     # triangle counting's mxm expansion at rmat scale 18 (B = 1)
     g_tc = G.rmat(18, 16, seed=0, weighted=True, device=dev)
     sub, ssrc, sdst = tc_mod._orient(g_tc)
-    (a_off, a_idx, _), _, tbase, _, tcap = L.mxm_plan(
-        sub, sub, (ssrc, sdst), b_transpose=True)
+    (a_off, a_idx, _), (bt_off, bt_idx, _), tbase, tprobe, tcap = (
+        L.mxm_plan(sub, sub, (ssrc, sdst), b_transpose=True))
     tsizes = (torch.index_select(a_off, 0, tbase + 1)
               - torch.index_select(a_off, 0, tbase)).to(torch.int32)
     run = {name: (lambda a=a, c=c: K.advance_filter_batch(*a, c))
@@ -200,7 +214,42 @@ def worker(reps: int, grid_depth: int, only) -> None:
     deg32 = g.degrees.to(torch.int32).contiguous()
     k6_cap = 1 << (m - 1).bit_length()
     run["k6"] = lambda: K.lb_expand(deg32, k6_cap)
-    gsrc = [0, ng // 2 + 1024, 12345, ng - 1]
+    k5 = {}              # K5's inputs (haystack, lo, hi, needles)
+    if _kept("k5_tc_locate", only):
+        _, tneedles, _, tpair, _, _, _ = K.advance(a_off, a_idx, tbase,
+                                                   tsizes, tcap)
+        rows = torch.index_select(tprobe, 0, tpair)
+        del tpair
+        k5["k5_tc_locate"] = (bt_idx, torch.index_select(bt_off, 0, rows),
+                              torch.index_select(bt_off, 0, rows + 1),
+                              tneedles)
+        del rows
+    if _kept("k5_found22", only):
+        prng = np.random.default_rng(1)
+        e_ids = torch.from_numpy(prng.integers(0, m, 1 << 20)).to(dev)
+        pu = torch.index_select(g.row_seg, 0, e_ids)
+        pv = torch.index_select(ci, 0, e_ids)
+        mins = torch.minimum(g.degrees[pu.long()], g.degrees[pv.long()])
+        npairs = int((torch.cumsum(mins.long(), 0) <= 3 * 10 ** 8).sum())
+        length = torch.tensor(npairs, dtype=torch.int32, device=dev)
+        needles, lo, hi, _, _ = O._intersect_probes(
+            g, F.SparseFrontier(ids=pu[:npairs].contiguous(), length=length),
+            F.SparseFrontier(ids=pv[:npairs].contiguous(), length=length),
+            int(mins[:npairs].sum()), "cuda")
+        k5["k5_found22"] = (ci, lo, hi, needles)
+        del e_ids, pu, pv, mins
+    if _kept("k5_subgraph16", only):
+        from search_steps import join_probe
+        from repro_torch.core import backend as B
+        from repro_torch.core.primitives import subgraph_match
+        g16 = G.rmat(16, 16, seed=0, weighted=True, device=dev)
+        tri = int(tc_mod.triangle_count(g16, backend="cuda").total)
+        k5["k5_subgraph16"] = join_probe(
+            B, subgraph_match, g16, max(6 * tri, g16.num_edges))
+    for name, args5 in k5.items():
+        fn5 = K.segment_locate if name == "k5_tc_locate" else (
+            K.segment_search)
+        run[name] = lambda fn5=fn5, args5=args5: [fn5(*args5)]
 
     def on_grid(mod, fn, **kw):
         real_loop = mod.run_until_any
@@ -222,6 +271,7 @@ def worker(reps: int, grid_depth: int, only) -> None:
                                          do_a=0.0, do_b=0.0),
         "sssp_rmat": lambda: sssp_mod.sssp_batch(g, sources, backend="cuda"),
         "sssp_grid": lambda: on_grid(sssp_mod, sssp_mod.sssp_batch),
+        "tc18": lambda: tc_mod.triangle_count(g_tc, backend="cuda"),
     }
     run = {k: v for k, v in run.items() if _kept(k, only)}
     bfs_runs = {k: v for k, v in bfs_runs.items() if _kept(k, only)}
@@ -242,6 +292,19 @@ def worker(reps: int, grid_depth: int, only) -> None:
                 deg32, 0, dtype=torch.int32)]), k6_cap)
         elif name in ("k3_top4", "k3_tc"):
             continue                       # lane by lane below; checksums
+        elif name in k5:
+            # the plain version on the first 2^24 lanes (all of them
+            # would not fit beside the other worker)
+            hay5, lo5, hi5, nd5 = k5[name]
+            head = slice(0, min(int(nd5.shape[0]), 1 << 24))
+            plain5 = (P.segment_locate if name == "k5_tc_locate"
+                      else P.segment_search)
+            if not torch.equal(run[name]()[0][head], plain5(
+                    hay5, lo5[head], hi5[head], nd5[head])):
+                raise AssertionError(f"{name} differs from its plain "
+                                     f"version")
+            torch.cuda.empty_cache()
+            continue
         else:
             want = plain3(name)
         if not all(torch.equal(x, y) for x, y in zip(run[name](), want)):
@@ -261,8 +324,8 @@ def worker(reps: int, grid_depth: int, only) -> None:
             del want
         del got
         torch.cuda.empty_cache()
-    for key, table in list(g.cache.items()) + list(gg.cache.items()) + list(
-            grids["delta"].cache.items()):
+    for key, table in [kv for gr in [g, *grids.values()]
+                       for kv in gr.cache.items()]:
         if isinstance(key, tuple) and key[0] == "advance_filter_first":
             if not bool((table == INT32_MAX).all()):
                 raise AssertionError("first-slot table not INT32_MAX")
