@@ -40,8 +40,10 @@ Phases:
      graph (6.6e8 slots); K5 (found) on segmented_intersect's probes of
      edge pairs of the scale-22 graph, on an empty haystack, and at
      subgraph_match's join on rmat-16 (its one probe launch, 1.2e9
-     lanes); K5 (locate) at rmat-15's TC probes over int16, int32 and
-     int64 columns; every K5 call bit-equal to its plain version at every
+     lanes, beside torch.searchsorted on (row, column) keys); K5
+     (locate) at rmat-15's TC probes over int16, int32 and int64
+     columns, each beside its bound; every K5 call bit-equal to its
+     plain version at every
      block size, with the device operations one call puts on the card
      (K5's one kernel, nothing else; printed); K4m
      (spmm) bit-equal to its plain version on integer-valued blocks over
@@ -61,7 +63,11 @@ Phases:
      3e-5 (fp32) of its plain version, rows that see no key exactly 0,
      its SASS holding tensor-core (HMMA) instructions in every
      instantiation, and at the chunk its split form (kv parts) and its
-     combine kernel each against their plain versions; K8 (moe_gather)
+     combine kernel (K7c) each against their plain versions, K7c timed
+     from a CUDA graph, by events and by its device time (bf16, 64
+     parts; fp32, 128), the whole chunk call (one C call: K7, then K7c
+     as a programmatic dependent launch; its device operations exactly
+     those two) the same three ways beside SDPA; K8 (moe_gather)
      bit-equal at Kimi K2's
      dispatch (8192 x 7168 bf16 tokens, 384 experts x capacity 216), on
      shuffled, repeated, -1 and past-the-end slot ids and on rows that
@@ -213,6 +219,33 @@ def _timed(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _graph_timed(torch, fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` on the card with the host out of the
+    way: ``reps`` calls captured in a CUDA graph (after one warm-up call
+    on a side stream), the graph replayed once, then one replay timed by
+    CUDA events. For calls whose wrapper takes longer on the host than
+    its kernels on the card, where ``_timed`` measures the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
 def _in_turns(torch, fns, reps: int) -> list:
     """The median ms of each of ``fns`` over TIMING_ROUNDS rounds of
     ``_timed``, taken in turns, the order rotated each round."""
@@ -303,6 +336,22 @@ def _k5_ops(ops, bare, what, seen) -> str:
         raise AssertionError(f"{what}: {names}, expected exactly {K5_OP}")
     if len(ops) == 1:
         seen.append(what)
+    return names
+
+
+K7_OPS = ("attn_kernel", "attn_combine")      # the split form's two
+
+
+def _k7_ops(ops, bare, what) -> str:
+    """The device-ops text of a split-form flash_attention call. Raises
+    if the profiler recorded any operation but K7's and K7c's kernels,
+    or one of them twice."""
+    names = _ops_text(ops, bare)
+    kinds = [k for o, _ in ops for k in K7_OPS if k in o]
+    if any(c != 1 for _, c in ops) or len(kinds) != len(ops) or len(
+            set(kinds)) != len(kinds):
+        raise AssertionError(f"{what}: {names}, expected one of each of "
+                             f"{K7_OPS}")
     return names
 
 
@@ -400,11 +449,13 @@ def _attention_pairs(np, sq, sk, causal) -> int:
 
 
 def _attention_parts(torch, K, P, q, k, v, nsplit, rtol, atol, record):
-    """K7's split form and the combine kernel, each against its plain
-    version on the same inputs: every part's m within 1e-5 and its acc /
-    l within (rtol, atol) (the parts are fp32; rtol is the output
+    """K7's split form and the combine kernel (K7c), each against its
+    plain version on the same inputs: every part's m within 1e-5 and its
+    acc / l within (rtol, atol) (the parts are fp32; rtol is the output
     type's), and the combine within (rtol, atol) of the plain combine of
-    the kernel's parts. With ``record``, time the combine."""
+    the kernel's parts. Times the combine from a CUDA graph of wrapper
+    calls, by events over the same calls and by one launch's device time
+    (torch.profiler); with ``record``, records the first."""
     causal = True
     acc, ml = K.attention_partials(q, k, v, causal, nsplit)
     pacc, pml = P.attention_partials(q, k, v, causal, nsplit)
@@ -429,13 +480,24 @@ def _attention_parts(torch, K, P, q, k, v, nsplit, rtol, atol, record):
           f"within {err_m:.3g}, acc / l within {float(err_p.max()):.3g} of "
           f"the plain parts; combine within {float(err_c.max()):.3g} of the "
           f"plain combine")
+
+    def k7c():
+        return K.attention_combine(acc, ml, q.dtype)
+
+    # the kernel is quicker than its wrapper's host time: its time is
+    # taken from a CUDA graph of wrapper calls, beside events and the
+    # profiler's device time
+    ms = _graph_timed(torch, k7c, 20)
+    ev_ms = _timed(torch, k7c, 20)
+    pms = _timed(torch, lambda: P.attention_combine(acc, ml, q.dtype), 5)
+    devops, dev_ms, bare = _device_ops(torch, k7c)
+    nbytes = nsplit * sq * (d + 2) * 4 + sq * d * q.element_size()
+    print(f"K7c attention_combine {nsplit} x ({sq}, {d}) -> {q.dtype}: "
+          f"{ms:.4f} ms (CUDA graph of 20 calls), {ev_ms:.4f} ms by events "
+          f"over 20 wrapper calls, device {dev_ms:.4f} ms "
+          f"({_ops_text(devops, bare)}), plain {pms:.4f} ms, bound "
+          f"{_bound_ms(nbytes, 0)[0]:.4f} ms")
     if record is not None:
-        ms = _timed(torch, lambda: K.attention_combine(acc, ml, q.dtype), 20)
-        pms = _timed(torch, lambda: P.attention_combine(acc, ml, q.dtype), 5)
-        nbytes = nsplit * sq * (d + 2) * 4 + sq * d * q.element_size()
-        print(f"K7 attention_combine {nsplit} x ({sq}, {d}) -> {q.dtype}: "
-              f"{ms:.4f} ms, plain {pms:.4f} ms, bound "
-              f"{_bound_ms(nbytes, 0)[0]:.4f} ms")
         record("attention_combine", float(err_c.max()), ms, pms, nbytes, 0)
 
 
@@ -598,6 +660,18 @@ def _fourth_slice_kernels(torch, np, K, P, tuner, SR, g, gs, dev, record,
                                             "prefill"):
                     record("flash_attention", float(err.max()), ms, pms,
                            nbytes, ops, lms, rate)
+                if label == "chunk":
+                    # the whole split-form call: K7 and K7c in one C call
+                    call_ms, graph_ms, sdpa_ms = (
+                        _timed(torch, k7, 20), _graph_timed(torch, k7, 20),
+                        _timed(torch, lib7, 20))
+                    devops, dev_ms, bare = _device_ops(torch, k7)
+                    print(f"K7 chunk call {model} D={head} "
+                          f"{str(dtype)[6:]} ({nsplit} kv parts): "
+                          f"{call_ms:.4f} ms by events, {graph_ms:.4f} ms "
+                          f"in a CUDA graph, device {dev_ms:.4f} ms "
+                          f"({_k7_ops(devops, bare, 'chunk call')}), sdpa "
+                          f"{sdpa_ms:.4f} ms")
                 if head == QWEN2_VL_HEAD and label == "chunk":
                     _attention_parts(torch, K, P, q, k, v, nsplit, rtol,
                                      atol, record if dtype == torch.bfloat16
@@ -1767,10 +1841,38 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     ms, pms = _timed(torch, k5j, 10), _timed(torch, p5j, 1)
     devops, dev_ms, bare = _device_ops(torch, k5j)
+    # the library call: every [lo, hi) of the join is one whole CSR row,
+    # so torch.searchsorted over (row, column) keys finds the needle where
+    # the row holds it (an empty row finds nothing); in pieces of 2^27
+    # lanes, whose int64 keys and positions do not fit whole beside the
+    # rest of the run
+    n16 = g16.num_vertices
+    keys = g16.row_seg.long() * n16 + j_hay.long()
+    queries = [((torch.searchsorted(g16.row_offsets, j_lo[a:a + piece],
+                                    right=True) - 1) * n16
+                + j_nd[a:a + piece].long()) for a in range(0, nj, piece)]
+    got = k5j()
+    for i, a in enumerate(range(0, nj, piece)):
+        pos = torch.searchsorted(keys, queries[i]).clamp_(
+            max=keys.numel() - 1)
+        lfound = (keys[pos] == queries[i]) & (j_hi[a:a + piece]
+                                              > j_lo[a:a + piece])
+        if not torch.equal(lfound, got[a:a + piece]):
+            raise AssertionError("segment_search (subgraph join) differs "
+                                 "from torch.searchsorted")
+        del pos, lfound
+    del got
+    def lib5j():
+        for x in queries:
+            torch.searchsorted(keys, x)
+
+    lms = _timed(torch, lib5j, 2)
+    del keys, queries
     print(f"K5 segment_search found at subgraph_match's join (rmat scale "
           f"{min(args.scale, LP_SCALE)}, cap {cap16}): {nj} lanes, "
           f"{ms:.3f} ms, plain {pms:.3f} ms (in pieces of 2^27 lanes), "
-          f"bound {_bound_ms(nj * 13, 0)[0]:.3f} ms (13 B a lane); "
+          f"torch.searchsorted {lms:.3f} ms (in the same pieces), bound "
+          f"{_bound_ms(nj * 13, 0)[0]:.3f} ms (13 B a lane); "
           f"{_k5_ops(devops, bare, 'K5 subgraph join', k5_seen)}, device "
           f"{dev_ms:.3f} ms; bit-equal at {blocks} threads per block")
     del j_hay, j_lo, j_hi, j_nd, g16
@@ -1790,6 +1892,11 @@ def main(argv=None) -> int:
     lo15 = torch.index_select(b15, 0, rows15)
     hi15 = torch.index_select(b15, 0, rows15 + 1)
     want15 = P.segment_locate(bi15.to(torch.int32), lo15, hi15, nd15)
+    # bound as at TC's shape: 16 B a lane, the haystack once at its
+    # width, ~5 operations a search step and 4 a lane
+    seg15 = (hi15 - lo15).clamp(min=1).to(torch.float32)
+    steps15 = float(torch.where(hi15 > lo15, torch.floor(torch.log2(seg15))
+                                + 1, 0.0).sum(dtype=torch.float64))
     times15 = {}
     for dt in (torch.int16, torch.int32, torch.int64):
         hay15 = bi15.to(dt)
@@ -1797,15 +1904,19 @@ def main(argv=None) -> int:
                       lambda t: [K.segment_locate(hay15, lo15, hi15, nd15,
                                                   threads=t)],
                       [want15], blocks)
-        times15[str(dt).replace("torch.", "")] = _timed(
-            torch, lambda: K.segment_locate(hay15, lo15, hi15, nd15), 20)
+        bound = _bound_ms(cap15 * 16 + hay15.numel() * hay15.element_size(),
+                          steps15 * 5 + cap15 * 4)
+        times15[str(dt).replace("torch.", "")] = (_timed(
+            torch, lambda: K.segment_locate(hay15, lo15, hi15, nd15), 20),
+            bound)
     print(f"K5 segment_search locate at rmat-15's TC probes ({cap15} "
-          f"lanes): " + ", ".join(f"{k} {v:.4f} ms"
-                                  for k, v in times15.items())
+          f"lanes): " + ", ".join(f"{k} {v:.4f} ms (bound {b:.4f} ms by "
+                                  f"{by})"
+                                  for k, (v, (b, by)) in times15.items())
           + f"; each bit-equal to the plain version at {blocks} threads "
           f"per block")
     del g15, sub15, a15, ai15, b15, bi15, base15, probe15, sz15, nd15
-    del pair15, rows15, lo15, hi15, want15
+    del pair15, rows15, lo15, hi15, want15, seg15
     torch.cuda.empty_cache()
     print(f"K5 calls recorded as exactly {K5_OP}: {k5_seen}")
 

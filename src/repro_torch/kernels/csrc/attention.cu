@@ -43,9 +43,11 @@
 // the q tiles alone cannot fill the card about twice over (a 128-query
 // chunk against 8192 keys has 2 q tiles). With nsplit = 1 the block
 // writes o = acc / max(l, 1e-30); with nsplit > 1 it writes its (m, l,
-// acc) in fp32 to the wrapper's workspace, and attn_combine merges the
-// parts: M = max m_s, w_s = exp(m_s - M), o = sum w_s acc_s / max(sum w_s
-// l_s, 1e-30). A part that sees no key carries m = -1e30, l = 0, acc = 0.
+// acc) in fp32 to the wrapper's workspace, and attn_combine (K7c, below)
+// merges the parts: M = max m_s, w_s = exp(m_s - M), o = sum w_s acc_s /
+// max(sum w_s l_s, 1e-30). A part that sees no key carries m = -1e30, l =
+// 0, acc = 0. flash_attention_split launches the two back to back, the
+// combine as a programmatic dependent launch.
 // The finite -1e30 and the clamp are the reference's
 // (flash_attention.py:25, :68): a row that sees no key comes out exactly
 // 0, where -inf would give NaN. Kv tiles wholly past a q tile's last
@@ -432,6 +434,9 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                        // the buffer may be refilled
   }
   cp_async_wait_all();                      // nothing left in flight
+  // the combine (a programmatic dependent launch) may be scheduled now;
+  // it waits for this grid's completion before it reads the parts
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
   // the row's l is the sum over its quad of lanes
   float l[2];
@@ -475,35 +480,280 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// o[row] = sum_s w_s acc_s[row] / max(sum_s w_s l_s, 1e-30), w_s =
-// exp(m_s - max m): one warp per row, lanes over the columns
+// ---------------------------------------------------------------------------
+// K7c, the combine of the split form's parts: o[row] = sum_s w_s acc_s[row]
+// / max(sum_s w_s l_s, 1e-30), w_s = exp(m_s - max_s m_s), rounded once to
+// the output type. It is the reference's carry of (m, l, acc) across its
+// kv grid axis (flash_attention.py:49-69), which blocks running in no
+// order cannot carry, so it is a second pass over the parts.
+//
+// Bound: the parts (nsplit (Sq, D) fp32 sums and (m, l) pairs) read once
+// and o written once, at the memory's rate; K7 has just written the parts,
+// so at the chunk's 4.2 MB they are read from L2. At that size the floor
+// is one launch and one round trip to L2, a few microseconds: the design
+// spreads the work so that no warp makes more than a few such trips.
+//   * G warps a row, the fewest of 1, 2, 4, 8 whose first 8 loads a lane
+//     cover every part (G = 8 from 33 parts on), in blocks of 8 warps (8 /
+//     G rows a block) and 32 V columns (V = 4, a float4 a lane; V = 2
+//     where D % 4 != 0): the chunk's 128 rows of 64 parts make 128 blocks,
+//     prefill's 8192 rows of 3 parts 1024;
+//   * part s goes to warp s mod G of its row, each lane summing its column
+//     vector of its warp's parts in increasing s, 8 parts' loads in
+//     flight; the first 8 are issued before the weights are made, so the
+//     two trips to L2 overlap;
+//   * the weights are made once a row: the max of m by the row's 32 G
+//     threads, then thread t of the row makes w_s for s = t mod 32 G into
+//     shared memory (chunks of 256 G parts) and sums its w_s l_s in
+//     increasing s, the denominator a butterfly over the warp's lanes and
+//     then the row's warps in order;
+//   * the row's warps' partial sums are merged in shared memory in warp
+//     order.
+// Every sum has one fixed order for a given nsplit: the result does not
+// depend on the order the blocks run in, and repeated calls are bit-equal
+// (no atomics).
+//
+// A part that sees no key carries m = -1e30, l = 0, acc = 0; a row whose
+// parts all see none gets w = 1 on zeros and the clamped denominator: 0.
+//
+// Launched by the fused entry point right behind K7, with a programmatic
+// dependent launch: its blocks may start while K7's last blocks finish
+// (K7 signals launch_dependents after its main loop) and wait at
+// griddepcontrol.wait until K7 is complete and its writes are visible,
+// before the first read of the parts. Launched alone, the wait returns at
+// once.
+// ---------------------------------------------------------------------------
+
+constexpr int kCombThreads = 256;
+constexpr int kCombWarps = kCombThreads / 32;
+constexpr int kCombUnroll = 8;        // parts' loads in flight a lane
+constexpr int kCombChunk = 2048;      // weights staged at a time, a block
+
+// Warps a row of `nsplit` parts (the G above).
+constexpr int comb_group(int nsplit) {
+  return nsplit <= 8 ? 1 : nsplit <= 16 ? 2 : nsplit <= 32 ? 4 : 8;
+}
+
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+template <int V>
+struct CombVec;
+template <>
+struct CombVec<4> {
+  using type = float4;
+  static __device__ __forceinline__ float4 zero() {
+    return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  // x += w a, the product rounded before the sum (built with -fmad=false)
+  static __device__ __forceinline__ void add(float4& x, float w,
+                                             const float4& a) {
+    x.x += w * a.x;
+    x.y += w * a.y;
+    x.z += w * a.z;
+    x.w += w * a.w;
+  }
+  static __device__ __forceinline__ void sum(float4& x, const float4& y) {
+    x.x += y.x;
+    x.y += y.y;
+    x.z += y.z;
+    x.w += y.w;
+  }
+};
+template <>
+struct CombVec<2> {
+  using type = float2;
+  static __device__ __forceinline__ float2 zero() {
+    return make_float2(0.0f, 0.0f);
+  }
+  static __device__ __forceinline__ void add(float2& x, float w,
+                                             const float2& a) {
+    x.x += w * a.x;
+    x.y += w * a.y;
+  }
+  static __device__ __forceinline__ void sum(float2& x, const float2& y) {
+    x.x += y.x;
+    x.y += y.y;
+  }
+};
+
 template <typename T>
-__global__ void __launch_bounds__(kAttnThreads)
+__device__ __forceinline__ void store_vec(T* p, float4 x, float den) {
+  if constexpr (std::is_same<T, float>::value) {
+    *reinterpret_cast<float4*>(p) =
+        make_float4(x.x / den, x.y / den, x.z / den, x.w / den);
+  } else {
+    store2<T>(p, x.x / den, x.y / den);
+    store2<T>(p + 2, x.z / den, x.w / den);
+  }
+}
+template <typename T>
+__device__ __forceinline__ void store_vec(T* p, float2 x, float den) {
+  store2<T>(p, x.x / den, x.y / den);
+}
+
+// The batch of 8 parts b, b + G, ..., b + 7 G of a warp (those below
+// `end`) at this lane's column vector; zeros elsewhere.
+template <int V, int G>
+__device__ __forceinline__ void load_batch(
+    typename CombVec<V>::type (&a)[kCombUnroll], const float* __restrict__ at,
+    size_t part_stride, int b, int end, bool col) {
+  using Vec = typename CombVec<V>::type;
+#pragma unroll
+  for (int j = 0; j < kCombUnroll; ++j) {
+    const int s = b + j * G;
+    a[j] = col && s < end
+               ? __ldcg(reinterpret_cast<const Vec*>(at + s * part_stride))
+               : CombVec<V>::zero();
+  }
+}
+
+template <typename T, int V, int G>
+__global__ void __launch_bounds__(kCombThreads)
 attn_combine(const float* __restrict__ ws_acc, const float* __restrict__ ws_ml,
              T* __restrict__ o, int sq, int d, int nsplit) {
-  const int row = blockIdx.x * (kAttnThreads / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= sq) return;
+  using Vec = typename CombVec<V>::type;
+  constexpr int R = kCombWarps / G;     // rows a block
+  constexpr int GT = 32 * G;            // threads a row
+  constexpr int CH = kCombChunk / R;    // a row's weights staged at a time
+  static_assert(CH % (G * kCombUnroll) == 0,
+                "a batch of a warp's parts never straddles a chunk");
+  __shared__ float s_w[kCombChunk];
+  __shared__ Vec s_part[kCombWarps][32];
+  __shared__ float s_max[kCombWarps];
+  __shared__ float s_den[kCombWarps];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r = warp / G, gw = warp % G, gt = tid % GT;
+  const int row = static_cast<int>(blockIdx.x) * R + r;
+  const bool live = row < sq;
+  const int c = (static_cast<int>(blockIdx.y) * 32 + lane) * V;
+  const bool col = live && c < d;
+  const size_t part_stride = static_cast<size_t>(sq) * d;
+  const float* at = ws_acc + static_cast<size_t>(row) * d + c;
+  const float2* ml = reinterpret_cast<const float2*>(ws_ml) + row;
+  float* w_row = s_w + r * CH;
+
+  grid_dependency_wait();               // K7's parts are complete
+  Vec a[kCombUnroll];
+  load_batch<V, G>(a, at, part_stride, gw, nsplit, col);
+
   float mx = kNegBig;
-  for (int s = 0; s < nsplit; ++s) {
-    mx = fmaxf(mx, ws_ml[2 * (static_cast<size_t>(s) * sq + row)]);
+  for (int s = gt; live && s < nsplit; s += GT) {
+    mx = fmaxf(mx, __ldcg(ml + static_cast<size_t>(s) * sq).x);
   }
-  float l = 0.0f;
-  for (int s = 0; s < nsplit; ++s) {
-    const size_t at = static_cast<size_t>(s) * sq + row;
-    l += expf(ws_ml[2 * at] - mx) * ws_ml[2 * at + 1];
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
   }
-  const float den = fmaxf(l, 1e-30f);
-  for (int c = 2 * lane; c < d; c += 64) {
-    float x = 0.0f, y = 0.0f;
-    for (int s = 0; s < nsplit; ++s) {
-      const size_t at = static_cast<size_t>(s) * sq + row;
-      const float w = expf(ws_ml[2 * at] - mx);
-      const float2 a = *reinterpret_cast<const float2*>(ws_acc + at * d + c);
-      x += w * a.x;
-      y += w * a.y;
+  if (lane == 0) s_max[warp] = mx;
+  __syncthreads();
+  mx = s_max[r * G];
+#pragma unroll
+  for (int w = 1; w < G; ++w) mx = fmaxf(mx, s_max[r * G + w]);
+
+  Vec x = CombVec<V>::zero();
+  float lsum = 0.0f;
+  for (int c0 = 0; c0 < nsplit; c0 += CH) {
+    const int c1 = min(nsplit, c0 + CH);
+    if (c0 > 0) __syncthreads();        // the last chunk's weights are read
+    for (int s = c0 + gt; live && s < c1; s += GT) {
+      const float2 p = __ldcg(ml + static_cast<size_t>(s) * sq);
+      const float w = expf(p.x - mx);
+      w_row[s - c0] = w;
+      lsum += w * p.y;
     }
-    store2<T>(o + static_cast<size_t>(row) * d + c, x / den, y / den);
+    __syncthreads();
+    for (int b = c0 + gw; col && b < c1; b += G * kCombUnroll) {
+      if (b != gw) load_batch<V, G>(a, at, part_stride, b, c1, col);
+#pragma unroll
+      for (int j = 0; j < kCombUnroll; ++j) {
+        const int s = b + j * G;
+        if (s < c1) CombVec<V>::add(x, w_row[s - c0], a[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    lsum += __shfl_xor_sync(kFull, lsum, off);
+  }
+  if (lane == 0) s_den[warp] = lsum;
+  s_part[warp][lane] = x;
+  __syncthreads();
+  if (gw != 0 || !col) return;
+  float den = s_den[r * G];
+  Vec y = s_part[r * G][lane];
+#pragma unroll
+  for (int w = 1; w < G; ++w) {
+    den += s_den[r * G + w];
+    CombVec<V>::sum(y, s_part[r * G + w][lane]);
+  }
+  store_vec<T>(o + static_cast<size_t>(row) * d + c, y, fmaxf(den, 1e-30f));
+}
+
+template <typename T, int V, int G>
+cudaError_t launch_combine_g(cudaLaunchConfig_t& cfg, const float* ws_acc,
+                             const float* ws_ml, T* o, int sq, int d,
+                             int nsplit) {
+  constexpr int R = kCombWarps / G;
+  cfg.gridDim = dim3((sq + R - 1) / R, (d + 32 * V - 1) / (32 * V));
+  return cudaLaunchKernelEx(&cfg, attn_combine<T, V, G>, ws_acc, ws_ml, o,
+                            sq, d, nsplit);
+}
+
+template <typename T, int V>
+cudaError_t launch_combine_v(cudaLaunchConfig_t& cfg, const float* ws_acc,
+                             const float* ws_ml, T* o, int sq, int d,
+                             int nsplit) {
+  switch (comb_group(nsplit)) {
+    case 1:
+      return launch_combine_g<T, V, 1>(cfg, ws_acc, ws_ml, o, sq, d, nsplit);
+    case 2:
+      return launch_combine_g<T, V, 2>(cfg, ws_acc, ws_ml, o, sq, d, nsplit);
+    case 4:
+      return launch_combine_g<T, V, 4>(cfg, ws_acc, ws_ml, o, sq, d, nsplit);
+    default:
+      return launch_combine_g<T, V, 8>(cfg, ws_acc, ws_ml, o, sq, d, nsplit);
+  }
+}
+
+// Launches the combine of `nsplit` parts into o (Sq, d): behind K7 as a
+// programmatic dependent launch when `dependent`, else as a plain launch.
+template <typename T>
+int launch_combine(const float* ws_acc, const float* ws_ml, void* o, int sq,
+                   int d, int nsplit, bool dependent, cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kCombThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = dependent ? 1 : 0;
+  T* out = static_cast<T*>(o);
+  const cudaError_t err =
+      d % 4 == 0
+          ? launch_combine_v<T, 4>(cfg, ws_acc, ws_ml, out, sq, d, nsplit)
+          : launch_combine_v<T, 2>(cfg, ws_acc, ws_ml, out, sq, d, nsplit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_combine_dtype(int dtype, const float* ws_acc, const float* ws_ml,
+                         void* o, int sq, int d, int nsplit, bool dependent,
+                         cudaStream_t st) {
+  switch (dtype) {
+    case 0:
+      return launch_combine<float>(ws_acc, ws_ml, o, sq, d, nsplit,
+                                   dependent, st);
+    case 1:
+      return launch_combine<__nv_bfloat16>(ws_acc, ws_ml, o, sq, d, nsplit,
+                                           dependent, st);
+    case 2:
+      return launch_combine<__half>(ws_acc, ws_ml, o, sq, d, nsplit,
+                                    dependent, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -545,22 +795,10 @@ int launch_d(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-}  // namespace
-
-// dtype: 0 fp32, 1 bf16, 2 fp16. d: a multiple of 8 in [8, 256]. With
-// nsplit = 1 writes o (Sq, d) in the input type; with nsplit > 1 writes
-// the parts' acc (nsplit, Sq, d) and (m, l) (nsplit, Sq, 2), fp32, to the
-// workspace and leaves o alone.
-EXPORT int flash_attention(int dtype, const void* q, const void* k,
-                           const void* v, void* o, float* ws_acc,
-                           float* ws_ml, int sq, int sk, int d, float scale,
-                           int causal, int nsplit, void* stream) {
-  if (d < 8 || d > 256 || d % 8 != 0 || nsplit < 1 ||
-      (nsplit > 1 && (ws_acc == nullptr || ws_ml == nullptr))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (sq == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+int launch_attention(int dtype, const void* q, const void* k, const void* v,
+                     void* o, float* ws_acc, float* ws_ml, int sq, int sk,
+                     int d, float scale, int causal, int nsplit,
+                     cudaStream_t st) {
   switch (dtype) {
     case 0:
       return launch_d<float>(q, k, v, o, ws_acc, ws_ml, sq, sk, d, scale,
@@ -576,7 +814,54 @@ EXPORT int flash_attention(int dtype, const void* q, const void* k,
   }
 }
 
+bool attention_args_ok(int d, int nsplit) {
+  return d >= 8 && d <= 256 && d % 8 == 0 && nsplit >= 1;
+}
+
+}  // namespace
+
+// dtype: 0 fp32, 1 bf16, 2 fp16. d: a multiple of 8 in [8, 256]. With
+// nsplit = 1 writes o (Sq, d) in the input type; with nsplit > 1 writes
+// the parts' acc (nsplit, Sq, d) and (m, l) (nsplit, Sq, 2), fp32, to the
+// workspace and leaves o alone.
+EXPORT int flash_attention(int dtype, const void* q, const void* k,
+                           const void* v, void* o, float* ws_acc,
+                           float* ws_ml, int sq, int sk, int d, float scale,
+                           int causal, int nsplit, void* stream) {
+  if (!attention_args_ok(d, nsplit) ||
+      (nsplit > 1 && (ws_acc == nullptr || ws_ml == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (sq == 0) return 0;
+  return launch_attention(dtype, q, k, v, o, ws_acc, ws_ml, sq, sk, d, scale,
+                          causal, nsplit, static_cast<cudaStream_t>(stream));
+}
+
+// The split form in one call: K7 writes the parts of nsplit >= 2 kv
+// ranges to the workspace, then the combine, a programmatic dependent
+// launch on the same stream, writes o (Sq, d) in the input type. Takes
+// what both kernels take (d a multiple of 8 in [8, 256]); a refused
+// launch of either returns its error.
+EXPORT int flash_attention_split(int dtype, const void* q, const void* k,
+                                 const void* v, void* o, float* ws_acc,
+                                 float* ws_ml, int sq, int sk, int d,
+                                 float scale, int causal, int nsplit,
+                                 void* stream) {
+  if (!attention_args_ok(d, nsplit) || nsplit < 2 || ws_acc == nullptr ||
+      ws_ml == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (sq == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = launch_attention(dtype, q, k, v, nullptr, ws_acc, ws_ml, sq,
+                                   sk, d, scale, causal, nsplit, st);
+  if (err != 0) return err;
+  return launch_combine_dtype(dtype, ws_acc, ws_ml, o, sq, d, nsplit, true,
+                              st);
+}
+
 // o (Sq, d) in the type `dtype` from the parts flash_attention wrote
+// (d even, at least 8)
 EXPORT int attention_combine(int dtype, const float* ws_acc,
                              const float* ws_ml, void* o, int sq, int d,
                              int nsplit, void* stream) {
@@ -584,24 +869,6 @@ EXPORT int attention_combine(int dtype, const float* ws_acc,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (sq == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = kAttnThreads / 32;
-  const int grid = (sq + rows - 1) / rows;
-  switch (dtype) {
-    case 0:
-      attn_combine<float><<<grid, kAttnThreads, 0, st>>>(
-          ws_acc, ws_ml, static_cast<float*>(o), sq, d, nsplit);
-      break;
-    case 1:
-      attn_combine<__nv_bfloat16><<<grid, kAttnThreads, 0, st>>>(
-          ws_acc, ws_ml, static_cast<__nv_bfloat16*>(o), sq, d, nsplit);
-      break;
-    case 2:
-      attn_combine<__half><<<grid, kAttnThreads, 0, st>>>(
-          ws_acc, ws_ml, static_cast<__half*>(o), sq, d, nsplit);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_combine_dtype(dtype, ws_acc, ws_ml, o, sq, d, nsplit, false,
+                              static_cast<cudaStream_t>(stream));
 }

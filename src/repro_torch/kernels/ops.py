@@ -135,6 +135,8 @@ _SIGNATURES = {
         + [_I, _P]),
     ("attention", "flash_attention"): (
         [_I] + [_P] * 6 + [_I, _I, _I, ctypes.c_float, _I, _I, _P]),
+    ("attention", "flash_attention_split"): (
+        [_I] + [_P] * 6 + [_I, _I, _I, ctypes.c_float, _I, _I, _P]),
     ("attention", "attention_combine"): [_I] + [_P] * 3 + [_I] * 3 + [_P],
     ("moe_gather", "moe_gather"): [_P, _I, _L, _I, _P, _L, _P, _P, _P],
 }
@@ -798,6 +800,16 @@ def _attention_inputs(q, k, v):
     return _ATTN_DTYPES[dtype], sq, sk, d, q, k, v
 
 
+def _attention_workspace(nsplit: int, sq: int, d: int,
+                         dev: torch.device):
+    """K7's split-form workspace: acc (nsplit, Sq, D) and ml (nsplit, Sq,
+    2), fp32."""
+    if nsplit * sq * d > INT32_MAX:
+        raise ValueError("nsplit x Sq x D beyond int32")
+    return (torch.empty((nsplit, sq, d), dtype=torch.float32, device=dev),
+            torch.empty((nsplit, sq, 2), dtype=torch.float32, device=dev))
+
+
 def attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        causal: bool, nsplit: int):
     """K7 in its split form: each q tile's kv tiles cut into ``nsplit``
@@ -809,11 +821,8 @@ def attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if nsplit < 2:
         raise ValueError("the split form takes nsplit >= 2")
     code, sq, sk, d, q, k, v = _attention_inputs(q, k, v)
-    if nsplit * sq * d > INT32_MAX:
-        raise ValueError("nsplit x Sq x D beyond int32")
     dev = q.device
-    acc = torch.empty((nsplit, sq, d), dtype=torch.float32, device=dev)
-    ml = torch.empty((nsplit, sq, 2), dtype=torch.float32, device=dev)
+    acc, ml = _attention_workspace(nsplit, sq, d, dev)
     _launch("attention", "flash_attention", code, runtime.ptr(q),
             runtime.ptr(k), runtime.ptr(v), runtime.ptr(None),
             runtime.ptr(acc), runtime.ptr(ml), sq, sk, d,
@@ -825,9 +834,10 @@ def attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_combine(acc: torch.Tensor, ml: torch.Tensor,
                       dtype: torch.dtype) -> torch.Tensor:
-    """K7's combine: o (Sq, D) in ``dtype`` from the parts of
+    """K7c, K7's combine: o (Sq, D) in ``dtype`` from the parts of
     ``attention_partials``: o = sum_s w_s acc_s / max(sum_s w_s l_s,
-    1e-30), w_s = exp(m_s - max m)."""
+    1e-30), w_s = exp(m_s - max m). On the card every sum has a fixed
+    order (repeated calls are bit-equal); D is even and at least 8."""
     if acc.device.type == "cpu":
         return ref.attention_combine(acc, ml, dtype)
     dev = acc.device
@@ -838,6 +848,11 @@ def attention_combine(acc: torch.Tensor, ml: torch.Tensor,
         raise ValueError("ml must be (nsplit, Sq, 2) beside acc")
     if dtype not in _ATTN_DTYPES or d < 8 or d % 2:
         raise ValueError("bad dtype or head width")
+    # the kernel reads acc in 16-byte vectors and (m, l) in 8-byte pairs
+    if acc.data_ptr() % 16:
+        acc = acc.clone()
+    if ml.data_ptr() % 8:
+        ml = ml.clone()
     out = torch.empty((sq, d), dtype=dtype, device=dev)
     _launch("attention", "attention_combine", _ATTN_DTYPES[dtype],
             runtime.ptr(acc), runtime.ptr(ml), runtime.ptr(out), sq, d,
@@ -858,23 +873,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     64 keys in bf16 / fp16 and 32 in fp32), which changes only the order
     of the float sums. When the q tiles cannot fill the card, each one's
     keys are split over ``attention_splits`` blocks and the combine
-    kernel merges them. On the card D is a multiple of 8 up to 256."""
+    kernel (K7c) merges them: one C call launches both, the combine as a
+    programmatic dependent launch behind K7. On the card D is a multiple
+    of 8 up to 256."""
     del bq, bk
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal)
     code, sq, sk, d, q, k, v = _attention_inputs(q, k, v)
     dev = q.device
     nsplit = attention_splits(sq, sk, q.dtype, sm_count(dev))
-    if nsplit > 1:
-        acc, ml = attention_partials(q, k, v, causal, nsplit)
-        return attention_combine(acc, ml, q.dtype)
     out = torch.empty((sq, d), dtype=q.dtype, device=dev)
-    _launch("attention", "flash_attention", code, runtime.ptr(q),
-            runtime.ptr(k), runtime.ptr(v), runtime.ptr(out),
-            runtime.ptr(None), runtime.ptr(None), sq, sk, d,
-            ctypes.c_float(1.0 / math.sqrt(d)), int(bool(causal)), 1,
+    acc = ml = None
+    if nsplit > 1:
+        acc, ml = _attention_workspace(nsplit, sq, d, dev)
+    _launch("attention",
+            "flash_attention_split" if nsplit > 1 else "flash_attention",
+            code, runtime.ptr(q), runtime.ptr(k), runtime.ptr(v),
+            runtime.ptr(out), runtime.ptr(acc), runtime.ptr(ml), sq, sk, d,
+            ctypes.c_float(1.0 / math.sqrt(d)), int(bool(causal)), nsplit,
             runtime.stream_ptr(dev))
     KERNELS["flash_attention"].count(_dtype_name(q.dtype))
+    if nsplit > 1:
+        KERNELS["attention_combine"].count(_dtype_name(q.dtype))
     return out
 
 

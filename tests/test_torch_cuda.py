@@ -5,6 +5,8 @@ run them on the card with
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,7 @@ from repro_torch.core.primitives import (bc_batch, bfs_batch,
                                          triangle_count_full, who_to_follow)
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import ref as P
+from repro_torch.kernels import runtime
 from repro_torch.linalg import ops as L
 from repro_torch.linalg import semiring as SR
 
@@ -450,6 +453,17 @@ def test_flash_attention_kernel_refusals(card):
     q = torch.randn((16, 16), device=card)
     with pytest.raises(ValueError, match="dtype"):
         K.flash_attention(q, q.half(), q)
+    # the split form's one C call refuses what K7 or K7c cannot take (a
+    # head width that is no multiple of 8 or past 256, fewer than 2
+    # parts), and the wrapper's launch raises on the refusal
+    ws = torch.empty((4 * 16 * 272,), device=card)
+    p = runtime.ptr
+    for d, nsplit in ((12, 4), (264, 4), (6, 4), (16, 1)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            K._launch("attention", "flash_attention_split", 0, p(q), p(q),
+                      p(q), p(q), p(ws), p(ws), 16, 16, d,
+                      ctypes.c_float(0.25), 1, nsplit,
+                      runtime.stream_ptr(card))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -631,11 +645,14 @@ ATTN_TOL = {torch.float32: (3e-5, 3e-5), torch.bfloat16: (8e-3, 1e-4),
                                    torch.float16])
 @pytest.mark.parametrize("sq", [1, 16, 128])
 @pytest.mark.parametrize("sk", [4096, 8192])
-def test_flash_attention_split_kv_matches_plain(card, dtype, sq, sk):
+@pytest.mark.parametrize("d", [128, 112])
+def test_flash_attention_split_kv_matches_plain(card, dtype, sq, sk, d):
     """Few queries against many keys: the kv axis split over blocks and
-    merged by the combine kernel, within the unchanged limits."""
-    gen = torch.Generator(device=card).manual_seed(sq + sk)
-    q, k, v = (torch.randn((n, 128), generator=gen, device=card).to(dtype)
+    merged by the combine kernel (one C call: K7, then K7c as its
+    programmatic dependent launch), within the unchanged limits; one
+    launch of each, and repeated calls bit-equal."""
+    gen = torch.Generator(device=card).manual_seed(sq + sk + d)
+    q, k, v = (torch.randn((n, d), generator=gen, device=card).to(dtype)
                for n in (sq, sk, sk))
     assert K.attention_splits(sq, sk, dtype, K.sm_count(card)) > 1
     K.reset_launches()
@@ -646,6 +663,47 @@ def test_flash_attention_split_kv_matches_plain(card, dtype, sq, sk):
     torch.testing.assert_close(got.float(),
                                P.flash_attention(q, k, v, True).float(),
                                rtol=rtol, atol=atol)
+    assert torch.equal(got, K.flash_attention(q, k, v, causal=True))
+
+
+def _combine_parts(card, nsplit, sq, d, seed):
+    """Split-form parts (acc (nsplit, Sq, D), ml (nsplit, Sq, 2)) drawn
+    at random: about 30 % of the parts see no key (m = -1e30, l = 0, acc
+    = 0), and so do all parts of the last 3 rows."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    m = 3 * torch.randn((nsplit, sq), generator=gen, device=card)
+    l = 1 + 50 * torch.rand((nsplit, sq), generator=gen, device=card)
+    acc = l[..., None] * torch.randn((nsplit, sq, d), generator=gen,
+                                     device=card)
+    empty = torch.rand((nsplit, sq), generator=gen, device=card) < 0.3
+    empty[:, -3:] = True
+    m = m.masked_fill(empty, P.ATTN_NEG)
+    l = l.masked_fill(empty, 0.0)
+    acc = acc.masked_fill(empty[..., None], 0.0)
+    return acc, torch.stack([m, l], dim=-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("nsplit", [2, 7, 12, 30, 64, 128, 2100])
+@pytest.mark.parametrize("d", [8, 24, 40, 112, 128, 256, 10, 50])
+def test_attention_combine_kernel_matches_plain(card, dtype, nsplit, d):
+    """K7c against its plain version: 1, 2, 4 and 8 warps a row (up to 8,
+    16, 32 parts and more; 37 rows leave a block part empty), float4
+    columns (D % 4 = 0), float2 columns (D = 10, 50), more parts than one
+    chunk of staged weights (2,100 > 2,048); within ATTN_TOL, rows that
+    see no key exactly 0, repeated calls bit-equal."""
+    acc, ml = _combine_parts(card, nsplit, 37, d, seed=nsplit * 1000 + d)
+    K.reset_launches()
+    out = K.attention_combine(acc, ml, dtype)
+    assert K.KERNELS["attention_combine"].launches == 1
+    assert out.dtype == dtype and out.shape == (37, d)
+    assert torch.equal(out, K.attention_combine(acc, ml, dtype))
+    rtol, atol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(),
+                               P.attention_combine(acc, ml, dtype).float(),
+                               rtol=rtol, atol=atol)
+    assert (out[-3:] == 0).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

@@ -9,7 +9,11 @@ a seed and handed to both.
     ``repro.kernels.ops.flash_attention`` in interpret mode, within the
     reference's own limits (3e-5 fp32, 2e-2 bf16; tests/test_kernels.py
     and tests/test_torch_kernels.py); rows with no visible key are
-    exactly 0, and parts that see no key carry m = -1e30, l = 0.
+    exactly 0, and parts that see no key carry m = -1e30, l = 0. K7c's
+    summation order (a row's parts dealt to its 1, 2, 4 or 8 warps, the
+    denominator over the row's threads and a butterfly, the warps merged
+    in order) against the plain combine and the reference kernel, within
+    the same limits.
   * K4's fold as the card runs it (a light row of d edges: the halving
     tree over pow2(d) leaves, then one (+) with the semiring's zero when
     pow2(d) < pow2(width); a heavy row: the tree over pow2(width) leaves
@@ -129,6 +133,79 @@ def test_split_kv_model_parts_that_see_no_key():
     want = np.asarray(JK.flash_attention(*(jnp.asarray(a) for a in (q, k, v))))
     assert (got[:sq - sk] == 0).all()
     np.testing.assert_allclose(got, want, rtol=3e-5, atol=3e-5)
+
+
+def _comb_group(nsplit):
+    """K7c's warps a row (csrc/attention.cu, comb_group): the fewest of 1,
+    2, 4, 8 whose first 8 loads a lane cover every part."""
+    return 1 if nsplit <= 8 else 2 if nsplit <= 16 else 4 if nsplit <= 32 \
+        else 8
+
+
+def _combine_model(acc, ml, dtype):
+    """K7c's arithmetic in the card's order, G = ``_comb_group(nsplit)``
+    warps a row: M = max m; w_s = exp(m_s - M); the denominator summed by
+    the row's thread s mod 32 G in increasing s, then a butterfly over
+    each warp's 32 lanes, then the row's warps in order; the sums of w_s
+    acc_s with part s dealt to warp s mod G, each warp in increasing s,
+    the warps merged in order; one division, one rounding to ``dtype``.
+    Every product is rounded before its sum (the kernels are built with
+    -fmad=false)."""
+    nsplit, sq, d = acc.shape
+    g = _comb_group(nsplit)
+    m, l = ml[..., 0], ml[..., 1]
+    w = torch.exp(m - m.max(dim=0).values)
+    lanes = torch.zeros((32 * g, sq))
+    for s in range(nsplit):
+        lanes[s % (32 * g)] += w[s] * l[s]
+    lanes = lanes.view(g, 32, sq)
+    lane = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, lane ^ off]
+    den = lanes[0, 0]
+    parts = torch.zeros((g, sq, d))
+    for s in range(nsplit):
+        parts[s % g] += w[s][:, None] * acc[s]
+    y = parts[0]
+    for warp in range(1, g):
+        den = den + lanes[warp, 0]
+        y = y + parts[warp]
+    return (y / torch.clamp(den, min=1e-30)[:, None]).to(dtype)
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,dtype,nsplit", [
+    (64, 64, 32, True, "float32", 2),
+    (100, 37, 16, True, "float32", 7),
+    (16, 1024, 112, False, "float32", 128),   # 32 kv tiles: 96 parts empty
+    (8, 640, 8, False, "float32", 300),       # parts past one per thread
+    (128, 2048, 128, True, "bfloat16", 64),   # the chunk's 64 parts
+    (200, 130, 40, True, "bfloat16", 9),      # rows that see no key
+    (50, 700, 24, True, "float32", 20),       # 4 warps a row
+])
+def test_combine_model_matches_reference_kernel(sq, sk, d, causal, dtype,
+                                                nsplit):
+    """K7c's summation order, on the split form's parts, against the
+    plain combine (``kernels.ref.attention_combine``) and the reference
+    kernel in interpret mode, within the limits above; rows that see no
+    key exactly 0."""
+    rng = np.random.default_rng(sq + sk * 3 + nsplit)
+    q, k, v = (rng.standard_normal((n, d)).astype(np.float32)
+               for n in (sq, sk, sk))
+    tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype))
+                  for a in (q, k, v))
+    acc, ml = P.attention_partials(tq, tk, tv, causal, nsplit)
+    got = _combine_model(acc, ml, tq.dtype)
+    tol = 2e-2 if dtype == "bfloat16" else 3e-5
+    torch.testing.assert_close(
+        got.float(), P.attention_combine(acc, ml, tq.dtype).float(),
+        rtol=tol, atol=tol)
+    want = np.asarray(JK.flash_attention(
+        *(jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v)),
+        causal=causal, bq=32, bk=32), np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                               atol=tol)
+    if causal and sq > sk:
+        assert (got[:sq - sk] == 0).all() and (want[:sq - sk] == 0).all()
 
 
 @pytest.mark.parametrize("sq,sk,dtype,want", [
