@@ -42,7 +42,8 @@ Phases:
      subgraph_match's join on rmat-16 (its one probe launch, 1.2e9
      lanes, beside torch.searchsorted on (row, column) keys); K5
      (locate) at rmat-15's TC probes over int16, int32 and int64
-     columns, each beside its bound; every K5 call bit-equal to its
+     columns, each beside its bound and torch.searchsorted on (row,
+     column) keys, in turns; every K5 call bit-equal to its
      plain version at every
      block size, with the device operations one call puts on the card
      (K5's one kernel, nothing else; printed); K4m
@@ -106,7 +107,21 @@ Phases:
      each plan bit-equal to its int32 twin; bfs_batch and sssp_batch on
      rmat-22's delta stream (escaped: the dense fallback) equal to int32;
      bf16 PageRank at rmat-22 within 1e-2 of fp32; resident_bytes of
-     every plan —
+     every plan; (f) the sixth slice's: serving — a clean
+     ``graph_serve.serve_mixed`` stream at the main scale (64 queries,
+     bfs / sssp / pagerank / reach interleaved, batch 4, path (a)'s
+     sources among them: every query ok, nothing retried or declared,
+     K1, K2, K3, K4 and K4m launched, every served lane bit-equal to a
+     direct call of its primitive and, on path (a)'s sources, to paths
+     (a) and (c)'s oracle-checked answers; qps, per-kind p50/p95/p99 and
+     where a flush's host time goes beside its primitive's), a chaos
+     stream at scale 16 under ``provider_miss@0.3;nan@0.2;straggler@0.1``
+     (seed 0, 256 queries: one status a query, counters that reconcile,
+     every clause fired, degraded answers from the torch rung on the
+     card, no exception out of the stream), bfs with telemetry on and off at the main scale (bit-equal,
+     its frontier column the level sizes, the same host reads — one a
+     step — and synchronizing calls), and graph_serve's CLI at scale 16
+     with ``--trace`` (the build, warmup and serve spans) —
      all on the cuda backend, validated
      against host oracles (numpy BFS hop counts, scipy Dijkstra, a numpy
      power iteration, scipy components, numpy Brandes, scipy products
@@ -1289,6 +1304,242 @@ def _fifth_slice_path(torch, np, K, R, G, S, graphs, g, sources, dev):
     return launches, variants
 
 
+def _count_syncs(torch, fn):
+    """(fn's result, the synchronizing CUDA calls it made), counted by
+    PyTorch's sync debug mode (one warning a synchronizing call)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _sixth_slice_path(torch, np, K, g, g16, sources, hub, oracle, dev,
+                      root):
+    """Path (f), the serving slice, on the cuda backend: a clean
+    ``serve_mixed`` stream at the main scale (64 queries, the four kinds
+    interleaved, batch 4, path (a)'s sources among them), every served
+    lane bit-equal to a direct call of its primitive on the same sources
+    (and to path (a)'s / (c)'s oracle-checked answers on those), every
+    query ok, nothing retried or declared, K1-K4m launched; a chaos
+    stream on ``g16`` under a seeded fault plan (256 queries, one status
+    a query, counters that reconcile, every clause of the plan fired,
+    degraded answers from the torch rung on the card); bfs with telemetry on and off (bit-equal, the frontier column
+    the level sizes, the same host reads and synchronizing calls a
+    step); graph_serve's CLI with ``--trace``. Returns the clean
+    stream's launches."""
+    from repro_torch import obs
+    from repro_torch.core import backend as B
+    from repro_torch.core import enactor
+    from repro_torch.core.primitives import bfs
+    from repro_torch.ft import inject
+    from repro_torch.launch import graph_serve as GS
+    from repro_torch.obs import telemetry as T
+    from repro_torch.obs.metrics import Metrics
+
+    kinds = GS.KINDS
+    n = g.num_vertices
+    rng = np.random.default_rng(22)
+    pool = list(sources) + [int(v) for v in rng.choice(n, 12, replace=False)]
+    queries = [(kinds[i % 4], pool[i // 4]) for i in range(64)]
+    # warmup, as graph_serve's: one batch a kind
+    for kind in kinds:
+        GS._host(GS._run_kind(g, kind, np.asarray(sources), "cuda",
+                              HOPS)[0])
+    served = []
+
+    def runner(kind, srcs, backend, hops):
+        out = GS._run_kind(g, kind, srcs, backend, hops)
+        served.append((kind, srcs.copy(), out[0]))
+        return out
+
+    before = B.declared_fallbacks()
+    metrics = Metrics()
+    K.reset_launches()
+    torch.cuda.synchronize()
+    stats = GS.serve_mixed(g, queries, BATCH, "cuda", hops=HOPS,
+                           runner=runner, metrics=metrics)
+    launches = {k: v.launches for k, v in K.KERNELS.items()}
+    variants = {k: dict(v.variants) for k, v in K.KERNELS.items()}
+    if (stats["status_counts"]["ok"] != 64 or stats["retried"]
+            or B.declared_fallbacks() != before):
+        raise AssertionError(f"the clean stream: {stats['status_counts']}, "
+                             f"retried {stats['retried']}, fallbacks "
+                             f"{B.declared_fallbacks()}")
+    missing = [k for k in ("advance_filter_batch", "compact",
+                           "advance_batch", "spmv", "spmm")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on path (f): "
+                             f"{missing}")
+    print(f"path (f) launches: {launches}")
+    print(f"path (f) clean stream (rmat scale {int(math.log2(n))}, 64 "
+          f"queries, batch {BATCH}): {stats['qps']} q/s over "
+          f"{stats['total_s']} s; all lat ms p50 {stats['lat_ms_p50']} "
+          f"p95 {stats['lat_ms_p95']} p99 {stats['lat_ms_p99']} (n = "
+          f"{stats['samples']}; at n = 16 a kind, p95 and p99 are about "
+          f"its worst flush, not a tail)")
+    for kind, row in stats["per_kind"].items():
+        print(f"  {kind:9s} n = {row['requests']} queries: lat ms mean "
+              f"{row['lat_ms_mean']} p50 {row['lat_ms_p50']} p95 "
+              f"{row['lat_ms_p95']} p99 {row['lat_ms_p99']}")
+    # every served lane against a direct call on the same sources (timed:
+    # the primitive alone, fenced), path (a)'s and (c)'s answers on theirs
+    direct_ms = {k: [] for k in kinds}
+    for i, (kind, srcs, field) in enumerate(served):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        want = GS._run_kind(g, kind, srcs, "cuda", HOPS)[0]
+        torch.cuda.synchronize()
+        direct_ms[kind].append((time.monotonic() - t0) * 1e3)
+        if not torch.equal(field, want):
+            raise AssertionError(f"path (f) flush {i} ({kind}) differs from "
+                                 f"a direct {kind} call")
+        if list(srcs) == list(sources) and not torch.equal(field,
+                                                           oracle[kind]):
+            raise AssertionError(f"path (f) {kind} on path (a)'s sources "
+                                 f"differs from its oracle-checked answer")
+    covered = sorted({k for k, s, _ in served if list(s) == list(sources)})
+    if covered != sorted(kinds):
+        raise AssertionError(f"path (a)'s sources served for {covered}")
+    # where a flush's time goes beyond its primitive (medians, ms)
+    med = statistics.median
+    for kind in kinds:
+        fl = [f for f in stats["flushes"] if f["kind"] == kind]
+        flush, prim = med(f["flush_ms"] for f in fl), med(direct_ms[kind])
+        print(f"  {kind:9s} flush {flush:.3f} ms = primitive call "
+              f"{med(f['run_ms'] for f in fl):.3f} + host copy (the fence) "
+              f"{med(f['copy_ms'] for f in fl):.3f} + guardrail "
+              f"{med(f['guard_ms'] for f in fl):.3f} + rest; the primitive "
+              f"fenced alone {prim:.3f} ms; the flush beyond it "
+              f"{flush - prim:.3f} ms")
+    field = torch.zeros((BATCH, n), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    copy_ms = _timed(torch, lambda: field.cpu(), 10)
+    print(f"  a ready ({BATCH}, {n}) int32 field's host copy: "
+          f"{copy_ms:.3f} ms; every served lane bit-equal to its direct "
+          f"call, path (a)'s sources equal to the oracle-checked answers; "
+          f"all 64 ok, retried 0, no fallback declared")
+    del served, field
+
+    # the chaos stream at rmat-16: 256 queries, so that each clause draws
+    # often enough to fire (nan draws only on a float answer that got
+    # past the misses, about 6 times in 64 queries: 0.8^6 = 26 % odds of
+    # no fire; at 256 the odds are under 1 %)
+    n16 = g16.num_vertices
+    n_chaos = 256
+    rng = np.random.default_rng(16)
+    chaos_q = [(kinds[i % 4], int(rng.integers(0, n16)))
+               for i in range(n_chaos)]
+    cm = Metrics()
+    spec = "provider_miss@0.3;nan@0.2;straggler@0.1"
+    t0 = time.monotonic()
+    with inject.faults(spec, seed=0) as plan:
+        chaos = GS.serve_mixed(g16, chaos_q, BATCH, "cuda", hops=HOPS,
+                               metrics=cm, retry=GS.ft.RetryPolicy(
+                                   retries=2, base_ms=1.0))
+    counts = chaos["status_counts"]
+    recs = chaos["queries"]
+    fams = cm._families
+
+    def ctotal(name):
+        fam = fams.get(f"graph_serve_{name}")
+        return 0 if fam is None else int(sum(fam.series.values()))
+
+    if (sum(counts.values()) != n_chaos or any(r is None for r in recs)
+            or counts != {s: sum(r["status"] == s for r in recs)
+                          for s in GS.STATUSES}
+            or any(ctotal(GS._STATUS_COUNTER[s]) != counts[s]
+                   for s in GS.STATUSES)
+            or ctotal("queries_retried_total") != chaos["retried"]):
+        raise AssertionError(f"the chaos stream does not reconcile: "
+                             f"{counts}")
+    if not all(plan.fired[k] > 0 for k in plan.clauses):
+        raise AssertionError(f"a clause of '{spec}' never fired in the "
+                             f"chaos stream: {plan.fired}")
+    # every answer from a lower rung: the plain providers on the card
+    degraded = [f for f in chaos["flushes"] if f["rung"]
+                and f["error"] is None]
+    for f in degraded:
+        if f["backend"] != "torch" or f["device"] != str(g16.device):
+            raise AssertionError(f"a degraded flush ran off the card: {f}")
+    n_deg = sum(r["status"] == "degraded" for r in recs)
+    rungs = sorted({r.get("degraded_to") for r in recs
+                    if r["status"] == "degraded"})
+    print(f"path (f) chaos stream (rmat scale {int(math.log2(n16))}, "
+          f"'{spec}', seed 0, {n_chaos} queries): {counts}, retried "
+          f"{chaos['retried']}, stragglers {chaos['stragglers']}, faults "
+          f"fired {plan.fired}; {n_deg} degraded answers, from {rungs}, "
+          f"their flushes on backend torch on "
+          f"{sorted({f['device'] for f in degraded})}; counters "
+          f"reconcile; {time.monotonic() - t0:.1f} s")
+
+    # telemetry at the main scale: bit parity, the level oracle, one host
+    # read a step and no synchronizing call added
+    # the first call under sync debug mode makes one more (its own
+    # set-up): warm it before counting
+    _count_syncs(torch, lambda: bfs(g, hub, backend="cuda"))
+    runs = {}
+    for on in (False, True):
+        enactor.reset_host_reads()
+        out, syncs = _count_syncs(
+            torch, lambda: bfs(g, hub, backend="cuda", telemetry=on))
+        runs[on] = (out, syncs, enactor.host_reads())
+    plain, (r, buf) = runs[False][0], runs[True][0]
+    for f in plain._fields:
+        if not torch.equal(getattr(plain, f), getattr(r, f)):
+            raise AssertionError(f"bfs {f} differs with telemetry on")
+    steps = int(r.iterations)
+    trace, trim_syncs = _count_syncs(
+        torch, lambda: T.trim(buf, r.iterations[None]))
+    lane = trace.lane(0)
+    lab = r.labels.cpu().numpy()
+    want = np.bincount(lab[lab >= 0], minlength=steps + 1)[1:steps + 1]
+    if not np.array_equal(lane["frontier"], want):
+        raise AssertionError("the telemetry frontier column is not the "
+                             "level sizes")
+    if not runs[False][2] == runs[True][2] == steps + 1:
+        raise AssertionError(f"host reads: {runs[False][2]} off, "
+                             f"{runs[True][2]} on, {steps} steps")
+    if runs[True][1] != runs[False][1]:
+        raise AssertionError(f"telemetry added synchronizing calls: "
+                             f"{runs[False][1]} off, {runs[True][1]} on")
+    print(f"path (f) telemetry: bfs from the hub at rmat scale "
+          f"{int(math.log2(n))}, {steps} steps, bit-equal on and off; "
+          f"frontier column = the level sizes {lane['frontier'].tolist()}; "
+          f"enactor host reads {runs[True][2]} on, {runs[False][2]} off "
+          f"(one a step and the last); synchronizing calls "
+          f"{runs[True][1]} on, {runs[False][1]} off, trim {trim_syncs}; "
+          f"tier {lane['tier'].tolist()}, direction "
+          f"{lane['direction'].tolist()}")
+
+    # graph_serve's CLI: --trace, --json, --metrics
+    out = root / "build" / "chip_smoke_serve"
+    out.mkdir(parents=True, exist_ok=True)
+    obs.reset()
+    cli = GS.main(["--scale", str(int(math.log2(n16))), "--kinds",
+                   ",".join(kinds), "--requests", "16", "--batch",
+                   str(BATCH), "--validate", "--trace",
+                   str(out / "trace.json"), "--json", str(out / "rows.json"),
+                   "--metrics", str(out / "metrics.prom")])
+    names = {e["name"] for e in json.loads(
+        (out / "trace.json").read_text())["traceEvents"]}
+    if not {"build_graph", "warmup", "serve"} <= names or cli[
+            "validation_failures"] or cli["status_counts"]["ok"] != 16:
+        raise AssertionError(f"graph_serve's CLI: spans {names}, "
+                             f"{cli['status_counts']}")
+    print(f"path (f) graph_serve CLI at rmat scale {int(math.log2(n16))}: "
+          f"{cli['qps']} q/s, validated, resident {cli['resident_bytes']} "
+          f"B, trace spans {sorted(names)}")
+    return launches, variants, stats
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -1897,6 +2148,11 @@ def main(argv=None) -> int:
     seg15 = (hi15 - lo15).clamp(min=1).to(torch.float32)
     steps15 = float(torch.where(hi15 > lo15, torch.floor(torch.log2(seg15))
                                 + 1, 0.0).sum(dtype=torch.float64))
+    # the library call, as at TC's shape: torch.searchsorted over (row,
+    # column) keys made from each haystack (int64 keys whatever its width)
+    n15 = g15.num_vertices
+    query15 = rows15.long() * n15 + nd15.long()
+    hit15 = want15 >= 0
     times15 = {}
     for dt in (torch.int16, torch.int32, torch.int64):
         hay15 = bi15.to(dt)
@@ -1904,17 +2160,31 @@ def main(argv=None) -> int:
                       lambda t: [K.segment_locate(hay15, lo15, hi15, nd15,
                                                   threads=t)],
                       [want15], blocks)
+        keys15 = sub15.row_seg.long() * n15 + hay15.long()
+
+        def lib15():
+            return torch.searchsorted(keys15, query15)
+
+        if not torch.equal(lib15()[hit15], want15[hit15].long()):
+            raise AssertionError(f"K5 locate {dt} (rmat-15) differs from "
+                                 f"torch.searchsorted")
         bound = _bound_ms(cap15 * 16 + hay15.numel() * hay15.element_size(),
                           steps15 * 5 + cap15 * 4)
-        times15[str(dt).replace("torch.", "")] = (_timed(
-            torch, lambda: K.segment_locate(hay15, lo15, hi15, nd15), 20),
-            bound)
+        def k15():
+            return K.segment_locate(hay15, lo15, hi15, nd15)
+
+        k_ms, l_ms = _in_turns(torch, [k15, lib15], 20)
+        times15[str(dt).replace("torch.", "")] = (k_ms, bound, l_ms)
+        del keys15
     print(f"K5 segment_search locate at rmat-15's TC probes ({cap15} "
           f"lanes): " + ", ".join(f"{k} {v:.4f} ms (bound {b:.4f} ms by "
-                                  f"{by})"
-                                  for k, (v, (b, by)) in times15.items())
+                                  f"{by}; torch.searchsorted on (row, "
+                                  f"column) keys {lm:.4f} ms)"
+                                  for k, (v, (b, by), lm)
+                                  in times15.items())
           + f"; each bit-equal to the plain version at {blocks} threads "
-          f"per block")
+          f"per block, the searchsorted positions equal on every hit")
+    del query15, hit15
     del g15, sub15, a15, ai15, b15, bi15, base15, probe15, sz15, nd15
     del pair15, rows15, lo15, hi15, want15, seg15
     torch.cuda.empty_cache()
@@ -2365,6 +2635,10 @@ def main(argv=None) -> int:
           f"circle-of-trust ids swapped at ties), subgraph_match against "
           f"6 x the triangle count and the torch backend, in "
           f"{time.monotonic() - t0:.1f} s")
+    # path (a)'s and (c)'s oracle-checked answers on its sources, for
+    # path (f)'s served lanes
+    oracle_f = {"bfs": r_bfsb.labels, "sssp": r_ssspb.dist,
+                "pagerank": r_pr.rank, "reach": r_reach.reached}
     del r_reach, r_lp, r_wtf, r_sm, r_smt
     torch.cuda.empty_cache()
 
@@ -2403,6 +2677,17 @@ def main(argv=None) -> int:
     print(f"path (e) run and validated in {time.monotonic() - t0:.1f} s; "
           f"peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    # ---- phase 3 (f): the sixth slice's path: serving (a clean mixed
+    # stream, a chaos stream), telemetry and graph_serve's CLI ----
+    t0 = time.monotonic()
+    launches6, variants6, _ = _sixth_slice_path(torch, np, K, g, g16,
+                                                sources, hub, oracle_f, dev,
+                                                root)
+    tally(variants6)
+    del oracle_f
+    torch.cuda.empty_cache()
+    print(f"path (f) run and validated in {time.monotonic() - t0:.1f} s")
 
     # ---- where the time goes: each slice's path once more under
     # torch.profiler (its overhead inflates the wall time; the device
@@ -2480,7 +2765,7 @@ def main(argv=None) -> int:
                         "replaces": k.replaces,
                         "launches": (launches[name] + launches2[name]
                                      + launches3[name] + launches4[name]
-                                     + launches5[name]),
+                                     + launches5[name] + launches6[name]),
                         "variants": variant_totals[name],
                         **results[name]})
     for row in sorted(r for r in results if ":" in r):

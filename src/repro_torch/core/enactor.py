@@ -16,6 +16,19 @@ device.
   select_lanes   — per-lane select over a state's tensors.
   tiered_step    — run one step at the smallest capacity tier holding
                    the step's workload. Results never depend on the tier.
+
+Both loops take the reference's three options:
+  probe, telemetry — ``probe(prev, new, params)`` maps a step's states
+                   (and, in ``run_until_any``, the step's host parameters
+                   from ``plan``) to a row of values, recorded into the
+                   ``obs.telemetry.TelemetryBuffer`` at the step's index
+                   by device-side writes: telemetry adds no host read.
+                   The loop then returns the buffer as one more element.
+  budget         — anything with ``cap_iters`` (an ``ft.Budget``)
+                   lowers ``max_iter``; the state at the cap comes back
+                   partial and the caller's ``cond`` tells which lanes
+                   are. ``budget=None`` is the loop unchanged.
+``host_reads()`` counts the loops' reads since ``reset_host_reads()``.
 """
 from __future__ import annotations
 
@@ -28,15 +41,47 @@ from .frontier import tier_index
 
 S = TypeVar("S")
 
+_reads = 0
+
+
+def host_reads() -> int:
+    """Host reads the loops made since the last ``reset_host_reads``."""
+    return _reads
+
+
+def reset_host_reads() -> None:
+    global _reads
+    _reads = 0
+
+
+def _read(t: torch.Tensor):
+    global _reads
+    _reads += 1
+    return t.tolist()
+
+
+def _guard(max_iter: int, probe, telemetry, budget) -> int:
+    if probe is not None and telemetry is None:
+        raise ValueError("probe= requires a telemetry buffer")
+    return max_iter if budget is None else budget.cap_iters(max_iter)
+
 
 def run_until(cond: Callable[[S], torch.Tensor], body: Callable[[S], S],
-              state: S, max_iter: int) -> tuple[S, int]:
+              state: S, max_iter: int, probe=None, telemetry=None,
+              budget=None):
     """while (cond(state) and it < max_iter): state = body(state).
-    Returns (final_state, iterations_run); one host read per step."""
+    Returns (final_state, iterations_run), plus the filled buffer with
+    ``probe``; one host read per step."""
+    max_iter = _guard(max_iter, probe, telemetry, budget)
     it = 0
-    while it < max_iter and bool(cond(state)):
-        state = body(state)
+    while it < max_iter and _read(cond(state)):
+        new = body(state)
+        if probe is not None:
+            telemetry.record(**probe(state, new, []))
+        state = new
         it += 1
+    if probe is not None:
+        return state, it, telemetry
     return state, it
 
 
@@ -60,7 +105,8 @@ def select_lanes(mask: torch.Tensor, on_true: S, on_false: S) -> S:
 def run_until_any(cond: Callable[[S], torch.Tensor],
                   plan: Callable[[S], torch.Tensor],
                   body: Callable[[S, list, list], S],
-                  state: S, max_iter: int):
+                  state: S, max_iter: int, probe=None, telemetry=None,
+                  budget=None):
     """Batched BSP loop: iterate while any lane of ``cond(state)`` holds.
 
     ``cond(state)`` is the (B,) bool of still-active lanes; ``plan(state)``
@@ -68,22 +114,29 @@ def run_until_any(cond: Callable[[S], torch.Tensor],
     Both are read together, once per step, and ``body(state, active,
     params)`` gets them as Python lists. Lanes inactive entering a step
     are frozen. Returns (final_state, per_lane_iters (B,) list,
-    iterations_run)."""
+    iterations_run), plus the filled buffer with ``probe``: its rows
+    record the lane-masked state, so a frozen lane repeats its values,
+    and a lane's valid rows are its ``per_lane_iters``."""
+    max_iter = _guard(max_iter, probe, telemetry, budget)
     it = 0
     lane_iters = None
     while True:
         flags = cond(state)
         b = int(flags.shape[0])
-        host = torch.cat([flags.to(torch.int32),
-                          plan(state).to(torch.int32)]).tolist()
+        host = _read(torch.cat([flags.to(torch.int32),
+                                plan(state).to(torch.int32)]))
         active, params = host[:b], host[b:]
         if lane_iters is None:
             lane_iters = [0] * b
         if it >= max_iter or not any(active):
+            if probe is not None:
+                return state, lane_iters, it, telemetry
             return state, lane_iters, it
         new = body(state, active, params)
         if not all(active):
             new = select_lanes(flags, new, state)
+        if probe is not None:
+            telemetry.record(**probe(state, new, params))
         state = new
         lane_iters = [k + a for k, a in zip(lane_iters, active)]
         it += 1

@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from ..kernels.runtime import resolve_device
 from . import backend as B
 
 INVALID = -1
@@ -187,6 +188,16 @@ def from_ids_batch(srcs, capacity: int, device=None
     return BatchedSparseFrontier(
         ids=buf, lengths=torch.ones((b,), dtype=torch.int32,
                                     device=srcs.device))
+
+
+def empty(capacity: int, device=None) -> SparseFrontier:
+    """An empty queue of ``capacity`` slots (all -1) on ``device``
+    (``None``: the card)."""
+    dev = resolve_device(device)
+    return SparseFrontier(ids=torch.full((capacity,), INVALID,
+                                         dtype=torch.int32, device=dev),
+                          length=torch.zeros((), dtype=torch.int32,
+                                             device=dev))
 
 
 @B.register("compact", B.TORCH)

@@ -28,9 +28,15 @@ order as the reference, so the arrays come out identical; the two large
 stable sorts run through PyTorch on the graph's device, which returns
 the same (unique) permutation faster — and moved to the device once.
 ``device=None`` means the card; the CPU is used only when asked for.
+
+Generators, each the reference's draws in its order from the same seed:
+``rmat`` (Graph500 R-MAT), ``random_geometric`` (the rgg datasets),
+``grid2d`` (the road-network stand-in), ``bipartite_random``
+(who-to-follow's follow graph) and ``demo_graph`` (the paper's Fig. 5).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -439,6 +445,52 @@ def rmat(scale: int, edge_factor: int = 16, a: float = 0.57,
                           device=device)
 
 
+def random_geometric(n: int, radius: float, seed: int = 0,
+                     weighted: bool = False,
+                     index_dtype: Optional[str] = None,
+                     encoding: str = "dense", value_dtype: str = "fp32",
+                     device=None) -> Graph:
+    """Random geometric graph on the unit square (the paper's rgg
+    datasets): an edge joins two of ``n`` uniform points at most
+    ``radius`` apart. The reference's generator, draw for draw and in
+    its order (a grid-bucket neighbour search), so the edges and weights
+    are identical from the same seed."""
+    rng = np.random.default_rng(seed)
+    pts = rng.random((n, 2))
+    cell = max(radius, 1e-6)
+    gx = (pts[:, 0] / cell).astype(np.int64)
+    gy = (pts[:, 1] / cell).astype(np.int64)
+    ncell = int(1.0 / cell) + 1
+    bucket = gx * ncell + gy
+    order = np.argsort(bucket)
+    starts = np.searchsorted(bucket[order], np.arange(ncell * ncell))
+    r2 = radius * radius
+    src_l, dst_l = [], []
+    for dx, dy in ((0, 0), (0, 1), (1, -1), (1, 0), (1, 1)):
+        nb = (gx + dx) * ncell + (gy + dy)
+        valid = (gx + dx < ncell) & (gy + dy >= 0) & (gy + dy < ncell)
+        for i in np.nonzero(valid)[0]:
+            cb = nb[i]
+            if cb < 0 or cb >= ncell * ncell:
+                continue
+            lo = starts[cb]
+            hi = starts[cb + 1] if cb + 1 < len(starts) else n
+            cand = order[lo:hi]
+            if (dx, dy) == (0, 0):
+                cand = cand[cand > i]
+            d2 = ((pts[cand] - pts[i]) ** 2).sum(axis=1)
+            close = cand[d2 <= r2]
+            src_l.append(np.full(len(close), i, dtype=np.int64))
+            dst_l.append(close.astype(np.int64))
+    src = np.concatenate(src_l) if src_l else np.zeros(0, np.int64)
+    dst = np.concatenate(dst_l) if dst_l else np.zeros(0, np.int64)
+    values = (rng.integers(1, 64, size=len(src)).astype(np.float32)
+              if weighted else None)
+    return from_edge_list(src, dst, n=n, values=values, undirected=True,
+                          index_dtype=index_dtype, encoding=encoding,
+                          value_dtype=value_dtype, device=device)
+
+
 def grid2d(side: int, weighted: bool = False, seed: int = 0,
            index_dtype: Optional[str] = None, encoding: str = "dense",
            value_dtype: str = "fp32", device=None) -> Graph:
@@ -457,3 +509,31 @@ def grid2d(side: int, weighted: bool = False, seed: int = 0,
                           encoding=encoding, value_dtype=value_dtype,
                           device=device)
 
+
+def bipartite_random(n_users: int, n_items: int, avg_degree: int,
+                     seed: int = 0, device=None) -> Graph:
+    """Random bipartite follow graph for who-to-follow (paper §7.5):
+    users [0, n_users) point at items [n_users, n_users + n_items).
+    Directed; the CSC gives the who-follows-me direction. The
+    reference's draws, so the same seed gives the same edges."""
+    rng = np.random.default_rng(seed)
+    m = n_users * avg_degree
+    src = rng.integers(0, n_users, size=m).astype(np.int64)
+    dst = (n_users + rng.integers(0, n_items, size=m)).astype(np.int64)
+    return from_edge_list(src, dst, n=n_users + n_items, undirected=False,
+                          device=device)
+
+
+@functools.lru_cache(maxsize=32)
+def _demo_graph(device: torch.device) -> Graph:
+    src = [0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6]
+    dst = [1, 2, 3, 2, 4, 3, 5, 4, 5, 5, 6, 6, 0, 0, 2]
+    return from_edge_list(src, dst, n=7, undirected=False,
+                          deduplicate=False, remove_self_loops=False,
+                          device=device)
+
+
+def demo_graph(device=None) -> Graph:
+    """The 7-node / 15-edge sample graph of the paper's Fig. 5/6 (built
+    once per device)."""
+    return _demo_graph(resolve_device(device))

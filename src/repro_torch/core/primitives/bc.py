@@ -19,7 +19,9 @@ may run in another order.
 ``bc(graph)`` with no ``src`` is exact BC: every vertex as a root, in
 batched chunks of ``chunk`` roots. ``samples=k`` draws k distinct roots
 uniformly (the reference's seeded draw) and scales by n/k (the
-Brandes–Pich estimator).
+Brandes–Pich estimator). ``telemetry=True`` (one pass: ``src`` or
+``bc_batch``) also returns a ``TelemetryBuffer`` of the forward
+phase's frontier (B) a level.
 """
 from __future__ import annotations
 
@@ -82,7 +84,7 @@ def _level_pairs(depth, lvl, active, esrc, edst):
 
 
 def _bc_impl(graph: Graph, esrc: torch.Tensor, srcs: torch.Tensor,
-             weights: torch.Tensor) -> BCResult:
+             weights: torch.Tensor, telemetry: bool = False):
     """B Brandes passes in one batched program; ``weights`` (B,) scales
     each lane's dependencies (0 masks a padding lane)."""
     n = graph.num_vertices
@@ -113,10 +115,21 @@ def _bc_impl(graph: Graph, esrc: torch.Tensor, srcs: torch.Tensor,
     sigma0 = torch.zeros((b, n), dtype=torch.float32, device=dev)
     sigma0[lane_ids, srcs.long()] = 1.0
     zeros = torch.zeros((b,), dtype=torch.int32, device=dev)
-    fwd, _, _ = run_until_any(
+    probe = buf = None
+    if telemetry:
+        # the forward (BFS) phase's levels; the backward phase replays
+        # them in reverse
+        from ...obs.telemetry import TelemetryBuffer
+        buf = TelemetryBuffer.make(n + 1, {"frontier": ((b,), torch.int32)},
+                                   dev)
+
+        def probe(prev, new, _params):
+            return {"frontier": new.n_f}
+
+    fwd, *_ = run_until_any(
         lambda st: st.n_f > 0, lambda st: zeros[:0], fwd_body,
         FwdState(depth=depth0, sigma=sigma0, level=zeros, n_f=zeros + 1),
-        max_iter=n + 1)
+        max_iter=n + 1, probe=probe, telemetry=buf)
     depth_f = fwd.depth.reshape(-1)
     sigma_f = fwd.sigma.reshape(-1)
 
@@ -140,16 +153,19 @@ def _bc_impl(graph: Graph, esrc: torch.Tensor, srcs: torch.Tensor,
         max_iter=n + 1)
     bc_lanes = bwd.delta.clone()
     bc_lanes[lane_ids, srcs.long()] = 0.0
-    return BCResult(bc=bc_lanes * weights[:, None], sigma=fwd.sigma,
-                    depth=fwd.depth, max_level=fwd.level)
+    result = BCResult(bc=bc_lanes * weights[:, None], sigma=fwd.sigma,
+                      depth=fwd.depth, max_level=fwd.level)
+    return (result, buf) if telemetry else result
 
 
+@B.draw_scope()
 def bc_batch(graph: Graph, srcs, weights=None, *,
-             backend: Optional[str] = None) -> BCResult:
+             backend: Optional[str] = None, telemetry: bool = False):
     """One batched Brandes pass: lane i holds the dependencies of
     ``srcs[i]`` (scaled by ``weights[i]`` if given). ``backend`` is
     accepted for a uniform primitive interface: both phases are
-    gather/scatter algebra with no kernel of their own."""
+    gather/scatter algebra with no kernel of their own.
+    ``telemetry=True`` returns ``(BCResult, TelemetryBuffer)``."""
     B.resolve(backend, graph.device)
     dev = graph.device
     srcs = torch.as_tensor(np.asarray(srcs, np.int32).reshape(-1),
@@ -157,12 +173,13 @@ def bc_batch(graph: Graph, srcs, weights=None, *,
     if weights is None:
         weights = torch.ones(srcs.shape, dtype=torch.float32, device=dev)
     weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
-    return _bc_impl(graph, _edge_sources(graph), srcs, weights)
+    return _bc_impl(graph, _edge_sources(graph), srcs, weights, telemetry)
 
 
+@B.draw_scope()
 def bc(graph: Graph, src: Optional[int] = None, *, chunk: int = 32,
        samples: Optional[int] = None, seed: int = 0,
-       backend: Optional[str] = None):
+       backend: Optional[str] = None, telemetry: bool = False):
     """Betweenness centrality.
 
     * ``src`` given — one Brandes pass; the per-source ``BCResult`` (a
@@ -173,8 +190,14 @@ def bc(graph: Graph, src: Optional[int] = None, *, chunk: int = 32,
       scaled by n/k. Returns ``MultiBCResult``.
     """
     if src is not None:
-        r = bc_batch(graph, [src], backend=backend)
+        r = bc_batch(graph, [src], backend=backend, telemetry=telemetry)
+        if telemetry:
+            res, buf = r
+            return BCResult(*(t[0] for t in res)), buf
         return BCResult(*(t[0] for t in r))
+    if telemetry:
+        raise ValueError("telemetry= is per pass; pass src= (or use "
+                         "bc_batch) to collect a trajectory")
     B.resolve(backend, graph.device)
     n = graph.num_vertices
     dev = graph.device

@@ -16,6 +16,11 @@ loop (``enactor.run_until_any``); ``bfs`` is a squeezed batch of one.
 Every output equals the reference's, bit for bit. Only the LB strategy
 is ported; ``idempotence`` selects between uniquify modes on the
 unfused TWC/THREAD path only, so it has no effect here.
+
+``telemetry=True`` also returns a ``TelemetryBuffer`` with the
+reference's columns: frontier (B,), tier, direction (B,) and overflow
+(B,) a step. ``budget=`` caps the steps; lanes cut short come back
+partial with ``converged`` False.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from .. import operators as ops
 from ..direction import PULL, PUSH, DirectionParams, decide_direction
 from ..enactor import run_until_any, select_lanes, tiered_step
 from ..frontier import (BatchedDenseFrontier, BatchedSparseFrontier,
-                        from_ids_batch)
+                        from_ids_batch, tier_index)
 from ..graph import Graph
 
 
@@ -72,7 +77,7 @@ def _scatter_rows(target: torch.Tensor, ids: torch.Tensor,
 
 def _run(graph: Graph, srcs: torch.Tensor, do_a: float, do_b: float,
          direction: bool, record_preds: bool, backend: str,
-         tiered: bool) -> BFSResult:
+         tiered: bool, telemetry: bool = False, budget=None):
     n, m = graph.num_vertices, graph.num_edges
     b = int(srcs.shape[0])
     dev = graph.device
@@ -171,25 +176,49 @@ def _run(graph: Graph, srcs: torch.Tensor, do_a: float, do_b: float,
         return select_lanes(st.mode == PULL, pull_step(st),
                             push_step(st, need))
 
-    final, lane_iters, _ = run_until_any(lambda st: st.n_f > 0, plan, body,
-                                         state, max_iter=n + 1)
+    probe = buf = None
+    if telemetry:
+        from ...obs.telemetry import TelemetryBuffer
+        i32 = torch.int32
+        buf = TelemetryBuffer.make(n + 1, {
+            "frontier": ((b,), i32), "tier": ((), i32),
+            "direction": ((b,), i32), "overflow": ((b,), i32)}, dev)
+
+        def probe(prev: BFSState, new: BFSState, p: list) -> dict:
+            # the tier the step's workload (the host's need) selected
+            return {"frontier": new.n_f,
+                    "tier": caps_e[tier_index(p[-1], tuple(caps_e))],
+                    "direction": new.mode,
+                    "overflow": new.overflow - prev.overflow}
+
+    final, lane_iters, _, *rest = run_until_any(
+        lambda st: st.n_f > 0, plan, body, state, max_iter=n + 1,
+        probe=probe, telemetry=buf, budget=budget)
     edges = torch.where(final.labels >= 0, deg[None, :], 0).sum(
         dim=1, dtype=torch.int32)
-    return BFSResult(labels=final.labels, preds=final.preds,
-                     iterations=torch.tensor(lane_iters, dtype=torch.int32,
-                                             device=dev),
-                     pull_iters=final.pull_iters, edges_visited=edges,
-                     overflow=final.overflow, converged=final.n_f == 0)
+    result = BFSResult(labels=final.labels, preds=final.preds,
+                       iterations=torch.tensor(lane_iters,
+                                               dtype=torch.int32,
+                                               device=dev),
+                       pull_iters=final.pull_iters, edges_visited=edges,
+                       overflow=final.overflow, converged=final.n_f == 0)
+    return (result, rest[0]) if telemetry else result
 
 
+@B.draw_scope()
 def bfs_batch(graph: Graph, srcs, *, direction: bool = True,
               do_a: float = 0.001, do_b: float = 0.2,
               idempotence: bool = True, strategy: str = "LB",
               record_preds: bool = True, backend: Optional[str] = None,
-              tiered: bool = True) -> BFSResult:
+              tiered: bool = True, telemetry: bool = False, budget=None):
     """Multi-source BFS: one batched BSP loop over ``srcs``; lane i is
     bit-identical to ``bfs(graph, srcs[i])``. ``tiered=False`` pins
-    every push to the top capacity tier (identical results)."""
+    every push to the top capacity tier (identical results).
+
+    ``telemetry=True`` returns ``(BFSResult, TelemetryBuffer)``; the
+    result is bit-identical to ``telemetry=False``. ``budget`` (an
+    ``ft.Budget``) caps the BSP steps: lanes cut short keep partial
+    labels and report ``converged`` False."""
     del idempotence     # selects uniquify on the TWC/THREAD path only
     ops._strategy(strategy)
     if direction and not graph.has_csc:
@@ -198,10 +227,16 @@ def bfs_batch(graph: Graph, srcs, *, direction: bool = True,
     srcs = torch.as_tensor(srcs, dtype=torch.int32).reshape(-1).to(
         graph.device)
     return _run(graph, srcs, float(do_a), float(do_b), direction,
-                record_preds, bk, tiered)
+                record_preds, bk, tiered, telemetry, budget)
 
 
-def bfs(graph: Graph, src: int, **kw) -> BFSResult:
-    """BFS from ``src`` — a squeezed batch-of-1 ``bfs_batch`` call."""
+@B.draw_scope()
+def bfs(graph: Graph, src: int, **kw):
+    """BFS from ``src`` — a squeezed batch-of-1 ``bfs_batch`` call. With
+    ``telemetry=True``: ``(BFSResult, TelemetryBuffer)``, the buffer
+    keeping its lane axis."""
     r = bfs_batch(graph, [src], **kw)
+    if kw.get("telemetry"):
+        res, buf = r
+        return BFSResult(*(t[0] for t in res)), buf
     return BFSResult(*(t[0] for t in r))

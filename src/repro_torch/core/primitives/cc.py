@@ -13,7 +13,8 @@ Each outer iteration:
 Converges when the edge frontier is empty. The reference sweeps all m
 edges every iteration under a live mask; here the frontier is compacted
 to its live edges, which gives the same labels and iteration count with
-work proportional to the live edges.
+work proportional to the live edges. ``telemetry=True`` also returns a
+``TelemetryBuffer`` of the live edges left after each iteration.
 """
 from __future__ import annotations
 
@@ -40,11 +41,13 @@ def _pointer_jump(cid: torch.Tensor) -> torch.Tensor:
         cid = nxt
 
 
-def connected_components(graph: Graph, *,
-                         backend: Optional[str] = None) -> CCResult:
+@B.draw_scope()
+def connected_components(graph: Graph, *, backend: Optional[str] = None,
+                         telemetry: bool = False):
     """Hooking + pointer-jumping CC. ``backend`` is accepted for a
     uniform primitive interface: CC is scatter/gather algebra with no
-    kernel of its own, on both backends."""
+    kernel of its own, on both backends. ``telemetry=True`` returns
+    ``(CCResult, TelemetryBuffer)`` with the result unchanged."""
     B.resolve(backend, graph.device)
     n = graph.num_vertices
     dev = graph.device
@@ -52,6 +55,11 @@ def connected_components(graph: Graph, *,
            else row_segments_of(graph.row_offsets))
     dst = graph.cols()
     cid = torch.arange(n, dtype=torch.int32, device=dev)
+    buf = None
+    if telemetry:
+        from ...obs.telemetry import TelemetryBuffer
+        buf = TelemetryBuffer.make(n + 1, {"live_edges": ((), torch.int32)},
+                                   dev)
     iterations = 0
     while int(src.shape[0]) and iterations < n + 1:
         cu = torch.index_select(cid, 0, src)
@@ -64,7 +72,11 @@ def connected_components(graph: Graph, *,
         still = live & (torch.index_select(cid, 0, src)
                         != torch.index_select(cid, 0, dst))
         src, dst = src[still], dst[still]
+        if buf is not None:           # the compaction's length, a host int
+            buf.record(live_edges=int(src.shape[0]))
         iterations += 1
     ncomp = (cid == torch.arange(n, dtype=torch.int32, device=dev)).sum(
         dtype=torch.int32)
-    return CCResult(labels=cid, num_components=ncomp, iterations=iterations)
+    result = CCResult(labels=cid, num_components=ncomp,
+                      iterations=iterations)
+    return (result, buf) if telemetry else result

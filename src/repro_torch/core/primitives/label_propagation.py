@@ -33,6 +33,7 @@ class LPResult(NamedTuple):
     iterations: int
 
 
+@B.draw_scope()
 def label_propagation(graph: Graph, *, labels0=None,
                       num_labels: Optional[int] = None,
                       max_iter: int = 30, block: Optional[int] = None,

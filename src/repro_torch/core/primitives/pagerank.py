@@ -7,6 +7,10 @@ dangling mass and the teleport term. Two determinism rules of the
 reference are kept: the reciprocal out-degrees are computed once on the
 host (a single multiply in the loop, no division), and the dangling sum
 is a fixed pairwise halving tree (``_fixed_tree_sum``).
+
+``telemetry=True`` also returns a ``TelemetryBuffer`` with the active
+(not yet settled) vertex count a sweep; ``budget=`` caps the sweeps
+below ``max_iter`` (``converged`` False when it cut them short).
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ class PRState(NamedTuple):
 class PRResult(NamedTuple):
     rank: torch.Tensor
     iterations: int
+    # ranks settled below tol, or every requested sweep ran: False only
+    # when a budget cut the sweeps short
     converged: bool
 
 
@@ -60,14 +66,17 @@ def _inv_out_degrees(graph: Graph) -> torch.Tensor:
     return cached
 
 
+@B.draw_scope()
 def pagerank(graph: Graph, *, damping: float = 0.85, tol: float = 0.0,
              max_iter: int = 20, backend: Optional[str] = None,
-             precision: str = "fp32") -> PRResult:
+             precision: str = "fp32", telemetry: bool = False,
+             budget=None):
     """Power-iteration PageRank: at most ``max_iter`` sweeps, stopping
     early only when every rank moves by ≤ ``tol``. ``precision="bf16"``
     rounds the sweep's products to bfloat16 (float32 sums), as the
     reference does: the ranks then agree with float32 to ~1e-2, not
-    bit for bit."""
+    bit for bit. ``telemetry=True`` returns ``(PRResult,
+    TelemetryBuffer)``; ``budget`` caps the sweeps."""
     if not graph.has_csc:
         raise ValueError("pagerank uses the CSC transpose")
     bk = B.resolve(backend, graph.device)
@@ -101,7 +110,20 @@ def pagerank(graph: Graph, *, damping: float = 0.85, tol: float = 0.0,
                                     device=dev),
                     active=torch.ones((n,), dtype=torch.bool, device=dev),
                     n_active=torch.tensor(n, dtype=torch.int32, device=dev))
-    final, iters = run_until(lambda st: st.n_active > 0, body, state,
-                             max_iter=max_iter)
+    effective = max_iter if budget is None else budget.cap_iters(max_iter)
+    probe = buf = None
+    if telemetry:
+        from ...obs.telemetry import TelemetryBuffer
+        buf = TelemetryBuffer.make(effective,
+                                   {"active": ((), torch.int32)}, dev)
+
+        def probe(prev, new, _params):
+            return {"active": new.n_active}
+
+    final, iters, *rest = run_until(lambda st: st.n_active > 0, body,
+                                    state, max_iter=effective, probe=probe,
+                                    telemetry=buf)
     converged = iters >= max_iter or int(final.n_active) == 0
-    return PRResult(rank=final.rank, iterations=iters, converged=converged)
+    result = PRResult(rank=final.rank, iterations=iters,
+                      converged=converged)
+    return (result, rest[0]) if telemetry else result

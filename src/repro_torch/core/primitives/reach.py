@@ -12,8 +12,9 @@ hop is one launch of the SpMM kernel (K4m).
 
 Every result field carries a leading batch axis; ``reach`` is a
 squeezed batch-of-1 call. Oracle: lane b of ``reached`` equals
-``0 <= bfs depth <= k``. The reference's ``budget=`` (which clamps k)
-waits for the fault-tolerance layer (ROADMAP A11).
+``0 <= bfs depth <= k``. ``budget=`` clamps k to its ``max_iters``: the
+clamped run answers the smaller neighbourhood, ``hops`` says which, and
+``converged`` is False.
 """
 from __future__ import annotations
 
@@ -30,13 +31,15 @@ class ReachResult(NamedTuple):
     reached: torch.Tensor    # (B, n) bool — within k hops of srcs[b]
     counts: torch.Tensor     # (B,) int32 reachable-set sizes
     hops: int                # the k that was run
-    converged: bool = True   # all requested hops ran
+    converged: bool = True   # all requested hops ran (False: budget cut k)
 
 
+@B.draw_scope()
 def reach_batch(graph: Graph, srcs, k: int = 3, *,
-                backend: Optional[str] = None) -> ReachResult:
+                backend: Optional[str] = None, budget=None) -> ReachResult:
     """B-source k-hop reachability: k or-and SpMMs over the CSC mirror,
-    each masked to the rows some lane has not reached yet."""
+    each masked to the rows some lane has not reached yet. ``budget``
+    (an ``ft.Budget``) clamps k."""
     if not graph.has_csc:
         raise ValueError("reach uses the CSC transpose (pull sweeps)")
     bk = B.resolve(backend, graph.device)
@@ -48,7 +51,8 @@ def reach_batch(graph: Graph, srcs, k: int = 3, *,
     b = int(srcs.shape[0])
     r = torch.zeros((n, b), dtype=torch.float32, device=dev)
     r[srcs.long(), torch.arange(b, device=dev)] = 1.0
-    for _ in range(int(k)):
+    k_eff = int(k) if budget is None else budget.cap_iters(int(k))
+    for _ in range(k_eff):
         need = torch.amin(r, dim=1) < 1.0
         new = spmm(graph.csc_offsets, csc, None, r, SR.or_and,
                    graph.csc_ell_width, need, graph.csc_row_seg,
@@ -57,9 +61,10 @@ def reach_batch(graph: Graph, srcs, k: int = 3, *,
     reached = r.T > 0
     return ReachResult(reached=reached,
                        counts=reached.sum(dim=1, dtype=torch.int32),
-                       hops=int(k), converged=True)
+                       hops=k_eff, converged=k_eff >= int(k))
 
 
+@B.draw_scope()
 def reach(graph: Graph, src: int, k: int = 3, *,
           backend: Optional[str] = None) -> ReachResult:
     """Single-source k-hop reachability — a squeezed batch-of-1 call."""

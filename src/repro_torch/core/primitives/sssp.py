@@ -13,6 +13,12 @@ Ties between equal candidates for one vertex go to the LAST winning
 expansion slot, the order in which the reference's scatter applies its
 updates, so ``preds`` match it bit for bit. ``dist[u] + w`` is a single
 float32 add on both sides. ``sssp`` is a squeezed batch of one.
+
+``telemetry=True`` also returns a ``TelemetryBuffer`` with the
+reference's columns: frontier (the near pile, B), tier, bucket (B) and
+relaxations (B) a step. ``budget=`` caps the steps (``converged`` False
+on lanes cut short: their ``dist`` is an upper bound).
+``sssp_bellman_ford`` is the Ligra baseline: the priority queue off.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import torch
 from .. import backend as B
 from .. import operators as ops
 from ..enactor import run_until_any, select_lanes, tiered_step
-from ..frontier import BatchedDenseFrontier
+from ..frontier import BatchedDenseFrontier, tier_index
 from ..graph import Graph
 
 INF = float("inf")
@@ -62,7 +68,7 @@ def _last_winner_preds(preds: torch.Tensor, winner: torch.Tensor,
 
 
 def _run(graph: Graph, srcs: torch.Tensor, delta: float, use_delta: bool,
-         backend: str, tiered: bool) -> SSSPResult:
+         backend: str, tiered: bool, telemetry: bool = False, budget=None):
     n, m = graph.num_vertices, graph.num_edges
     b = int(srcs.shape[0])
     dev = graph.device
@@ -156,12 +162,31 @@ def _run(graph: Graph, srcs: torch.Tensor, delta: float, use_delta: bool,
         return select_lanes(st.n_near > 0, relax_step(st, need),
                             pop_far(st))
 
-    final, lane_iters, _ = run_until_any(cond, plan, body, state,
-                                         max_iter=4 * n + 8)
-    return SSSPResult(dist=final.dist, preds=final.preds,
-                      iterations=torch.tensor(lane_iters, dtype=torch.int32,
-                                              device=dev),
-                      relaxations=final.relaxations, converged=~cond(final))
+    probe = buf = None
+    if telemetry:
+        from ...obs.telemetry import TelemetryBuffer
+        i32 = torch.int32
+        buf = TelemetryBuffer.make(4 * n + 8, {
+            "frontier": ((b,), i32), "tier": ((), i32),
+            "bucket": ((b,), i32), "relaxations": ((b,), i32)}, dev)
+
+        def probe(prev: SSSPState, new: SSSPState, p: list) -> dict:
+            # a bucket-pop step records the tier of its empty near pile
+            return {"frontier": new.n_near,
+                    "tier": caps_e[tier_index(p[b], tuple(caps_e))],
+                    "bucket": new.bucket,
+                    "relaxations": new.relaxations - prev.relaxations}
+
+    final, lane_iters, _, *rest = run_until_any(
+        cond, plan, body, state, max_iter=4 * n + 8, probe=probe,
+        telemetry=buf, budget=budget)
+    result = SSSPResult(dist=final.dist, preds=final.preds,
+                        iterations=torch.tensor(lane_iters,
+                                                dtype=torch.int32,
+                                                device=dev),
+                        relaxations=final.relaxations,
+                        converged=~cond(final))
+    return (result, rest[0]) if telemetry else result
 
 
 def _auto_delta(graph: Graph) -> float:
@@ -173,12 +198,16 @@ def _auto_delta(graph: Graph) -> float:
     return mean_w * avg_deg / 2.0
 
 
+@B.draw_scope()
 def sssp_batch(graph: Graph, srcs, *, delta: Optional[float] = None,
                strategy: str = "LB", backend: Optional[str] = None,
-               tiered: bool = True) -> SSSPResult:
+               tiered: bool = True, telemetry: bool = False, budget=None):
     """Multi-source delta-stepping in one batched loop; lane i is
     bit-identical to ``sssp(graph, srcs[i])``. ``tiered=False`` pins
-    relax sweeps to the top capacity tier (identical results)."""
+    relax sweeps to the top capacity tier (identical results).
+    ``telemetry=True`` returns ``(SSSPResult, TelemetryBuffer)`` with a
+    result bit-identical to ``telemetry=False``; ``budget`` caps the
+    BSP steps."""
     if not graph.weighted:
         raise ValueError("SSSP needs edge weights")
     ops._strategy(strategy)
@@ -189,10 +218,31 @@ def sssp_batch(graph: Graph, srcs, *, delta: Optional[float] = None,
     bk = B.resolve(backend, graph.device)
     srcs = torch.as_tensor(srcs, dtype=torch.int32).reshape(-1).to(
         graph.device)
-    return _run(graph, srcs, delta, use_delta, bk, tiered)
+    return _run(graph, srcs, delta, use_delta, bk, tiered, telemetry,
+                budget)
 
 
-def sssp(graph: Graph, src: int, **kw) -> SSSPResult:
-    """Delta-stepping SSSP — a squeezed batch-of-1 ``sssp_batch``."""
+@B.draw_scope()
+def sssp(graph: Graph, src: int, **kw):
+    """Delta-stepping SSSP — a squeezed batch-of-1 ``sssp_batch``. With
+    ``telemetry=True``: ``(SSSPResult, TelemetryBuffer)``."""
     r = sssp_batch(graph, [src], **kw)
+    if kw.get("telemetry"):
+        res, buf = r
+        return SSSPResult(*(t[0] for t in res)), buf
+    return SSSPResult(*(t[0] for t in r))
+
+
+@B.draw_scope()
+def sssp_bellman_ford(graph: Graph, src: int, *, strategy: str = "LB",
+                      backend: Optional[str] = None) -> SSSPResult:
+    """Bellman-Ford-style full relaxation (the Ligra comparison
+    baseline): a batch-of-1 run with the priority queue off — every
+    improved vertex joins the next near pile."""
+    if not graph.weighted:
+        raise ValueError("SSSP needs edge weights")
+    ops._strategy(strategy)
+    bk = B.resolve(backend, graph.device)
+    srcs = torch.tensor([src], dtype=torch.int32, device=graph.device)
+    r = _run(graph, srcs, 1e30, False, bk, True)
     return SSSPResult(*(t[0] for t in r))

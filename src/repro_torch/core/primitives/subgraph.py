@@ -49,6 +49,7 @@ def _bfs_order_ok(n_q: int, q_edges) -> bool:
     return True
 
 
+@B.draw_scope()
 def subgraph_match(graph: Graph, n_q: int, q_edges: Sequence[tuple],
                    cap: int = 4096, labels=None,
                    q_labels: Optional[Sequence[int]] = None, *,

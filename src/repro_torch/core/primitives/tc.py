@@ -48,24 +48,36 @@ def _orient(graph: Graph) -> tuple[Graph, np.ndarray, np.ndarray]:
     return sub, ssrc, sdst
 
 
-def triangle_count(graph: Graph, *,
-                   backend: Optional[str] = None) -> TCResult:
+@B.draw_scope()
+def triangle_count(graph: Graph, *, backend: Optional[str] = None,
+                   telemetry: bool = False):
     """Exact TC via ``C⟨G'⟩ = G' ⊗ G'ᵀ`` over ⟨plus, and⟩. The graph must
     be undirected (both edge directions present), with sorted neighbour
-    lists (``from_edge_list`` guarantees it)."""
+    lists (``from_edge_list`` guarantees it). ``telemetry=True`` returns
+    ``(TCResult, TelemetryBuffer)``: TC has no BSP loop, so its one row
+    records the oriented workload (the edges kept)."""
     bk = B.resolve(backend, graph.device)
     sub, ssrc, sdst = _orient(graph)
     if sub.num_edges == 0:
         zero = torch.zeros((), dtype=torch.int32, device=graph.device)
-        return TCResult(zero, torch.zeros((0,), dtype=torch.int32,
-                                          device=graph.device), ssrc, sdst)
-    counts = linalg.mxm(sub, sub, (ssrc, sdst), semiring=linalg.plus_and,
-                        b_transpose=True, structural=True,
-                        backend=bk).to(torch.int32)
-    return TCResult(total=counts.sum(dtype=torch.int32), per_edge=counts,
-                    edge_src=ssrc, edge_dst=sdst)
+        result = TCResult(zero, torch.zeros((0,), dtype=torch.int32,
+                                            device=graph.device),
+                          ssrc, sdst)
+    else:
+        counts = linalg.mxm(sub, sub, (ssrc, sdst),
+                            semiring=linalg.plus_and, b_transpose=True,
+                            structural=True, backend=bk).to(torch.int32)
+        result = TCResult(total=counts.sum(dtype=torch.int32),
+                          per_edge=counts, edge_src=ssrc, edge_dst=sdst)
+    if not telemetry:
+        return result
+    from ...obs.telemetry import TelemetryBuffer
+    buf = TelemetryBuffer.make(1, {"oriented_edges": ((), torch.int32)},
+                               graph.device)
+    return result, buf.record(oriented_edges=sub.num_edges)
 
 
+@B.draw_scope()
 def triangle_count_full(graph: Graph, *,
                         backend: Optional[str] = None) -> torch.Tensor:
     """Unfiltered variant ('tc-intersection-full' in Fig. 25): the same

@@ -35,6 +35,7 @@ class WTFResult(NamedTuple):
     auth_scores: torch.Tensor  # (n,) SALSA authority scores
 
 
+@B.draw_scope()
 def who_to_follow(graph: Graph, user: int, *, k: int = 1000,
                   damping: float = 0.85, ppr_iters: int = 30,
                   salsa_iters: int = 10,

@@ -22,15 +22,25 @@ propagation sweeps every one of the n labels in 32-column SpMM blocks,
 m·n products per iteration: keep it to rmat scale 16 or so. wtf (the
 max-degree user, k = min(1000, n - 1)) prints its time but no
 PASS/FAIL, as in the reference.
+
+Observability: ``--stats`` reruns each primitive with ``telemetry=True``
+and prints its per-iteration trajectory (frontier, tier, direction, …;
+lane 0 of a batched run); ``--trace OUT.json`` writes the phase spans
+(build, each run, each stats rerun) as Chrome trace-event JSON. Output
+goes through ``obs.log`` (``[graph] ...`` lines; ``--log-level``).
+``--graph rgg`` is the random geometric graph of 2^scale points with
+radius sqrt(8 / n) (average degree about 2π).
 """
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..core import backend as B
 from ..core import graph as G
 from ..core import ref as R
@@ -40,6 +50,9 @@ from ..core.primitives import (bc, bc_batch, bfs, bfs_batch,
                                sssp_batch, triangle_count, who_to_follow)
 from ..kernels.runtime import resolve_device
 from ..linalg.ops import CapacityError
+from ..obs import telemetry as T
+
+log = obs.get_logger("graph")
 
 PRIMITIVES = ("bfs", "sssp", "pagerank", "cc", "bc", "tc", "reach",
               "label_propagation", "wtf")
@@ -54,6 +67,11 @@ def make_graph(kind: str, scale: int, edge_factor: int, seed: int,
     if kind == "rmat":
         return G.rmat(scale, edge_factor, seed=seed, weighted=True,
                       device=device, **plan)
+    if kind == "rgg":
+        n = 1 << scale
+        radius = math.sqrt(8.0 / n)   # ~average degree 8·π/4
+        return G.random_geometric(n, radius, seed=seed, weighted=True,
+                                  device=device, **plan)
     if kind == "grid":
         side = int((1 << scale) ** 0.5)
         return G.grid2d(side, weighted=True, seed=seed, device=device,
@@ -81,7 +99,8 @@ def run_primitive(name: str, g: G.Graph, src: int, validate: bool,
         dt = time.monotonic() - t0
         edges = int(r.edges_visited.sum())
         if int(r.overflow.sum()):
-            print(f"bfs dropped {int(r.overflow.sum())} frontier entries")
+            log.warning(f"bfs dropped {int(r.overflow.sum())} frontier "
+                        f"entries (overflow)")
         if validate:
             labels = r.labels.cpu().numpy().reshape(-1, g.num_vertices)
             ok = all(np.array_equal(labels[i], R.bfs_ref(g, s))
@@ -162,9 +181,38 @@ def run_primitive(name: str, g: G.Graph, src: int, validate: bool,
     return dt, edges / dt / 1e6, ok
 
 
+def collect_stats(name: str, g: G.Graph, src: int, backend: str,
+                  sources=None):
+    """Rerun ``name`` with ``telemetry=True`` and return its host trace
+    (lane 0 of a batched run), or None for a primitive without a
+    telemetry hook. A separate run: the timed run stays the program the
+    times describe."""
+    roots = sources or [src]
+    if name == "bfs":
+        r, buf = bfs_batch(g, roots, backend=backend, telemetry=True)
+        return T.trim(buf, r.iterations).lane(0)
+    if name == "sssp":
+        r, buf = sssp_batch(g, roots, backend=backend, telemetry=True)
+        return T.trim(buf, r.iterations).lane(0)
+    if name == "pagerank":
+        _, buf = pagerank(g, max_iter=20, backend=backend, telemetry=True)
+        return T.trim(buf)
+    if name == "cc":
+        _, buf = connected_components(g, backend=backend, telemetry=True)
+        return T.trim(buf)
+    if name == "bc":
+        _, buf = bc_batch(g, roots, backend=backend, telemetry=True)
+        return T.trim(buf).lane(0)
+    if name == "tc":
+        _, buf = triangle_count(g, backend=backend, telemetry=True)
+        return T.trim(buf)
+    return None
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--graph", default="rmat", choices=("rmat", "grid"))
+    ap.add_argument("--graph", default="rmat",
+                    choices=("rmat", "rgg", "grid"))
     ap.add_argument("--scale", type=int, default=14)
     ap.add_argument("--edge-factor", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
@@ -183,14 +231,27 @@ def main(argv=None) -> None:
                          "torch on the CPU)")
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default) or 'cpu'")
+    ap.add_argument("--stats", action="store_true",
+                    help="print each primitive's per-iteration telemetry "
+                         "(frontier / tier / direction ...)")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="write phase spans as Chrome trace-event JSON "
+                         "(open at ui.perfetto.dev)")
+    ap.add_argument("--log-level", default="info",
+                    choices=sorted(obs.log.LEVELS))
     args = ap.parse_args(argv)
+    obs.configure(args.log_level)
 
     dev = resolve_device(args.device)
     backend = B.resolve(args.backend, dev)
+    if args.trace:
+        obs.reset()
     t0 = time.monotonic()
-    g = make_graph(args.graph, args.scale, args.edge_factor, args.seed,
-                   device=dev)
-    _sync(dev)
+    with obs.span("build_graph", category="setup",
+                  args={"kind": args.graph, "scale": args.scale}):
+        g = make_graph(args.graph, args.scale, args.edge_factor, args.seed,
+                       device=dev)
+        _sync(dev)
     build_s = time.monotonic() - t0
     if args.validate:
         G.validate_graph(g)
@@ -198,19 +259,32 @@ def main(argv=None) -> None:
     src = args.src if args.src is not None else int(np.argmax(deg))
     sources = ([int(s) for s in args.sources.split(",")]
                if args.sources else None)
-    print(f"{args.graph} scale={args.scale}: n={g.num_vertices} "
-          f"m={g.num_edges} max_deg={deg.max()} "
-          f"src={sources if sources else src} device={dev} "
-          f"backend={backend} build={build_s:.2f}s")
+    log.info(f"{args.graph} scale={args.scale}: n={g.num_vertices} "
+             f"m={g.num_edges} max_deg={deg.max()} "
+             f"src={sources if sources else src} device={dev} "
+             f"backend={backend} build={build_s:.2f}s")
     failures = 0
     for name in args.primitives.split(","):
         name = name.strip()
-        dt, mteps, ok = run_primitive(name, g, src, args.validate, backend,
-                                      sources=sources, hops=args.hops)
+        with obs.span(f"run:{name}", category="dispatch",
+                      args={"backend": backend}):
+            dt, mteps, ok = run_primitive(name, g, src, args.validate,
+                                          backend, sources=sources,
+                                          hops=args.hops)
         status = "" if ok is None else ("  PASS" if ok else "  FAIL")
-        print(f"{name:9s} {dt * 1000:9.2f} ms  {mteps:9.2f} MTEPS"
-              f"  backend={backend}{status}")
+        log.info(f"{name:9s} {dt * 1000:9.2f} ms  {mteps:9.2f} MTEPS"
+                 f"  backend={backend}{status}")
         failures += ok is False
+        if args.stats:
+            with obs.span(f"stats:{name}", category="dispatch"):
+                trace = collect_stats(name, g, src, backend, sources)
+            if trace is not None and trace.steps:
+                log.info(f"{name} per-iteration trajectory"
+                         + (" (lane 0)" if sources else "") + ":")
+                print(trace.format_table(prefix="  "))
+    if args.trace:
+        n_ev = obs.export_chrome_trace(args.trace)
+        log.info(f"wrote {n_ev} trace events to {args.trace}")
     if failures:
         raise SystemExit(f"{failures} primitives failed validation")
 

@@ -1230,3 +1230,95 @@ def test_segment_search_kernel_launches(graph):
             if seen[-1] == 1:
                 break
         assert seen[-1] == 1, seen
+
+
+# ---- the serving path (graph_serve, telemetry, the degradation ladder) ----
+
+def test_serve_mixed_clean_stream_on_the_card(graph):
+    """A clean mixed stream on the cuda backend: every query ok, nothing
+    retried or declared, K1/K2/K3/K4/K4m launched, and every served lane
+    equal to a direct call of its primitive on the same sources."""
+    from repro_torch.core import backend as TB
+    from repro_torch.launch import graph_serve as GS
+    n = graph.num_vertices
+    rng = np.random.default_rng(1)
+    queries = [(GS.KINDS[i % 4], int(rng.integers(0, n)))
+               for i in range(16)]
+    served = []
+
+    def runner(kind, srcs, backend, hops):
+        out = GS._run_kind(graph, kind, srcs, backend, hops)
+        served.append((kind, srcs.copy(), out[0]))
+        return out
+
+    before = TB.declared_fallbacks()
+    K.reset_launches()
+    stats = GS.serve_mixed(graph, queries, batch=4, backend="cuda",
+                           runner=runner, validate=True)
+    launches = {k: v.launches for k, v in K.KERNELS.items()}
+    assert stats["status_counts"]["ok"] == 16 and stats["retried"] == 0
+    assert stats["validation_failures"] == 0
+    assert TB.declared_fallbacks() == before
+    for k in ("advance_filter_batch", "compact", "advance_batch", "spmv",
+              "spmm"):
+        assert launches[k] > 0, k
+    for kind, srcs, field in served:
+        direct = GS._run_kind(graph, kind, srcs, "cuda", 3)[0]
+        assert torch.equal(field, direct), kind
+
+
+def test_torch_rung_stays_on_the_card(graph):
+    """Under a plan that misses attempt 0, the retry answers from the
+    torch rung on the same card tensors, stamped degraded."""
+    from repro_torch.core import backend as TB
+    from repro_torch.ft import inject
+    from repro_torch.launch import graph_serve as GS
+    seed = next(s for s in range(64)
+                if inject._draw(s, "provider_miss", "bfs", 0) < 0.6
+                and inject._draw(s, "provider_miss", "bfs", 1) >= 0.6)
+    with inject.faults("provider_miss:bfs@0.6", seed=seed):
+        stats = GS.serve_mixed(graph, [("bfs", 0), ("bfs", 5)], batch=2,
+                               backend="cuda")
+    assert [q["status"] for q in stats["queries"]] == ["degraded"] * 2
+    assert stats["flushes"][0]["backend"] == "torch"
+    assert stats["flushes"][0]["device"].startswith("cuda")
+    TB._DECLARED_FALLBACKS.pop(("bfs", "torch"), None)
+
+
+def _syncs(fn):
+    """fn's result and its synchronizing CUDA calls (sync debug mode)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def test_telemetry_on_the_card_is_bit_invisible(graph):
+    """The same bits, host reads and synchronizing calls with telemetry
+    on (a Python number is recorded by a fill, a tensor by a copy)."""
+    from repro_torch.core import enactor
+    from repro_torch.obs import telemetry as T
+    hub = int(torch.argmax(graph.degrees))
+    # warm: the first call under sync debug mode makes one more
+    _syncs(lambda: bfs_batch(graph, [hub, 3], backend="cuda"))
+    enactor.reset_host_reads()
+    plain, syncs = _syncs(lambda: bfs_batch(graph, [hub, 3], backend="cuda"))
+    reads = enactor.host_reads()
+    enactor.reset_host_reads()
+    (r, buf), syncs_on = _syncs(
+        lambda: bfs_batch(graph, [hub, 3], backend="cuda", telemetry=True))
+    assert enactor.host_reads() == reads
+    assert syncs_on == syncs
+    for x, y in zip(plain, r):
+        assert torch.equal(x, y)
+    trace = T.trim(buf, r.iterations)
+    lab = r.labels[0].cpu().numpy()
+    lane = trace.lane(0)
+    counts = np.bincount(lab[lab >= 0], minlength=lane.steps + 1)
+    assert np.array_equal(lane["frontier"], counts[1:lane.steps + 1])

@@ -106,3 +106,16 @@ def test_tier_ladder_matches_reference(cap):
     for need in (0, 1, 511, 512, 513, 2049, cap, cap + 10 ** 6):
         assert TF.tier_index(need, caps) == int(
             JF.tier_index(jnp.int32(min(need, 2 ** 31 - 1)), caps))
+
+
+@pytest.mark.parametrize("capacity", [1, 7, 512])
+def test_empty_frontier_matches_reference(capacity):
+    want = JF.empty(capacity)
+    got = TF.empty(capacity, device="cpu")
+    assert np.array_equal(got.ids.numpy(), np.asarray(want.ids))
+    assert int(got.length) == int(want.length) == 0
+    assert got.ids.dtype == torch.int32 and got.capacity == capacity
+    assert not got.valid_mask.any()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TF.empty(capacity)

@@ -109,3 +109,40 @@ def test_validate_csr_names_the_fault(ro, ci, vals, match):
 def test_validate_graph_accepts_built_graph():
     tg = FIXTURES["rmat"][1]()
     assert TG.validate_graph(tg) == (tg.num_vertices, tg.num_edges)
+
+
+GENERATORS = {
+    "rgg-small": (lambda M, **kw: M.random_geometric(300, 0.09, seed=4,
+                                                     weighted=True, **kw)),
+    "rgg-unweighted": (lambda M, **kw: M.random_geometric(
+        512, (8.0 / 512) ** 0.5, seed=0, **kw)),
+    "rgg-int32-delta": (lambda M, **kw: M.random_geometric(
+        1000, 0.05, seed=9, weighted=True, index_dtype="int32",
+        encoding="delta", **kw)),
+    "rgg-tiny-radius": (lambda M, **kw: M.random_geometric(64, 1e-4,
+                                                           seed=2, **kw)),
+    "bipartite": (lambda M, **kw: M.bipartite_random(200, 80, 6, seed=3,
+                                                     **kw)),
+    "bipartite-seed0": (lambda M, **kw: M.bipartite_random(50, 500, 3,
+                                                           **kw)),
+    "demo": (lambda M, **kw: M.demo_graph(**kw)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GENERATORS))
+def test_generators_equal_reference(name):
+    """random_geometric, bipartite_random and demo_graph draw the
+    reference's numbers in its order: every array equal, bit for bit."""
+    make = GENERATORS[name]
+    jg = make(JG)
+    tg = make(TG, device="cpu")
+    _assert_graph_equal(_fields(jg), jg.ell_width, jg.csc_ell_width, tg)
+    assert tg.plan == jg.plan or (
+        tg.plan.index_dtype, tg.plan.encoding, tg.plan.value_dtype) == (
+        jg.plan.index_dtype, jg.plan.encoding, jg.plan.value_dtype)
+    TG.validate_graph(tg)
+
+
+def test_demo_graph_is_built_once_per_device():
+    assert TG.demo_graph("cpu") is TG.demo_graph(torch.device("cpu"))
+    assert TG.demo_graph("cpu").num_edges == 15

@@ -28,7 +28,7 @@ def test_graph_run_cc_bc_tc_validate_on_cpu(capsys, sources):
     argv = ["--scale", "8", "--primitives", "cc,bc,tc", "--validate",
             "--device", "cpu"]
     graph_run.main(argv + (["--sources", sources] if sources else []))
-    out = capsys.readouterr().out
+    out = capsys.readouterr().out.replace("[graph] ", "")
     assert out.count("PASS") == 3 and "FAIL" not in out
     for name in ("cc", "bc", "tc"):
         assert any(line.startswith(name) for line in out.splitlines())
@@ -39,7 +39,7 @@ def test_graph_run_reach_lp_wtf_on_cpu(capsys, sources):
     argv = ["--scale", "8", "--primitives", "reach,label_propagation,wtf",
             "--hops", "2", "--validate", "--device", "cpu"]
     graph_run.main(argv + (["--sources", sources] if sources else []))
-    out = capsys.readouterr().out
+    out = capsys.readouterr().out.replace("[graph] ", "")
     assert out.count("PASS") == 2 and "FAIL" not in out
     lines = {line.split()[0]: line for line in out.splitlines()[1:]}
     assert set(lines) == {"reach", "label_propagation", "wtf"}
@@ -83,3 +83,46 @@ def test_pagerank_check_is_per_vertex_relative():
     bad = want.copy()
     bad[3] = np.nan
     assert R.pagerank_rel_err(bad, want) == float("inf")
+
+
+@pytest.mark.parametrize("graph", ["rgg", "rmat"])
+def test_graph_run_stats_and_trace(capsys, tmp_path, graph):
+    """--stats prints each primitive's telemetry table (the frontier
+    column of bfs is the level sizes); --trace writes the spans."""
+    trace = tmp_path / "trace.json"
+    graph_run.main(["--graph", graph, "--scale", "7", "--primitives",
+                    "bfs,sssp,pagerank,cc,bc,tc,reach", "--validate",
+                    "--stats", "--trace", str(trace), "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert out.count("PASS") == 7 and "FAIL" not in out
+    for name in ("bfs", "sssp", "pagerank", "cc", "bc", "tc"):
+        assert f"[graph] {name} per-iteration trajectory:" in out
+    assert "reach per-iteration" not in out          # no telemetry hook
+    lines = out.splitlines()
+    head = lines.index("[graph] bfs per-iteration trajectory:") + 1
+    assert lines[head].split() == ["iter", "direction", "frontier",
+                                   "overflow", "tier"]
+    g = graph_run.make_graph(graph, 7, 16, 0, device="cpu")
+    src = int(np.argmax(np.diff(g.row_offsets.numpy())))
+    depth = R.bfs_ref(g, src)
+    rows = []
+    for line in lines[head + 1:]:
+        if not line.startswith("  "):
+            break
+        rows.append(int(line.split()[2]))
+    assert rows == list(np.bincount(depth[depth >= 0])[1:]) + [0]
+    import json
+    names = [e["name"] for e in json.loads(trace.read_text())["traceEvents"]]
+    assert names[0] == "build_graph" and "run:bfs" in names
+    assert "stats:tc" in names
+
+
+def test_graph_run_rgg_matches_reference_generator():
+    import math
+
+    from repro.core import graph as JG
+    g = graph_run.make_graph("rgg", 8, 16, 3, device="cpu")
+    jg = JG.random_geometric(256, math.sqrt(8.0 / 256), seed=3,
+                             weighted=True)
+    assert np.array_equal(g.col_indices.numpy(), np.asarray(jg.col_indices))
+    assert np.array_equal(g.edge_values.numpy(), np.asarray(jg.edge_values))

@@ -104,3 +104,38 @@ def test_kernel_records_point_at_real_sources(name):
     text = (ROOT / path).read_text().splitlines()[int(line) - 1]
     assert text.startswith("def ") and "kernel" in text
     assert k.replaces in (ROOT / k.source).read_text()
+
+
+def _env_reads(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and node.attr in (
+                "environ", "getenv", "putenv", "environb"):
+            yield node.attr
+        elif isinstance(node, ast.ImportFrom) and node.module == "os":
+            yield from (a.name for a in node.names
+                        if a.name in ("environ", "getenv"))
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_reads_no_environment_variable(path):
+    """The reference's REPRO_* variables are arguments here (the fault
+    plan, the log level, the backend)."""
+    bad = list(_env_reads(path))
+    assert not bad, f"{path} reads the environment: {bad}"
+
+
+def test_serving_entry_points_need_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is valid here")
+    from repro_torch.core import frontier as TF
+    from repro_torch.launch import graph_serve
+    for call in (lambda: graph_serve.main(["--scale", "4"]),
+                 lambda: graph_run.main(["--graph", "rgg", "--scale", "4"]),
+                 lambda: TG.random_geometric(16, 0.3),
+                 lambda: TG.bipartite_random(4, 4, 2),
+                 lambda: TG.demo_graph(),
+                 lambda: TF.empty(4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

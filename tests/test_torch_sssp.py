@@ -10,10 +10,11 @@ import pytest
 from repro.core import graph as JG
 from repro.core.primitives import sssp as jsssp
 from repro.core.primitives import sssp_batch as jsssp_batch
+from repro.core.primitives.sssp import sssp_bellman_ford as jbellman
 from repro_torch import convert
 from repro_torch.core import ref as R
 from repro_torch.core.graph import TENSOR_FIELDS, Graph
-from repro_torch.core.primitives import sssp, sssp_batch
+from repro_torch.core.primitives import sssp, sssp_batch, sssp_bellman_ford
 
 
 def _pair(jg):
@@ -93,3 +94,19 @@ def test_sssp_matches_pallas_reference():
     jg, tg = _pair(JG.rmat(6, 4, seed=1, weighted=True))
     _assert_same(jsssp_batch(jg, [0, 9], delta=40.0, backend="pallas"),
                  sssp_batch(tg, [0, 9], delta=40.0))
+
+
+def test_bellman_ford_matches_reference(pair):
+    """The Ligra baseline (priority queue off) bit for bit, from the hub
+    and from a seeded vertex, and the Dijkstra oracle's distances."""
+    jg, tg = pair
+    hub = int(np.argmax(np.diff(tg.row_offsets.numpy())))
+    for src in (hub, 17):
+        jr = jbellman(jg, src, backend="xla")
+        tr = sssp_bellman_ford(tg, src)
+        _assert_same(jr, tr)
+        assert np.array_equal(tr.dist.numpy(), R.sssp_ref(tg, src))
+    with pytest.raises(ValueError, match="weights"):
+        sssp_bellman_ford(Graph.from_csr(np.zeros(3, np.int32),
+                                         np.zeros(0, np.int32),
+                                         device="cpu"), 0)
