@@ -121,7 +121,22 @@ Phases:
      card, no exception out of the stream), bfs with telemetry on and off at the main scale (bit-equal,
      its frontier column the level sizes, the same host reads — one a
      step — and synchronizing calls), and graph_serve's CLI at scale 16
-     with ``--trace`` (the build, warmup and serve spans) —
+     with ``--trace`` (the build, warmup and serve spans); (g) the
+     seventh slice's: the paper's load-balancing and idempotence
+     ablations — bfs_batch (push only, exact uniquify) and sssp_batch
+     under LB, TWC and THREAD at the main scale on path (a)'s sources
+     (Fig. 20) and on grid2d 512 (the mesh contrast), bfs_batch under
+     TWC with idempotence x direction (Fig. 19, each lane's overflow
+     printed), one advance of table8_utilization.py's hub frontier under
+     each strategy (its utilization; a THREAD advance launches no K3),
+     the filter family (exact and hash), partition_frontier,
+     neighborhood_reduce and advance_to_edge_frontier on it, and the
+     reference's oracle names at path (a)'s shapes, each equal to the
+     kernel it models; labels and distances equal to the
+     oracles and predecessors a valid tree wherever nothing overflowed,
+     every TWC and THREAD run bit-equal to the same run on the torch
+     backend on the card (TWC launching K3 and K2, THREAD K2 and no K3),
+     with its times and peak device memory printed —
      all on the cuda backend, validated
      against host oracles (numpy BFS hop counts, scipy Dijkstra, a numpy
      power iteration, scipy components, numpy Brandes, scipy products
@@ -129,9 +144,10 @@ Phases:
      triangle count); each path runs with the launch counters set to 0
      and every kernel of it must have launched;
   4. where the time goes — path (a)'s batched primitives, then paths
-     (b) and (c), and path (e) on the delta grid (its BFS and SSSP at
-     side 512, device events only; PageRank at 2048), once more under
-     torch.profiler: device busy time, idle share, top kernels.
+     (b) and (c), path (e) on the delta grid (its BFS and SSSP at
+     side 512, device events only; PageRank at 2048) and path (g)'s TWC
+     bfs_batch, once more under torch.profiler: device busy time, idle
+     share, top kernels.
 
 Prints one JSON line of kernel numbers (each kernel with its launches by
 variant — column storage or precision — and a row of its own for each
@@ -143,6 +159,7 @@ of the repository, it exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import re
@@ -168,7 +185,7 @@ TRIANGLE = [(0, 1), (0, 2), (1, 2)]
 INT32_MAX = 2 ** 31 - 1
 GRID_SIDE = 2048       # grid2d: n = 4,194,304, rmat-22's vertex count
 TIMING_ROUNDS = 5      # interleaved rounds when plans are compared
-PROFILE_GRID_SIDE = 512  # path (e)'s profiled BFS and SSSP
+PROFILE_GRID_SIDE = 512  # path (e)'s profiled BFS and SSSP, path (g)'s mesh
 DEVICE_OPS_PAD = 0.25  # s of host idle around a one-call profiler session
 INT16_SCALE = 15       # rmat scale 15: n = 32,768, the int16 ladder's top
 # triangles of rmat(scale, 16, seed=0), counted by a chunked scipy product
@@ -1540,6 +1557,446 @@ def _sixth_slice_path(torch, np, K, g, g16, sources, hub, oracle, dev,
 
 
 
+STRATEGIES = ("LB", "TWC", "THREAD")
+TABLE8_LANES = 256     # table8_utilization.py's hub frontier: 256 neighbours
+TABLE8_TILE = 512      # its LB / TWC slot rounding
+
+
+def _edge_keys(torch, g):
+    """row * n + column of every CSR slot, int64, ascending (rows in
+    order, each row's columns sorted): an edge (u, v) is a binary search
+    away."""
+    row = (g.row_seg if g.row_seg is not None
+           else torch.repeat_interleave(
+               torch.arange(g.num_vertices, device=g.device),
+               g.degrees.long()))
+    return row.long() * g.num_vertices + g.cols().long()
+
+
+def _check_tree(torch, g, keys, srcs, preds, labels=None, dist=None):
+    """Raise unless ``preds`` (B, n) form a BFS tree of ``labels`` (every
+    reached vertex but the source has a predecessor one level up, along
+    an edge) or an SSSP tree of ``dist`` (dist[p] + w(p, v) == dist[v],
+    the float32 add the relax makes); unreached vertices and the
+    sources have none."""
+    n = g.num_vertices
+    b = preds.shape[0]
+    reached = labels >= 0 if dist is None else torch.isfinite(dist)
+    root = torch.zeros_like(reached)
+    root[torch.arange(b, device=g.device),
+         torch.as_tensor(srcs, device=g.device).long()] = True
+    if bool((preds[~reached | root] != -1).any()):
+        raise AssertionError("a source or an unreached vertex has a "
+                             "predecessor")
+    lane, v = torch.nonzero(reached & ~root, as_tuple=True)
+    p = preds[lane, v].long()
+    if bool((p < 0).any()):
+        raise AssertionError("a reached vertex has no predecessor")
+    key = p * n + v
+    pos = torch.searchsorted(keys, key).clamp_(max=keys.numel() - 1)
+    if not bool((keys[pos] == key).all()):
+        raise AssertionError("a predecessor is no in-neighbour")
+    if dist is None:
+        ok = labels[lane, p] == labels[lane, v] - 1
+    else:
+        ok = dist[lane, p] + g.edge_values[pos] == dist[lane, v]
+    if not bool(ok.all()):
+        raise AssertionError("a predecessor is not one step up the tree")
+
+
+def _same(torch, a, b, what):
+    """Raise unless every tensor field of ``a`` (a named tuple or a
+    frontier) equals ``b``'s."""
+    names = (a._fields if hasattr(a, "_fields")
+             else [f.name for f in dataclasses.fields(a)])
+    for f in names:
+        x, y = getattr(a, f), getattr(b, f)
+        if not torch.equal(x, y):
+            raise AssertionError(f"path (g) {what}: {f} differs between "
+                                 f"the cuda and torch backends")
+
+
+def _launch_counts(K):
+    return {k: v.launches for k, v in K.KERNELS.items()}
+
+
+def _launched(K, before):
+    return {k: v.launches - before[k] for k, v in K.KERNELS.items()
+            if v.launches > before[k]}
+
+
+def _seventh_slice_path(torch, np, K, P, O, F, G, R, SR, g, sources,
+                        depths, dist, dev):
+    """Path (g), the load-balancing and idempotence ablations (the
+    paper's Fig. 19, Fig. 20 and Table 8) on the cuda backend, at rmat-22
+    on path (a)'s four sources and on grid2d(PROFILE_GRID_SIDE):
+    bfs_batch (push only, exact uniquify) and sssp_batch under LB, TWC
+    and THREAD, bfs_batch under TWC with idempotence x direction, each
+    labels / distances equal to path (a)'s oracles and its predecessors
+    a valid tree wherever nothing overflowed, every TWC and THREAD run
+    bit-equal to the same run on the torch backend on the card (TWC
+    launching K3 and K2, THREAD K2 and no K3); one advance of
+    table8_utilization.py's hub frontier under each strategy (a THREAD
+    advance launches no K3), the filter family, partition_frontier,
+    neighborhood_reduce and advance_to_edge_frontier on it, cuda equal to
+    torch; the reference's oracle names at path (a)'s shapes, each
+    equal to the kernel it models. Returns the launches in
+    total and by variant, and the ablation's times."""
+    from repro_torch.core.primitives import bfs_batch, sssp_batch
+    n, m = g.num_vertices, g.num_edges
+    b = len(sources)
+    gname = f"rmat-{int(math.log2(n))}"
+    K.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    keys = _edge_keys(torch, g)
+    times = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        times[label] = (time.monotonic() - t) * 1e3
+        return out
+
+    def run_pair(label, prim, gr, srcs, **kw):
+        """The cuda run, its launches, and for TWC / THREAD the same run
+        on the torch backend, bit-equal."""
+        before = _launch_counts(K)
+        got = timed(label, lambda: prim(gr, srcs, backend="cuda", **kw))
+        launched = _launched(K, before)
+        strategy = kw.get("strategy", "LB")
+        if strategy != "LB":
+            plain = timed(label + " [torch]",
+                          lambda: prim(gr, srcs, backend="torch", **kw))
+            _same(torch, got, plain, label)
+            if strategy == "TWC" and not {"advance_batch", "compact"} <= set(
+                    launched):
+                raise AssertionError(f"{label} launched {launched}, not "
+                                     f"K3 and K2")
+            if strategy == "THREAD" and ("compact" not in launched
+                                         or "advance_batch" in launched):
+                raise AssertionError(f"{label} launched {launched}: "
+                                     f"THREAD launches K2 and no K3")
+        return got, launched
+
+    # ---- Fig. 20 (strategies) and Fig. 19 (idempotence x direction) at
+    # rmat-22: push-only BFS with exact uniquify, as fig20_strategies.py
+    fig20 = {}
+    for s in STRATEGIES:
+        r, launched = run_pair(f"{gname} bfs_batch {s}", bfs_batch, g,
+                               sources, direction=False, idempotence=False,
+                               strategy=s)
+        for i, want in enumerate(depths):
+            if not np.array_equal(r.labels[i].cpu().numpy(), want):
+                raise AssertionError(f"path (g) bfs_batch {s} lane {i} "
+                                     f"differs from the oracle")
+        if int(r.overflow.sum()):
+            raise AssertionError(f"bfs_batch {s} overflowed under exact "
+                                 f"uniquify")
+        _check_tree(torch, g, keys, sources, r.preds, labels=r.labels)
+        fig20["bfs", s] = (times[f"{gname} bfs_batch {s}"],
+                           int(r.iterations.max()), launched)
+        if s == "TWC":
+            twc_exact_push = r        # Fig. 19's (exact, push only) cell
+        del r
+        r, launched = run_pair(f"{gname} sssp_batch {s}", sssp_batch, g,
+                               sources, strategy=s)
+        if not np.array_equal(r.dist.cpu().numpy(), dist):
+            raise AssertionError(f"path (g) sssp_batch {s} differs from "
+                                 f"Dijkstra")
+        _check_tree(torch, g, keys, sources, r.preds, dist=r.dist)
+        fig20["sssp", s] = (times[f"{gname} sssp_batch {s}"],
+                            int(r.iterations.max()), launched,
+                            int(r.relaxations.sum()))
+        del r
+        torch.cuda.empty_cache()
+    fig19 = {}
+    for idem in (False, True):
+        for direction in (False, True):
+            label = (f"{gname} bfs_batch TWC idempotence={idem} "
+                     f"direction={direction}")
+            if not (idem or direction):
+                # Fig. 20's TWC run, checked there
+                times[label] = times[f"{gname} bfs_batch TWC"]
+                r = twc_exact_push
+            else:
+                r, _ = run_pair(label, bfs_batch, g, sources,
+                                direction=direction, idempotence=idem,
+                                strategy="TWC")
+            ovf = r.overflow.tolist()
+            for i, want in enumerate(depths):
+                if ovf[i] == 0 and not np.array_equal(
+                        r.labels[i].cpu().numpy(), want):
+                    raise AssertionError(f"path (g) {label} lane {i} "
+                                         f"differs from the oracle")
+            if not any(ovf):
+                _check_tree(torch, g, keys, sources, r.preds,
+                            labels=r.labels)
+            if idem:
+                print(f"path (g) {label}: overflow per lane {ovf}")
+            fig19[idem, direction] = (times[label], int(r.iterations.max()),
+                                      int(r.pull_iters.max()), ovf)
+            del r
+            torch.cuda.empty_cache()
+    del twc_exact_push
+    peak_rmat = torch.cuda.max_memory_allocated()
+
+    # ---- Table 8: one advance of the hub's frontier (its first 256
+    # distinct neighbours, capacity m) under each strategy, and the
+    # operators on it
+    ro, ci = g.row_offsets, g.col_indices
+    hub = sources[0]
+    ids = torch.unique(ci[int(ro[hub]):int(ro[hub + 1])])[:TABLE8_LANES]
+    fr = F.from_ids(ids, m, device=dev)
+    work = int(g.degrees[ids.long()].sum())
+    wides, utilization = {}, []
+    for s in STRATEGIES:
+        before = _launch_counts(K)
+        res, _ = O.advance(g, fr, m, strategy=s, backend="cuda")
+        launched = _launched(K, before)
+        res_t, _ = O.advance(g, fr, m, strategy=s, backend="torch")
+        _same(torch, res, res_t, f"advance {s}")
+        if s == "THREAD" and launched:
+            raise AssertionError(f"a THREAD advance launched {launched}")
+        if s != "THREAD" and "advance_batch" not in launched:
+            raise AssertionError(f"an {s} advance launched {launched}")
+        valid = int(res.valid.sum())
+        if valid != work:
+            raise AssertionError(f"advance {s}: {valid} live slots, the "
+                                 f"frontier has {work} edges")
+        slots = m if s == "THREAD" else max(-(-valid // TABLE8_TILE)
+                                            * TABLE8_TILE, TABLE8_TILE)
+        utilization.append((s, work, slots, 100.0 * valid / slots))
+        for cap in (None, work):
+            _same(torch, O.advance_to_edge_frontier(res, cap, backend="cuda"),
+                  O.advance_to_edge_frontier(res_t, cap, backend="torch"),
+                  f"advance_to_edge_frontier {s}")
+        wides[s] = O.advance_to_vertex_frontier(res, backend="cuda")
+        del res, res_t
+    for s in STRATEGIES:
+        for op in ("add", "max", "min"):
+            def edge_map(src, dst, eid, valid, data):
+                return g.edge_values[torch.where(valid, eid, 0).long()]
+            got = O.neighborhood_reduce(g, fr, m, edge_map, op, init=-1.0,
+                                        strategy=s, backend="cuda")
+            want = O.neighborhood_reduce(g, fr, m, edge_map, op, init=-1.0,
+                                         strategy=s, backend="torch")
+            if not torch.equal(got, want):
+                raise AssertionError(f"neighborhood_reduce {op} {s} differs "
+                                     f"between the backends")
+    # the hub frontier's expansion (duplicates and all) through the filter
+    # family: one lane, and LB's and TWC's orders as a batch of two
+    for uniq in ("exact", "hash"):
+        for s in STRATEGIES:
+            a, _ = O.filter_frontier(wides[s], n=n, uniquify=uniq, cap=n,
+                                     backend="cuda")
+            c, _ = O.filter_frontier(wides[s], n=n, uniquify=uniq, cap=n,
+                                     backend="torch")
+            _same(torch, a, c, f"filter_frontier {uniq} {s}")
+        batch = F.BatchedSparseFrontier(
+            torch.stack([wides["LB"].ids, wides["TWC"].ids]),
+            torch.stack([wides["LB"].length, wides["TWC"].length]))
+        a, _, ao = O.filter_frontier_batch(batch, n=n, uniquify=uniq,
+                                           cap=n, backend="cuda")
+        c, _, co = O.filter_frontier_batch(batch, n=n, uniquify=uniq,
+                                           cap=n, backend="torch")
+        _same(torch, a, c, f"filter_frontier_batch {uniq}")
+        if not torch.equal(ao, co):
+            raise AssertionError(f"filter_frontier_batch {uniq} overflow "
+                                 f"differs between the backends")
+        if uniq == "exact" and not bool((a.lengths == a.lengths[0]).all()):
+            raise AssertionError("exact uniquify kept different id sets")
+    w = wides["LB"]
+    pred = w.ids % 2 == 0
+    a = O.partition_frontier(w, pred, n, n, backend="cuda")
+    c = O.partition_frontier(w, pred, n, n, backend="torch")
+    for x, y in zip(a, c):
+        _same(torch, x, y, "partition_frontier")
+    del wides, batch, w, pred, a, c, fr
+    torch.cuda.empty_cache()
+
+    # ---- the reference's oracle names at path (a)'s shapes, each
+    # against the kernel it models
+    api = _kernel_api_names(torch, K, P, SR, g, sources, dev)
+
+    # ---- the mesh contrast: grid2d(PROFILE_GRID_SIDE), path (e)'s
+    # profiled side
+    gm = G.grid2d(PROFILE_GRID_SIDE, weighted=True, seed=0, device=dev)
+    nm = gm.num_vertices
+    msrc = [0, nm // 2 + PROFILE_GRID_SIDE // 2, 12345 % nm, nm - 1]
+    mdepths = [R.bfs_ref(gm, s) for s in msrc]
+    mdist = R.sssp_ref(gm, msrc)
+    mkeys = _edge_keys(torch, gm)
+    for s in STRATEGIES:
+        r, launched = run_pair(f"grid-{PROFILE_GRID_SIDE} bfs_batch {s}",
+                               bfs_batch, gm, msrc, direction=False,
+                               idempotence=False, strategy=s)
+        for i, want in enumerate(mdepths):
+            if not np.array_equal(r.labels[i].cpu().numpy(), want):
+                raise AssertionError(f"path (g) grid bfs_batch {s} lane {i} "
+                                     f"differs from the oracle")
+        _check_tree(torch, gm, mkeys, msrc, r.preds, labels=r.labels)
+        fig20["grid bfs", s] = (times[f"grid-{PROFILE_GRID_SIDE} bfs_batch "
+                                      f"{s}"], int(r.iterations.max()),
+                                launched)
+        r, launched = run_pair(f"grid-{PROFILE_GRID_SIDE} sssp_batch {s}",
+                               sssp_batch, gm, msrc, strategy=s)
+        if not np.array_equal(r.dist.cpu().numpy(), mdist):
+            raise AssertionError(f"path (g) grid sssp_batch {s} differs "
+                                 f"from Dijkstra")
+        _check_tree(torch, gm, mkeys, msrc, r.preds, dist=r.dist)
+        fig20["grid sssp", s] = (times[f"grid-{PROFILE_GRID_SIDE} "
+                                       f"sssp_batch {s}"],
+                                 int(r.iterations.max()), launched,
+                                 int(r.relaxations.sum()))
+    del gm, mkeys, keys
+    torch.cuda.empty_cache()
+    launches = {k: v.launches for k, v in K.KERNELS.items()}
+    variants = {k: dict(v.variants) for k, v in K.KERNELS.items()}
+    missing = [k for k in ("advance_filter_batch", "compact",
+                           "advance_batch") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on path (g): "
+                             f"{missing}")
+
+    print(f"path (g) launches: {launches}; peak device memory at rmat "
+          f"scale {int(math.log2(n))} {peak_rmat / 2 ** 30:.2f} GiB")
+    print("path (g) Fig. 20 (ms a run on the cuda backend, B = "
+          f"{b}; iterations; launches; [torch backend ms]):")
+    for (what, s), row in fig20.items():
+        graph = "grid" if what.startswith("grid") else gname
+        prim = what.split()[-1]
+        key = (f"grid-{PROFILE_GRID_SIDE} {prim}_batch {s}"
+               if graph == "grid" else f"{gname} {prim}_batch {s}")
+        plain = times.get(key + " [torch]")
+        extra = (f", relaxations {row[3]}" if len(row) > 3 else "")
+        print(f"  {graph:8s} {prim:5s} {s:6s} {row[0]:10.2f} ms  iterations "
+              f"{row[1]}{extra}; {row[2]}"
+              + (f"; torch {plain:.2f} ms" if plain is not None else ""))
+    print(f"path (g) Fig. 19 ({gname} bfs_batch TWC, ms on the cuda backend; "
+          "iterations; pull iterations; overflow per lane):")
+    for (idem, direction), (ms, iters, pulls, ovf) in fig19.items():
+        print(f"  idempotence={idem!s:5s} direction={direction!s:5s} "
+              f"{ms:10.2f} ms  {iters} {pulls} {ovf}")
+    print(f"path (g) Table 8 (the hub's first {TABLE8_LANES} neighbours, "
+          f"capacity m): " + "; ".join(
+              f"{s} work {wk} slots {sl} utilization {u:.2f} %"
+              for s, wk, sl, u in utilization))
+    print(f"path (g) oracle names equal to their kernels: "
+          f"{api}")
+    return launches, variants, times
+
+
+def _kernel_api_names(torch, K, P, SR, g, sources, dev):
+    """The reference's oracle names (kernels.ref) at path (a)'s shapes,
+    each against the kernel it models, called through the reference's
+    kernel-API names (kernels.ops; that each of those reaches its
+    registry-named wrapper is a CPU test): every integer output equal,
+    the ELL oracles on integer-valued operands (exact sums) equal, the
+    attention oracle within ATTENTION_TOL. Returns the names checked."""
+    n, m = g.num_vertices, g.num_edges
+    b = len(sources)
+    ro, ci = g.row_offsets, g.col_indices
+    checked = []
+
+    def equal(name, got, want):
+        for i, (x, y) in enumerate(zip(got, want)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{name}: output {i} differs from the "
+                                     f"kernel")
+        checked.append(name)
+
+    # K2 on the first source's level-1 frontier, a (n,) keep mask
+    keep = torch.zeros((n,), dtype=torch.int32, device=dev)
+    s0 = sources[0]
+    keep[ci[int(ro[s0]):int(ro[s0 + 1])].long()] = 1
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    equal("filter_compact_ref", P.filter_compact_ref(ids, keep),
+          K.filter_compact(ids, keep))
+    del keep, ids
+    gen = torch.Generator(device=dev).manual_seed(7)
+    if K.oracle is not P:
+        raise AssertionError("kernels.ops.oracle is not kernels.ref")
+    checked.append("oracle")
+    # K6 over the out-degrees: the oracle's geometry from the offsets
+    deg = g.degrees.to(torch.int32).contiguous()
+    cap6 = 1 << max(m - 1, 1).bit_length()
+    exp = K.lb_expand(deg, cap6)
+    equal("lb_expand_ref", P.lb_expand_ref(P.lb_offsets(deg), cap6),
+          (exp.in_pos, exp.rank, exp.valid.to(torch.int32)))
+    del exp, deg
+    # K5 (found) on 2^22 probes: random rows' neighbour lists, needles
+    # half drawn from the list, half at random
+    rows = torch.randint(0, n, (1 << 22,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lo, hi = ro[rows.long()], ro[rows.long() + 1]
+    span = (hi - lo).clamp(min=1)
+    at = lo + (torch.rand(rows.shape, generator=gen, device=dev)
+               * span).to(torch.int32)
+    needles = torch.where(torch.rand(rows.shape, generator=gen, device=dev)
+                          < 0.5, ci[at.clamp(max=m - 1).long()],
+                          torch.randint(0, n, rows.shape, generator=gen,
+                                        device=dev, dtype=torch.int32))
+    found = K.segment_search(ci, lo, hi, needles)
+    equal("segment_search_ref",
+          [P.segment_search_ref(ci, lo, hi, needles)],
+          [found.to(torch.int32)])
+    del rows, lo, hi, span, at, needles, found
+    # the ELL oracles over rmat-22's first ell_width neighbours a row,
+    # against K4 / K4m on the CSR cut to those neighbours; integer-valued
+    # weights and x, so every sum is exact in any order
+    width = int(g.ell_width)
+    lanes = torch.arange(width, device=dev)
+    deg = (ro[1:] - ro[:-1]).long()
+    ok = lanes[None, :] < deg[:, None]
+    idx = (ro[:-1].long()[:, None] + lanes[None, :]).clamp(max=m - 1)
+    nbrs = torch.where(ok, ci[idx], -1)
+    vals = torch.where(ok, g.edge_values[idx], 0.0)
+    del idx
+    ro_t = torch.cat([ro.new_zeros(1), torch.cumsum(
+        deg.clamp(max=width), 0).to(torch.int32)])
+    ci_t, v_t = nbrs[ok].contiguous(), vals[ok].contiguous()
+    xi = torch.randint(0, 8, (n,), generator=gen, device=dev).to(
+        torch.float32)
+    none = ro.new_zeros(0)             # no row passes the width: no overflow
+    equal("spmv_ell_ref", [P.spmv_ell_ref(nbrs, vals, xi)],
+          [K.semiring_spmv(ro_t, ci_t, v_t, xi, SR.plus_times, width, None,
+                           None, none, none)])
+    xk = torch.randint(0, 8, (n, b), generator=gen, device=dev).to(
+        torch.float32)
+    mask = torch.rand((n,), generator=gen, device=dev) < 0.7
+    equal("semiring_ell_ref",
+          [P.semiring_ell_ref(nbrs, vals, xk, mask.to(torch.int32),
+                              SR.min_plus)],
+          [K.semiring_spmm(ro_t, ci_t, v_t, xk, SR.min_plus, width, mask)])
+    del nbrs, vals, ok, ro_t, ci_t, v_t, xi, xk, mask
+    # K7 at the 128-query chunk against 8192 keys (D = 128, bf16), K8 at
+    # Kimi K2's dispatch
+    q, k, v = (torch.randn((sq, QWEN2_VL_HEAD), generator=gen,
+                           device=dev).to(torch.bfloat16)
+               for sq in (128, 8192, 8192))
+    rtol, atol = ATTENTION_TOL["bfloat16"]
+    got = K.flash_attention(q, k, v, causal=True).float()
+    want = P.flash_attention_ref(q, k, v, causal=True).float()
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError("flash_attention_ref differs from K7 beyond "
+                             "ATTENTION_TOL")
+    checked.append("flash_attention_ref")
+    cap_e = max(8 * math.ceil(math.ceil(
+        MOE_TOKENS * KIMI_TOP_K / KIMI_EXPERTS * MOE_CAPACITY_FACTOR) / 8), 8)
+    slot = _moe_slots(torch, MOE_TOKENS, KIMI_EXPERTS, KIMI_TOP_K, cap_e,
+                      dev)
+    xm = torch.randn((MOE_TOKENS, KIMI_D_MODEL), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    equal("moe_gather_ref", [P.moe_gather_ref(xm, slot)],
+          [K.moe_gather(xm, slot)])
+    del q, k, v, got, want, xm, slot
+    torch.cuda.empty_cache()
+    return checked
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -2689,6 +3146,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"path (f) run and validated in {time.monotonic() - t0:.1f} s")
 
+    # ---- phase 3 (g): the seventh slice's path: the load-balancing and
+    # idempotence ablations (Fig. 19, Fig. 20, Table 8), the operators
+    # they need and the reference's oracle names ----
+    t0 = time.monotonic()
+    launches7, variants7, _ = _seventh_slice_path(
+        torch, np, K, P, O, F, G, R, SR, g, sources, depths, dist, dev)
+    tally(variants7)
+    torch.cuda.empty_cache()
+    print(f"path (g) run and validated in {time.monotonic() - t0:.1f} s")
+
     # ---- where the time goes: each slice's path once more under
     # torch.profiler (its overhead inflates the wall time; the device
     # time per kernel is what it is for) ----
@@ -2755,6 +3222,11 @@ def main(argv=None) -> int:
              "subgraph_match", path_c, 12)
     profiled(f"grid {PROFILE_GRID_SIDE} delta: bfs_batch+sssp_batch, "
              f"grid {GRID_SIDE} delta: pagerank", path_e, 12, host_ops=False)
+    # path (g)'s unfused push: where a TWC level's time goes
+    profiled("bfs_batch TWC (push only, exact uniquify)",
+             lambda: bfs_batch(g, sources, direction=False,
+                               idempotence=False, strategy="TWC",
+                               backend="cuda"), 12)
     del g_tc, g16, graphs5, g_prof
 
     # each kernel, then the column or precision variants this slice timed
@@ -2765,7 +3237,8 @@ def main(argv=None) -> int:
                         "replaces": k.replaces,
                         "launches": (launches[name] + launches2[name]
                                      + launches3[name] + launches4[name]
-                                     + launches5[name] + launches6[name]),
+                                     + launches5[name] + launches6[name]
+                                     + launches7[name]),
                         "variants": variant_totals[name],
                         **results[name]})
     for row in sorted(r for r in results if ":" in r):

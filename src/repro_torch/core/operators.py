@@ -1,10 +1,18 @@
 """Gunrock's graph operators in PyTorch (counterpart of
-``repro.core.operators``, the main-path subset).
+``repro.core.operators``).
 
-  advance        — load-balanced (LB) neighbor expansion: exclusive scan
-                   of the frontier's degrees, then one sorted search per
-                   output slot for (input lane, rank), then the CSR
-                   gathers. Registry ops "advance" / "advance_batch".
+  advance        — neighbor expansion under one of the paper's
+                   load-balancing strategies (Fig. 20): LB, an exclusive
+                   scan of the frontier's degrees, then one sorted search
+                   per output slot for (input lane, rank), then the CSR
+                   gathers (registry ops "advance" / "advance_batch");
+                   TWC, the same expansion over the lanes stably
+                   reordered by size class (``twc_order``), ``in_pos``
+                   mapped back; THREAD, the static per-vertex mapping: a
+                   sweep of every CSR slot, kept where its source is in
+                   the frontier. THREAD has no kernel in the reference on
+                   any backend, so it runs plain PyTorch on both of the
+                   port's backends.
   advance_filter — advance fused with the visited test, exact
                    first-occurrence culling (the smallest expansion slot
                    wins per destination) and compaction of the survivors
@@ -13,11 +21,20 @@
   advance_pull   — pull over the CSC mirror: for every unvisited vertex,
                    the largest active in-neighbour (a segment max), which
                    is also the predecessor it records.
+  filter_frontier — predicate + compaction ("compact"), with exact
+                   (the LAST lane of each id survives) or hash (the
+                   history table of §5.2.1: the last kept lane of a slot
+                   owns it) uniquification; the batched form reports
+                   the survivors the capacity clamp dropped.
+  partition_frontier, neighborhood_reduce, compute — the two-way split,
+                   advance + per-lane segmented reduction, per-item map.
   segmented_intersect — SmallLarge intersection of paired neighbour
                    lists: LB expansion of the smaller list, a bounded
                    binary search in the larger ("segment_search"),
                    compaction of the matches.
-  scatter_*      — the atomic-replacement scatters.
+  scatter_*      — the atomic-replacement scatters; ``scatter_last`` is
+                   the reference's scatter with duplicate targets, where
+                   the largest slot's write stands.
 
 The ``"torch"`` providers registered here are the plain twins of the
 reference's ``xla`` providers, bit for bit, and the plain versions the
@@ -26,8 +43,8 @@ of the batched ones, on both backends.
 
 Functors see whole tensors: ``functor(src, dst, edge_id, rank, valid,
 data) -> (keep, data)`` gets (B, cap) tensors from ``advance_batch`` and
-(cap,) tensors from ``advance``. Only the LB strategy is ported; TWC and
-THREAD (the paper's Fig. 20 ablation) come with a later slice.
+(cap,) tensors from ``advance``; a filter functor is ``functor(ids,
+valid, data) -> (keep, data)``.
 
 Columns are read through the graph's storage plan: the traversal
 providers take the column store (a dense array at any index dtype, or
@@ -44,22 +61,12 @@ import torch
 from . import backend as B
 from . import storage as S
 from .frontier import (INVALID, BatchedDenseFrontier, BatchedSparseFrontier,
-                       DenseFrontier, SparseFrontier, compact_values,
-                       compact_values_batch)
+                       DenseFrontier, SparseFrontier, _scatter_flags,
+                       compact_values, compact_values_batch)
 from .graph import Graph, row_segments_of
 
 INT32_MIN = -2 ** 31
 INT32_MAX = 2 ** 31 - 1
-
-
-def _strategy(strategy: str) -> None:
-    if strategy in ("TWC", "THREAD"):
-        raise NotImplementedError(
-            f"strategy={strategy!r} (the load-balancing ablation) is not "
-            f"ported yet; it comes with a later slice of the port — use "
-            f"strategy='LB'")
-    if strategy != "LB":
-        raise ValueError(f"unknown strategy {strategy}")
 
 
 class Expansion(NamedTuple):
@@ -67,6 +74,22 @@ class Expansion(NamedTuple):
     rank: torch.Tensor     # (..., cap_out) index within that lane's segment
     valid: torch.Tensor    # (..., cap_out) bool
     total: torch.Tensor    # (...,) int32 true number of output items
+
+
+def lb_scan(sizes: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exclusive scan of ``sizes`` (B, cap_in) and its totals (B,),
+    int32, saturating at INT32_MAX as the kernels' scan does: a frontier
+    of duplicates can hold more slots than int32 counts (the reference's
+    int32 scan wraps there), and every slot below INT32_MAX keeps its
+    true lane."""
+    incl = torch.cumsum(sizes, dim=1, dtype=torch.int64)
+    offsets = (incl - sizes).clamp_(max=INT32_MAX).to(torch.int32)
+    if sizes.shape[1]:
+        total = incl[:, -1].clamp(max=INT32_MAX).to(torch.int32)
+    else:
+        total = torch.zeros((sizes.shape[0],), dtype=torch.int32,
+                            device=sizes.device)
+    return offsets, total
 
 
 def lb_expand(sizes: torch.Tensor, valid_in: torch.Tensor,
@@ -80,11 +103,7 @@ def lb_expand(sizes: torch.Tensor, valid_in: torch.Tensor,
     if squeeze:
         sizes = sizes[None]
     b, cap_in = sizes.shape
-    offsets = torch.cumsum(sizes, dim=1, dtype=torch.int32) - sizes
-    if cap_in:
-        total = offsets[:, -1] + sizes[:, -1]
-    else:
-        total = torch.zeros((b,), dtype=torch.int32, device=sizes.device)
+    offsets, total = lb_scan(sizes)
     slots = torch.arange(cap_out, dtype=torch.int32, device=sizes.device)
     slots = slots[None, :].expand(b, cap_out).contiguous()
     in_pos = torch.searchsorted(offsets.contiguous(), slots, right=True,
@@ -167,24 +186,87 @@ def _apply_functor(res: AdvanceResult, rank, functor, data):
                          total=res.total), data
 
 
+def twc_order(sizes: torch.Tensor) -> torch.Tensor:
+    """TWC's size-class grouping (paper §5.1.2), as the reference emulates
+    it: a stable sort of the lanes into ≤ 32 ("thread"), ≤ 256 ("warp")
+    and larger ("block") segments, along the last axis (per lane of a
+    batch). Returns the permutation, int64."""
+    cls = torch.where(sizes <= 32, 0, torch.where(sizes <= 256, 1, 2))
+    return torch.sort(cls.to(torch.int8), dim=-1, stable=True).indices
+
+
+def _thread_expand(graph: Graph, ids: torch.Tensor, valid: torch.Tensor,
+                   cap_out: int) -> AdvanceResult:
+    """THREAD (ThreadExpand, §5.1.1): every CSR slot in order, live where
+    its source is in the frontier, cut at ``cap_out`` (so the result has
+    min(cap_out, m) slots); ``in_pos`` is the slot's source VERTEX and
+    ``total`` counts the whole O(m) sweep. Plain PyTorch on every
+    backend: the reference has no kernel for it either."""
+    n, m = graph.num_vertices, graph.num_edges
+    k = min(cap_out, m)
+    flags = _scatter_flags(ids, valid, n)                  # (B, n)
+    src_of = (graph.row_seg if graph.row_seg is not None
+              else row_segments_of(graph.row_offsets))[:k]
+    live = torch.index_select(flags, 1, src_of)            # (B, k)
+    slot = torch.arange(k, dtype=torch.int32, device=ids.device)
+    dst = S.gather_cols(graph.col_store, slot, src_of)
+    total = torch.where(flags, graph.degrees[None, :], 0).sum(
+        dim=1, dtype=torch.int32)
+    return AdvanceResult(src=torch.where(live, src_of, INVALID),
+                         dst=torch.where(live, dst, INVALID),
+                         edge_id=torch.where(live, slot, INVALID),
+                         in_pos=src_of.expand(live.shape), valid=live,
+                         total=total)
+
+
+def _expand(graph: Graph, ids: torch.Tensor, valid: torch.Tensor,
+            cap_out: int, input_kind: str, strategy: str, bk: str):
+    """The expansion of one frontier (``ids`` (cap,), the "advance" op)
+    or of a batch ((B, cap), "advance_batch") under ``strategy`` →
+    (AdvanceResult, rank), before any functor. THREAD is plain
+    PyTorch."""
+    if strategy == "THREAD":
+        if input_kind != "vertex":
+            raise ValueError("THREAD expands vertex frontiers only")
+        if ids.dim() == 1:
+            res = AdvanceResult(*(t[0] for t in _thread_expand(
+                graph, ids[None], valid[None], cap_out)))
+        else:
+            res = _thread_expand(graph, ids, valid, cap_out)
+        return res, torch.zeros_like(res.src)
+    if strategy not in ("LB", "TWC"):
+        raise ValueError(f"unknown strategy {strategy}")
+    base, sizes = _base_and_sizes(graph, ids, valid, input_kind)
+    order = None
+    if strategy == "TWC":
+        # expand the lanes grouped by size class, then map each slot's
+        # lane back; K3's dead slots carry lane cap_in - 1, which maps
+        # to order[cap_in - 1] as in the reference
+        order = twc_order(sizes)
+        base = torch.gather(base, -1, order)
+        sizes = torch.gather(sizes, -1, order)
+    op = "advance" if ids.dim() == 1 else "advance_batch"
+    cols = B.storage_arg(op, bk, graph=graph)
+    src, dst, edge_id, in_pos, rank, valid, total = B.dispatch(op, bk)(
+        graph.row_offsets, cols, base, sizes, cap_out, graph.cache)
+    if order is not None and order.shape[-1]:
+        in_pos = torch.gather(order, -1, in_pos.long()).to(torch.int32)
+    return AdvanceResult(src=src, dst=dst, edge_id=edge_id, in_pos=in_pos,
+                         valid=valid, total=total), rank
+
+
 def advance_batch(graph: Graph, frontier: BatchedSparseFrontier,
                   cap_out: int, functor: Optional[Callable] = None,
                   data=None, input_kind: str = "vertex",
                   strategy: str = "LB", *,
                   backend: Optional[str] = None
                   ) -> tuple[AdvanceResult, object]:
-    """Multi-source push advance: expand B frontier lanes at once.
-    Fields of the result are (B, cap_out), ``total`` (B,)."""
-    _strategy(strategy)
+    """Multi-source push advance: expand B frontier lanes at once under
+    ``strategy`` ("LB" | "TWC" | "THREAD"). Fields of the result are
+    (B, cap_out) (THREAD: (B, min(cap_out, m))), ``total`` (B,)."""
     bk = B.resolve(backend, graph.device)
-    base, sizes = _base_and_sizes(graph, frontier.ids, frontier.valid_mask,
-                                  input_kind)
-    cols = B.storage_arg("advance_batch", bk, graph=graph)
-    src, dst, edge_id, in_pos, rank, valid, total = B.dispatch(
-        "advance_batch", bk)(graph.row_offsets, cols, base, sizes, cap_out,
-                             graph.cache)
-    res = AdvanceResult(src=src, dst=dst, edge_id=edge_id, in_pos=in_pos,
-                        valid=valid, total=total)
+    res, rank = _expand(graph, frontier.ids, frontier.valid_mask, cap_out,
+                        input_kind, strategy, bk)
     return _apply_functor(res, rank, functor, data)
 
 
@@ -193,18 +275,11 @@ def advance(graph: Graph, frontier: SparseFrontier, cap_out: int,
             input_kind: str = "vertex", strategy: str = "LB", *,
             backend: Optional[str] = None
             ) -> tuple[AdvanceResult, object]:
-    """Gunrock advance (push) of one frontier, through the single-lane
-    "advance" registry op."""
-    _strategy(strategy)
+    """Gunrock advance (push) of one frontier, LB and TWC through the
+    single-lane "advance" registry op."""
     bk = B.resolve(backend, graph.device)
-    base, sizes = _base_and_sizes(graph, frontier.ids, frontier.valid_mask,
-                                  input_kind)
-    cols = B.storage_arg("advance", bk, graph=graph)
-    src, dst, edge_id, in_pos, rank, valid, total = B.dispatch(
-        "advance", bk)(graph.row_offsets, cols, base, sizes, cap_out,
-                       graph.cache)
-    res = AdvanceResult(src=src, dst=dst, edge_id=edge_id, in_pos=in_pos,
-                        valid=valid, total=total)
+    res, rank = _expand(graph, frontier.ids, frontier.valid_mask, cap_out,
+                        input_kind, strategy, bk)
     return _apply_functor(res, rank, functor, data)
 
 
@@ -315,6 +390,174 @@ def advance_to_vertex_frontier(res: AdvanceResult,
     """Compact an advance result's destinations into a vertex frontier."""
     batched = AdvanceResult(*(t[None] for t in res))
     return advance_to_vertex_frontier_batch(batched, cap, backend).lane(0)
+
+
+def advance_to_edge_frontier(res: AdvanceResult,
+                             cap: Optional[int] = None,
+                             backend: Optional[str] = None
+                             ) -> SparseFrontier:
+    """Compact a single advance result's edge ids into an edge frontier
+    (an ``input_kind="edge"`` advance expands their destinations)."""
+    cap = int(res.edge_id.shape[0]) if cap is None else cap
+    buf, length = compact_values(res.edge_id, res.valid, cap,
+                                 backend=backend)
+    return SparseFrontier(ids=buf, length=length)
+
+
+# ---------------------------------------------------------------------------
+# filter (paper §4.2, §5.2.1)
+# ---------------------------------------------------------------------------
+
+
+def _uniquify_exact(ids: torch.Tensor, keep: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """One surviving lane per id along the last axis: the LAST kept lane
+    of each id (the reference's max-lane scatter), so the survivors keep
+    the order of their last occurrences."""
+    lane = torch.arange(ids.shape[-1], dtype=torch.int32, device=ids.device)
+    lane = lane.expand(ids.shape)
+    safe = torch.where(keep, ids, 0).long()
+    last = torch.full((*ids.shape[:-1], n), INVALID, dtype=torch.int32,
+                      device=ids.device)
+    last.scatter_reduce_(-1, safe, torch.where(keep, lane, INVALID), "amax")
+    return keep & (torch.gather(last, -1, safe) == lane)
+
+
+def _uniquify_hash(ids: torch.Tensor, keep: torch.Tensor,
+                   hash_size: int) -> torch.Tensor:
+    """Heuristic history-table culling (§5.2.1) along the last axis: a
+    kept lane is culled when its table slot (id mod ``hash_size``) is
+    owned by ANOTHER lane holding the same id. A slot's owner is its last
+    kept lane — the reference's two ``.set`` scatters as XLA applies them
+    on the CPU, in lane order — picked here by an explicit max, so the
+    card gives the same owner; the owner's id is read from the owner's
+    lane. Removes only some duplicates, never a valid item."""
+    lane = torch.arange(ids.shape[-1], dtype=torch.int32, device=ids.device)
+    lane = lane.expand(ids.shape)
+    slot = torch.where(keep, torch.remainder(ids, hash_size),
+                       hash_size).long()
+    owner = torch.full((*ids.shape[:-1], hash_size + 1), INVALID,
+                       dtype=torch.int32, device=ids.device)
+    owner.scatter_reduce_(-1, slot, torch.where(keep, lane, INVALID),
+                          "amax")
+    own = torch.gather(owner, -1, slot)
+    own_id = torch.gather(ids, -1, own.clamp(min=0).long())
+    return keep & ~((own_id == ids) & (own != lane))
+
+
+def _filter_keep(ids, valid, functor, data, n, uniquify, hash_size):
+    keep = valid
+    if functor is not None:
+        fkeep, data = functor(ids, valid, data)
+        keep = keep & fkeep
+    if uniquify == "exact":
+        if n is None:
+            raise ValueError("exact uniquify needs the vertex count n")
+        keep = _uniquify_exact(ids, keep, n)
+    elif uniquify == "hash":
+        keep = _uniquify_hash(ids, keep, hash_size)
+    elif uniquify != "none":
+        raise ValueError(f"unknown uniquify {uniquify!r}")
+    return keep, data
+
+
+def filter_frontier(frontier: SparseFrontier,
+                    functor: Optional[Callable] = None, data=None,
+                    n: Optional[int] = None, uniquify: str = "none",
+                    cap: Optional[int] = None, hash_size: int = 1024,
+                    backend: Optional[str] = None
+                    ) -> tuple[SparseFrontier, object]:
+    """Gunrock filter: predicate + compaction ("compact") +
+    uniquification. ``functor(ids, valid, data) -> (keep, data)``;
+    ``uniquify`` is 'none', 'exact' (one lane per id, needs ``n``) or
+    'hash' (the heuristic history table of ``hash_size`` slots)."""
+    keep, data = _filter_keep(frontier.ids, frontier.valid_mask, functor,
+                              data, n, uniquify, hash_size)
+    cap = frontier.capacity if cap is None else cap
+    buf, length = compact_values(frontier.ids, keep, cap, backend=backend)
+    return SparseFrontier(ids=buf, length=length), data
+
+
+def filter_frontier_batch(frontier: BatchedSparseFrontier,
+                          functor: Optional[Callable] = None, data=None,
+                          n: Optional[int] = None, uniquify: str = "none",
+                          cap: Optional[int] = None, hash_size: int = 1024,
+                          backend: Optional[str] = None
+                          ) -> tuple[BatchedSparseFrontier, object,
+                                     torch.Tensor]:
+    """Per-lane filter (the functor sees (B, cap) tensors) → (frontier,
+    data, overflow): ``overflow`` (B,) counts the survivors the capacity
+    clamp dropped — nonzero only when hash culling leaves more than
+    ``cap`` duplicates, the sign that a capped run must not be trusted."""
+    keep, data = _filter_keep(frontier.ids, frontier.valid_mask, functor,
+                              data, n, uniquify, hash_size)
+    cap = frontier.capacity if cap is None else cap
+    buf, lengths, totals = compact_values_batch(frontier.ids, keep, cap,
+                                                backend=backend)
+    overflow = torch.clamp(totals - cap, min=0)
+    return BatchedSparseFrontier(ids=buf, lengths=lengths), data, overflow
+
+
+def partition_frontier(frontier: SparseFrontier, predicate: torch.Tensor,
+                       cap_near: Optional[int] = None,
+                       cap_far: Optional[int] = None,
+                       backend: Optional[str] = None
+                       ) -> tuple[SparseFrontier, SparseFrontier]:
+    """Two-way split (the two-level priority queue, §5.1.5): items whose
+    ``predicate`` holds go to the near pile, the others to the far one."""
+    valid = frontier.valid_mask
+    cap_near = frontier.capacity if cap_near is None else cap_near
+    cap_far = frontier.capacity if cap_far is None else cap_far
+    nbuf, nlen = compact_values(frontier.ids, valid & predicate, cap_near,
+                                backend=backend)
+    fbuf, flen = compact_values(frontier.ids, valid & ~predicate, cap_far,
+                                backend=backend)
+    return SparseFrontier(nbuf, nlen), SparseFrontier(fbuf, flen)
+
+
+_REDUCE = {"add": ("sum", 0.0), "max": ("amax", float("-inf")),
+           "min": ("amin", float("inf"))}
+
+
+def neighborhood_reduce(graph: Graph, frontier: SparseFrontier,
+                        cap_out: int, edge_map: Callable,
+                        reduce_op: str = "add", init=None, data=None,
+                        strategy: str = "LB",
+                        backend: Optional[str] = None) -> torch.Tensor:
+    """Advance + per-lane segmented reduction (paper §8.2.3):
+    ``edge_map(src, dst, edge_id, valid, data)`` gives a value per slot,
+    reduced by ``in_pos`` into (capacity,) values aligned with the input
+    lanes. A lane with no live slot holds the reduction's identity (0,
+    -inf, inf); ``init`` replaces it on the frontier's invalid lanes.
+    Under THREAD ``in_pos`` is the source vertex, as in the reference,
+    and slots whose vertex is no lane index are dropped. A float sum's
+    order may differ from the reference's (its last bits)."""
+    res, _ = advance(graph, frontier, cap_out, strategy=strategy,
+                     backend=backend)
+    vals = edge_map(res.src, res.dst, res.edge_id, res.valid, data)
+    how, neutral = _REDUCE[reduce_op]
+    neutral = torch.full((), neutral, dtype=vals.dtype, device=vals.device)
+    vals = torch.where(res.valid, vals, neutral)
+    cap = frontier.capacity
+    seg = torch.where(res.in_pos < cap, res.in_pos, cap).long()
+    out = neutral.expand(cap + 1).clone()
+    if how == "sum":
+        out.index_add_(0, seg, vals)
+    else:
+        out.scatter_reduce_(0, seg, vals, how)
+    out = out[:cap]
+    if init is not None:
+        out = torch.where(frontier.valid_mask, out,
+                          torch.as_tensor(init, dtype=out.dtype,
+                                          device=out.device))
+    return out
+
+
+def compute(frontier: SparseFrontier, functor: Callable, data):
+    """Per-item operation over a frontier (paper §3 'compute'):
+    ``functor(ids, valid, data) -> data``, invalid lanes' ids read 0."""
+    return functor(torch.where(frontier.valid_mask, frontier.ids, 0),
+                   frontier.valid_mask, data)
 
 
 def _long_seg(graph: Graph) -> torch.Tensor:
@@ -518,3 +761,23 @@ def scatter_or(index: torch.Tensor, valid: torch.Tensor,
                                                 valid.to(torch.int32),
                                                 "amax")
     return out.to(target.dtype)
+
+
+def scatter_last(values: torch.Tensor, index: torch.Tensor,
+                 valid: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``target[..., index[j]] = values[j]`` for every valid slot j along
+    the last axis; where several slots hit one target the LARGEST slot's
+    write stands — the reference's ``.at[].set`` with duplicate indices,
+    which XLA applies in slot order on the CPU. Picked by an explicit max,
+    so the card gives the same winner."""
+    n = target.shape[-1]
+    if index.shape[-1] == 0:
+        return target
+    slot = torch.arange(index.shape[-1], dtype=torch.int32,
+                        device=index.device)
+    last = torch.full(target.shape, -1, dtype=torch.int32,
+                      device=index.device)
+    last.scatter_reduce_(-1, _safe_index(index, valid, n),
+                         torch.where(valid, slot, -1), "amax")
+    won = torch.gather(values, -1, last.clamp(min=0).long())
+    return torch.where(last >= 0, won.to(target.dtype), target)

@@ -5,17 +5,30 @@
     (expansion + visited test + exact first-occurrence culling +
     compaction), run at the smallest power-of-two capacity tier holding
     the frontier's degree sum;
+  * TWC / THREAD push (the paper's Fig. 20 ablation): the unfused step
+    at full capacity (m slots a lane) — advance with a visited functor,
+    an idempotent depth write, the visited bits set, the expansion
+    compacted to a wide frontier, then ``filter_frontier_batch`` into
+    the min(n, m) vertex frontier, with hash culling when
+    ``idempotence`` (the Fig. 19 flag) and exact uniquification
+    otherwise; the clamp's dropped discoveries add to ``overflow``;
   * direction-optimized push↔pull switching with do_a / do_b; the pull
     step's new bitmap is compacted back to a queue through "compact";
-  * predecessor recording: a push predecessor is the discoverer in the
-    smallest expansion slot, a pull predecessor the largest active
-    in-neighbour — the reference's tie rules.
+  * predecessor recording: an LB push predecessor is the discoverer in
+    the smallest expansion slot, an unfused one the discoverer in the
+    LARGEST slot of the strategy's expansion order (the reference's
+    scatter, ``operators.scatter_last``), a pull predecessor the largest
+    active in-neighbour — the reference's tie rules.
 
 ``bfs_batch`` runs B traversals over one topology in one batched BSP
 loop (``enactor.run_until_any``); ``bfs`` is a squeezed batch of one.
-Every output equals the reference's, bit for bit. Only the LB strategy
-is ported; ``idempotence`` selects between uniquify modes on the
-unfused TWC/THREAD path only, so it has no effect here.
+Every output equals the reference's, bit for bit. ``idempotence``
+acts on the unfused TWC / THREAD step only: LB's fused culling is exact
+anyway. A nonzero ``overflow`` (possible only under hash culling) means
+a capped frontier dropped discoveries: rerun with ``idempotence=False``.
+Such a frontier of duplicates can pass int32 in a lane's degree sum;
+there the reference's scan wraps and the port's saturates, so the two
+part ways (every slot below cap_out is then the true expansion's).
 
 ``telemetry=True`` also returns a ``TelemetryBuffer`` with the
 reference's columns: frontier (B,), tier, direction (B,) and overflow
@@ -76,16 +89,19 @@ def _scatter_rows(target: torch.Tensor, ids: torch.Tensor,
 
 
 def _run(graph: Graph, srcs: torch.Tensor, do_a: float, do_b: float,
-         direction: bool, record_preds: bool, backend: str,
-         tiered: bool, telemetry: bool = False, budget=None):
+         direction: bool, idempotence: bool, strategy: str,
+         record_preds: bool, backend: str, tiered: bool,
+         telemetry: bool = False, budget=None):
     n, m = graph.num_vertices, graph.num_edges
     b = int(srcs.shape[0])
     dev = graph.device
     # vertex frontiers are post-uniquify: min(n, m) slots suffice
     cap_v = max(min(n, m), 1)
     cap_e = m
+    # only LB's fused push is tiered; TWC / THREAD run at full capacity
     caps_e = (B.tier_plan("advance_filter", cap_e, device=graph.device)
-              if tiered and cap_e > 0 else (max(cap_e, 1),))
+              if tiered and strategy == "LB" and cap_e > 0
+              else (max(cap_e, 1),))
     params = DirectionParams(do_a=do_a, do_b=do_b, enabled=direction)
     deg = graph.degrees
 
@@ -125,7 +141,40 @@ def _run(graph: Graph, srcs: torch.Tensor, do_a: float, do_b: float,
                                overflow=st.overflow + ovf)
         return push_step
 
+    def unfused_push_step(st: BFSState) -> BFSState:
+        depth1 = st.depth + 1
+
+        def functor(s, d, e, rank, valid, visited):
+            # discover unvisited destinations (duplicates all pass)
+            safe = torch.where(valid, d, 0).long()
+            return valid & ~torch.gather(visited, 1, safe), visited
+
+        res, _ = ops.advance_batch(graph, st.frontier, cap_e,
+                                   functor=functor, data=st.visited,
+                                   strategy=strategy, backend=backend)
+        # idempotent depth write: every duplicate writes the same value
+        found = ops.scatter_or(res.dst, res.valid,
+                               torch.zeros_like(st.visited))
+        labels = torch.where(found, depth1[:, None], st.labels)
+        preds = (ops.scatter_last(res.src, res.dst, res.valid, st.preds)
+                 if record_preds else st.preds)
+        visited = st.visited | found
+        # the whole expansion compacted, then uniquified into the cap_v
+        # vertex frontier: hash culling's leftover duplicates are the
+        # only way past cap_v, and the clamp counts what it drops
+        wide = ops.advance_to_vertex_frontier_batch(res, cap_e,
+                                                    backend=backend)
+        front, _, ovf = ops.filter_frontier_batch(
+            wide, n=n, uniquify="hash" if idempotence else "exact",
+            cap=cap_v, backend=backend)
+        return st._replace(labels=labels, preds=preds, frontier=front,
+                           dense=visited, visited=visited,
+                           n_f=front.lengths, n_u=st.n_u - front.lengths,
+                           depth=depth1, overflow=st.overflow + ovf)
+
     def push_step(st: BFSState, need: int) -> BFSState:
+        if strategy != "LB":
+            return unfused_push_step(st)
         return tiered_step(need, caps_e, fused_push_at, st)
 
     def pull_step(st: BFSState) -> BFSState:
@@ -219,15 +268,14 @@ def bfs_batch(graph: Graph, srcs, *, direction: bool = True,
     result is bit-identical to ``telemetry=False``. ``budget`` (an
     ``ft.Budget``) caps the BSP steps: lanes cut short keep partial
     labels and report ``converged`` False."""
-    del idempotence     # selects uniquify on the TWC/THREAD path only
-    ops._strategy(strategy)
     if direction and not graph.has_csc:
         direction = False
     bk = B.resolve(backend, graph.device)
     srcs = torch.as_tensor(srcs, dtype=torch.int32).reshape(-1).to(
         graph.device)
     return _run(graph, srcs, float(do_a), float(do_b), direction,
-                record_preds, bk, tiered, telemetry, budget)
+                idempotence, strategy, record_preds, bk, tiered, telemetry,
+                budget)
 
 
 @B.draw_scope()

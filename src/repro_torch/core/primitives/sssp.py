@@ -11,7 +11,11 @@ the far pile is re-split.
 
 Ties between equal candidates for one vertex go to the LAST winning
 expansion slot, the order in which the reference's scatter applies its
-updates, so ``preds`` match it bit for bit. ``dist[u] + w`` is a single
+updates (``operators.scatter_last``), so ``preds`` match it bit for
+bit: the slot order of the strategy's expansion — LB's, TWC's over its
+size-class order, THREAD's CSR order. ``strategy`` ("LB" | "TWC" |
+"THREAD") selects the relax advance's load balancing (the paper's Fig.
+20); THREAD keeps the top capacity tier. ``dist[u] + w`` is a single
 float32 add on both sides. ``sssp`` is a squeezed batch of one.
 
 ``telemetry=True`` also returns a ``TelemetryBuffer`` with the
@@ -53,26 +57,16 @@ class SSSPResult(NamedTuple):
     converged: torch.Tensor
 
 
-def _last_winner_preds(preds: torch.Tensor, winner: torch.Tensor,
-                       dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """``preds[b, dst] = src`` for every winning slot; among several
-    winners of one vertex the largest slot's write stands."""
-    b, n = preds.shape
-    cap = dst.shape[1]
-    slot = torch.arange(cap, dtype=torch.int64, device=dst.device)
-    last = torch.full((b, n), -1, dtype=torch.int64, device=dst.device)
-    last.scatter_reduce_(1, ops._safe_index(dst, winner, n),
-                         torch.where(winner, slot, -1), "amax")
-    won = torch.gather(src, 1, last.clamp(min=0))
-    return torch.where(last >= 0, won, preds)
-
-
 def _run(graph: Graph, srcs: torch.Tensor, delta: float, use_delta: bool,
-         backend: str, tiered: bool, telemetry: bool = False, budget=None):
+         strategy: str, backend: str, tiered: bool, telemetry: bool = False,
+         budget=None):
     n, m = graph.num_vertices, graph.num_edges
     b = int(srcs.shape[0])
     dev = graph.device
-    caps_e = (B.tier_plan("advance", m, device=dev) if tiered and m > 0
+    # THREAD's static sweep is cut at cap_out, not sized by the workload,
+    # so a smaller tier would drop edges: it keeps the top tier
+    caps_e = (B.tier_plan("advance", m, device=dev)
+              if tiered and m > 0 and strategy != "THREAD"
               else (max(m, 1),))
     deg = graph.degrees
     delta_t = torch.tensor(delta, dtype=torch.float32, device=dev)
@@ -93,14 +87,17 @@ def _run(graph: Graph, srcs: torch.Tensor, delta: float, use_delta: bool,
             frontier = BatchedDenseFrontier(st.near).to_sparse(
                 n, backend=backend)
             res, _ = ops.advance_batch(graph, frontier, cap_t,
-                                       backend=backend)
-            # every lane's live slots are a prefix no longer than the
-            # largest near-pile degree sum: the rest is dead weight (one
-            # dead slot stays when the pile has no edges, e.g. an
-            # isolated source, so the gathers below see a non-empty row)
-            k = max(min(cap_t, need), 1)
-            res = ops.AdvanceResult(*(t[:, :k] if t.dim() == 2 else t
-                                      for t in res))
+                                       strategy=strategy, backend=backend)
+            if strategy != "THREAD":
+                # LB's and TWC's live slots are a prefix no longer than
+                # the largest near-pile degree sum: the rest is dead
+                # weight (one dead slot stays when the pile has no
+                # edges, e.g. an isolated source, so the gathers below
+                # see a non-empty row). THREAD's lie anywhere in CSR
+                # order.
+                k = max(min(cap_t, need), 1)
+                res = ops.AdvanceResult(*(t[:, :k] if t.dim() == 2 else t
+                                          for t in res))
             valid = res.valid
             # bf16 weights widen to float32 exactly, as the reference's
             # float32 + bfloat16 promotes them
@@ -114,7 +111,7 @@ def _run(graph: Graph, srcs: torch.Tensor, delta: float, use_delta: bool,
             improved = new_dist < st.dist
             safe_dst = torch.where(valid, res.dst, 0).long()
             winner = valid & (cand <= torch.gather(new_dist, 1, safe_dst))
-            preds = _last_winner_preds(st.preds, winner, res.dst, res.src)
+            preds = ops.scatter_last(res.src, res.dst, winner, st.preds)
             thresh = (st.bucket.to(torch.float32) + 1.0) * delta_t
             if use_delta:
                 add_near = improved & (new_dist < thresh[:, None])
@@ -210,7 +207,6 @@ def sssp_batch(graph: Graph, srcs, *, delta: Optional[float] = None,
     BSP steps."""
     if not graph.weighted:
         raise ValueError("SSSP needs edge weights")
-    ops._strategy(strategy)
     if delta is None:
         delta = _auto_delta(graph)
     delta = float(delta)
@@ -218,8 +214,8 @@ def sssp_batch(graph: Graph, srcs, *, delta: Optional[float] = None,
     bk = B.resolve(backend, graph.device)
     srcs = torch.as_tensor(srcs, dtype=torch.int32).reshape(-1).to(
         graph.device)
-    return _run(graph, srcs, delta, use_delta, bk, tiered, telemetry,
-                budget)
+    return _run(graph, srcs, delta, use_delta, strategy, bk, tiered,
+                telemetry, budget)
 
 
 @B.draw_scope()
@@ -241,8 +237,7 @@ def sssp_bellman_ford(graph: Graph, src: int, *, strategy: str = "LB",
     improved vertex joins the next near pile."""
     if not graph.weighted:
         raise ValueError("SSSP needs edge weights")
-    ops._strategy(strategy)
     bk = B.resolve(backend, graph.device)
     srcs = torch.tensor([src], dtype=torch.int32, device=graph.device)
-    r = _run(graph, srcs, 1e30, False, bk, True)
+    r = _run(graph, srcs, 1e30, False, strategy, bk, True)
     return SSSPResult(*(t[0] for t in r))

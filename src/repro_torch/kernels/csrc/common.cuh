@@ -124,6 +124,16 @@ __device__ __forceinline__ u64 peek(const u64* p) {
   return *reinterpret_cast<const volatile u64*>(p);
 }
 
+// a + b for a, b in [0, INT_MAX], saturating at INT_MAX: every scan
+// below adds counts this way (the LB scan's sums: a lane of duplicates
+// can pass int32; below INT_MAX it is the plain sum); associative on
+// that range.
+__device__ __forceinline__ int sat_add(int a, int b) {
+  return static_cast<int>(min(static_cast<unsigned>(a) +
+                                  static_cast<unsigned>(b),
+                              0x7fffffffu));
+}
+
 // Exclusive prefix of tile j > 0 of a lane whose statuses start at
 // `status`, found by one whole warp: each step reads the 32 statuses
 // below the window's top at once, waits until those down to the nearest
@@ -148,8 +158,10 @@ __device__ __forceinline__ int look_back(const u64* status, int j,
     if (__ballot_sync(kFull, flag == 0) & need) continue;   // not written
     int v = ((need >> lane) & 1u) ? value : 0;
 #pragma unroll
-    for (int d = 16; d; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
-    prefix += v;
+    for (int d = 16; d; d >>= 1) {
+      v = sat_add(v, __shfl_xor_sync(kFull, v, d));
+    }
+    prefix = sat_add(prefix, v);
     if (pre) return prefix;
     top -= 32;
   }
@@ -166,7 +178,7 @@ __device__ __forceinline__ int tile_prefix(u64* status, int j,
   }
   if (lead) publish(status + j, epoch, kAggregate, count);
   const int prefix = look_back(status, j, epoch);
-  if (lead) publish(status + j, epoch, kPrefix, prefix + count);
+  if (lead) publish(status + j, epoch, kPrefix, sat_add(prefix, count));
   return prefix;
 }
 
@@ -191,7 +203,7 @@ __device__ __forceinline__ int wait_prefix(const u64* status,
 __device__ __forceinline__ int pad32(int i) { return i + (i >> 5); }
 
 // Exclusive block-wide sum of `v` over the T threads in thread order;
-// `warp_buf` holds T / 32 ints. Every thread must call it.
+// `warp_buf` holds T / 32 ints, v >= 0. Every thread must call it.
 template <int T>
 __device__ __forceinline__ int block_excl_sum(int v, int* warp_buf,
                                               int* total) {
@@ -200,20 +212,22 @@ __device__ __forceinline__ int block_excl_sum(int v, int* warp_buf,
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     const int y = __shfl_up_sync(kFull, x, d);
-    if (lane >= d) x += y;
+    if (lane >= d) x = sat_add(x, y);
   }
+  // a saturated inclusive sum less v is no exclusive one: shift instead
+  const int ex = __shfl_up_sync(kFull, x, 1);
   if (lane == 31) warp_buf[warp] = x;
   __syncthreads();
   int before = 0, all = 0;
 #pragma unroll
   for (int w = 0; w < T / 32; ++w) {
     const int c = warp_buf[w];
-    before += (w < warp) ? c : 0;
-    all += c;
+    before = sat_add(before, (w < warp) ? c : 0);
+    all = sat_add(all, c);
   }
   __syncthreads();                        // warp_buf may be reused
   *total = all;
-  return before + x - v;
+  return sat_add(before, lane == 0 ? 0 : ex);
 }
 
 // Exclusive block-wide running maximum of `v` (identity -1), as above.

@@ -10,8 +10,9 @@
 // lanes it spans in shared memory and gives each slot its lane by a
 // running maximum.
 //   1. lb_offsets: the (B, cap_in) exclusive degree scans in one
-//      single-pass int32 scan (decoupled look-back, common.cuh), written
-//      only at non-empty lanes (the passes read no other), with each
+//      single-pass int32 scan (decoupled look-back, common.cuh) that
+//      saturates at INT_MAX, written only at non-empty lanes and at
+//      saturated ones (the passes read no other), with each
 //      lane's total at offsets[b][cap_in] (and in `totals` when given);
 //      each non-empty lane's edge base, each slot tile's first lane and
 //      each lane's live end;
@@ -56,9 +57,12 @@ __device__ __forceinline__ int lane_end(u64 w, unsigned epoch) {
 // One tile of kScanTile sizes a block, tiles in ticket order with
 // decoupled look-back:
 //   offsets[b][i] = the exclusive scan of sizes[b] at every non-empty
-//     input lane i (other entries are not written), offsets[b][cap_in] =
-//     the lane's total (int32, wrapping as the reference's scan), and
-//     totals[b] the same when `totals` is given;
+//     input lane i and every lane where the scan has saturated (other
+//     entries are not written), offsets[b][cap_in] = the lane's total,
+//     and totals[b] the same when `totals` is given. The sums saturate at
+//     INT_MAX: a frontier of duplicates can hold more slots than int32
+//     counts (the reference's scan wraps there), and every slot below
+//     cap_out <= INT_MAX still gets its true lane;
 //   ebase[b][i] = row_offsets[base[b][i]] - offsets[b][i] for every
 //     non-empty input lane i (slot s of lane i reads edge ebase + s), when
 //     `ebase` is given;
@@ -98,13 +102,14 @@ lb_offsets(const int* __restrict__ sizes, const int* __restrict__ base,
 #pragma unroll
   for (int k = 0; k < kScanItems; ++k) {
     const int v = buf[pad32(t * kScanItems + k)];
-    sum += v;
+    sum = sat_add(sum, v);
     run[k] = sum;
     if (v != 0) last = t * kScanItems + k;
   }
   if (last >= 0) atomicMax(&s_last, last);
   int tile_sum;
-  const int before = block_excl_sum<kScanThreads>(sum, warp_sums, &tile_sum);
+  const int before =
+      block_excl_sum<kScanThreads>(sum, warp_sums, &tile_sum);
   if (t < 32) {
     const int prefix =
         tile_prefix(status + b * gridDim.x, j, epoch, tile_sum);
@@ -118,10 +123,10 @@ lb_offsets(const int* __restrict__ sizes, const int* __restrict__ base,
   }
   __syncthreads();
   const int start = s_prefix;
-  const int off = start + before;
+  const int off = sat_add(start, before);
 #pragma unroll
   for (int k = 0; k < kScanItems; ++k) {
-    buf[pad32(t * kScanItems + k)] = off + run[k];
+    buf[pad32(t * kScanItems + k)] = sat_add(off, run[k]);
   }
   __syncthreads();
   int* offs = offsets + b * (static_cast<size_t>(cap_in) + 1);
@@ -132,7 +137,7 @@ lb_offsets(const int* __restrict__ sizes, const int* __restrict__ base,
     if (first + i < cap_in) {
       const int inc = buf[pad32(i)];
       const int exc = i > 0 ? buf[pad32(i - 1)] : start;
-      if (inc != exc) {
+      if (inc != exc || exc == INT_MAX) {
         offs[first + i] = exc;
         if (ebase != nullptr) {
           ebase[b * cap_in + first + i] = row_offsets[bs[first + i]] - exc;
@@ -141,8 +146,8 @@ lb_offsets(const int* __restrict__ sizes, const int* __restrict__ base,
     }
   }
   if (j == static_cast<int>(gridDim.x) - 1 && t == 0) {
-    offs[cap_in] = start + tile_sum;
-    if (totals != nullptr) totals[b] = start + tile_sum;
+    offs[cap_in] = sat_add(start, tile_sum);
+    if (totals != nullptr) totals[b] = sat_add(start, tile_sum);
   }
   if (tile_sum != 0) {
     // the slot tiles that start inside this scan tile
@@ -358,7 +363,10 @@ lb_expand_tiles(const int* __restrict__ sizes,
     fill_run<kStreamOut>(eid + row, a, z, -1, 0, threadIdx.x, T);
     fill_run<kStreamOut>(rk, a, z, 0, 0, threadIdx.x, T);
   } else {
-    const int last = cap_in > 0 ? ln.total - ln.sizes[cap_in - 1] : 0;
+    // the last lane's exclusive start (written when it is non-empty)
+    const int last = cap_in > 0 ? (ln.sizes[cap_in - 1] != 0
+                                       ? ln.offs[cap_in - 1] : ln.total)
+                                : 0;
     fill_run<kStreamOut>(rk, a, z, -last, 1, threadIdx.x, T);
   }
 }

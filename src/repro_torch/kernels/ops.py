@@ -37,7 +37,11 @@ cache, K4's 128), or from an explicit ``threads=`` (the tuner's probes and the
 tile-invariance checks). The kernel API's ``lb_expand``,
 ``flash_attention`` and ``moe_gather`` are the reference's
 ``repro.kernels.ops`` functions of the same names; no registry op
-dispatches to them, as in the reference. The tuner's five probes are
+dispatches to them, as in the reference. The reference's other names
+(``advance_fused``, ``advance_fused_batch``, ``advance_filter_fused``,
+``advance_filter_fused_batch``, ``filter_compact``, ``semiring_spmv``,
+``semiring_spmm``, ``oracle``) are thin entries over the registry-named
+wrappers, with the reference's contracts. The tuner's five probes are
 registered at the end of this module.
 """
 from __future__ import annotations
@@ -932,6 +936,71 @@ def moe_gather(x: torch.Tensor, slot_token: torch.Tensor) -> torch.Tensor:
             runtime.stream_ptr(dev))
     KERNELS["moe_gather"].count(_dtype_name(x.dtype))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The reference's remaining kernel-API names (repro.kernels.ops), with its
+# call contracts, over the registry-named wrappers above: on CUDA tensors
+# each reaches its kernel, on CPU tensors its plain version, as they do.
+# ---------------------------------------------------------------------------
+
+
+def advance_fused(row_offsets, col_indices, base, sizes, cap_out: int):
+    """The reference's single-lane fused LB advance: K3 (a B=1 launch) →
+    (src, dst, edge_id, in_pos, rank, valid, total)."""
+    return advance(row_offsets, col_indices, base, sizes, cap_out)
+
+
+def advance_fused_batch(row_offsets, col_indices, base, sizes,
+                        cap_out: int):
+    """The reference's batched fused LB advance: K3 → (src, dst,
+    edge_id, in_pos, rank, valid, totals)."""
+    return advance_batch(row_offsets, col_indices, base, sizes, cap_out)
+
+
+def advance_filter_fused(row_offsets, col_indices, base, sizes, visited,
+                         cap_out: int, cap_front: int):
+    """The reference's fused advance+filter of one lane: K1 (a B=1
+    launch) → (ids, srcs, length, total). ``visited`` (n,) of any
+    integer or bool type, nonzero = visited."""
+    return advance_filter(row_offsets, col_indices, base, sizes,
+                          visited != 0, cap_out, cap_front)
+
+
+def advance_filter_fused_batch(row_offsets, col_indices, base, sizes,
+                               visited, cap_out: int, cap_front: int):
+    """The reference's batched fused advance+filter: K1 → (ids, srcs,
+    lengths, totals); ``visited`` (B, n), nonzero = visited."""
+    return advance_filter_batch(row_offsets, col_indices, base, sizes,
+                                visited != 0, cap_out, cap_front)
+
+
+def filter_compact(ids: torch.Tensor, keep: torch.Tensor):
+    """The reference's stable compaction of ids[keep] → (packed (cap,),
+    count ()): K2 on one row, -1 past the count."""
+    packed, totals = compact(ids[None], (keep != 0)[None])
+    return packed[0], totals[0]
+
+
+def semiring_spmm(offsets, indices, values, x, sr, ell_width, mask,
+                  row_seg=None):
+    """The reference's masked-semiring SpMM, Y⟨mask⟩ = A ⊗ X with X
+    (nx, k): K4m. ``mask`` (n,) of any type, nonzero = computed."""
+    return spmm(offsets, indices, values, x, sr, ell_width,
+                None if mask is None else mask != 0, row_seg)
+
+
+def semiring_spmv(offsets, indices, values, x, sr, ell_width, mask,
+                  row_seg=None, over_pos=None, over_row=None):
+    """The reference's masked-semiring SpMV (the k = 1 column of its
+    SpMM): K4. ``mask`` (n,) of any type, nonzero = computed."""
+    return spmv(offsets, indices, values, x, sr, ell_width,
+                None if mask is None else mask != 0, row_seg, over_pos,
+                over_row)
+
+
+# the oracles, as the reference re-exports them for tests and benchmarks
+oracle = ref
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,11 @@ arithmetic: its kv parts, and its products in pieces of the input type
 (``tf32_round``). The
 kernel wrappers in ``kernels.ops`` run these on CPU tensors;
 ``chip_smoke.py`` runs them on the card to compare.
+
+The reference's oracle names (``lb_expand_ref``, ``spmv_ell_ref``,
+``semiring_ell_ref``, ``segment_search_ref``, ``filter_compact_ref``,
+``flash_attention_ref``, ``moe_gather_ref``) are here too, with its
+contracts: plain PyTorch specifications, never a kernel.
 """
 from __future__ import annotations
 
@@ -33,7 +38,9 @@ __all__ = ["ATTN_BQ", "KExpansion", "advance_batch", "advance_filter_batch",
            "attention_combine", "attention_kv_tile", "attention_partials",
            "compact", "flash_attention", "lb_expand", "lb_offsets",
            "moe_gather", "segment_locate", "segment_search", "spmm", "spmv",
-           "tf32_round"]
+           "tf32_round", "lb_expand_ref", "spmv_ell_ref", "semiring_ell_ref",
+           "segment_search_ref", "filter_compact_ref", "flash_attention_ref",
+           "moe_gather_ref"]
 
 ATTN_BQ = 64                   # K7's queries per block (kBQ)
 ATTN_NEG = -1e30               # the reference's NEG_INF
@@ -48,11 +55,13 @@ class KExpansion(NamedTuple):
 
 
 def lb_offsets(sizes: torch.Tensor) -> torch.Tensor:
-    """(cap_in+1,) int32 exclusive scan of ``sizes`` with the total last
-    (the reference wrapper's int32 cumsum): the plain version's input
-    where K6's wrapper takes the sizes."""
+    """(cap_in+1,) int32 exclusive scan of ``sizes`` with the total last,
+    saturating at INT32_MAX as K6's scan does (the reference wrapper's
+    int32 cumsum wraps past it): the plain version's input where K6's
+    wrapper takes the sizes."""
+    incl = torch.cumsum(sizes, 0, dtype=torch.int64).clamp_(max=2 ** 31 - 1)
     return torch.cat([sizes.new_zeros(1, dtype=torch.int32),
-                      torch.cumsum(sizes, 0, dtype=torch.int32)])
+                      incl.to(torch.int32)])
 
 
 def lb_expand(offsets: torch.Tensor, cap_out: int):
@@ -71,13 +80,15 @@ def lb_expand(offsets: torch.Tensor, cap_out: int):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, scale=None) -> torch.Tensor:
     """Single-head attention, q (Sq, D), k and v (Sk, D), in fp32 with
-    the end-aligned causal mask (query i sees keys j <= i + Sk - Sq); a
-    row that sees no key is 0. Output in q's type."""
+    the end-aligned causal mask (query i sees keys j <= i + Sk - Sq) and
+    the scores scaled by ``scale`` (1/sqrt(D) by default); a row that
+    sees no key is 0. Output in q's type."""
     sq, d = q.shape
     sk = k.shape[0]
-    logits = (q.float() @ k.float().T) * (1.0 / math.sqrt(d))
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    logits = (q.float() @ k.float().T) * scale
     if causal:
         qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
         kpos = torch.arange(sk, device=q.device)[None, :]
@@ -189,3 +200,68 @@ def moe_gather(x: torch.Tensor, slot_token: torch.Tensor) -> torch.Tensor:
     safe = torch.where(mask, slot_token, 0).clamp_(max=t - 1).long()
     rows = torch.index_select(x, 0, safe)
     return torch.where(mask[:, None], rows, x.new_zeros(()))
+
+
+# ---------------------------------------------------------------------------
+# The reference's oracle names (repro.kernels.ref), with its contracts
+# ---------------------------------------------------------------------------
+
+
+def lb_expand_ref(offsets: torch.Tensor, cap_out: int):
+    """LB expansion geometry from (cap_in+1,) int32 offsets (the total
+    last) → (in_pos, rank, valid), (cap_out,) int32 each."""
+    in_pos, rank, valid = lb_expand(offsets, cap_out)
+    return in_pos, rank, valid.to(torch.int32)
+
+
+def spmv_ell_ref(nbrs: torch.Tensor, vals: torch.Tensor, x: torch.Tensor):
+    """ELL SpMV: y[i] = sum_w vals[i, w] * x[nbrs[i, w]], nbrs -1 = pad."""
+    ok = nbrs >= 0
+    g = x[torch.where(ok, nbrs, 0).long()]
+    return torch.where(ok, vals * g, 0.0).sum(dim=1)
+
+
+def semiring_ell_ref(nbrs: torch.Tensor, vals: torch.Tensor,
+                     x: torch.Tensor, mask: torch.Tensor, sr):
+    """Masked-semiring ELL SpMM: y[i, b] = ⊕_w vals[i, w] ⊗ x[nbrs[i, w],
+    b] for x (nx, k); rows where ``mask`` is 0 hold the ⊕-identity."""
+    ok = nbrs >= 0
+    g = x[torch.where(ok, nbrs, 0).long()]              # (n, W, k)
+    prod = sr.mul_op(vals[..., None], g)
+    zero = torch.full((), sr.zero, dtype=prod.dtype, device=prod.device)
+    prod = torch.where(ok[..., None], prod, zero)
+    if sr.add == "plus":
+        red = prod.sum(dim=1)
+    elif sr.add == "min":
+        red = prod.amin(dim=1)
+    else:
+        red = prod.amax(dim=1)
+    return torch.where((mask > 0)[:, None], red, zero)
+
+
+def segment_search_ref(haystack: torch.Tensor, lo: torch.Tensor,
+                       hi: torch.Tensor, needles: torch.Tensor):
+    """found[i] = needles[i] in haystack[lo[i]:hi[i]) (segments sorted)
+    → int32 (1 found, 0 not)."""
+    return segment_search(haystack, lo, hi, needles).to(torch.int32)
+
+
+def filter_compact_ref(ids: torch.Tensor, keep: torch.Tensor):
+    """Stable compaction: the kept ids first, -1 after → (packed (cap,),
+    count () int32)."""
+    packed, counts = compact(ids[None], (keep != 0)[None])
+    return packed[0], counts[0]
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, scale=None):
+    """Single-head attention, q (Sq, D), k and v (Sk, D), in fp32 with the
+    end-aligned causal mask and the scores scaled by ``scale`` (1/sqrt(D)
+    by default); a row that sees no key is 0. Output in q's type."""
+    return flash_attention(q, k, v, causal, scale)
+
+
+def moe_gather_ref(x: torch.Tensor, slot_token: torch.Tensor):
+    """Token rows gathered into expert slots (-1 = an empty slot, a zero
+    row) → (S, D) in x's type."""
+    return moe_gather(x, slot_token)

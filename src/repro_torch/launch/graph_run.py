@@ -79,6 +79,16 @@ def make_graph(kind: str, scale: int, edge_factor: int, seed: int,
     raise ValueError(kind)
 
 
+def _warn_overflow(overflow) -> None:
+    """A nonzero ``BFSResult.overflow`` means a capped frontier dropped
+    discoveries (possible only under idempotent hash culling): the labels
+    are untrustworthy and must not pass silently."""
+    total = int(overflow.sum())
+    if total:
+        log.warning(f"bfs dropped {total} frontier entries "
+                    f"(overflow); rerun with idempotence=False")
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -98,9 +108,7 @@ def run_primitive(name: str, g: G.Graph, src: int, validate: bool,
         _sync(dev)
         dt = time.monotonic() - t0
         edges = int(r.edges_visited.sum())
-        if int(r.overflow.sum()):
-            log.warning(f"bfs dropped {int(r.overflow.sum())} frontier "
-                        f"entries (overflow)")
+        _warn_overflow(r.overflow)
         if validate:
             labels = r.labels.cpu().numpy().reshape(-1, g.num_vertices)
             ok = all(np.array_equal(labels[i], R.bfs_ref(g, s))

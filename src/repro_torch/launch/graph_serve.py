@@ -704,7 +704,8 @@ def _serve_main(args, kinds, dev, bk, plan) -> dict:
                  f"p99 {row['lat_ms_p99']}")
     if stats["overflow"]:
         log.warning(f"{stats['overflow']} BFS discoveries dropped by "
-                    f"capped frontiers")
+                    f"capped frontiers — rerun the affected queries "
+                    f"with idempotence=False")
     if args.validate:
         log.info(f"validation failures: {stats['validation_failures']}")
         if stats["validation_failures"]:

@@ -1,8 +1,10 @@
 """Port BFS against the reference (xla provider): labels, preds,
 iterations, pull_iters, edges_visited, overflow and converged equal, on
-both fixtures, for B ∈ {1, 8}, a high-degree and an isolated source,
-tiered and pinned to the top tier. One case runs the reference on its
-Pallas kernels (interpret mode, small graph)."""
+every fixture, for B ∈ {1, 8}, a high-degree and an isolated source,
+tiered and pinned to the top tier, and under the TWC and THREAD
+strategies with idempotence and direction optimization on and off (one
+case where hash culling overflows the vertex frontier). Two cases run
+the reference on its Pallas kernels (interpret mode, small graph)."""
 import numpy as np
 import pytest
 
@@ -87,7 +89,43 @@ def test_bfs_matches_pallas_reference():
                  bfs_batch(tg, srcs))
 
 
-def test_bfs_rejects_unported_strategy(pair):
-    _, tg = pair
-    with pytest.raises(NotImplementedError, match="later slice"):
-        bfs(tg, 0, strategy="TWC")
+@pytest.mark.parametrize("strategy", ["TWC", "THREAD"])
+@pytest.mark.parametrize("idempotence", [True, False])
+@pytest.mark.parametrize("direction", [True, False])
+def test_bfs_strategies_match_reference(pair, strategy, idempotence,
+                                        direction):
+    """The unfused push at full capacity (the Fig. 19 / 20 ablations):
+    labels, last-slot predecessors, overflow and iterations equal."""
+    jg, tg = pair
+    srcs = _sources(tg, "batch8")
+    kw = dict(strategy=strategy, idempotence=idempotence,
+              direction=direction)
+    _assert_same(jbfs_batch(jg, srcs, backend="xla", **kw),
+                 bfs_batch(tg, srcs, **kw))
+    src = _sources(tg, "high")[0]
+    _assert_same(jbfs(jg, src, backend="xla", **kw), bfs(tg, src, **kw))
+
+
+@pytest.mark.parametrize("direction", [True, False])
+def test_bfs_hash_overflow_matches_reference(direction):
+    """A seeded search over rmat scale 11 (n = 2048 > the 1024-slot hash
+    table, so ids collide) found rmat(11, 16, seed=2): from its hub and
+    vertex 0 under TWC with hash culling, lane 1's leftover duplicates
+    pass the min(n, m) vertex frontier, and the clamp drops some."""
+    jg, tg = _pair(JG.rmat(11, 16, seed=2, weighted=True))
+    srcs = [_sources(tg, "high")[0], 0]
+    kw = dict(strategy="TWC", idempotence=True, direction=direction)
+    tr = bfs_batch(tg, srcs, **kw)
+    _assert_same(jbfs_batch(jg, srcs, backend="xla", **kw), tr)
+    if not direction:
+        assert int(tr.overflow[1]) > 0
+
+
+def test_bfs_strategies_match_pallas_reference():
+    jg, tg = _pair(JG.rmat(6, 4, seed=1, weighted=True))
+    srcs = [0, 5, 17]
+    for strategy in ("TWC", "THREAD"):
+        _assert_same(jbfs_batch(jg, srcs, backend="pallas",
+                                strategy=strategy, direction=False),
+                     bfs_batch(tg, srcs, strategy=strategy,
+                               direction=False))

@@ -1322,3 +1322,85 @@ def test_telemetry_on_the_card_is_bit_invisible(graph):
     lane = trace.lane(0)
     counts = np.bincount(lab[lab >= 0], minlength=lane.steps + 1)
     assert np.array_equal(lane["frontier"], counts[1:lane.steps + 1])
+
+
+# ---- the load-balancing and idempotence ablations (TWC, THREAD) -----------
+
+@pytest.mark.parametrize("strategy", ["TWC", "THREAD"])
+def test_strategies_cuda_match_torch_backend(graph, strategy):
+    """bfs_batch (idempotence x direction), sssp_batch and one advance
+    under TWC and THREAD: the cuda backend bit-equal to the torch backend
+    on the card; TWC launches K3 and K2, THREAD K2 and no K3."""
+    g = graph
+    srcs = [int(torch.argmax(g.degrees)), 1, 2, 3]
+    K.reset_launches()
+    for idem in (True, False):
+        for direction in (True, False):
+            kw = dict(strategy=strategy, idempotence=idem,
+                      direction=direction)
+            a = bfs_batch(g, srcs, backend="cuda", **kw)
+            b = bfs_batch(g, srcs, backend="torch", **kw)
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), kw
+    a = sssp_batch(g, srcs, strategy=strategy, backend="cuda")
+    b = sssp_batch(g, srcs, strategy=strategy, backend="torch")
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert np.array_equal(a.dist.cpu().numpy(), R.sssp_ref(g, srcs))
+    assert K.KERNELS["compact"].launches > 0
+    assert (K.KERNELS["advance_batch"].launches > 0) == (strategy == "TWC")
+    front = _frontier(g, 2, seed=5)
+    before = K.KERNELS["advance_batch"].launches
+    a, _ = O.advance_batch(g, front, g.num_edges, strategy=strategy,
+                           backend="cuda")
+    assert (K.KERNELS["advance_batch"].launches > before) == (
+        strategy == "TWC")
+    b, _ = O.advance_batch(g, front, g.num_edges, strategy=strategy,
+                           backend="torch")
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_hash_uniquify_on_the_card_is_repeatable(graph):
+    """The hash winner (the last kept lane of a slot) is picked by an
+    explicit max, so repeated calls on the card agree with each other and
+    with the CPU, slots colliding at hash_size 8."""
+    rng = np.random.default_rng(9)
+    ids = rng.integers(0, 200, (3, 4096)).astype(np.int32)
+    lengths = np.array([4096, 3000, 17], np.int32)
+    ids[np.arange(4096)[None, :] >= lengths[:, None]] = -1
+    cpu = F.BatchedSparseFrontier(torch.from_numpy(ids),
+                                  torch.from_numpy(lengths))
+    card = F.BatchedSparseFrontier(cpu.ids.to(graph.device),
+                                   cpu.lengths.to(graph.device))
+    want = O.filter_frontier_batch(cpu, n=200, uniquify="hash",
+                                   hash_size=8, cap=300)
+    for _ in range(5):
+        got = O.filter_frontier_batch(card, n=200, uniquify="hash",
+                                      hash_size=8, cap=300, backend="cuda")
+        assert torch.equal(got[0].ids.cpu(), want[0].ids)
+        assert torch.equal(got[0].lengths.cpu(), want[0].lengths)
+        assert torch.equal(got[2].cpu(), want[2])
+
+
+def test_lb_scan_saturates_on_the_card(graph):
+    """K6 and K3 on lanes whose sizes pass int32 in sum (a frontier of
+    duplicates of the hub): the scan saturates as the plain version's, so
+    every slot equals it and nothing is written out of bounds."""
+    big = 2 ** 30
+    sizes = torch.tensor([3, big, big, big, 7, 0, 5], dtype=torch.int32,
+                         device=graph.device)
+    for cap in (10, 5000):
+        got = K.lb_expand(sizes, cap)
+        want = P.lb_expand(P.lb_offsets(sizes), cap)
+        assert all(torch.equal(x, y) for x, y in zip(got[:3], want))
+        assert int(got.total) == 2 ** 31 - 1
+    g = graph
+    hub = int(torch.argmax(g.degrees))
+    lanes = -(-(2 ** 31) // int(g.degrees[hub])) + 5
+    ids = torch.full((2, lanes), hub, dtype=torch.int32, device=g.device)
+    front = F.BatchedSparseFrontier(ids, torch.tensor(
+        [lanes, lanes // 3], dtype=torch.int32, device=g.device))
+    base, sizes = O._base_and_sizes(g, front.ids, front.valid_mask, "vertex")
+    for cap in (4096, g.num_edges):
+        got = K.advance_batch(g.row_offsets, g.col_indices, base, sizes, cap)
+        want = P.advance_batch(g.row_offsets, g.col_indices, base, sizes, cap)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        assert got[6].tolist()[0] == 2 ** 31 - 1

@@ -126,3 +126,15 @@ def test_graph_run_rgg_matches_reference_generator():
                              weighted=True)
     assert np.array_equal(g.col_indices.numpy(), np.asarray(jg.col_indices))
     assert np.array_equal(g.edge_values.numpy(), np.asarray(jg.edge_values))
+
+
+def test_warn_overflow(capsys):
+    """The reference's warning, word for word, only when a lane dropped
+    discoveries; its total over the lanes."""
+    import torch
+    graph_run._warn_overflow(torch.zeros(3, dtype=torch.int32))
+    assert "overflow" not in capsys.readouterr().out
+    graph_run._warn_overflow(torch.tensor([0, 118, 4], dtype=torch.int32))
+    out = capsys.readouterr().out
+    assert ("bfs dropped 122 frontier entries (overflow); rerun with "
+            "idempotence=False") in out

@@ -213,11 +213,249 @@ def test_scatters_match_reference():
         TO.scatter_or(targs[1], targs[2], torch.from_numpy(flags)))
 
 
-def test_lb_strategy_only():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TO._strategy("TWC")
-    with pytest.raises(ValueError):
-        TO._strategy("bogus")
+def test_lb_strategy_only(pair):
+    """An unknown strategy raises, on both single and batched advance."""
+    _, tg = pair
+    ids, lengths = _frontiers(tg.num_vertices, 2, 8, seed=17)
+    _, tf = _both(ids, lengths)
+    with pytest.raises(ValueError, match="unknown strategy"):
+        TO.advance_batch(tg, tf, 64, strategy="bogus")
+    with pytest.raises(ValueError, match="unknown strategy"):
+        TO.advance(tg, tf.lane(0), 64, strategy="bogus")
+
+
+# --- the load-balancing ablation: TWC and THREAD (Fig. 20) -------------
+
+
+def test_twc_order_matches_reference():
+    from repro.core.operators import twc_order as jtwc
+    rng = np.random.default_rng(18)
+    # the class boundaries (32 | 33, 256 | 257) and many ties
+    sizes = rng.choice([0, 1, 31, 32, 33, 200, 256, 257, 5000],
+                       size=(3, 97)).astype(np.int32)
+    want = np.stack([np.asarray(jtwc(jnp.asarray(r))) for r in sizes])
+    _eq(want, TO.twc_order(torch.from_numpy(sizes)))
+    _eq(want[0], TO.twc_order(torch.from_numpy(sizes[0])))
+
+
+def _mod3(s, d, e, r, v, data):
+    return v & (d % 3 == 0), data
+
+
+@pytest.mark.parametrize("strategy", ["TWC", "THREAD"])
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("functor", [None, _mod3])
+def test_advance_strategies_match_reference(pair, strategy, tier, functor):
+    """TWC and THREAD, batched and single, with and without a functor;
+    at the small tier THREAD's sweep is cut (the first 512 CSR slots)."""
+    jg, tg = pair
+    cap = tier or tg.num_edges
+    ids, lengths = _frontiers(tg.num_vertices, 3, 40, seed=19)
+    jf, tf = _both(ids, lengths)
+    jr, _ = JO.advance_batch(jg, jf, cap, functor=functor,
+                             strategy=strategy, backend="xla")
+    tr, _ = TO.advance_batch(tg, tf, cap, functor=functor,
+                             strategy=strategy)
+    for f in jr._fields:
+        _eq(getattr(jr, f), getattr(tr, f))
+    jr, _ = JO.advance(jg, jf.lane(1), cap, functor=functor,
+                       strategy=strategy, backend="xla")
+    tr, _ = TO.advance(tg, tf.lane(1), cap, functor=functor,
+                       strategy=strategy)
+    for f in jr._fields:
+        _eq(getattr(jr, f), getattr(tr, f))
+
+
+def test_advance_strategy_input_kinds(pair):
+    """TWC expands an edge frontier's destinations; THREAD takes vertex
+    frontiers only (the reference asserts, the port raises)."""
+    jg, tg = pair
+    ids, lengths = _frontiers(tg.num_vertices, 2, 30, seed=20)
+    jf, tf = _both(ids, lengths)
+    jr, _ = JO.advance_batch(jg, jf, 4096, input_kind="edge",
+                             strategy="TWC", backend="xla")
+    tr, _ = TO.advance_batch(tg, tf, 4096, input_kind="edge",
+                             strategy="TWC")
+    for f in jr._fields:
+        _eq(getattr(jr, f), getattr(tr, f))
+    with pytest.raises(AssertionError):
+        JO.advance(jg, jf.lane(0), 64, input_kind="edge", strategy="THREAD")
+    with pytest.raises(ValueError, match="vertex frontiers"):
+        TO.advance(tg, tf.lane(0), 64, input_kind="edge", strategy="THREAD")
+
+
+def test_advance_twc_matches_pallas(small_pair):
+    """TWC over the reference's K3 in Pallas interpret mode; THREAD runs
+    its plain sweep on every backend."""
+    jg, tg = small_pair
+    ids, lengths = _frontiers(tg.num_vertices, 2, 16, seed=21)
+    jf, tf = _both(ids, lengths)
+    for strategy in ("TWC", "THREAD"):
+        jr, _ = JO.advance_batch(jg, jf, 512, strategy=strategy,
+                                 backend="pallas")
+        tr, _ = TO.advance_batch(tg, tf, 512, strategy=strategy)
+        for f in jr._fields:
+            _eq(getattr(jr, f), getattr(tr, f))
+
+
+def test_advance_thread_launches_no_kernel(pair):
+    """THREAD has no kernel: even backend="cuda" would run no K3 (on
+    CPU tensors the cuda backend is refused, so the torch run counts)."""
+    _, tg = pair
+    ids, lengths = _frontiers(tg.num_vertices, 1, 10, seed=22)
+    _, tf = _both(ids, lengths)
+    before = K.KERNELS["advance_batch"].launches
+    TO.advance(tg, tf.lane(0), tg.num_edges, strategy="THREAD")
+    assert K.KERNELS["advance_batch"].launches == before
+
+
+def test_advance_to_edge_frontier_matches_reference(pair):
+    jg, tg = pair
+    ids, lengths = _frontiers(tg.num_vertices, 1, 30, seed=23)
+    jf, tf = _both(ids, lengths)
+    for strategy in ("LB", "TWC", "THREAD"):
+        jr, _ = JO.advance(jg, jf.lane(0), 2048, functor=_mod3,
+                           strategy=strategy, backend="xla")
+        tr, _ = TO.advance(tg, tf.lane(0), 2048, functor=_mod3,
+                           strategy=strategy)
+        for cap in (None, 40):
+            je = JO.advance_to_edge_frontier(jr, cap, backend="xla")
+            te = TO.advance_to_edge_frontier(tr, cap)
+            _eq(je.ids, te.ids)
+            _eq(je.length, te.length)
+
+
+# --- filter, partition, neighborhood reduce, compute --------------------
+
+
+def _dup_frontiers(b, cap, hi, seed):
+    """Lanes of ids with many duplicates (ids < ``hi``)."""
+    rng = np.random.default_rng(seed)
+    ids = np.full((b, cap), -1, np.int32)
+    lengths = rng.integers(cap // 2, cap + 1, size=b).astype(np.int32)
+    for i in range(b):
+        ids[i, :lengths[i]] = rng.integers(0, hi, size=lengths[i])
+    return ids, lengths
+
+
+def _odd(ids, valid, data):
+    return ids % 2 == 1, data
+
+
+@pytest.mark.parametrize("uniquify", ["none", "exact", "hash"])
+@pytest.mark.parametrize("functor", [None, _odd])
+@pytest.mark.parametrize("cap", [None, 9])
+def test_filter_frontier_matches_reference(uniquify, functor, cap):
+    """Hash culling at hash_size 8 over ids up to 40, so slots collide:
+    the owner of a slot (its last kept lane) decides who survives. cap 9
+    clamps the survivors, which the batched form counts as overflow."""
+    ids, lengths = _dup_frontiers(4, 64, 40, seed=24)
+    jf, tf = _both(ids, lengths)
+    kw = dict(n=40, uniquify=uniquify, cap=cap, hash_size=8)
+    jr, _, jo = JO.filter_frontier_batch(jf, functor=functor, backend="xla",
+                                         **kw)
+    tr, _, to = TO.filter_frontier_batch(tf, functor=functor, **kw)
+    _eq(jr.ids, tr.ids)
+    _eq(jr.lengths, tr.lengths)
+    _eq(jo, to)
+    if cap and uniquify != "exact":
+        assert int(to.sum()) > 0
+    js, _ = JO.filter_frontier(jf.lane(2), functor=functor, backend="xla",
+                               **kw)
+    ts, _ = TO.filter_frontier(tf.lane(2), functor=functor, **kw)
+    _eq(js.ids, ts.ids)
+    _eq(js.length, ts.length)
+
+
+def test_filter_frontier_matches_pallas():
+    """The compaction through the reference's K2 (Pallas interpret)."""
+    ids, lengths = _dup_frontiers(2, 32, 20, seed=25)
+    jf, tf = _both(ids, lengths)
+    jr, _, jo = JO.filter_frontier_batch(jf, n=20, uniquify="hash",
+                                         hash_size=8, cap=12,
+                                         backend="pallas")
+    tr, _, to = TO.filter_frontier_batch(tf, n=20, uniquify="hash",
+                                         hash_size=8, cap=12)
+    _eq(jr.ids, tr.ids)
+    _eq(jo, to)
+
+
+def test_filter_frontier_rejects_bad_uniquify():
+    _, tf = _both(*_dup_frontiers(1, 8, 5, seed=26))
+    with pytest.raises(ValueError, match="needs the vertex count"):
+        TO.filter_frontier_batch(tf, uniquify="exact")
+    with pytest.raises(ValueError, match="unknown uniquify"):
+        TO.filter_frontier_batch(tf, uniquify="bogus")
+
+
+def test_partition_frontier_matches_reference():
+    ids, lengths = _frontiers(100, 1, 30, seed=27)
+    jf, tf = _both(ids, lengths)
+    pred = np.random.default_rng(28).random(30) < 0.4
+    for caps in ((None, None), (5, 7)):
+        jn, jfar = JO.partition_frontier(jf.lane(0), jnp.asarray(pred),
+                                         *caps, backend="xla")
+        tn, tfar = TO.partition_frontier(tf.lane(0), torch.from_numpy(pred),
+                                         *caps)
+        for a, b in ((jn, tn), (jfar, tfar)):
+            _eq(a.ids, b.ids)
+            _eq(a.length, b.length)
+
+
+@pytest.mark.parametrize("strategy", ["LB", "TWC", "THREAD"])
+@pytest.mark.parametrize("reduce_op", ["add", "max", "min"])
+@pytest.mark.parametrize("init", [None, -7.0])
+def test_neighborhood_reduce_matches_reference(pair, strategy, reduce_op,
+                                               init):
+    """Integer-valued floats (the destination ids) reduce exactly under
+    every op; the weights' float sums are held to a relative 1e-6 (the
+    summation order may differ). Under THREAD ``in_pos`` is the source
+    vertex, as in the reference. A lane whose vertex has no edge keeps
+    the identity; ``init`` fills the invalid lanes."""
+    jg, tg = pair
+    deg = np.diff(tg.row_offsets.numpy())
+    ids, lengths = _frontiers(tg.num_vertices, 1, 24, seed=29)
+    ids[0, 3] = int(np.argmin(deg))           # an edgeless vertex
+    lengths[0] = max(lengths[0], 4)
+    jf, tf = _both(ids, lengths)
+    jw, tw = jg.edge_values, tg.edge_values
+
+    def jdst(s, d, e, v, data):
+        return d.astype(jnp.float32)
+
+    def tdst(s, d, e, v, data):
+        return d.to(torch.float32)
+
+    def jwt(s, d, e, v, data):
+        return jw[jnp.where(v, e, 0)]
+
+    def twt(s, d, e, v, data):
+        return tw[torch.where(v, e, 0).long()]
+
+    for jmap, tmap, exact in ((jdst, tdst, True), (jwt, twt, False)):
+        want = np.asarray(JO.neighborhood_reduce(
+            jg, jf.lane(0), 2048, jmap, reduce_op, init=init,
+            strategy=strategy, backend="xla"))
+        got = TO.neighborhood_reduce(tg, tf.lane(0), 2048, tmap, reduce_op,
+                                     init=init, strategy=strategy).numpy()
+        if exact or reduce_op != "add":
+            assert np.array_equal(want, got)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def test_compute_matches_reference():
+    ids, lengths = _frontiers(50, 1, 12, seed=30)
+    jf, tf = _both(ids, lengths)
+
+    def jfun(i, v, data):
+        return data.at[i].add(jnp.where(v, 1, 0))
+
+    def tfun(i, v, data):
+        return data.index_add(0, i.long(), v.to(torch.int32))
+
+    _eq(JO.compute(jf.lane(0), jfun, jnp.zeros(50, jnp.int32)),
+        TO.compute(tf.lane(0), tfun, torch.zeros(50, dtype=torch.int32)))
 
 
 # --- segmented search (K5) and segmented intersection -------------------
@@ -339,3 +577,25 @@ def test_segmented_intersect_on_edgeless_graph():
     r = TO.segmented_intersect(tg, fa, fb, 512)
     assert int(r.total) == 0 and int(r.length) == 0
     assert (r.items == -1).all() and not r.counts.any()
+
+
+def test_lb_scan_saturates_past_int32():
+    """A frontier of duplicates (hash culling's leftovers) can hold more
+    slots than int32 counts: the scan saturates at INT32_MAX, as the
+    kernels' does, so every slot below cap_out keeps its true lane (the
+    reference's int32 scan wraps there)."""
+    big = 2 ** 30
+    sizes = torch.tensor([[3, big, big, big, 7, 0, 5]], dtype=torch.int32)
+    offsets, total = TO.lb_scan(sizes)
+    assert offsets.tolist() == [[0, 3, big + 3, TO.INT32_MAX, TO.INT32_MAX,
+                                 TO.INT32_MAX, TO.INT32_MAX]]
+    assert total.tolist() == [TO.INT32_MAX]
+    exp = TO.lb_expand(sizes[0], torch.ones(7, dtype=torch.bool), 10)
+    assert exp.in_pos.tolist() == [0, 0, 0] + [1] * 7
+    assert exp.rank.tolist() == [0, 1, 2] + list(range(7))
+    assert bool(exp.valid.all()) and int(exp.total) == TO.INT32_MAX
+    # K6's plain version (on CPU tensors, the wrapper's) agrees
+    k6 = K.lb_expand(sizes[0], 10)
+    assert k6.in_pos.tolist() == exp.in_pos.tolist()
+    assert k6.rank.tolist() == exp.rank.tolist()
+    assert int(k6.total) == TO.INT32_MAX

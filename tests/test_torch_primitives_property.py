@@ -11,7 +11,9 @@ tests, ``tests/test_primitives.py::random_graph``, drawn the same way:
     carried across with ``convert.graph_from_arrays`` and the port is
     held to the reference bit for bit wherever the reference equals its
     own oracle (its SSSP once missed a relaxation on such a graph), and
-    to the oracle always.
+    to the oracle always;
+  * both, again, under the TWC and THREAD strategies (BFS with hash and
+    exact uniquify).
 """
 import collections
 
@@ -79,6 +81,22 @@ def test_bfs_direction_property(g, src_seed):
 def test_sssp_property(g, src_seed):
     src = src_seed % g.num_vertices
     r = sssp(g, src)
+    assert np.allclose(r.dist.numpy(), R.sssp_ref(g, src), rtol=1e-5)
+
+
+@given(random_graph(), st.integers(0, 3), st.sampled_from(["TWC", "THREAD"]),
+       st.booleans())
+@settings(max_examples=MAX_EXAMPLES, deadline=None)
+def test_strategy_property(g, src_seed, strategy, idempotence):
+    """The unfused TWC / THREAD push and relax: BFS depths and SSSP
+    distances equal the oracles (n ≤ 24 ids never collide in the hash
+    table, so nothing overflows)."""
+    src = src_seed % g.num_vertices
+    r = bfs(g, src, strategy=strategy, idempotence=idempotence,
+            direction=idempotence)
+    assert np.array_equal(r.labels.numpy(), R.bfs_ref(g, src))
+    assert int(r.overflow) == 0
+    r = sssp(g, src, strategy=strategy)
     assert np.allclose(r.dist.numpy(), R.sssp_ref(g, src), rtol=1e-5)
 
 
@@ -177,3 +195,30 @@ def test_cc_and_tc_match_reference(seed):
     ref = int(JP.triangle_count(jg).total)
     if ref == want:
         assert int(triangle_count(tg).total) == ref
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("strategy", ["TWC", "THREAD"])
+def test_strategies_match_reference(seed, strategy):
+    """BFS (hash and exact uniquify) and SSSP under TWC and THREAD: the
+    oracle always, the reference bit for bit where it equals its own."""
+    jg, tg = _pair(seed)
+    for src in range(0, tg.num_vertices, 7):
+        want = R.bfs_ref(tg, src)
+        for idem in (True, False):
+            got = bfs(tg, src, strategy=strategy, idempotence=idem)
+            assert np.array_equal(got.labels.numpy(), want)
+            ref = JP.bfs(jg, src, strategy=strategy, idempotence=idem,
+                         backend="xla")
+            if np.array_equal(np.asarray(ref.labels), want):
+                for f in ref._fields:
+                    assert np.array_equal(getattr(got, f).numpy(),
+                                          np.asarray(getattr(ref, f))), f
+        want = R.sssp_ref(tg, src)
+        got = sssp(tg, src, delta=5.0, strategy=strategy)
+        assert np.allclose(got.dist.numpy(), want, rtol=1e-5)
+        ref = JP.sssp(jg, src, delta=5.0, strategy=strategy, backend="xla")
+        if np.allclose(np.asarray(ref.dist), want, rtol=1e-5):
+            for f in ref._fields:
+                assert np.array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(ref, f))), f

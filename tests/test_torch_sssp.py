@@ -110,3 +110,41 @@ def test_bellman_ford_matches_reference(pair):
         sssp_bellman_ford(Graph.from_csr(np.zeros(3, np.int32),
                                          np.zeros(0, np.int32),
                                          device="cpu"), 0)
+
+
+@pytest.mark.parametrize("strategy", ["TWC", "THREAD"])
+@pytest.mark.parametrize("tiered", [True, False])
+def test_sssp_strategies_match_reference(pair, strategy, tiered):
+    """The relax advance under TWC (tiered; its winners' slot order the
+    size-class order) and THREAD (the top tier, CSR order): dist, preds,
+    iterations and relaxations equal, batched and single."""
+    jg, tg = pair
+    srcs = [int(s) for s in np.random.default_rng(2).choice(
+        tg.num_vertices, 8, replace=False)]
+    kw = dict(delta=7.5, strategy=strategy)
+    tr = sssp_batch(tg, srcs, tiered=tiered, **kw)
+    _assert_same(jsssp_batch(jg, srcs, backend="xla", tiered=tiered, **kw),
+                 tr)
+    assert np.array_equal(tr.dist.numpy(), R.sssp_ref(tg, srcs))
+    hub = int(np.argmax(np.diff(tg.row_offsets.numpy())))
+    _assert_same(jsssp(jg, hub, backend="xla", **kw), sssp(tg, hub, **kw))
+
+
+@pytest.mark.parametrize("strategy", ["TWC", "THREAD"])
+def test_bellman_ford_strategies_match_reference(pair, strategy):
+    jg, tg = pair
+    hub = int(np.argmax(np.diff(tg.row_offsets.numpy())))
+    tr = sssp_bellman_ford(tg, hub, strategy=strategy)
+    _assert_same(jbellman(jg, hub, strategy=strategy, backend="xla"), tr)
+    assert np.array_equal(tr.dist.numpy(), R.sssp_ref(tg, hub))
+
+
+def test_sssp_strategies_edgeless_and_unknown():
+    g = Graph.from_csr(np.zeros(9, np.int32), np.zeros(0, np.int32),
+                       np.zeros(0, np.float32), device="cpu")
+    for strategy in ("TWC", "THREAD"):
+        r = sssp_batch(g, [0, 3], delta=1.0, strategy=strategy)
+        assert np.array_equal(r.dist.numpy(), R.sssp_ref(g, [0, 3]))
+    _, tg = _pair(JG.rmat(6, 4, seed=1, weighted=True))
+    with pytest.raises(ValueError, match="unknown strategy"):
+        sssp(tg, 0, strategy="bogus")
