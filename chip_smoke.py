@@ -99,9 +99,10 @@ Phases:
      cache under build/, its picks printed) and the kernel API's
      lb_expand, flash_attention and moe_gather at phase 2's shapes; (e)
      the fifth slice's: the storage plans — bfs_batch (B = 4: push, pull,
-     auto), sssp_batch (B = 4) and 20 PageRank sweeps on grid2d 2048
-     (n = 4,194,304, the road-network stand-in at rmat-22's vertex
-     count) under dense int32 and under the escape-free delta encoding,
+     auto) and sssp_batch (B = 4) on grid2d 1024 and 20 PageRank sweeps
+     on grid2d 2048 (n = 4,194,304, the road-network stand-in at
+     rmat-22's vertex count) under dense int32 and under the escape-free
+     delta encoding,
      and on rmat scale 15 (n = 32,768, the int16 ladder's top) under
      int16, int32 and int64, with triangle_count under int16 and int32,
      each plan bit-equal to its int32 twin; bfs_batch and sssp_batch on
@@ -125,7 +126,7 @@ Phases:
      seventh slice's: the paper's load-balancing and idempotence
      ablations — bfs_batch (push only, exact uniquify) and sssp_batch
      under LB, TWC and THREAD at the main scale on path (a)'s sources
-     (Fig. 20) and on grid2d 512 (the mesh contrast), bfs_batch under
+     (Fig. 20) and on grid2d 256 (the mesh contrast), bfs_batch under
      TWC with idempotence x direction (Fig. 19, each lane's overflow
      printed), one advance of table8_utilization.py's hub frontier under
      each strategy (its utilization; a THREAD advance launches no K3),
@@ -136,7 +137,17 @@ Phases:
      oracles and predecessors a valid tree wherever nothing overflowed,
      every TWC and THREAD run bit-equal to the same run on the torch
      backend on the card (TWC launching K3 and K2, THREAD K2 and no K3),
-     with its times and peak device memory printed —
+     with its times and peak device memory printed; (h) the eighth
+     slice's: the sharded (1-D, 4 parts) and 2-D (2 x 2 vertex cut)
+     placements with every part on the one card — distributed bfs,
+     sssp, cc, pagerank (20 sweeps) and reach (path (c)'s sources, 3
+     hops) at the main scale, label propagation and the masked product
+     of triangle counting at scale 16, each bit-equal to its
+     single-placement run on the card (paths (a)-(c)'s where they ran
+     it) with no kernel launched under a placement; graph_serve
+     ``--parts 4`` and ``--mesh 2x2`` at scale 16 with ``--validate``,
+     and a chaos stream on the 2 x 2 mesh under ``shard_loss@0.2``
+     (every degraded answer from a declared placement rung) —
      all on the cuda backend, validated
      against host oracles (numpy BFS hop counts, scipy Dijkstra, a numpy
      power iteration, scipy components, numpy Brandes, scipy products
@@ -145,7 +156,7 @@ Phases:
      and every kernel of it must have launched;
   4. where the time goes — path (a)'s batched primitives, then paths
      (b) and (c), path (e) on the delta grid (its BFS and SSSP at
-     side 512, device events only; PageRank at 2048) and path (g)'s TWC
+     side 256, device events only; PageRank at 2048) and path (g)'s TWC
      bfs_batch, once more under torch.profiler: device busy time, idle
      share, top kernels.
 
@@ -168,6 +179,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -184,8 +196,14 @@ WTF_TOL = 1e-5         # PPR / SALSA against float64 (atomic float sums)
 TRIANGLE = [(0, 1), (0, 2), (1, 2)]
 INT32_MAX = 2 ** 31 - 1
 GRID_SIDE = 2048       # grid2d: n = 4,194,304, rmat-22's vertex count
+GRID_TRAVERSAL_SIDE = 1024  # path (e)'s grid bfs_batch and sssp_batch
+MESH_PARTS = 4         # path (h): the 1-D placement's parts ...
+MESH_SHAPE = (2, 2)    # ... and the 2-D placement's mesh
+LP_MESH_ITERS = 2      # path (h)'s label propagation sweeps
+ORACLE_THREADS = 6     # paths (a) and (b)'s host oracles, side by side
 TIMING_ROUNDS = 5      # interleaved rounds when plans are compared
-PROFILE_GRID_SIDE = 512  # path (e)'s profiled BFS and SSSP, path (g)'s mesh
+PROFILE_GRID_SIDE = 256  # path (e)'s profiled BFS and SSSP
+FIG20_GRID_SIDE = 512  # path (g)'s Fig. 20 mesh contrast
 DEVICE_OPS_PAD = 0.25  # s of host idle around a one-call profiler session
 INT16_SCALE = 15       # rmat scale 15: n = 32,768, the int16 ladder's top
 # triangles of rmat(scale, 16, seed=0), counted by a chunked scipy product
@@ -1190,8 +1208,9 @@ def _fifth_slice_kernels(torch, np, K, P, O, F, G, S, SR, tuner, g, dev,
 
 
 def _fifth_slice_path(torch, np, K, R, G, S, graphs, g, sources, dev):
-    """Path (e): bfs_batch (push, pull, auto), sssp_batch and pagerank on
-    the grid under dense int32 and delta and on rmat scale 15 under
+    """Path (e): bfs_batch (push, pull, auto) and sssp_batch on grid2d
+    GRID_TRAVERSAL_SIDE and pagerank on grid2d GRID_SIDE, each under
+    dense int32 and delta, and all of them on rmat scale 15 under
     int16, int32 and int64, each equal bit for bit across its plans, the
     grid's against the oracles; triangle_count on rmat-15 int16 and int32;
     bfs_batch and sssp_batch on rmat-22's escaped delta stream (the dense
@@ -1199,9 +1218,18 @@ def _fifth_slice_path(torch, np, K, R, G, S, graphs, g, sources, dev):
     launch counts, in total and by variant, read where the run ends."""
     from repro_torch.core.primitives import (bfs_batch, pagerank, sssp_batch,
                                              triangle_count)
-    gg = graphs["grid-int32"]
+    # the grid's traversals at GRID_TRAVERSAL_SIDE (levels and steps
+    # scale with the side), its PageRank at GRID_SIDE
+    walk = {name: G.grid2d(GRID_TRAVERSAL_SIDE, weighted=True, seed=0,
+                           encoding=("delta" if name.endswith("delta")
+                                     else "dense"),
+                           index_dtype="int32", device=dev)
+            for name in ("grid-int32", "grid-delta")}
+    if walk["grid-delta"].col_store.num_escapes:
+        raise AssertionError("the traversal grid's delta stream escapes")
+    gg = walk["grid-int32"]
     ng = gg.num_vertices
-    gsrc = [0, ng // 2 + GRID_SIDE // 2, 12345, ng - 1]
+    gsrc = [0, ng // 2 + GRID_TRAVERSAL_SIDE // 2, 12345, ng - 1]
     runs = {
         "bfs_batch push": lambda gr, s: bfs_batch(gr, s, direction=False,
                                                   backend="cuda"),
@@ -1221,8 +1249,10 @@ def _fifth_slice_path(torch, np, K, R, G, S, graphs, g, sources, dev):
         srcs = (gsrc if name.startswith("grid")
                 else [int(torch.argmax(gr.degrees)), 1, 2, 3])
         for label, fn in runs.items():
+            on = (walk[name] if name in walk and label != "pagerank"
+                  else gr)
             t = time.monotonic()
-            results[name, label] = fn(gr, srcs)
+            results[name, label] = fn(on, srcs)
             torch.cuda.synchronize()
             times[name, label] = time.monotonic() - t
     for name in ("rmat15-int16", "rmat15-int32"):
@@ -1304,11 +1334,13 @@ def _fifth_slice_path(torch, np, K, R, G, S, graphs, g, sources, dev):
         raise AssertionError("sssp_batch on the grid differs from Dijkstra")
     pr_rel = R.pagerank_rel_err(
         results["grid-int32", "pagerank"][0].cpu().numpy(),
-        R.pagerank_ref(gg, iters=20))
+        R.pagerank_ref(graphs["grid-int32"], iters=20))
     if pr_rel > R.PR_RTOL:
         raise AssertionError(f"pagerank on the grid off the oracle by "
                              f"{pr_rel}")
-    print(f"validated path (e): delta = int32 on the grid, int16 = int64 = "
+    print(f"validated path (e): delta = int32 on the grid (bfs_batch and "
+          f"sssp_batch at side {GRID_TRAVERSAL_SIDE}, pagerank at "
+          f"{GRID_SIDE}), int16 = int64 = "
           f"int32 on rmat scale {INT16_SCALE} (bfs push / pull / auto, "
           f"sssp_batch, pagerank, triangle_count), bit for bit; rmat-22 "
           f"delta's bfs_batch and sssp_batch = int32's through the dense "
@@ -1629,7 +1661,7 @@ def _seventh_slice_path(torch, np, K, P, O, F, G, R, SR, g, sources,
                         depths, dist, dev):
     """Path (g), the load-balancing and idempotence ablations (the
     paper's Fig. 19, Fig. 20 and Table 8) on the cuda backend, at rmat-22
-    on path (a)'s four sources and on grid2d(PROFILE_GRID_SIDE):
+    on path (a)'s four sources and on grid2d(FIG20_GRID_SIDE):
     bfs_batch (push only, exact uniquify) and sssp_batch under LB, TWC
     and THREAD, bfs_batch under TWC with idempotence x direction, each
     labels / distances equal to path (a)'s oracles and its predecessors
@@ -1821,16 +1853,15 @@ def _seventh_slice_path(torch, np, K, P, O, F, G, R, SR, g, sources,
     # against the kernel it models
     api = _kernel_api_names(torch, K, P, SR, g, sources, dev)
 
-    # ---- the mesh contrast: grid2d(PROFILE_GRID_SIDE), path (e)'s
-    # profiled side
-    gm = G.grid2d(PROFILE_GRID_SIDE, weighted=True, seed=0, device=dev)
+    # ---- the mesh contrast: grid2d(FIG20_GRID_SIDE)
+    gm = G.grid2d(FIG20_GRID_SIDE, weighted=True, seed=0, device=dev)
     nm = gm.num_vertices
-    msrc = [0, nm // 2 + PROFILE_GRID_SIDE // 2, 12345 % nm, nm - 1]
+    msrc = [0, nm // 2 + FIG20_GRID_SIDE // 2, 12345 % nm, nm - 1]
     mdepths = [R.bfs_ref(gm, s) for s in msrc]
     mdist = R.sssp_ref(gm, msrc)
     mkeys = _edge_keys(torch, gm)
     for s in STRATEGIES:
-        r, launched = run_pair(f"grid-{PROFILE_GRID_SIDE} bfs_batch {s}",
+        r, launched = run_pair(f"grid-{FIG20_GRID_SIDE} bfs_batch {s}",
                                bfs_batch, gm, msrc, direction=False,
                                idempotence=False, strategy=s)
         for i, want in enumerate(mdepths):
@@ -1838,16 +1869,16 @@ def _seventh_slice_path(torch, np, K, P, O, F, G, R, SR, g, sources,
                 raise AssertionError(f"path (g) grid bfs_batch {s} lane {i} "
                                      f"differs from the oracle")
         _check_tree(torch, gm, mkeys, msrc, r.preds, labels=r.labels)
-        fig20["grid bfs", s] = (times[f"grid-{PROFILE_GRID_SIDE} bfs_batch "
+        fig20["grid bfs", s] = (times[f"grid-{FIG20_GRID_SIDE} bfs_batch "
                                       f"{s}"], int(r.iterations.max()),
                                 launched)
-        r, launched = run_pair(f"grid-{PROFILE_GRID_SIDE} sssp_batch {s}",
+        r, launched = run_pair(f"grid-{FIG20_GRID_SIDE} sssp_batch {s}",
                                sssp_batch, gm, msrc, strategy=s)
         if not np.array_equal(r.dist.cpu().numpy(), mdist):
             raise AssertionError(f"path (g) grid sssp_batch {s} differs "
                                  f"from Dijkstra")
         _check_tree(torch, gm, mkeys, msrc, r.preds, dist=r.dist)
-        fig20["grid sssp", s] = (times[f"grid-{PROFILE_GRID_SIDE} "
+        fig20["grid sssp", s] = (times[f"grid-{FIG20_GRID_SIDE} "
                                        f"sssp_batch {s}"],
                                  int(r.iterations.max()), launched,
                                  int(r.relaxations.sum()))
@@ -1868,7 +1899,7 @@ def _seventh_slice_path(torch, np, K, P, O, F, G, R, SR, g, sources,
     for (what, s), row in fig20.items():
         graph = "grid" if what.startswith("grid") else gname
         prim = what.split()[-1]
-        key = (f"grid-{PROFILE_GRID_SIDE} {prim}_batch {s}"
+        key = (f"grid-{FIG20_GRID_SIDE} {prim}_batch {s}"
                if graph == "grid" else f"{gname} {prim}_batch {s}")
         plain = times.get(key + " [torch]")
         extra = (f", relaxations {row[3]}" if len(row) > 3 else "")
@@ -1887,6 +1918,215 @@ def _seventh_slice_path(torch, np, K, P, O, F, G, R, SR, g, sources,
     print(f"path (g) oracle names equal to their kernels: "
           f"{api}")
     return launches, variants, times
+
+
+def _eighth_slice_path(torch, np, K, G, g, g16, hub, sources, single,
+                       tri16, dev):
+    """Path (h): the sharded (1-D, MESH_PARTS parts) and 2-D (MESH_SHAPE
+    vertex cut) placements with every part on the one card. On the main
+    graph: distributed bfs and sssp from the hub, cc, pagerank (20
+    sweeps) and reach (path (c)'s sources, HOPS hops), each bit-equal to
+    paths (a)-(c)'s single-placement run on the card (``single``:
+    {name: (result, ms)}); at scale 16: label propagation
+    (LP_MESH_ITERS sweeps) and triangle counting's masked product (its
+    count = ``tri16``), each equal to a single-placement run made here.
+    No kernel may launch under a placement (the cuda backend runs the
+    torch provider of a placement, as the reference runs xla under its
+    own). Then graph_serve ``--parts`` / ``--mesh`` at scale 16 with
+    ``--validate``, and a chaos stream on the mesh under
+    ``shard_loss@0.2``. Prints ms single / 1-D / 2-D (host clock ending
+    in a synchronize), exchange_bytes_per_step, each placement's
+    balance and peak device memory. Returns the launch counts under the
+    placements (all 0)."""
+    from repro_torch import ft
+    from repro_torch import linalg as L
+    from repro_torch.core import backend as B
+    from repro_torch.core import distributed as D
+    from repro_torch.core.partition import Mesh, partition_1d, partition_2d
+    from repro_torch.core.primitives import label_propagation
+    from repro_torch.core.primitives import tc as TC
+    from repro_torch.launch import graph_serve as GS
+
+    t_path = time.monotonic()
+    rows, cols = MESH_SHAPE
+    meshes = {"1-D": Mesh.on(dev, (MESH_PARTS,), ("graph",)),
+              "2-D": Mesh.on(dev, MESH_SHAPE, ("row", "col"))}
+
+    def partitions(gr):
+        t = time.monotonic()
+        out = {"1-D": partition_1d(gr, MESH_PARTS),
+               "2-D": partition_2d(gr, rows, cols)}
+        host_s = time.monotonic() - t
+        t = time.monotonic()
+        for name, pg in out.items():
+            D._shard_any(pg, meshes[name], meshes[name].axis_names[0]
+                         if name == "1-D" else ("row", "col"))
+        torch.cuda.synchronize()
+        return out, host_s, time.monotonic() - t
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.monotonic() - t) * 1e3
+
+    def same(a, b, what):
+        if not torch.equal(a, b):
+            raise AssertionError(f"path (h) {what} differs from its "
+                                 f"single-placement run")
+
+    # the scale-16 single-placement runs, made before the counters reset
+    lp1, lp_ms = timed(lambda: label_propagation(
+        g16, max_iter=LP_MESH_ITERS, backend="cuda"))
+    sub, ssrc, sdst = TC._orient(g16)
+    tc_args = ((ssrc, sdst),)
+    tc_kw = dict(semiring=L.plus_and, b_transpose=True, structural=True)
+    tc1, tc_ms = timed(lambda: L.mxm(sub, sub, *tc_args, backend="cuda",
+                                     **tc_kw))
+    single = dict(single, lp=(lp1.labels, lp_ms), tc=(tc1, tc_ms))
+
+    parts, part_s, shard_s = partitions(g)
+    parts16, part16_s, shard16_s = partitions(g16)
+    subparts, _, _ = partitions(sub)
+    print(f"path (h) partitions: rmat scale {int(math.log2(g.num_vertices))}"
+          f" 1-D ({MESH_PARTS} parts) and 2-D ({rows}x{cols}) on the host "
+          f"in {part_s:.1f} s, put on the card in {shard_s:.1f} s; rmat "
+          f"scale {int(math.log2(g16.num_vertices))} in {part16_s:.1f} + "
+          f"{shard16_s:.1f} s")
+    for name, pg in parts.items():
+        print(f"path (h) {name} balance: {json.dumps(pg.balance())}")
+
+    K.reset_launches()
+    rows_out = {}
+    peaks = {}
+    for name, pg in parts.items():
+        mesh = meshes[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = {
+            "bfs": lambda: D.distributed_bfs(pg, hub, mesh).labels,
+            "sssp": lambda: D.distributed_sssp(pg, hub, mesh).dist,
+            "cc": lambda: D.distributed_cc(pg, mesh).labels,
+            "pagerank": lambda: D.distributed_pagerank(pg, mesh, iters=20),
+            "reach": lambda: D.distributed_reach(
+                pg, sources, HOPS, mesh=mesh).reached,
+            "lp": lambda: D.distributed_label_propagation(
+                parts16[name], mesh, max_iter=LP_MESH_ITERS).labels,
+            "tc": lambda: L.mxm(D._shard_any(subparts[name], mesh,
+                                             mesh.axis_names[0]
+                                             if name == "1-D"
+                                             else ("row", "col")),
+                                sub, *tc_args, **tc_kw),
+        }
+        for prim, fn in runs.items():
+            got, ms = timed(fn)
+            same(got, single[prim][0], f"{name} {prim}")
+            rows_out.setdefault(prim, {})[name] = ms
+        if int(single["tc"][0].sum()) != tri16:
+            raise AssertionError(f"path (h) {name} triangles "
+                                 f"{int(single['tc'][0].sum())} != {tri16}")
+        peaks[name] = torch.cuda.max_memory_allocated()
+    launches = {k: v.launches for k, v in K.KERNELS.items()}
+    if any(launches.values()):
+        raise AssertionError(f"path (h) launched kernels under a "
+                             f"placement: {launches}")
+    print(f"path (h) launches under the placements: {launches} (the cuda "
+          f"backend runs each placement's torch provider)")
+    scale = int(math.log2(g.num_vertices))
+    scale16 = int(math.log2(g16.num_vertices))
+    print(f"path (h) ms a run on {_smi()} (host clock ending in a "
+          f"synchronize; single = the cuda backend's run; rmat scale "
+          f"{scale} unless marked; every placement result bit-equal to "
+          f"single):")
+    print(f"  {'primitive':22s} {'single':>10s} {'1-D':>10s} {'2-D':>10s}"
+          f"   exchange B/step 1-D / 2-D")
+    labels = {"bfs": "bfs (hub)", "sssp": "sssp (hub)", "cc": "cc",
+              "pagerank": "pagerank (20 sweeps)",
+              "reach": f"reach ({len(sources)} srcs, {HOPS} hops)",
+              "lp": f"label_prop {scale16} ({LP_MESH_ITERS} it)",
+              "tc": f"tc mxm {scale16}"}
+    for prim, per in rows_out.items():
+        xb = ""
+        if prim in ("bfs", "sssp", "cc", "pagerank"):
+            xb = " / ".join(str(D.exchange_bytes_per_step(parts[k], prim))
+                            for k in ("1-D", "2-D"))
+        print(f"  {labels[prim]:22s} {single[prim][1]:10.2f} "
+              f"{per['1-D']:10.2f} {per['2-D']:10.2f}   {xb}")
+    print(f"path (h) peak device memory: "
+          + ", ".join(f"{k} {v / 2 ** 30:.2f} GiB" for k, v in peaks.items())
+          + f"; triangles at scale {scale16} {tri16} on every placement")
+    del parts, parts16, subparts, single
+    torch.cuda.empty_cache()
+
+    # graph_serve from the mesh, clean and under shard loss
+    base = ["--graph", "rmat", "--scale", str(scale16), "--kinds",
+            "bfs,sssp,pagerank,reach", "--batch", "4", "--log-level",
+            "warning"]
+    K.reset_launches()
+    for flag, value in (("--parts", str(MESH_PARTS)),
+                        ("--mesh", f"{rows}x{cols}")):
+        stats = GS.main(base + ["--requests", "16", "--validate", flag,
+                                value])
+        if (stats["validation_failures"] != 0 or stats["parts"]
+                != MESH_PARTS or stats["status_counts"]["ok"] != 16):
+            raise AssertionError(f"path (h) graph_serve {flag} {value}: "
+                                 f"{stats['status_counts']}, validation "
+                                 f"failures {stats['validation_failures']}")
+        print(f"path (h) graph_serve {flag} {value} (rmat scale {scale16}, "
+              f"16 queries, batch 4): {stats['qps']} q/s, p50 / p95 "
+              f"{stats['lat_ms_p50']} / {stats['lat_ms_p95']} ms, 0 "
+              f"validation failures; exchange B/step "
+              f"{stats['exchange_bytes_per_step']}; edge imbalance "
+              f"{stats['balance']['edge_imbalance']}")
+    launches_serve = {k: v.launches for k, v in K.KERNELS.items()}
+    if any(launches_serve.values()):
+        raise AssertionError(f"path (h) graph_serve from a mesh launched "
+                             f"kernels: {launches_serve}")
+    for kind in GS.KINDS:             # declared anew by this stream
+        B._DECLARED_FALLBACKS.pop((kind, B.SINGLE), None)
+        B._DECLARED_FALLBACKS.pop((kind, B.TORCH), None)
+    stats = GS.main(base + ["--requests", "32", "--mesh", f"{rows}x{cols}",
+                            "--faults", "shard_loss@0.2", "--faults-seed",
+                            "0"])
+    counts = stats["status_counts"]
+    if sum(counts.values()) != 32 or len(stats["queries"]) != 32 or any(
+            q is None for q in stats["queries"]):
+        raise AssertionError(f"path (h) chaos stream: statuses {counts}")
+    for q in stats["queries"]:
+        if q["status"] != "degraded":
+            continue
+        # a lost shard degrades to single-device serving: on the mesh the
+        # cuda→torch rung is skipped (it would rerun rung 0's provider)
+        rungs = {r.reason: r for r in ft.ladder(
+            q["kind"], "cuda", B.TWOD,
+            hops=HOPS if q["kind"] == "reach" else None)
+            if r.placement == B.SINGLE}
+        r = rungs.get(q["degraded_to"])
+        target = None if r is None else (
+            r.placement if r.reason.startswith("placement") else r.backend)
+        if r is None or not B.declared_fallback(q["kind"], target):
+            raise AssertionError(f"path (h) chaos: query {q['id']} "
+                                 f"degraded to an undeclared rung "
+                                 f"{q['degraded_to']!r}")
+    if counts["degraded"] == 0:
+        raise AssertionError("path (h) chaos: shard_loss never fired")
+    to_single = sorted({q["degraded_to"] for q in stats["queries"]
+                        if q["status"] == "degraded"})
+    flush_placements = sorted({f["placement"] for f in stats["flushes"]})
+    if not any(r.startswith("placement") and r.endswith("→single")
+               for r in to_single) or flush_placements != [B.TWOD,
+                                                           B.SINGLE]:
+        raise AssertionError(f"path (h) chaos: no flush ran the placement "
+                             f"→single rung (degraded to {to_single}, "
+                             f"flush placements {flush_placements})")
+    print(f"path (h) chaos stream ({rows}x{cols} mesh, rmat scale "
+          f"{scale16}, shard_loss@0.2 seed 0, 32 queries): {counts}; "
+          f"degraded to {to_single}, flushes on {flush_placements}; every "
+          f"degraded answer from a declared single-device rung, no "
+          f"exception out of the stream")
+    print(f"path (h) run and validated in {time.monotonic() - t_path:.1f} s")
+    return launches
 
 
 def _kernel_api_names(torch, K, P, SR, g, sources, dev):
@@ -2866,9 +3106,15 @@ def main(argv=None) -> int:
           f"{int(r_bfs.pull_iters)}); sssp iterations "
           f"{int(r_sssp.iterations)}, relaxations {int(r_sssp.relaxations)}")
 
-    # validation against the host oracles
+    # validation against the host oracles, computed side by side (numpy
+    # and scipy release the interpreter lock in their large loops)
     t0 = time.monotonic()
-    depths = [R.bfs_ref(g, s) for s in sources]     # reach reuses them
+    with ThreadPoolExecutor(ORACLE_THREADS) as pool:
+        f_depths = [pool.submit(R.bfs_ref, g, s) for s in sources]
+        f_dist = pool.submit(R.sssp_ref, g, sources)
+        f_pr = pool.submit(R.pagerank_ref, g, iters=20)
+        depths = [f.result() for f in f_depths]   # reach reuses them
+        dist, pr_want = f_dist.result(), f_pr.result()
     for i, want in enumerate(depths):
         if not np.array_equal(r_bfsb.labels[i].cpu().numpy(), want):
             raise AssertionError(f"bfs_batch lane {i} differs from the "
@@ -2876,14 +3122,12 @@ def main(argv=None) -> int:
     for f in r_bfs._fields:
         if not torch.equal(getattr(r_bfs, f), getattr(r_bfsb, f)[0]):
             raise AssertionError(f"bfs {f} differs from bfs_batch lane 0")
-    dist = R.sssp_ref(g, sources)
     if not np.array_equal(r_ssspb.dist.cpu().numpy(), dist):
         raise AssertionError("sssp_batch differs from Dijkstra")
     for f in r_sssp._fields:
         if not torch.equal(getattr(r_sssp, f), getattr(r_ssspb, f)[0]):
             raise AssertionError(f"sssp {f} differs from sssp_batch lane 0")
-    pr_rel = R.pagerank_rel_err(r_pr.rank.cpu().numpy(),
-                                R.pagerank_ref(g, iters=20))
+    pr_rel = R.pagerank_rel_err(r_pr.rank.cpu().numpy(), pr_want)
     if pr_rel > R.PR_RTOL or r_pr.iterations != 20:
         raise AssertionError(f"pagerank off the oracle by {pr_rel} "
                              f"(relative)")
@@ -2942,22 +3186,29 @@ def main(argv=None) -> int:
           f"(unfiltered {int(r_tcf)})")
 
     t0 = time.monotonic()
-    if not np.array_equal(r_cc.labels.cpu().numpy(), R.cc_ref(g)):
+    with ThreadPoolExecutor(ORACLE_THREADS) as pool:
+        f_cc = pool.submit(R.cc_ref, g)
+        f_bc = [pool.submit(R.bc_ref, g, s) for s in sources]
+        f_tc = pool.submit(R.tc_ref, g_tc)
+        f_tcs = pool.submit(R.tc_ref, g_full)
+        cc_want, bc_want = f_cc.result(), [f.result() for f in f_bc]
+        tc_want, tcs_want = f_tc.result(), f_tcs.result()
+    if not np.array_equal(r_cc.labels.cpu().numpy(), cc_want):
         raise AssertionError("cc labels differ from scipy's components")
     bc_err = 0.0
     for i, s in enumerate(sources):
-        got, want = r_bc.bc[i].cpu().numpy(), R.bc_ref(g, s)
+        got, want = r_bc.bc[i].cpu().numpy(), bc_want[i]
         if not np.allclose(got, want, rtol=1e-3, atol=1e-3):
             raise AssertionError(f"bc_batch lane {i} differs from Brandes")
         bc_err = max(bc_err, float((np.abs(got - want) / np.maximum(
             np.abs(want), 1.0)).max()))
     total = int(r_tc.total)
-    if (total != R.tc_ref(g_tc) or total != int(r_tc.per_edge.long().sum())
+    if (total != tc_want or total != int(r_tc.per_edge.long().sum())
             or total != TRIANGLES.get(tc_scale, total)):
         raise AssertionError(f"triangle_count {total} differs from the "
                              f"oracle")
     small = int(r_tcs.total)
-    if (small != int(r_tcf) or small != R.tc_ref(g_full)
+    if (small != int(r_tcf) or small != tcs_want
             or small != TRIANGLES.get(tc_scale - 2, small)):
         raise AssertionError(f"triangle_count_full {int(r_tcf)} / "
                              f"triangle_count {small} differ")
@@ -2965,6 +3216,11 @@ def main(argv=None) -> int:
           f"(max |error| / max(|bc|, 1) {bc_err:.3g}; limit rtol 1e-3, "
           f"atol 1e-3) and the triangles against scipy in "
           f"{time.monotonic() - t0:.1f} s")
+    # path (h)'s single-placement runs: path (a)'s and (b)'s, kept
+    single_h = {"bfs": (r_bfs.labels, timings["bfs"] * 1e3),
+                "sssp": (r_sssp.dist, timings["sssp"] * 1e3),
+                "pagerank": (r_pr.rank, timings["pagerank"] * 1e3),
+                "cc": (r_cc.labels, timings2["cc"] * 1e3)}
     del r_cc, r_bc, r_tc, r_tcs, r_tcf, g_full, sub
     torch.cuda.empty_cache()
 
@@ -3096,6 +3352,7 @@ def main(argv=None) -> int:
     # path (f)'s served lanes
     oracle_f = {"bfs": r_bfsb.labels, "sssp": r_ssspb.dist,
                 "pagerank": r_pr.rank, "reach": r_reach.reached}
+    single_h["reach"] = (r_reach.reached, timings3["reach_batch"] * 1e3)
     del r_reach, r_lp, r_wtf, r_sm, r_smt
     torch.cuda.empty_cache()
 
@@ -3156,6 +3413,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"path (g) run and validated in {time.monotonic() - t0:.1f} s")
 
+    # ---- phase 3 (h): the eighth slice's path: the sharded and 2-D
+    # placements, every part on the one card ----
+    launches8 = _eighth_slice_path(torch, np, K, G, g, g16, hub, sources,
+                                   single_h, tri, dev)
+    del single_h
+    torch.cuda.empty_cache()
+
     # ---- where the time goes: each slice's path once more under
     # torch.profiler (its overhead inflates the wall time; the device
     # time per kernel is what it is for) ----
@@ -3204,7 +3468,7 @@ def main(argv=None) -> int:
         subgraph_match(g16, 3, TRIANGLE, cap=sm_cap, backend="cuda")
 
     # path (e) takes ~14,000 BSP steps at side 2048; its breakdown is
-    # taken on the delta grid of side PROFILE_GRID_SIDE (~3,500 steps),
+    # taken on the delta grid of side PROFILE_GRID_SIDE (~1,700 steps),
     # PageRank at full size
     g_prof = G.grid2d(PROFILE_GRID_SIDE, weighted=True, seed=0,
                       encoding="delta", device=dev)
@@ -3238,7 +3502,7 @@ def main(argv=None) -> int:
                         "launches": (launches[name] + launches2[name]
                                      + launches3[name] + launches4[name]
                                      + launches5[name] + launches6[name]
-                                     + launches7[name]),
+                                     + launches7[name] + launches8[name]),
                         "variants": variant_totals[name],
                         **results[name]})
     for row in sorted(r for r in results if ":" in r):

@@ -15,9 +15,27 @@ Resolution: an explicit ``backend=`` wins; otherwise the backend follows
 the device of the data — ``"cuda"`` for CUDA tensors, ``"torch"`` for CPU
 tensors. ``"cuda"`` on CPU tensors raises; ``"torch"`` on CUDA tensors
 runs only when asked for by name (the plain-vs-kernel comparison). There
-is no probe that falls back from one backend to the other, a dispatch
-miss raises ``ProviderMissError``, and there is one placement (a single
-device).
+is no probe that falls back from one backend to the other, and a
+dispatch miss raises ``ProviderMissError``.
+
+Placements, the second registry dimension (paper §8.2.1 scale-out):
+
+  "single"  — one device holds the whole graph (the default).
+  "sharded" — the graph is 1-D partitioned (``core.partition``); the
+              providers of ``core.distributed`` run every part and
+              combine with explicit collectives. Edge operands arrive as
+              one tensor per part (``ShardedGraph``), dense vectors
+              replicated.
+  "2d"      — the R×C vertex cut (``partition_2d``); operands arrive as
+              one tensor per block (``Sharded2DGraph``).
+
+Under a distributed placement the ``cuda`` backend dispatches the
+``torch`` provider of the same placement — the reference's declared
+route (its ``pallas`` dispatch under ``sharded`` / ``2d`` runs the
+``xla`` provider: kernels under a placement are later work), not a
+probe. No placement ever falls back to ``"single"``: a miss raises.
+Precedence, as for backends: a per-call ``placement=`` > the innermost
+``use_placement`` context > ``"single"``; no environment variable.
 
 Three pieces carried over from the reference:
 
@@ -43,6 +61,7 @@ Three pieces carried over from the reference:
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 import sys
 import threading
@@ -55,41 +74,52 @@ TORCH = "torch"
 CUDA = "cuda"
 BACKENDS = (TORCH, CUDA)
 
+SINGLE = "single"
+SHARDED = "sharded"
+TWOD = "2d"
+PLACEMENTS = (SINGLE, SHARDED, TWOD)
+
 # the modules whose import registers each backend's providers — imported
 # on first dispatch, so importing the core never builds a kernel
 _PROVIDER_MODULES = {
     TORCH: ("repro_torch.core.frontier", "repro_torch.core.operators",
             "repro_torch.linalg.ops"),
     CUDA: ("repro_torch.kernels.ops",),
+    # the distributed placements' providers register on import
+    SHARDED: ("repro_torch.core.distributed",),
+    TWOD: ("repro_torch.core.distributed",),
 }
 _loaded: set[str] = set()
 
-# (op, backend) -> implementation
-_REGISTRY: dict[tuple[str, str], Callable] = {}
-# (op, backend) -> the column encodings the provider decodes itself; a
-# provider that declared only "dense" receives the dense view of a
-# delta-encoded store (``storage_arg``)
-_ENCODINGS: dict[tuple[str, str], tuple] = {}
+# (op, backend, placement) -> implementation
+_REGISTRY: dict[tuple[str, str, str], Callable] = {}
+# (op, backend, placement) -> the column encodings the provider decodes
+# itself; a provider that declared only "dense" receives the dense view
+# of a delta-encoded store (``storage_arg``)
+_ENCODINGS: dict[tuple[str, str, str], tuple] = {}
 
 
 _tls = threading.local()
-# (op, backend) -> reason: fallbacks declared on purpose
+# (op, backend or placement) -> reason: fallbacks declared on purpose
 _DECLARED_FALLBACKS: dict[tuple[str, str], str] = {}
 
 
 class ProviderMissError(KeyError):
-    """No provider registered for an (op, backend) dispatch."""
+    """No provider registered for an (op, backend, placement)
+    dispatch."""
 
     def __init__(self, op: str, backend: str, detail: str = "", *,
-                 injected: bool = False):
+                 injected: bool = False, placement: str = SINGLE):
         self.op = op
         self.backend = backend
+        self.placement = placement
         self.injected = injected        # raised by a fault plan
-        have = sorted(b for (o, b) in _REGISTRY if o == op)
+        have = sorted({(b, p) for (o, b, p) in _REGISTRY if o == op})
         self.detail = (f"no provider registered for op={op!r} "
-                       f"backend={backend!r}"
+                       f"backend={backend!r} placement={placement!r}"
                        + (f" ({detail})" if detail else "")
-                       + f"; registered backends for this op: {have}")
+                       + f"; registered (backend, placement) for this "
+                         f"op: {have}")
         super().__init__(self.detail)
 
     def __str__(self) -> str:
@@ -100,6 +130,13 @@ def _check(name: str) -> str:
     if name not in BACKENDS:
         raise ValueError(
             f"unknown backend {name!r}; expected one of {BACKENDS}")
+    return name
+
+
+def _check_placement(name: str) -> str:
+    if name not in PLACEMENTS:
+        raise ValueError(
+            f"unknown placement {name!r}; expected one of {PLACEMENTS}")
     return name
 
 
@@ -133,6 +170,79 @@ def _stack() -> list:
     return _tls.stack
 
 
+def _pstack() -> list:
+    if not hasattr(_tls, "pstack"):
+        _tls.pstack = []
+    return _tls.pstack
+
+
+def resolve_placement(placement: Optional[str] = None) -> str:
+    """The concrete placement: the per-call name, else the innermost
+    ``use_placement`` context, else ``"single"``."""
+    if placement is None:
+        stack = _pstack()
+        placement = stack[-1][0] if stack else SINGLE
+    return _check_placement(placement)
+
+
+@contextmanager
+def use_placement(name: str, mesh=None, axis="graph"):
+    """Context manager: dispatch under placement ``name``. For
+    ``"sharded"`` ``mesh`` / ``axis`` name the 1-D mesh axis; for
+    ``"2d"`` ``axis`` is the (row, col) axis-name pair. Providers read
+    them through ``placement_mesh()``."""
+    _check_placement(name)
+    _pstack().append((name, mesh, axis))
+    try:
+        yield
+    finally:
+        _pstack().pop()
+
+
+def placement_mesh():
+    """The (mesh, axis) of the innermost placement context that carries
+    a mesh, or None."""
+    for _, mesh, axis in reversed(_pstack()):
+        if mesh is not None:
+            return mesh, axis
+    return None
+
+
+def resolve_graph_placement(graph, placement: Optional[str] = None):
+    """``(placement, context)`` for a Graph / ShardedGraph /
+    Sharded2DGraph operand: a ``ShardedGraph`` implies ``"sharded"``, a
+    ``Sharded2DGraph`` ``"2d"``, and the context activates its mesh; a
+    plain Graph resolves normally. A mismatch raises: a plain Graph
+    under a distributed placement has nothing to shard over, and a
+    per-call placement that contradicts the operand's layout cannot be
+    honoured. Use as ``pl, ctx = resolve_graph_placement(g); with ctx:``.
+    """
+    from .partition import Sharded2DGraph, ShardedGraph
+    implied = (SHARDED if isinstance(graph, ShardedGraph)
+               else TWOD if isinstance(graph, Sharded2DGraph) else None)
+    if implied is not None:
+        if placement is not None and placement != implied:
+            raise ValueError(
+                f"placement={placement!r} with a {type(graph).__name__} "
+                f"operand: the per-part slices only run the {implied!r} "
+                f"path; pass the unpartitioned graph (the partition's "
+                f".source) to run elsewhere")
+        axis = graph.axis if implied == SHARDED else graph.axes
+        return implied, use_placement(implied, mesh=graph.mesh, axis=axis)
+    pl = resolve_placement(placement)
+    if pl == SHARDED:
+        raise ValueError(
+            "sharded placement needs a ShardedGraph operand "
+            "(partition_1d(graph, p).shard(mesh)); got a single-device "
+            "graph")
+    if pl == TWOD:
+        raise ValueError(
+            "2d placement needs a Sharded2DGraph operand "
+            "(partition_2d(graph, r, c).shard(mesh)); got a "
+            "single-device graph")
+    return pl, contextlib.nullcontext()
+
+
 @contextmanager
 def use_backend(name: str):
     """Context manager: calls that pass no ``backend=`` run on ``name``
@@ -145,38 +255,44 @@ def use_backend(name: str):
         _stack().pop()
 
 
-def declare_fallback(op: str, backend: str, *, reason: str) -> None:
-    """Record that ``op`` on ``backend`` is served by a fallback on
-    purpose (a serve-time degradation rung, with its reason). Dispatch
-    does not change: a miss still raises."""
-    _check(backend)
+def declare_fallback(op: str, target: str, *, reason: str) -> None:
+    """Record that ``op`` is served on ``target`` — a backend (a
+    serve-time rung) or a placement (a rung, or a hole an op has on
+    purpose, as ``advance_filter`` has under ``"sharded"``) — by a
+    fallback someone chose, with its reason. Dispatch does not change:
+    a miss still raises."""
+    if target not in BACKENDS:
+        _check_placement(target)
     if not reason:
         raise ValueError("declare_fallback requires a non-empty reason")
-    _DECLARED_FALLBACKS[(op, backend)] = reason
+    _DECLARED_FALLBACKS[(op, target)] = reason
 
 
-def declared_fallback(op: str, backend: str) -> Optional[str]:
-    """The declared-fallback reason for (op, backend), or None."""
-    return _DECLARED_FALLBACKS.get((op, backend))
+def declared_fallback(op: str, target: str) -> Optional[str]:
+    """The declared-fallback reason for (op, backend or placement), or
+    None."""
+    return _DECLARED_FALLBACKS.get((op, target))
 
 
 def declared_fallbacks() -> dict:
-    """Every declared fallback: {(op, backend): reason}."""
+    """Every declared fallback: {(op, backend or placement): reason}."""
     return dict(_DECLARED_FALLBACKS)
 
 
-def register(op: str, backend: str, encodings: tuple = ("dense",)):
-    """Decorator: register ``fn`` as the ``backend`` provider of ``op``;
-    ``encodings`` names the column storage encodings it decodes itself
-    (see ``storage_arg``)."""
+def register(op: str, backend: str, placement: str = SINGLE,
+             encodings: tuple = ("dense",)):
+    """Decorator: register ``fn`` as the ``backend`` provider of ``op``
+    under ``placement``; ``encodings`` names the column storage
+    encodings it decodes itself (see ``storage_arg``)."""
     _check(backend)
+    _check_placement(placement)
     for enc in encodings:
         if enc not in ("dense", "delta"):
             raise ValueError(f"unknown storage encoding {enc!r}")
 
     def deco(fn: Callable) -> Callable:
-        _REGISTRY[(op, backend)] = fn
-        _ENCODINGS[(op, backend)] = tuple(encodings)
+        _REGISTRY[(op, backend, placement)] = fn
+        _ENCODINGS[(op, backend, placement)] = tuple(encodings)
         return fn
 
     return deco
@@ -205,9 +321,12 @@ def draw_scope():
         _tls.drawn = None
 
 
-def dispatch(op: str, backend: str) -> Callable:
-    """The ``backend`` provider of ``op`` (a resolved backend name). An
+def dispatch(op: str, backend: str,
+             placement: Optional[str] = None) -> Callable:
+    """The ``backend`` provider of ``op`` under ``placement`` (resolved
+    names; ``placement=None`` resolves through ``use_placement``). An
     installed fault plan's ``provider_miss`` clause makes it miss."""
+    pl = resolve_placement(placement)
     plan = _fault_plan()
     if plan is not None:
         drawn = getattr(_tls, "drawn", None)
@@ -217,55 +336,83 @@ def dispatch(op: str, backend: str) -> Callable:
             if plan.should("provider_miss", op):
                 raise ProviderMissError(op, backend,
                                         "injected by repro_torch.ft.inject",
-                                        injected=True)
-    return _lookup(op, backend)
+                                        injected=True, placement=pl)
+    return _lookup(op, backend, pl)[1]
 
 
-def _lookup(op: str, backend: str) -> Callable:
-    _check(backend)
-    if backend not in _loaded:
-        for mod in _PROVIDER_MODULES[backend]:
+def _load(name: str) -> None:
+    if name not in _loaded:
+        for mod in _PROVIDER_MODULES[name]:
             importlib.import_module(mod)
-        _loaded.add(backend)
-    impl = _REGISTRY.get((op, backend))
+        _loaded.add(name)
+
+
+def _lookup(op: str, backend: str, placement: str = SINGLE
+            ) -> tuple[tuple, Callable]:
+    """(registry key, provider) of a dispatch. Under a distributed
+    placement the ``cuda`` backend runs the ``torch`` provider of the
+    same placement (the declared route, see the module docstring); no
+    placement ever drops to ``"single"``."""
+    _check(backend)
+    _check_placement(placement)
+    _load(backend)
+    if placement != SINGLE:
+        _load(TORCH)
+        _load(placement)
+        backend = TORCH
+    key = (op, backend, placement)
+    impl = _REGISTRY.get(key)
     if impl is None:
-        raise ProviderMissError(op, backend)
-    return impl
+        detail = ("" if placement == SINGLE else
+                  f"{placement} dispatch never falls back to the "
+                  f"single-device path")
+        raise ProviderMissError(op, key[1], detail, placement=placement)
+    return key, impl
 
 
-def registered(op: str, backend: str) -> bool:
-    try:
-        _lookup(op, backend)
-    except ProviderMissError:
-        return False
-    return True
+def registered(op: str, backend: str, placement: str = SINGLE) -> bool:
+    """True if ``op`` has a provider of its own for ``backend`` under
+    ``placement`` (the cuda→torch route under a placement not counted)."""
+    _check(backend)
+    _check_placement(placement)
+    _load(backend)
+    if placement != SINGLE:
+        _load(placement)
+    return (op, backend, placement) in _REGISTRY
 
 
-def declared_encodings(op: str, backend: str) -> tuple:
-    """The column encodings the ``backend`` provider of ``op`` decodes
-    itself."""
-    _lookup(op, backend)
-    return _ENCODINGS.get((op, backend), ("dense",))
+def declared_encodings(op: str, backend: str,
+                       placement: Optional[str] = None) -> tuple:
+    """The column encodings the provider that ``dispatch`` would select
+    for ``op`` decodes itself."""
+    key, _ = _lookup(op, backend, resolve_placement(placement))
+    return _ENCODINGS.get(key, ("dense",))
 
 
-def coerce_store(op: str, backend: str, *, store, cache=None):
+def coerce_store(op: str, backend: str, placement: Optional[str] = None,
+                 *, store, cache=None):
     """The column store to hand the ``backend`` provider of ``op``: the
-    store itself when it is dense (at any index dtype) or the provider
-    declared its encoding, else the dense int32 view. With ``cache`` (a
-    graph's) the view is decoded once and kept there."""
+    store itself when it is dense (at any index dtype; a partition's
+    parts always are) or the provider declared its encoding, else the
+    dense int32 view. With ``cache`` (a graph's) the view is decoded
+    once and kept there."""
     from . import storage as S
     if not isinstance(store, S.EncodedCols) or "delta" in declared_encodings(
-            op, backend):
+            op, backend, placement):
         return store
     return S.dense_view(store, cache)
 
 
-def storage_arg(op: str, backend: str, *, graph, side: str = "csr"):
+def storage_arg(op: str, backend: str, placement: Optional[str] = None, *,
+                graph, side: str = "csr"):
     """The column operand for the registry's column slot: the graph's
     native store (``side`` "csr" or "csc") when the provider declared
-    its encoding, else its dense int32 view, decoded once per graph."""
+    its encoding, else its dense int32 view, decoded once per graph. A
+    ShardedGraph's store is its per-part tuple, a Sharded2DGraph's its
+    ``Blocks2D``."""
     store = graph.col_store if side == "csr" else graph.csc_store
-    return coerce_store(op, backend, store=store, cache=graph.cache)
+    return coerce_store(op, backend, placement, store=store,
+                        cache=graph.cache)
 
 
 def tier_plan(op: str, cap: int, *, min_tier: Optional[int] = None,

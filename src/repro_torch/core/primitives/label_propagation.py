@@ -37,17 +37,29 @@ class LPResult(NamedTuple):
 def label_propagation(graph: Graph, *, labels0=None,
                       num_labels: Optional[int] = None,
                       max_iter: int = 30, block: Optional[int] = None,
-                      backend: Optional[str] = None) -> LPResult:
+                      backend: Optional[str] = None,
+                      placement: Optional[str] = None) -> LPResult:
     """Synchronous LP until the labelling is stable (or ``max_iter``).
 
     ``labels0`` defaults to every vertex its own community
     (``arange(n)``); ``num_labels`` bounds the label domain (default n)
     and ``block`` the SpMM column-block width (default min(32, L)).
     Labels spread along out-neighbours; pass an undirected graph for
-    community detection."""
+    community detection. ``graph`` may be a ``ShardedGraph`` /
+    ``Sharded2DGraph``: the one-hot SpMM blocks then run through its
+    placement's provider, and the labels equal the single-device run's.
+    """
     bk = B.resolve(backend, graph.device)
-    spmm = B.dispatch("spmm", bk)
-    cols_store = B.storage_arg("spmm", bk, graph=graph)
+    pl, ctx = B.resolve_graph_placement(graph, placement)
+    with ctx:
+        return _label_propagation(graph, labels0, num_labels, max_iter,
+                                  block, bk, pl)
+
+
+def _label_propagation(graph, labels0, num_labels, max_iter, block, bk,
+                       pl) -> LPResult:
+    spmm = B.dispatch("spmm", bk, pl)
+    cols_store = B.storage_arg("spmm", bk, pl, graph=graph)
     n = graph.num_vertices
     dev = graph.device
     if labels0 is None:

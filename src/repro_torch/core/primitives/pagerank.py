@@ -69,6 +69,7 @@ def _inv_out_degrees(graph: Graph) -> torch.Tensor:
 @B.draw_scope()
 def pagerank(graph: Graph, *, damping: float = 0.85, tol: float = 0.0,
              max_iter: int = 20, backend: Optional[str] = None,
+             placement: Optional[str] = None,
              precision: str = "fp32", telemetry: bool = False,
              budget=None):
     """Power-iteration PageRank: at most ``max_iter`` sweeps, stopping
@@ -76,14 +77,25 @@ def pagerank(graph: Graph, *, damping: float = 0.85, tol: float = 0.0,
     rounds the sweep's products to bfloat16 (float32 sums), as the
     reference does: the ranks then agree with float32 to ~1e-2, not
     bit for bit. ``telemetry=True`` returns ``(PRResult,
-    TelemetryBuffer)``; ``budget`` caps the sweeps."""
+    TelemetryBuffer)``; ``budget`` caps the sweeps. ``graph`` may be a
+    ``ShardedGraph`` / ``Sharded2DGraph``: the sweep then runs through
+    its placement's "spmv" provider, the rest of the body unchanged, so
+    the ranks equal the single-device run's bit for bit."""
     if not graph.has_csc:
         raise ValueError("pagerank uses the CSC transpose")
     bk = B.resolve(backend, graph.device)
-    spmv = B.dispatch("spmv", bk)
+    pl, ctx = B.resolve_graph_placement(graph, placement)
+    with ctx:
+        return _pagerank(graph, bk, pl, damping, tol, max_iter, precision,
+                         telemetry, budget)
+
+
+def _pagerank(graph, bk, pl, damping, tol, max_iter, precision, telemetry,
+              budget):
+    spmv = B.dispatch("spmv", bk, pl)
     # the CSC store as the provider takes it (decoded once per graph for
     # a provider that declared only "dense")
-    csc = B.storage_arg("spmv", bk, graph=graph, side="csc")
+    csc = B.storage_arg("spmv", bk, pl, graph=graph, side="csc")
     sr = SR.with_precision(SR.plus_times, precision)
     n = graph.num_vertices
     dev = graph.device

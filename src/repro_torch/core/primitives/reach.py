@@ -36,15 +36,25 @@ class ReachResult(NamedTuple):
 
 @B.draw_scope()
 def reach_batch(graph: Graph, srcs, k: int = 3, *,
-                backend: Optional[str] = None, budget=None) -> ReachResult:
+                backend: Optional[str] = None,
+                placement: Optional[str] = None,
+                budget=None) -> ReachResult:
     """B-source k-hop reachability: k or-and SpMMs over the CSC mirror,
     each masked to the rows some lane has not reached yet. ``budget``
-    (an ``ft.Budget``) clamps k."""
+    (an ``ft.Budget``) clamps k. ``graph`` may be a ``ShardedGraph`` /
+    ``Sharded2DGraph``: each hop's SpMM then runs through its
+    placement's provider (the same answer, bit for bit)."""
     if not graph.has_csc:
         raise ValueError("reach uses the CSC transpose (pull sweeps)")
     bk = B.resolve(backend, graph.device)
-    spmm = B.dispatch("spmm", bk)
-    csc = B.storage_arg("spmm", bk, graph=graph, side="csc")
+    pl, ctx = B.resolve_graph_placement(graph, placement)
+    with ctx:
+        return _reach(graph, srcs, k, bk, pl, budget)
+
+
+def _reach(graph, srcs, k, bk, pl, budget) -> ReachResult:
+    spmm = B.dispatch("spmm", bk, pl)
+    csc = B.storage_arg("spmm", bk, pl, graph=graph, side="csc")
     n = graph.num_vertices
     dev = graph.device
     srcs = torch.as_tensor(srcs, dtype=torch.int32, device=dev).reshape(-1)

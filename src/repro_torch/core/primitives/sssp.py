@@ -57,6 +57,18 @@ class SSSPResult(NamedTuple):
     converged: torch.Tensor
 
 
+def _bucket_of(d: torch.Tensor, delta_t: torch.Tensor) -> torch.Tensor:
+    """The bucket whose threshold ``(b + 1)·δ`` lies above distance
+    ``d``: ``trunc(d / δ)``, one more where float rounding puts that
+    threshold at or below ``d`` (d = 8, δ = fl(8/7): 8/δ rounds to
+    6.9999995 and 7·δ to 8.0). The reference takes ``trunc(d / δ)``
+    alone, and its near pile then never refills: the loop spins to its
+    bound with ``d`` unrelaxed (ROADMAP C-ref-11). Wherever the
+    reference's run finishes, the two agree."""
+    b = (d / delta_t).to(torch.int32)
+    return torch.where((b.to(torch.float32) + 1.0) * delta_t <= d, b + 1, b)
+
+
 def _run(graph: Graph, srcs: torch.Tensor, delta: float, use_delta: bool,
          strategy: str, backend: str, tiered: bool, telemetry: bool = False,
          budget=None):
@@ -134,7 +146,7 @@ def _run(graph: Graph, srcs: torch.Tensor, delta: float, use_delta: bool,
         # near pile empty: advance the bucket to the smallest far distance
         far_min = torch.where(st.far, st.dist, INF).min(dim=1).values
         new_bucket = torch.where(torch.isfinite(far_min),
-                                 (far_min / delta_t).to(torch.int32),
+                                 _bucket_of(far_min, delta_t),
                                  st.bucket + 1)
         thresh = (new_bucket.to(torch.float32) + 1.0) * delta_t
         near = st.far & (st.dist < thresh[:, None])

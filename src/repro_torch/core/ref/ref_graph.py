@@ -58,6 +58,16 @@ def _out_edges(ro, ci, frontier):
     return np.repeat(frontier, lens), ci[pos]
 
 
+def _unreached(n: int, v: np.ndarray, depth: np.ndarray) -> np.ndarray:
+    """The distinct ids among ``v`` with no depth yet, ascending — the set
+    ``np.unique`` would give, by an (n,) mask instead of a sort of every
+    edge of the level."""
+    mask = np.zeros(n, dtype=bool)
+    mask[v] = True
+    mask &= depth < 0
+    return np.flatnonzero(mask)
+
+
 def bfs_ref(graph, src: int) -> np.ndarray:
     """Breadth-first search depths (-1 = unreachable)."""
     ro, ci, _ = _csr(graph)
@@ -68,8 +78,7 @@ def bfs_ref(graph, src: int) -> np.ndarray:
     d = 0
     while len(frontier):
         d += 1
-        nbrs = np.unique(_out_edges(ro, ci, frontier)[1])
-        nbrs = nbrs[depth[nbrs] < 0]
+        nbrs = _unreached(n, _out_edges(ro, ci, frontier)[1], depth)
         depth[nbrs] = d
         frontier = nbrs
     return depth
@@ -140,7 +149,7 @@ def bc_ref(graph, src: int) -> np.ndarray:
     while True:
         d = len(levels)
         u, v = _out_edges(ro, ci, levels[-1])
-        new = np.unique(v[depth[v] < 0])
+        new = _unreached(n, v, depth)
         depth[new] = d
         tree = depth[v] == d
         sigma += np.bincount(v[tree], weights=sigma[u[tree]], minlength=n)

@@ -21,7 +21,9 @@ Kinds:
 ``straggler``
     Stalls a batch flush on the host — exercises the straggler watchdog.
 ``shard_loss``
-    Parses; its site, the sharded runner, waits for ROADMAP A13.
+    The serving loop's flush of a sharded or 2-D placement raises
+    :class:`ShardLossError` as if a part's device dropped out (site: the
+    query kind) — exercises the placement rungs 2d → sharded → single.
 
 Determinism: each (kind, site) pair draws from its own counter-indexed
 sha256 stream seeded by ``(seed, kind, site)`` — the reference's
@@ -41,9 +43,12 @@ _PLAN: Optional["FaultPlan"] = None
 
 
 class ShardLossError(RuntimeError):
-    """A graph shard's device dropped out mid-batch. The spec parses
-    ``shard_loss`` clauses, but no site raises it until the port has
-    placements (ROADMAP A13)."""
+    """A graph shard's device dropped out mid-batch (``injected`` when a
+    fault plan raised it)."""
+
+    def __init__(self, msg: str = "", *, injected: bool = False):
+        super().__init__(msg)
+        self.injected = injected
 
 
 class FaultSpecError(ValueError):

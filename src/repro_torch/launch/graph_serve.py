@@ -1,5 +1,5 @@
-"""Graph query serving — batched mixed-kind serving on one card
-(counterpart of ``repro.launch.graph_serve``).
+"""Graph query serving — batched mixed-kind serving on one card or from
+a mesh (counterpart of ``repro.launch.graph_serve``).
 
 A stream of queries is packed into fixed batch slots: each query kind
 keeps its own slot queue and a queue flushes as ONE batched multi-source
@@ -32,8 +32,17 @@ poisoned answer); any other error raises there too.
       --scale 10 --kinds bfs,sssp,pagerank,reach --requests 64 \\
       --batch 4 --validate --device cpu --json out.json --metrics -
 
-``--parts`` / ``--mesh`` (the reference's sharded and 2-D placements)
-wait for ROADMAP A13 and exit with a message saying so.
+``--parts P`` (the 1-D sharded placement) and ``--mesh RxC`` (the 2-D
+vertex cut) build the partition once and serve every kind from it
+(``make_sharded_runner``); part i lies on ``cuda:(i mod
+device_count)``, so on one card every part is on it (``--device cpu``:
+every part on the CPU). Answers equal single-device serving bit for
+bit, so ``--validate`` uses the same oracles. ``--json`` / ``--metrics``
+carry ``parts``, ``balance`` and the analytic
+``exchange_bytes_per_step``. Under a fault plan a ``shard_loss`` clause
+fails a mesh flush as a lost part would, and the retry goes down to the
+``single`` rung (the ``cuda→torch`` rung is skipped on a mesh, where the
+cuda backend already runs the placement's torch provider).
 """
 from __future__ import annotations
 
@@ -85,7 +94,8 @@ class PoisonedResultError(RuntimeError):
 
 # the faults a plan injects: the only errors a flush retries; any other
 # error, or one of these that no plan caused, raises out of the stream
-_INJECTABLE = (B.ProviderMissError, PoisonedResultError)
+_INJECTABLE = (B.ProviderMissError, PoisonedResultError,
+               inject.ShardLossError)
 
 
 def _injected(exc: BaseException) -> bool:
@@ -199,6 +209,46 @@ def _run_kind(g, kind: str, srcs: np.ndarray, backend: str, hops: int,
     raise ValueError(kind)
 
 
+def make_sharded_runner(pg, mesh, axis="graph"):
+    """A runner serving every kind from the 1-D (or 2-D vertex-cut)
+    partition ``pg`` on ``mesh``, built once: bfs / sssp run one
+    distributed traversal per distinct source of a batch (the padding
+    lanes repeat the last real source), reach / pagerank run the
+    primitives on the sharded view through the placement's providers.
+    Answers equal the single-device runner's bit for bit; the dense
+    bitmask exchange has no capped frontier, so no overflow."""
+    from ..core.distributed import (_shard_any, distributed_bfs,
+                                    distributed_sssp)
+    sg = _shard_any(pg, mesh, axis)
+
+    def _per_source(srcs, one):
+        memo = {}
+        rows = []
+        for s in srcs:
+            s = int(s)
+            if s not in memo:
+                memo[s] = one(s)
+            rows.append(memo[s])
+        return torch.stack(rows)
+
+    def run(kind: str, srcs: np.ndarray, backend: str, hops: int):
+        zeros = np.zeros(len(srcs), np.int64)
+        if kind == "bfs":
+            return _per_source(srcs, lambda s: distributed_bfs(
+                pg, s, mesh, axis, backend=backend).labels), zeros, None
+        if kind == "sssp":
+            return _per_source(srcs, lambda s: distributed_sssp(
+                pg, s, mesh, axis).dist), zeros, None
+        if kind == "reach":
+            return reach_batch(sg, srcs, hops, backend=backend).reached, \
+                zeros, None
+        if kind == "pagerank":
+            return pagerank(sg, backend=backend).rank, zeros, None
+        raise ValueError(kind)
+
+    return run
+
+
 def _validate_kind(g, kind: str, srcs, field, hops: int) -> int:
     """Lanes of a host answer that differ from the oracles."""
     if kind == "pagerank":
@@ -239,15 +289,17 @@ def serve_mixed(g, queries, batch: int, backend: str, hops: int = 3,
                 budget: ft.Budget | None = None,
                 admission: ft.AdmissionPolicy | None = None,
                 retry: ft.RetryPolicy | None = None,
-                watchdog=None) -> dict:
+                placement: str = B.SINGLE, watchdog=None) -> dict:
     """Serve a mixed-kind stream of ``(kind, source)`` queries through
     per-kind fixed batch slots; returns aggregate stats, a ``per_kind``
     breakdown, per-query records under ``queries`` and per-flush records
     under ``flushes``.
 
     ``runner(kind, srcs, backend, hops)`` overrides execution (tests pass
-    stubs) and returns ``(field, overflow, converged)``, converged None
-    for a run that completed; the default runs the primitives on ``g``. Lifecycle, as in
+    stubs, the mesh CLI ``make_sharded_runner``'s runner under
+    ``placement``) and returns ``(field, overflow, converged)``,
+    converged None for a run that completed; the default runs the
+    primitives on ``g``. Lifecycle, as in
     the reference: malformed input → per-query ``error``; ``admission``
     sheds over its caps; ``budget.max_iters`` rides into the primitives
     (lanes cut short → ``deadline_exceeded`` with partial answers),
@@ -308,11 +360,22 @@ def serve_mixed(g, queries, batch: int, backend: str, hops: int = 3,
     run_default = (lambda k, s, bk, h: _run_kind(g, k, s, bk, h, budget))
     run_kind = runner if runner is not None else run_default
 
+    def realizable(r):
+        """The rungs this stream can realize: single-device serving of
+        ``g``, or the runner's own placement. A backend rung under a
+        distributed placement is dropped: a cuda dispatch there already
+        runs the placement's torch provider, so it would repeat rung 0."""
+        if r.placement == B.SINGLE:
+            return True
+        return r.placement == placement and not r.reason.startswith(
+            "backend")
+
     def dispatch(kind, srcs):
         """One batch: (field, ovf, conv, attempts, rung, timing, error).
         ``error`` is set, and ``field`` None, when the ladder ran dry."""
-        rungs = ft.ladder(kind, backend,
-                          hops=hops if kind == "reach" else None)
+        rungs = [r for r in ft.ladder(kind, backend, placement,
+                                      hops=hops if kind == "reach"
+                                      else None) if realizable(r)]
         state = {"attempts": 1, "rung": rungs[0]}
         timing = {}
 
@@ -325,10 +388,17 @@ def serve_mixed(g, queries, batch: int, backend: str, hops: int = 3,
             if plan is not None and plan.should("provider_miss", kind):
                 raise B.ProviderMissError(
                     kind, rung.backend, "injected by repro_torch.ft.inject",
+                    injected=True, placement=rung.placement)
+            if (placement != B.SINGLE and rung.placement == placement
+                    and plan is not None
+                    and plan.should("shard_loss", kind)):
+                raise inject.ShardLossError(
+                    f"injected shard loss during {kind} flush",
                     injected=True)
             h = rung.hops if rung.hops is not None else hops
+            run = run_kind if rung.placement == placement else run_default
             t0 = time.monotonic()
-            field, ovf, conv = run_kind(kind, srcs, rung.backend, h)
+            field, ovf, conv = run(kind, srcs, rung.backend, h)
             t1 = time.monotonic()
             timing["device"] = (str(field.device)
                                 if isinstance(field, torch.Tensor)
@@ -403,6 +473,7 @@ def serve_mixed(g, queries, batch: int, backend: str, hops: int = 3,
         flushes.append({"kind": kind, "real": len(live),
                         "attempts": attempts, "rung": rung.reason,
                         "backend": rung.backend,
+                        "placement": rung.placement,
                         "error": None if err is None
                         else type(err).__name__,
                         "flush_ms": (t_done - t_flush) * 1e3, **timing})
@@ -513,7 +584,8 @@ def serve_mixed(g, queries, batch: int, backend: str, hops: int = 3,
             per_kind[kind] = {"requests": int(len(lk)),
                               **latency_summary(lk)}
     return {
-        "kinds": sorted(per_kind), "backend": backend, "batch": batch,
+        "kinds": sorted(per_kind), "backend": backend,
+        "placement": placement, "batch": batch,
         "hops": hops, "requests": n_q, "batches": batches,
         "total_s": round(total_s, 4), "qps": round(n_q / total_s, 2),
         **latency_summary(all_lat),
@@ -558,9 +630,12 @@ def main(argv=None) -> dict:
                     help="untimed warmup batches a kind (the kernels' "
                          "first launches)")
     ap.add_argument("--parts", type=int, default=None, metavar="P",
-                    help="sharded placement: waits for ROADMAP A13")
+                    help="serve from a P-way 1-D partition (sharded "
+                         "placement; part i on cuda:(i mod device "
+                         "count)); balance lands in --json")
     ap.add_argument("--mesh", default=None, metavar="RxC",
-                    help="2-D placement: waits for ROADMAP A13")
+                    help="serve from an R×C 2-D vertex-cut partition "
+                         "(2d placement); --parts P is the 1-D form")
     ap.add_argument("--validate", action="store_true",
                     help="validate the built graph and check every lane "
                          "against the host oracles")
@@ -595,10 +670,24 @@ def main(argv=None) -> dict:
                     help="write phase spans as Chrome trace-event JSON")
     args = ap.parse_args(argv)
     obs.configure(args.log_level)
-    if args.parts or args.mesh:
-        raise SystemExit("--parts / --mesh: the port serves from one "
-                         "device; sharded and 2-D placements wait for "
-                         "ROADMAP A13")
+    mesh_shape = None
+    if args.mesh:
+        if args.parts:
+            raise SystemExit(
+                "--mesh and --parts are mutually exclusive (--parts P "
+                "is the 1-D form of --mesh 1xP; pick one)")
+        try:
+            r, c = (int(t) for t in args.mesh.lower().split("x"))
+            if r < 1 or c < 1:
+                raise ValueError(args.mesh)
+        except ValueError:
+            raise SystemExit(
+                f"--mesh wants RxC with positive integers (e.g. 2x2), "
+                f"got {args.mesh!r}") from None
+        mesh_shape = (r, c)
+    if args.parts is not None and args.parts < 1:
+        raise SystemExit(f"--parts wants a positive part count, got "
+                         f"{args.parts}")
     kinds = None
     if args.kinds:
         kinds = [k.strip() for k in args.kinds.split(",")]
@@ -606,16 +695,70 @@ def main(argv=None) -> dict:
             if k not in KINDS:
                 raise SystemExit(f"unknown query kind {k!r}; pick from "
                                  f"{KINDS}")
+    if (args.parts or mesh_shape) and not kinds:
+        kinds = [args.primitive]     # mesh serving runs the mixed path
     dev = resolve_device(args.device)
     bk = B.resolve(args.backend, dev)
     if args.trace:
         obs.reset()
     with (inject.faults(args.faults, args.faults_seed) if args.faults
           else contextlib.nullcontext()) as plan:
-        return _serve_main(args, kinds, dev, bk, plan)
+        return _serve_main(args, kinds, dev, bk, plan, mesh_shape)
 
 
-def _serve_main(args, kinds, dev, bk, plan) -> dict:
+def _mesh_for(dev: torch.device, shape, axes):
+    """Part i on ``cuda:(i mod device_count)`` on the card (every part
+    on the one card of a one-card machine), on ``dev`` otherwise."""
+    from ..core.partition import Mesh
+    if dev.type == "cuda":
+        return Mesh.over([torch.device("cuda", i)
+                          for i in range(torch.cuda.device_count())],
+                         shape, axes)
+    return Mesh.on(dev, shape, axes)
+
+
+def _partition(args, g, dev, mesh_shape, kinds, metrics):
+    """(runner, placement, row of stats) of a mesh stream: the partition
+    and its device view built once, under the "partition" and "shard"
+    setup spans."""
+    from ..core.distributed import exchange_bytes_per_step
+    from ..core.partition import partition_1d, partition_2d
+    need = args.parts if args.parts else mesh_shape[0] * mesh_shape[1]
+    with obs.span("partition", category="setup", args={"parts": need}):
+        if mesh_shape:
+            pg = partition_2d(g, *mesh_shape)
+            mesh, axis = _mesh_for(dev, mesh_shape, ("row", "col")), \
+                ("row", "col")
+        else:
+            pg = partition_1d(g, args.parts)
+            mesh, axis = _mesh_for(dev, (args.parts,), ("graph",)), "graph"
+    with obs.span("shard", category="setup", args={"parts": need}):
+        runner = make_sharded_runner(pg, mesh, axis)
+    bal = pg.balance()
+    log.info(f"partition: "
+             + (f"{mesh_shape[0]}x{mesh_shape[1]} mesh" if mesh_shape
+                else f"{need} parts")
+             + f" on {len(mesh.distinct())} device(s), edge imbalance "
+               f"{bal['edge_imbalance']}x, vertex imbalance "
+               f"{bal['vertex_imbalance']}x")
+    per_step = {}
+    for kind in kinds:
+        try:
+            per_step[kind] = exchange_bytes_per_step(pg, kind)
+        except ValueError:
+            continue                 # a kind without a comm-model entry
+        if metrics is not None:
+            metrics.gauge("exchange_bytes_per_step", per_step[kind],
+                          help="analytic per-device exchange bytes per "
+                               "BSP step (comm model)", kind=kind)
+    row = {"parts": pg.num_parts, "balance": bal,
+           "exchange_bytes_per_step": per_step}
+    if mesh_shape:
+        row["mesh"] = list(mesh_shape)
+    return runner, B.TWOD if mesh_shape else B.SHARDED, row
+
+
+def _serve_main(args, kinds, dev, bk, plan, mesh_shape=None) -> dict:
     if plan is not None:
         log.warning(f"fault injection ACTIVE: {plan.spec!r} "
                     f"seed={plan.seed}")
@@ -636,10 +779,14 @@ def _serve_main(args, kinds, dev, bk, plan) -> dict:
         log.info("structural validation: CSR/CSC clean")
     storage = resident_bytes(g)
     rng = np.random.default_rng(args.seed)
+    runner, placement, mesh_row = None, B.SINGLE, {}
+    if args.parts or mesh_shape:
+        runner, placement, mesh_row = _partition(args, g, dev, mesh_shape,
+                                                 kinds, metrics)
     what = ",".join(kinds) if kinds else args.primitive
     log.info(f"{args.graph} scale={args.scale}: n={g.num_vertices} "
              f"m={g.num_edges} kinds={what} batch={args.batch} "
-             f"backend={bk} device={dev}")
+             f"backend={bk} device={dev} placement={placement}")
     pl = storage["plan"]
     log.info(f"storage: {pl['index_dtype']}/{pl['encoding']} "
              f"{storage['total_bytes'] / 2**20:.1f} MiB resident, "
@@ -653,7 +800,8 @@ def _serve_main(args, kinds, dev, bk, plan) -> dict:
             for k in warm_kinds:
                 srcs = rng.integers(0, g.num_vertices, args.batch)
                 try:
-                    out = _run_kind(g, k, srcs, bk, args.hops)
+                    out = (runner(k, srcs, bk, args.hops) if runner
+                           else _run_kind(g, k, srcs, bk, args.hops))
                     _host(out[0])
                 except B.ProviderMissError as exc:
                     if not exc.injected:
@@ -677,7 +825,9 @@ def _serve_main(args, kinds, dev, bk, plan) -> dict:
                                 hops=args.hops, validate=args.validate,
                                 metrics=metrics, budget=budget,
                                 admission=admission,
-                                retry=ft.RetryPolicy(retries=args.retries))
+                                retry=ft.RetryPolicy(retries=args.retries),
+                                runner=runner, placement=placement)
+        stats.update(mesh_row)
     else:
         sources = rng.integers(0, g.num_vertices, args.requests)
         with obs.span("serve", category="serve",

@@ -38,6 +38,11 @@ Registry contracts (shared with the CUDA providers):
          column id is located in row ``probe_rows[e]`` of the
          B-transpose structure (the K5 probe), and the matches are
          ⊗-combined and ⊕-reduced per mask edge.
+
+The same three ops carry ``"sharded"`` and ``"2d"`` providers
+(``core.distributed``): the public wrappers route a ``ShardedGraph`` /
+``Sharded2DGraph`` operand (or ``placement=``) there, and the results
+equal the single-device ones bit for bit.
 """
 from __future__ import annotations
 
@@ -54,10 +59,75 @@ from . import semiring as S
 from .semiring import Semiring, plus_times
 
 
+def ordered_scatter_accum(sr: Semiring, target: torch.Tensor,
+                          index: torch.Tensor, vals: torch.Tensor
+                          ) -> torch.Tensor:
+    """``sr.scatter_accum`` whose plus fold adds in ascending index order
+    on the card too, row by row from the target's value:
+    ``((target[r] + v1) + v2) + …``. On the CPU that is ``index_add``
+    itself. On the card ``index_add`` adds with atomics in no fixed
+    order, so a card tensor goes through ``index_put_(accumulate=True)``,
+    which sorts the targets stably and sums each target's run in order:
+    the target's own value rides first in its run (onto a zero
+    background, exact), and every row carries at least two columns,
+    since a one-column run is summed by a warp-wide reduction instead.
+    Min and max need no order.
+
+    The order on the card rests on how PyTorch's CUDA
+    ``index_put_(accumulate=True)`` works inside (a stable sort, a serial
+    sum of each run where a row is wider than one column, a warp
+    reduction at width one), which PyTorch does not document; it was
+    checked on PyTorch 2.11 (CUDA 12.8). A new PyTorch may change it,
+    and with it the bits of distributed PageRank on the card:
+    ``tests/test_torch_cuda.py::test_ordered_scatter_accum_on_the_card_is_the_cpu_fold``
+    and ``chip_smoke.py``'s path (h) are the guards."""
+    if sr.add != "plus" or target.device.type != "cuda":
+        return sr.scatter_accum(target, index, vals)
+    n = int(target.shape[0])
+    t2 = target.reshape(n, -1)
+    v2 = vals.reshape(int(vals.shape[0]), -1).to(target.dtype)
+    cols = int(t2.shape[1])
+    if cols == 1:
+        t2, v2 = t2.expand(-1, 2), v2.expand(-1, 2)
+    idx = torch.cat([torch.arange(n, device=target.device), index.long()])
+    out = torch.zeros(t2.shape, dtype=target.dtype, device=target.device)
+    out.index_put_((idx,), torch.cat([t2, v2]), accumulate=True)
+    return out[:, :cols].reshape(target.shape)
+
+
+def _masked_overflow(offsets, m: int, width: int, edge_valid, cache):
+    """(positions, rows) of the edges whose within-row rank is at least
+    ``width``, in ascending edge order, among the ``edge_valid`` slots —
+    a part's twin of the build-time ``over_pos`` / ``over_row`` (the
+    reference's masked drop-scatter over every edge adds the same
+    products in the same order). Kept in ``cache`` per offsets tensor."""
+    key = ("overflow", offsets.data_ptr(), int(offsets.shape[0]), m,
+           int(width))
+    if cache is not None and key in cache:
+        return cache[key]
+    seg = row_segments_of(offsets)
+    if int(seg.shape[0]) < m:             # pad slots past offsets[-1]
+        seg = torch.cat([seg, seg.new_zeros(m - int(seg.shape[0]))])
+    rank = (torch.arange(m, dtype=torch.int64, device=offsets.device)
+            - offsets[:-1].long()[seg.long()])
+    over = rank >= width
+    if edge_valid is not None:
+        over = over & edge_valid
+    pos = torch.nonzero(over).reshape(-1)
+    out = (pos, seg[pos])
+    if cache is not None:
+        cache[key] = out
+    return out
+
+
 def hybrid_ell_reduce(offsets, indices, values, x, sr: Semiring,
-                      width: int, over_pos, over_row) -> torch.Tensor:
+                      width: int, over_pos, over_row, *, edge_valid=None,
+                      cache=None) -> torch.Tensor:
     """The fixed-grouping row fold (see the module docstring). Returns
-    the raw (rows,) vector; callers clamp empty rows and apply masks."""
+    the raw (rows,) vector; callers clamp empty rows and apply masks.
+    ``over_pos=None`` (a part's slice, which has no build-time lists)
+    takes the overflow edges from the offsets, among the ``edge_valid``
+    slots (padding lanes of a part's edge array)."""
     m = St.store_num_edges(indices)
     width = max(int(width), 1)
     wp = 1
@@ -77,12 +147,50 @@ def hybrid_ell_reduce(offsets, indices, values, x, sr: Semiring,
         k //= 2
         prod = sr.add_op(prod[:, :k], prod[:, k:2 * k])
     y = prod[:, 0]
+    accum = sr.scatter_accum
+    if over_pos is None:
+        over_pos, over_row = _masked_overflow(offsets, m, width,
+                                              edge_valid, cache)
+        # a part's sweep must give the single-device bits on the card too
+        accum = lambda t, i, v: ordered_scatter_accum(sr, t, i, v)
     if int(over_pos.shape[0]):
         pos = over_pos.long()
         ov = x[St.gather_cols(indices, pos).long()]
         ov = sr.round_prod(ov) if values is None else sr.mul_op(values[pos],
                                                                 ov)
-        y = sr.scatter_accum(y, over_row, ov)
+        y = accum(y, over_row, ov)
+    return y
+
+
+def fold_products(offsets, prods, sr: Semiring, width: int, *,
+                  edge_valid=None, cache=None) -> torch.Tensor:
+    """``hybrid_ell_reduce``'s twin over products already made: fold an
+    (m,) per-slot product vector into per-row values with the same
+    dataflow — the same ELL gather, the same halving tree, the same
+    ascending-order overflow fold. The 2-D vertex cut ⊕-merges its
+    blocks' products first (disjoint slots, so the merge meets only
+    identities) and then lands on the single-device sweep's bits for
+    every semiring. Slots past ``offsets[-1]`` are padding that
+    ``edge_valid`` keeps out of the overflow fold."""
+    m = int(prods.shape[0])
+    width = max(int(width), 1)
+    wp = 1
+    while wp < width:
+        wp *= 2
+    starts = offsets[:-1]
+    deg = offsets[1:] - offsets[:-1]
+    lanes = torch.arange(wp, dtype=torch.int32, device=offsets.device)
+    e = torch.clamp(starts[:, None] + lanes[None, :], max=max(m - 1, 0))
+    lane_ok = lanes[None, :] < torch.clamp(deg, max=width)[:, None]
+    p = torch.where(lane_ok, prods[e.long()], sr.zero)
+    k = wp
+    while k > 1:                      # explicit halving: grouping fixed
+        k //= 2
+        p = sr.add_op(p[:, :k], p[:, k:2 * k])
+    y = p[:, 0]
+    pos, rows = _masked_overflow(offsets, m, width, edge_valid, cache)
+    if int(pos.shape[0]):
+        y = ordered_scatter_accum(sr, y, rows, prods[pos])
     return y
 
 
@@ -153,16 +261,18 @@ def _spmm_torch(offsets, indices, values, x, sr: Semiring, ell_width,
     return y.to(torch.float32)
 
 
-def _csr_side(a: Graph, transpose: bool):
+def _csr_side(a, transpose: bool):
     """(offsets, column store, values, ell_width, row_seg, over_pos,
     over_row) of a Graph's CSR, or of its CSC mirror with
     ``transpose=True``: the column slot is the graph's native store,
-    which the wrappers coerce for the provider that runs. One device
-    only: sharded placements are not ported (ROADMAP A13)."""
-    if not isinstance(a, Graph):
-        raise TypeError(
-            f"expected a Graph, got {type(a).__name__}; sharded "
-            f"placements are not ported yet (ROADMAP A13)")
+    which the wrappers coerce for the provider that runs. A
+    ``ShardedGraph`` gives its per-part tuples, a ``Sharded2DGraph`` its
+    per-block tuples with a ``Blocks2D`` column store (no row_seg or
+    overflow lists: the placement providers derive them per part)."""
+    from ..core.partition import Sharded2DGraph, ShardedGraph
+    if not isinstance(a, (Graph, ShardedGraph, Sharded2DGraph)):
+        raise TypeError(f"expected a Graph, ShardedGraph or "
+                        f"Sharded2DGraph, got {type(a).__name__}")
     if transpose:
         if not a.has_csc:
             raise ValueError("transpose=True needs the CSC mirror "
@@ -177,22 +287,28 @@ def _csr_side(a: Graph, transpose: bool):
 def spmv(a: Graph, x, *, semiring=plus_times, mask=None,
          complement: bool = False, transpose: bool = False,
          structural: bool = False, backend: Optional[str] = None,
+         placement: Optional[str] = None,
          precision: str = "fp32") -> torch.Tensor:
     """Masked semiring SpMV ``y⟨mask⟩ = A ⊗ x`` over a Graph.
     ``transpose=True`` multiplies by Aᵀ through the CSC mirror (the
     PageRank direction); ``structural=True`` ignores stored values;
     ``complement=True`` flips the (n,) row mask; ``precision="bf16"``
-    rounds each ⊗ to bfloat16 (plus semirings only)."""
+    rounds each ⊗ to bfloat16 (plus semirings only). ``a`` may be a
+    ``ShardedGraph`` or ``Sharded2DGraph``: the sweep then runs under
+    its placement and equals the single-device result bit for bit."""
     sr = S.with_precision(semiring, precision)
     bk = B.resolve(backend, a.device)
+    pl, ctx = B.resolve_graph_placement(a, placement)
     off, idx, vals, width, seg, opos, orow = _csr_side(a, transpose)
-    idx = B.coerce_store("spmv", bk, store=idx, cache=a.cache)
+    idx = B.coerce_store("spmv", bk, pl, store=idx, cache=a.cache)
     if structural:
         vals = None
     mask = _row_mask(mask, complement, a.device)
     x = torch.as_tensor(x, dtype=torch.float32, device=a.device)
-    return B.dispatch("spmv", bk)(off, idx, vals, x, sr, width, mask, seg,
-                                  opos, orow, cache=a.cache)
+    with ctx:
+        return B.dispatch("spmv", bk, pl)(off, idx, vals, x, sr, width,
+                                          mask, seg, opos, orow,
+                                          cache=a.cache)
 
 
 def _row_mask(mask, complement: bool, device) -> Optional[torch.Tensor]:
@@ -207,15 +323,17 @@ def _row_mask(mask, complement: bool, device) -> Optional[torch.Tensor]:
 def spmm(a: Graph, x, *, semiring=plus_times, mask=None,
          complement: bool = False, transpose: bool = False,
          structural: bool = False, backend: Optional[str] = None,
+         placement: Optional[str] = None,
          precision: str = "fp32") -> torch.Tensor:
     """Dense-accumulator semiring SpMM ``Y⟨mask⟩ = A ⊗ X`` (X (nx, k)):
     each column of X is one lane (a reachability source, a label block).
-    Same mask, complement, transpose, structural and precision semantics
-    as :func:`spmv`."""
+    Same mask, complement, transpose, structural, placement and
+    precision semantics as :func:`spmv`."""
     sr = S.with_precision(semiring, precision)
     bk = B.resolve(backend, a.device)
+    pl, ctx = B.resolve_graph_placement(a, placement)
     off, idx, vals, width, seg, _, _ = _csr_side(a, transpose)
-    idx = B.coerce_store("spmm", bk, store=idx, cache=a.cache)
+    idx = B.coerce_store("spmm", bk, pl, store=idx, cache=a.cache)
     if structural:
         vals = None
     mask = _row_mask(mask, complement, a.device)
@@ -223,8 +341,10 @@ def spmm(a: Graph, x, *, semiring=plus_times, mask=None,
     if x.dim() != 2:
         raise ValueError(f"spmm needs a dense (n, k) operand, got shape "
                          f"{tuple(x.shape)}")
-    return B.dispatch("spmm", bk)(off, idx, vals, x.contiguous(), sr, width,
-                                  mask, seg, cache=a.cache)
+    with ctx:
+        return B.dispatch("spmm", bk, pl)(off, idx, vals, x.contiguous(),
+                                          sr, width, mask, seg,
+                                          cache=a.cache)
 
 
 def spmsv(a: Graph, ids, xvals=None, *, semiring=plus_times, mask=None,
@@ -237,7 +357,13 @@ def spmsv(a: Graph, ids, xvals=None, *, semiring=plus_times, mask=None,
     ⊗-identity). One "advance" expansion (K3 on the cuda backend) whose
     functor is ⊗, then a ⊕ scatter into a dense (n,) output. ``cap_out``
     defaults to the exact expansion size (duplicate ids expand once per
-    lane), counted on the host."""
+    lane), counted on the host. A partitioned graph has no spmsv (the
+    push expansion is frontier-shaped), as in the reference."""
+    if not isinstance(a, Graph):
+        raise ValueError(
+            "spmsv has no sharded/2d provider (the push expansion is "
+            "frontier-shaped); use spmv/spmm on the partitioned graph, "
+            "or run spmsv on the unpartitioned source graph")
     sr = S.get(semiring)
     bk = B.resolve(backend, a.device)
     off, idx, vals = _csr_side(a, transpose=False)[:3]
@@ -335,6 +461,23 @@ class CapacityError(ValueError):
     """An ``mxm`` expansion whose positions would pass int32."""
 
 
+def _expansion_degrees(a) -> np.ndarray:
+    """The expansion side's global out-degrees on the host: a Graph's
+    offsets, a ShardedGraph's parts laid end to end (pad rows 0), or the
+    sum over a Sharded2DGraph's column blocks of each row chunk."""
+    from ..core.partition import Sharded2DGraph, ShardedGraph
+    if isinstance(a, ShardedGraph):
+        return np.concatenate([np.diff(ro.cpu().numpy().astype(np.int64))
+                               for ro in a.row_offsets])[:a.num_vertices]
+    if isinstance(a, Sharded2DGraph):
+        blk = [np.diff(ro.cpu().numpy().astype(np.int64))
+               for ro in a.row_offsets]
+        rows = [sum(blk[i * a.cols + j] for j in range(a.cols))
+                for i in range(a.rows)]
+        return np.concatenate(rows)[:a.num_vertices]
+    return np.diff(a.row_offsets.cpu().numpy().astype(np.int64))
+
+
 def mxm_plan(a: Graph, b: Graph, mask, *, b_transpose: bool = False):
     """Host-side plan of ``mxm``: the expansion side's and the probe
     side's (offsets, indices, values), and the (E,) ``base`` rows to
@@ -342,12 +485,13 @@ def mxm_plan(a: Graph, b: Graph, mask, *, b_transpose: bool = False):
     both sides share one structure (``C = A ⊗ Aᵀ``) each mask edge
     expands its smaller endpoint row and probes the larger — the
     SmallLarge workload reduction of paper §4.3 — so the capacity is
-    Σ min(deg(src), deg(dst)) instead of Σ deg(src)."""
+    Σ min(deg(src), deg(dst)) instead of Σ deg(src). A partitioned
+    expansion side never shares the probe side's structure."""
     a_off, a_idx, a_vals = _csr_side(a, transpose=False)[:3]
     bt_off, bt_idx, bt_vals = _csr_side(b, transpose=not b_transpose)[:3]
     msrc = np.asarray(mask[0], np.int64)
     mdst = np.asarray(mask[1], np.int64)
-    deg_a = np.diff(a_off.cpu().numpy().astype(np.int64))[msrc]
+    deg_a = _expansion_degrees(a)[msrc]
     deg_b = np.diff(bt_off.cpu().numpy().astype(np.int64))[mdst]
     if a_off is bt_off and a_idx is bt_idx:
         a_small = deg_a <= deg_b
@@ -357,7 +501,7 @@ def mxm_plan(a: Graph, b: Graph, mask, *, b_transpose: bool = False):
     else:
         base, probe_rows = msrc, mdst
         cap = int(deg_a.sum())
-    dev = a_off.device
+    dev = a.device
 
     def t(x):
         return torch.from_numpy(x.astype(np.int32)).to(dev)
@@ -369,7 +513,8 @@ def mxm_plan(a: Graph, b: Graph, mask, *, b_transpose: bool = False):
 def mxm(a: Graph, b: Graph, mask, *, semiring=plus_times,
         b_transpose: bool = False, structural: bool = False,
         cap_out: Optional[int] = None,
-        backend: Optional[str] = None) -> torch.Tensor:
+        backend: Optional[str] = None,
+        placement: Optional[str] = None) -> torch.Tensor:
     """Row-tiled masked semiring SpGEMM (dot formulation):
     ``C⟨M⟩ = A ⊗ B`` computed only at the mask pattern.
 
@@ -380,14 +525,26 @@ def mxm(a: Graph, b: Graph, mask, *, semiring=plus_times,
     CSR — triangle counting's ``C = A ⊗ Aᵀ``); otherwise b's CSC mirror
     gives column access. Capacity planning is host-side
     (:func:`mxm_plan`); a capacity beyond int32 raises before anything
-    is launched. Only the single-device placement is ported."""
+    is launched.
+
+    Partitioned: pass a ``ShardedGraph`` / ``Sharded2DGraph`` as ``a``
+    (the expansion side is split over the mesh) and a plain Graph as
+    ``b`` (the probe side stays replicated; the SmallLarge swap is off,
+    the two sides live in different layouts)."""
+    from ..core.partition import Sharded2DGraph, ShardedGraph
     sr = S.get(semiring)
+    pl, ctx = B.resolve_graph_placement(a, placement)
+    if isinstance(b, (ShardedGraph, Sharded2DGraph)):
+        raise ValueError(
+            "mxm keeps the probe side (b) replicated; pass the "
+            "expansion side (a) as a ShardedGraph and b as a plain "
+            "Graph (e.g. pg.source)")
     (a_off, a_idx, a_vals), (bt_off, bt_idx, bt_vals), base, probe_rows, \
         cap = mxm_plan(a, b, mask, b_transpose=b_transpose)
-    bk = B.resolve(backend, a_off.device)
+    bk = B.resolve(backend, a.device)
     # a delta store reaches the provider decoded (once per graph); a
     # dense one at its index dtype
-    a_idx = B.coerce_store("mxm", bk, store=a_idx, cache=a.cache)
+    a_idx = B.coerce_store("mxm", bk, pl, store=a_idx, cache=a.cache)
     bt_idx = B.coerce_store("mxm", bk, store=bt_idx, cache=b.cache)
     if structural:
         a_vals = bt_vals = None
@@ -396,5 +553,7 @@ def mxm(a: Graph, b: Graph, mask, *, semiring=plus_times,
         raise CapacityError(
             f"mxm needs {cap:,} expansion slots, beyond the int32 "
             f"positions of the expansion ({O.INT32_MAX:,})")
-    return B.dispatch("mxm", bk)(a_off, a_idx, a_vals, bt_off, bt_idx,
-                                 bt_vals, base, probe_rows, sr, cap)
+    with ctx:
+        return B.dispatch("mxm", bk, pl)(a_off, a_idx, a_vals, bt_off,
+                                         bt_idx, bt_vals, base, probe_rows,
+                                         sr, cap)

@@ -11,7 +11,8 @@
 from . import log, metrics, telemetry, tracing
 from .log import configure, get_logger
 from .metrics import Histogram, Metrics, latency_summary, quantile
-from .telemetry import TelemetryBuffer, TelemetryTrace, trim
+from .telemetry import (TelemetryBuffer, TelemetryTrace, distributed_trace,
+                        trim)
 from .tracing import (SpanRegistry, export_chrome_trace, registry, reset,
                       span, timed_span)
 
@@ -19,7 +20,7 @@ __all__ = [
     "log", "metrics", "telemetry", "tracing",
     "configure", "get_logger",
     "Histogram", "Metrics", "latency_summary", "quantile",
-    "TelemetryBuffer", "TelemetryTrace", "trim",
+    "TelemetryBuffer", "TelemetryTrace", "distributed_trace", "trim",
     "SpanRegistry", "export_chrome_trace", "registry", "reset", "span",
     "timed_span",
 ]

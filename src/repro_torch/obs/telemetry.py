@@ -17,9 +17,9 @@
     columns cut to the recorded steps, with per-lane valid lengths for a
     batched loop — in one device-to-host copy a column dtype.
 
-Columns: ``()`` tail for one value a step, ``(B,)`` for one a lane. The
-distributed placements' ``distributed_trace`` waits for the port's
-placements (ROADMAP A13).
+Columns: ``()`` tail for one value a step, ``(B,)`` for one a lane.
+``distributed_trace`` builds a placement run's trace from the analytic
+comm model and its result, as the reference's does.
 """
 from __future__ import annotations
 
@@ -152,3 +152,31 @@ def trim(buf: TelemetryBuffer, lane_steps=None) -> TelemetryTrace:
     return TelemetryTrace(cols, steps,
                           None if lane_steps is None
                           else np.asarray(lane_steps))
+
+
+def distributed_trace(pg, primitive: str, iterations, labels=None,
+                      tiles: Optional[int] = None) -> TelemetryTrace:
+    """The trace of a distributed (sharded / 2d) run, from the analytic
+    comm model rather than in-loop records: ``exchange_bytes`` is the
+    per-device bytes each BSP step moved
+    (``core.distributed.exchange_bytes_per_step``, constant a step: the
+    bitmask and vector exchanges are dense), and for BFS the per-step
+    ``frontier`` column comes exactly from the result labels (step t
+    discovers depth t)."""
+    from ..core import distributed as D
+    steps = max(int(iterations), 0)
+    kwargs = {} if tiles is None else {"tiles": tiles}
+    per_step = D.exchange_bytes_per_step(pg, primitive, **kwargs)
+    cols: Dict[str, np.ndarray] = {
+        "exchange_bytes": np.full((steps,), per_step, np.int64)}
+    if labels is not None and primitive == "bfs":
+        lab = (labels.cpu().numpy() if isinstance(labels, torch.Tensor)
+               else np.asarray(labels)).reshape(-1)
+        depth_counts = np.bincount(lab[lab >= 0], minlength=steps + 1)
+        # step t (1-based) discovers depth t; the last step discovers
+        # nothing (that is how the loop ends)
+        frontier = np.zeros((steps,), np.int64)
+        upto = min(steps, len(depth_counts) - 1)
+        frontier[:upto] = depth_counts[1:upto + 1]
+        cols["frontier"] = frontier
+    return TelemetryTrace(cols, steps)

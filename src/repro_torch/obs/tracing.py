@@ -19,8 +19,10 @@ ui.perfetto.dev or chrome://tracing).
   * ``export_chrome_trace(path)`` writes ``{"traceEvents": [...]}`` of
     complete ("ph": "X") events with microsecond timestamps.
 
-Categories: "setup" (graph build), "compile" (warmup: the kernels'
-first launches), "dispatch" (a timed run), "validate", "serve". The
+Categories: "setup" (graph build; under a placement the partition and
+the shard upload, spans "partition" and "shard"), "compile" (warmup:
+the kernels' first launches), "dispatch" (a timed run), "validate",
+"serve". The
 registry is per process and cleared with ``reset()``, so a CLI writes
 one file a run.
 """

@@ -1404,3 +1404,87 @@ def test_lb_scan_saturates_on_the_card(graph):
         want = P.advance_batch(g.row_offsets, g.col_indices, base, sizes, cap)
         assert all(torch.equal(x, y) for x, y in zip(got, want))
         assert got[6].tolist()[0] == 2 ** 31 - 1
+
+
+# ---- placements: every part on the one card --------------------------------
+
+def _placements(g, mesh_device):
+    from repro_torch.core.partition import Mesh, partition_1d, partition_2d
+    return (("1-D", partition_1d(g, 4),
+             Mesh.on(mesh_device, (4,), ("graph",))),
+            ("2-D", partition_2d(g, 2, 2),
+             Mesh.on(mesh_device, (2, 2), ("row", "col"))))
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["1-D", "2-D"])
+def test_placement_on_the_card_equals_the_cpu(card, which):
+    """A small partition on the card, 1-D and 2-D, gives the bits of the
+    same run on the CPU (PageRank's float sums included: a part's
+    overflow fold adds in ascending order on the card too), launches no
+    kernel, and its bfs / pagerank equal the single-placement cuda
+    backend's."""
+    from repro_torch.core import distributed as D
+    gc = G.rmat(9, 8, seed=7, weighted=True, device=card)
+    gh = G.rmat(9, 8, seed=7, weighted=True, device="cpu")
+    name, pc, mc = _placements(gc, card)[which]
+    _, ph, mh = _placements(gh, "cpu")[which]
+    src = int(torch.argmax(gh.degrees))
+    K.reset_launches()
+    runs = (
+        ("bfs", lambda pg, m: D.distributed_bfs(pg, src, m).labels),
+        ("sssp", lambda pg, m: D.distributed_sssp(pg, src, m,
+                                                  delta=2.0).dist),
+        ("cc", lambda pg, m: D.distributed_cc(pg, m).labels),
+        ("pagerank", lambda pg, m: D.distributed_pagerank(pg, m, iters=10)),
+        ("reach", lambda pg, m: D.distributed_reach(pg, [0, 3, 9], 3,
+                                                    mesh=m).reached),
+        ("lp", lambda pg, m: D.distributed_label_propagation(
+            pg, m, max_iter=4).labels))
+    got = {}
+    for prim, run in runs:
+        got[prim] = run(pc, mc)
+        assert torch.equal(got[prim].cpu(), run(ph, mh)), (name, prim)
+    assert not any(k.launches for k in K.KERNELS.values())
+    assert torch.equal(got["pagerank"],
+                       pagerank(gc, max_iter=10, backend="cuda").rank)
+    assert torch.equal(got["bfs"], bfs_batch(gc, [src], backend="cuda")
+                       .labels[0])
+
+
+@pytest.mark.parametrize("op", ["sum", "or", "min", "max"])
+def test_collectives_same_bits_on_the_card_as_on_the_cpu(card, op):
+    from repro_torch.core import distributed as D
+    rng = np.random.default_rng(5)
+    host = [torch.from_numpy(rng.random(1000).astype(np.float32))
+            for _ in range(4)]
+    if op == "or":
+        host = [h > 0.7 for h in host]
+    dev = [h.to(card) for h in host]
+    for a, b in zip(D.all_reduce(dev, op), D.all_reduce(host, op)):
+        assert a.device == card and torch.equal(a.cpu(), b)
+    assert torch.equal(D.all_gather(dev)[2].cpu(), D.all_gather(host)[2])
+    for axis in (0, 1):
+        for a, b in zip(D.axis_all_reduce(dev, (2, 2), axis, op),
+                        D.axis_all_reduce(host, (2, 2), axis, op)):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("k", [None, 1, 2, 5, 40])
+def test_ordered_scatter_accum_on_the_card_is_the_cpu_fold(card, k):
+    """The placements' plus fold on the card adds in ascending index
+    order from the target's value, as the CPU's index_add does (1e4-scale
+    terms make any other order show), for a vector and for k columns."""
+    rng = np.random.default_rng(1)
+    shape = (200_000,) if k is None else (200_000, k)
+    idx = torch.from_numpy(rng.integers(0, 50, 200_000))
+    vals = torch.from_numpy((rng.standard_normal(shape) * 1e4)
+                            .astype(np.float32))
+    tgt = torch.from_numpy((rng.standard_normal(
+        (50,) + shape[1:]) * 1e4).astype(np.float32))
+    want = L.ordered_scatter_accum(SR.plus_times, tgt, idx, vals)
+    got = L.ordered_scatter_accum(SR.plus_times, tgt.to(card),
+                                  idx.to(card), vals.to(card))
+    assert torch.equal(got.cpu(), want), (
+        "linalg.ops.ordered_scatter_accum no longer adds in index order on "
+        f"the card (k={k}, torch {torch.__version__}): its plus fold rests "
+        "on index_put_(accumulate=True)'s undocumented internals")

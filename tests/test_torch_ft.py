@@ -357,3 +357,42 @@ def test_step_watchdog_flags_stragglers(monkeypatch):
         wd.stop()
     assert seen == [4] and wd.stragglers[0][:2] == (4, 5.0)
     assert wd.median() == 1.0
+
+
+# ---- the placement rungs and shard loss -----------------------------------
+
+@pytest.mark.parametrize("placement", ["single", "sharded", "2d"])
+@pytest.mark.parametrize("kind,hops", [("bfs", None), ("reach", 4),
+                                       ("bc", None)])
+def test_placement_ladder_mirrors_reference(kind, hops, placement):
+    """2d → sharded → single stand after the backend rung, as in the
+    reference."""
+    for tb, jb in (("cuda", "pallas"), ("torch", "xla")):
+        got = TF.ladder(kind, tb, placement, hops=hops)
+        want = JF.ladder(kind, jb, placement, hops=hops)
+        assert [g.reason for g in got] == [
+            w.reason.replace("pallas→xla", "cuda→torch") for w in want]
+        assert [g.placement for g in got] == [w.placement for w in want]
+        assert [(g.hops, g.sampled, g.approximate) for g in got] == [
+            (w.hops, w.sampled, w.approximate) for w in want]
+
+
+def test_engage_declares_a_placement_rung_under_its_placement():
+    rungs = TF.ladder("sssp", "torch", "2d")
+    assert [r.reason for r in rungs] == ["", "placement 2d→sharded",
+                                         "placement sharded→single"]
+    TF.engage("sssp", rungs[2])
+    assert TB.declared_fallback("sssp", "single") == \
+        "serve-time degradation: placement sharded→single"
+    TB._DECLARED_FALLBACKS.pop(("sssp", "single"))
+    with pytest.raises(ValueError, match="unknown placement"):
+        TB.declare_fallback("sssp", "mesh", reason="why")
+
+
+def test_shard_loss_error_carries_injected():
+    assert TF.ShardLossError("lost").injected is False
+    err = TF.ShardLossError("lost", injected=True)
+    assert err.injected and isinstance(err, RuntimeError)
+    with TF.faults("shard_loss:bfs@1.0", seed=0) as plan:
+        assert plan.should("shard_loss", "bfs")
+        assert not plan.should("shard_loss", "sssp")

@@ -440,9 +440,123 @@ def test_cli_faults_flag_and_limits(capsys):
     out = capsys.readouterr().out
     assert "fault injection ACTIVE" in out
     assert "graph_serve_queries_error_total" in out
-    with pytest.raises(SystemExit, match="A13"):
-        GS.main(["--parts", "4", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="A13"):
-        GS.main(["--mesh", "2x2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="RxC"):
+        GS.main(["--mesh", "2x", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        GS.main(["--mesh", "2x2", "--parts", "4", "--device", "cpu"])
     with pytest.raises(SystemExit, match="unknown query kind"):
         GS.main(["--kinds", "bfs,nope", "--device", "cpu"])
+
+
+# ---- serving from a mesh (--parts / --mesh) --------------------------------
+
+@pytest.mark.parametrize("flag,value", [("--parts", "4"), ("--mesh", "2x2")])
+def test_cli_serves_validated_from_a_mesh(tmp_path, capsys, flag, value):
+    """A validated mixed stream from the 1-D and 2-D placements on the
+    CPU; the partition's balance and the comm model's bytes a step equal
+    the reference's for the same graph, and land in --json and
+    --metrics; the trace carries the partition and shard spans."""
+    from repro.core import distributed as JD
+    from repro.core.partition import partition_1d as jp1
+    from repro.core.partition import partition_2d as jp2
+    from repro.launch.graph_run import make_graph as j_make_graph
+    out_json, out_trace = tmp_path / "rows.json", tmp_path / "trace.json"
+    kinds = "bfs,sssp,pagerank,reach"
+    GS.main(["--scale", "7", "--kinds", kinds, "--requests", "8",
+             "--batch", "4", "--validate", "--device", "cpu", flag, value,
+             "--json", str(out_json), "--metrics", "-",
+             "--trace", str(out_trace)])
+    row = json.loads(out_json.read_text())[-1]
+    assert row["parts"] == 4 and row["validation_failures"] == 0
+    assert row["status_counts"]["ok"] == 8
+    jg = j_make_graph("rmat", 7, 16, 0)
+    if flag == "--mesh":
+        jpg = jp2(jg, 2, 2)
+        assert row["placement"] == "2d" and row["mesh"] == [2, 2]
+    else:
+        jpg = jp1(jg, 4)
+        assert row["placement"] == "sharded" and "mesh" not in row
+    assert row["balance"] == json.loads(json.dumps(jpg.balance()))
+    want = {k: JD.exchange_bytes_per_step(jpg, k)
+            for k in ("bfs", "sssp", "pagerank")}
+    assert row["exchange_bytes_per_step"] == want
+    out = capsys.readouterr().out
+    for k, b in want.items():
+        assert f'graph_serve_exchange_bytes_per_step{{kind="{k}"}} {b}' \
+            in out
+    names = {e["name"] for e in
+             json.loads(out_trace.read_text())["traceEvents"]}
+    assert {"build_graph", "partition", "shard", "warmup", "serve"} <= names
+
+
+def test_shard_loss_stream_degrades_through_declared_rungs():
+    """A chaos stream on the 2-D mesh under shard_loss@0.2: every query
+    gets one status, every degraded answer comes from a rung of the
+    ladder the stream can realize (declared under its placement), and
+    no exception leaves the stream."""
+    declared = dict(TB._DECLARED_FALLBACKS)
+    for kind in GS.KINDS:
+        TB._DECLARED_FALLBACKS.pop((kind, "single"), None)
+    stats = GS.main(["--scale", "7", "--kinds", "bfs,sssp,pagerank,reach",
+                     "--requests", "32", "--batch", "4", "--mesh", "2x2",
+                     "--validate", "--device", "cpu", "--faults",
+                     "shard_loss@0.2", "--faults-seed", "0"])
+    counts = stats["status_counts"]
+    assert sum(counts.values()) == 32 == len(stats["queries"])
+    assert counts["degraded"] > 0 and counts["error"] == 0
+    for q in stats["queries"]:
+        if q["status"] == "degraded":
+            rungs = TF.ladder(q["kind"], "torch", "2d",
+                              hops=3 if q["kind"] == "reach" else None)
+            assert q["degraded_to"] in {r.reason for r in rungs
+                                        if r.placement == "single"}
+            assert TB.declared_fallback(q["kind"], "single")
+    assert {f["placement"] for f in stats["flushes"]} == {"2d", "single"}
+    assert stats["validation_failures"] == 0
+    TB._DECLARED_FALLBACKS.clear()
+    TB._DECLARED_FALLBACKS.update(declared)
+
+
+def test_shard_loss_on_a_cuda_mesh_skips_the_backend_rung(graphs):
+    """On a mesh the cuda backend already runs the placement's torch
+    provider, so a lost shard degrades straight to single-device serving:
+    no answer is stamped with the cuda→torch rung, which would rerun
+    rung 0's code."""
+    _, tg = graphs
+    declared = dict(TB._DECLARED_FALLBACKS)
+
+    def mesh_runner(kind, srcs, backend, hops):
+        raise AssertionError("shard_loss@1 lets no mesh flush run")
+
+    with TI.faults("shard_loss@1.0", seed=0):
+        stats = GS.serve_mixed(
+            tg, [("bfs", 3), ("sssp", 9), ("pagerank", 0), ("bfs", 40)],
+            batch=2, backend="cuda", runner=mesh_runner, placement="2d",
+            retry=TF.RetryPolicy(retries=3, base_ms=0.0, jitter=0.0))
+    assert stats["status_counts"]["degraded"] == 4
+    assert {q["degraded_to"] for q in stats["queries"]} == \
+        {"placement sharded→single"}
+    assert {q["attempts"] for q in stats["queries"]} == {2}
+    assert {f["placement"] for f in stats["flushes"]} == {"single"}
+    TB._DECLARED_FALLBACKS.clear()
+    TB._DECLARED_FALLBACKS.update(declared)
+
+
+def test_mesh_runner_answers_equal_single_device(graphs):
+    """make_sharded_runner's answers equal the single-device runner's,
+    lane for lane, on both placements."""
+    from repro_torch.core.partition import Mesh, partition_1d, partition_2d
+    _, tg = graphs
+    srcs = np.array([3, 9, 9, 40])
+    for pg, mesh, axis in (
+            (partition_1d(tg, 4), Mesh.on("cpu", (4,), ("graph",)),
+             "graph"),
+            (partition_2d(tg, 2, 2), Mesh.on("cpu", (2, 2),
+                                             ("row", "col")),
+             ("row", "col"))):
+        run = GS.make_sharded_runner(pg, mesh, axis)
+        for kind in ("bfs", "sssp", "pagerank", "reach"):
+            field, ovf, conv = run(kind, srcs, "torch", 3)
+            want = GS._run_kind(tg, kind, srcs, "torch", 3)[0]
+            assert torch.equal(field, want), kind
+            assert conv is None and not ovf.any()

@@ -312,3 +312,42 @@ def test_deprecated_warns():
     from repro_torch.obs.log import deprecated
     with pytest.warns(DeprecationWarning, match="gone soon"):
         deprecated("gone soon")
+
+
+# ---- distributed_trace ----------------------------------------------------
+
+@pytest.mark.parametrize("shape,tiles", [((4,), None), ((2, 2), None),
+                                         ((2, 2), 3)])
+def test_distributed_trace_equals_reference(shape, tiles):
+    """The comm-model trace of a distributed BFS (bytes a step and the
+    frontier from the labels) equals the reference's column for
+    column."""
+    from repro.core.partition import partition_1d as jp1
+    from repro.core.partition import partition_2d as jp2
+    from repro_torch.core import distributed as D
+    from repro_torch.core.graph import rmat
+    from repro_torch.core.partition import Mesh, partition_1d, partition_2d
+    jg = JG.rmat(8, 8, seed=3)
+    tg = rmat(8, 8, seed=3, device="cpu")
+    src = int(np.argmax(np.diff(tg.row_offsets.numpy())))
+    if len(shape) == 1:
+        jpg, tpg = jp1(jg, *shape), partition_1d(tg, *shape)
+        mesh = Mesh.on("cpu", shape, ("graph",))
+    else:
+        jpg, tpg = jp2(jg, *shape), partition_2d(tg, *shape)
+        mesh = Mesh.on("cpu", shape, ("row", "col"))
+    r = D.distributed_bfs(tpg, src, mesh)
+    got = obs.distributed_trace(tpg, "bfs", r.iterations, r.labels,
+                                tiles=tiles)
+    want = JT.distributed_trace(jpg, "bfs", r.iterations,
+                                r.labels.numpy(), tiles=tiles)
+    assert got.steps == want.steps == r.iterations
+    assert set(got.names) == set(want.names) == {"exchange_bytes",
+                                                 "frontier"}
+    for name in want.names:
+        assert np.array_equal(got[name], want[name]), name
+    assert got["frontier"].sum() == int((r.labels > 0).sum())
+    for prim in ("sssp", "cc", "pagerank"):
+        assert np.array_equal(
+            obs.distributed_trace(tpg, prim, 5)["exchange_bytes"],
+            JT.distributed_trace(jpg, prim, 5)["exchange_bytes"])

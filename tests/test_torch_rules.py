@@ -139,3 +139,28 @@ def test_serving_entry_points_need_the_card():
                  lambda: TF.empty(4)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_placement_entry_points_need_the_card():
+    """The placements keep the rules: ``backend="cuda"`` on a CPU mesh
+    raises, and serving from a mesh with no device named needs the
+    card."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.partition import Mesh, partition_1d, partition_2d
+    from repro_torch.launch import graph_serve
+    g = TG.rmat(5, 4, seed=2, weighted=True, device="cpu")
+    mesh = Mesh.on("cpu", (2,), ("graph",))
+    pg = partition_1d(g, 2)
+    for call in (lambda: D.distributed_bfs(pg, 0, mesh, backend="cuda"),
+                 lambda: pagerank(pg.shard(mesh), backend="cuda"),
+                 lambda: reach_batch(pg.shard(mesh), [0], backend="cuda")):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()
+    assert partition_2d(g, 2, 2).shard(Mesh.on(
+        "cpu", (2, 2), ("row", "col"))).device.type == "cpu"
+    if torch.cuda.is_available():
+        return
+    for argv in (["--scale", "4", "--parts", "2"],
+                 ["--scale", "4", "--mesh", "2x2"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            graph_serve.main(argv)

@@ -148,3 +148,28 @@ def test_sssp_strategies_edgeless_and_unknown():
     _, tg = _pair(JG.rmat(6, 4, seed=1, weighted=True))
     with pytest.raises(ValueError, match="unknown strategy"):
         sssp(tg, 0, strategy="bogus")
+
+
+def test_bucket_pop_steps_past_a_rounding_stall():
+    """d = 8 with δ = fl(8/7) (the auto δ of this graph): 8/δ rounds to
+    6.9999995 and 7·δ to 8.0, so the bucket ⌊8/δ⌋ = 6 holds no vertex
+    below its threshold. The reference's bucket pop stalls there and
+    leaves vertex 7 at inf (C-ref-11); the port steps to the next bucket
+    and equals Dijkstra, single-device and under both placements."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.partition import Mesh, partition_1d, partition_2d
+    ro = np.array([0, 4, 6, 8, 10, 11, 12, 13, 14, 14, 14, 14, 14, 14, 14])
+    ci = np.array([2, 4, 5, 6, 3, 7, 0, 3, 1, 2, 0, 0, 0, 1])
+    ev = np.array([6, 1, 5, 1, 1, 1, 6, 1, 1, 1, 1, 5, 1, 1], np.float32)
+    tg = Graph.from_csr(ro, ci, ev, device="cpu")
+    jg = JG.Graph.from_csr(ro, ci, ev)
+    want = R.sssp_ref(tg, 0)
+    assert want[7] == 9.0
+    r = sssp(tg, 0)
+    assert np.array_equal(r.dist.numpy(), want) and bool(r.converged)
+    assert np.isinf(np.asarray(jsssp(jg, 0, backend="xla").dist)[7])
+    for pg, mesh in ((partition_1d(tg, 2), Mesh.on("cpu", (2,), ("graph",))),
+                     (partition_2d(tg, 2, 2),
+                      Mesh.on("cpu", (2, 2), ("row", "col")))):
+        assert np.array_equal(D.distributed_sssp(pg, 0, mesh).dist.numpy(),
+                              want)

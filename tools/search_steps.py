@@ -209,7 +209,7 @@ def _shapes(torch, names):
 def join_probe(B, subgraph_match, g16, cap):
     """(haystack, lo, hi, needles) of the K5 launch of subgraph_match's
     triangle query on ``g16``: the join's one probe, kept from a run."""
-    key = ("segment_search", "cuda")
+    key = ("segment_search", "cuda", "single")
     real = B._REGISTRY[key]
     seen = []
 
