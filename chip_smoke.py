@@ -194,6 +194,9 @@ HOPS = 3               # reach's k
 WTF_K = 1000           # circle of trust
 WTF_TOL = 1e-5         # PPR / SALSA against float64 (atomic float sums)
 TRIANGLE = [(0, 1), (0, 2), (1, 2)]
+# path (i): a sanitized run of a call whose plain runs differ among
+# themselves (float atomics) against the plain one
+BC_RTOL = 1e-5
 INT32_MAX = 2 ** 31 - 1
 GRID_SIDE = 2048       # grid2d: n = 4,194,304, rmat-22's vertex count
 GRID_TRAVERSAL_SIDE = 1024  # path (e)'s grid bfs_batch and sssp_batch
@@ -450,7 +453,7 @@ def _k1_traffic(torch, row_seg, cols, front_mask, visited):
     for b in range(front_mask.shape[0]):
         on = front_mask[b][row_seg.long()]
         live += int(on.sum())
-        kept += int((on & ~visited[b][cols.long()]).sum())
+        kept += int((on & ~visited[b][cols.long()]).sum(dtype=torch.int64))
     return live, kept
 
 
@@ -632,7 +635,8 @@ def _fourth_slice_kernels(torch, np, K, P, tuner, SR, g, gs, dev, record,
     ls = (torch.from_numpy(rng.random(300_000) < 0.05)).to(torch.int32)
     ls[1234], ls[-1] = 40 * K.LB_TILE_SLOTS + 7, 0
     for sz, c in ((sizes, m + 777_777), (zs.to(dev), 1_000_003),
-                  (zs.to(dev), 999), (ls.to(dev), int(ls.sum()) + 4099),
+                  (zs.to(dev), 999),
+                  (ls.to(dev), int(ls.sum(dtype=torch.int64)) + 4099),
                   (sizes[:0], 4097)):
         want = P.lb_expand(P.lb_offsets(sz), c)
         for t in tuner.candidates(tuner.MAX_THREADS):
@@ -735,7 +739,7 @@ def _fourth_slice_kernels(torch, np, K, P, tuner, SR, g, gs, dev, record,
     cap_e = max(8 * math.ceil(math.ceil(
         MOE_TOKENS * KIMI_TOP_K / KIMI_EXPERTS * MOE_CAPACITY_FACTOR) / 8), 8)
     slot = _moe_slots(torch, MOE_TOKENS, KIMI_EXPERTS, KIMI_TOP_K, cap_e, dev)
-    nslots, filled = slot.numel(), int((slot >= 0).sum())
+    nslots, filled = slot.numel(), int((slot >= 0).sum(dtype=torch.int64))
     x = torch.randn((MOE_TOKENS, KIMI_D_MODEL), generator=gen,
                     device=dev).to(torch.bfloat16)
     xz = torch.cat([x, x.new_zeros((1, KIMI_D_MODEL))])
@@ -2129,6 +2133,230 @@ def _eighth_slice_path(torch, np, K, G, g, g16, hub, sources, single,
     return launches
 
 
+def _ninth_slice_path(torch, np, K, g18, g16, sm_cap, dev, root):
+    """Path (i): the analysis layer on the card. The static checks on
+    this machine (the registry's contracts and the lint over the port,
+    tools/ and this script); every primitive under ``sanitizing()`` on
+    the cuda backend — bfs_batch, sssp_batch, pagerank, cc, bc_batch,
+    triangle_count and reach_batch on ``g18`` (rmat scale 18), label
+    propagation (one sweep) and the triangle query of subgraph_match on
+    ``g16`` (scale 16: LP costs m·n products a sweep, and the query's
+    join passes int32 from scale 17 on) — then the kernel API's
+    lb_expand, flash_attention (the split form, its partials and its
+    combine) and moe_gather: every launch audited (the audits by C
+    function equal the launch counters, all 11 sites among them), no
+    fault, each result bit-equal to the same call unsanitized, each
+    primitive's ms sanitized and not (host clock ending in a
+    synchronize, after a warm call; a call whose two plain runs differ,
+    bc_batch's float atomics, held to BC_RTOL). Then a seeded fault of
+    each class
+    (a K3 column id equal to n, a K2 output aliasing its input, a K2
+    float mask) raises MemoryFault before its launch, and a clean K1
+    call after them matches its plain version; ``retrace_guard`` holds
+    a warm ``serve_mixed`` stream on ``g16`` (bfs / sssp / pagerank /
+    reach, batch 4) to the budgets, and a query on a freshly built
+    graph each time raises RetraceError. Returns the sanitized run's
+    launches."""
+    from repro_torch.analysis import sanitize
+    from repro_torch.analysis.contracts import check_registry
+    from repro_torch.analysis.lint import lint_paths
+    from repro_torch.core import graph as G
+    from repro_torch.core import operators as O
+    from repro_torch.core.primitives import (bc_batch, bfs_batch,
+                                             connected_components,
+                                             label_propagation, pagerank,
+                                             reach_batch, sssp_batch,
+                                             subgraph_match, triangle_count)
+    from repro_torch.kernels import ref as P
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import graph_serve as GS
+
+    t_path = time.monotonic()
+    findings = check_registry()
+    lint = lint_paths([str(root / "src" / "repro_torch"), str(root / "tools"),
+                       str(root / "chip_smoke.py")])
+    if findings or lint:
+        raise AssertionError(f"path (i) static checks: {findings} "
+                             f"{[f.render() for f in lint][:10]}")
+    print(f"path (i) static checks: check_registry() = [], lint_paths "
+          f"over src/repro_torch, tools and chip_smoke.py = [] "
+          f"({time.monotonic() - t_path:.1f} s)")
+
+    rng = np.random.default_rng(9)
+    deg = g18.degrees.cpu().numpy()
+    srcs = [int(np.argmax(deg))] + [int(v) for v in rng.choice(
+        np.flatnonzero(deg > 0), BATCH - 1, replace=False)]
+    q, k, v = (torch.randn((n, 128), dtype=torch.bfloat16, device=dev)
+               for n in (128, 8192, 8192))
+    xt = torch.randn((1024, 7168), dtype=torch.bfloat16, device=dev)
+    slot = torch.randint(-1, 1025, (4096,), dtype=torch.int32, device=dev)
+
+    def fields(r):
+        return tuple(t for t in (r if isinstance(r, tuple) else (r,))
+                     if isinstance(t, torch.Tensor))
+
+    calls = {
+        "bfs_batch": lambda: bfs_batch(g18, srcs, backend="cuda"),
+        "sssp_batch": lambda: sssp_batch(g18, srcs, backend="cuda"),
+        "pagerank": lambda: pagerank(g18, max_iter=20, backend="cuda"),
+        "cc": lambda: connected_components(g18, backend="cuda"),
+        "bc_batch": lambda: bc_batch(g18, srcs, backend="cuda"),
+        "triangle_count": lambda: triangle_count(g18, backend="cuda"),
+        "reach_batch": lambda: reach_batch(g18, srcs, HOPS, backend="cuda"),
+        "label_propagation": lambda: label_propagation(
+            g16, max_iter=1, backend="cuda"),
+        "subgraph_match": lambda: subgraph_match(
+            g16, 3, TRIANGLE, cap=sm_cap, backend="cuda"),
+        "lb_expand": lambda: tuple(K.lb_expand(g18.degrees, g18.num_edges)),
+        "flash_attention": lambda: (K.flash_attention(q, k, v),),
+        "attention_parts": lambda: K.attention_partials(q, k, v, True, 16),
+        "attention_combine": lambda: (K.attention_combine(
+            *K.attention_partials(q, k, v, True, 16), torch.bfloat16),),
+        "moe_gather": lambda: (K.moe_gather(xt, slot),),
+    }
+
+    def run(fn):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.monotonic() - t) * 1e3
+
+    # a call whose two plain runs differ (bc's dependency sums: float
+    # atomics, in no order) is held to BC_RTOL instead of bit equality
+    plain, ms_off, exact = {}, {}, {}
+    for name, fn in calls.items():
+        warm = fields(fn())                    # the set-up built
+        out, ms_off[name] = run(fn)
+        plain[name] = fields(out)
+        exact[name] = all(torch.equal(a, b)
+                          for a, b in zip(warm, plain[name]))
+    K.reset_launches()
+    sanitize.reset_audits()
+    ms_on = {}
+    with sanitize.sanitizing():
+        for name, fn in calls.items():
+            out, ms_on[name] = run(fn)
+            for a, b in zip(plain[name], fields(out)):
+                same = (torch.equal(a, b) if exact[name] else
+                        torch.allclose(a, b, rtol=BC_RTOL, atol=BC_RTOL))
+                if not same:
+                    raise AssertionError(f"path (i) {name}: the sanitized "
+                                         f"run differs from the plain one")
+    launches = {n: kk.launches for n, kk in K.KERNELS.items()}
+    variants = {n: dict(kk.variants) for n, kk in K.KERNELS.items()}
+    audited = {n: 0 for n in K.KERNELS}
+    for (_, fn_name), c in sanitize.audits().items():
+        for kern in K.FUNCTION_KERNELS[fn_name]:
+            audited[kern] += c
+    sites = {s for s, _ in sanitize.audits()}
+    if audited != launches or sites != set(K.SITES):
+        raise AssertionError(f"path (i) audits {audited} (sites "
+                             f"{sorted(sites)}) vs launches {launches}")
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on path (i): "
+                             f"{missing}")
+    print(f"path (i) launches (each audited, {len(sites)} sites): "
+          f"{launches}")
+    print(f"path (i) ms on {_smi()}, unsanitized / sanitized (the audit's "
+          f"cost; host clock ending in a synchronize, after a warm call; "
+          f"rmat scale {int(math.log2(g18.num_vertices))}, LP and the "
+          f"triangle query at {int(math.log2(g16.num_vertices))}):")
+    for name in calls:
+        print(f"  {name:18s} {ms_off[name]:10.3f} {ms_on[name]:10.3f}"
+              + ("" if exact[name] else
+                 f"  (two plain runs differ: held to rtol {BC_RTOL})"))
+
+    # a seeded fault of each class, raised before the launch
+    front = torch.tensor(srcs, dtype=torch.int32, device=dev)[None]
+    base, sizes = O._base_and_sizes(g18, front, front >= 0, "vertex")
+    cap = int(sizes.sum(dtype=torch.int64))
+    cols = g18.col_indices.clone()
+    cols[-1] = g18.num_vertices
+    vals = torch.arange(6000, dtype=torch.int32, device=dev).reshape(2, 3000)
+    mask = vals % 3 == 0
+    lb, epoch = K._lookback_state(dev, 2, 2, 1)
+    totals = torch.empty((2,), dtype=torch.int32, device=dev)
+    seeded = {
+        "out-of-bounds": lambda: K.advance_batch(g18.row_offsets, cols,
+                                                 base, sizes, cap),
+        "write-write race": lambda: K._launch(
+            "compact", "compact", "compact_batch", vals, 3000, mask, 2,
+            3000, lb.counters, lb.status, lb.status.numel(), epoch, vals,
+            totals, 256, runtime.stream_ptr(dev)),
+        "dtype mismatch": lambda: K._launch(
+            "compact", "compact", "compact_batch", vals, 3000, mask.float(),
+            2, 3000, lb.counters, lb.status, lb.status.numel(), epoch,
+            vals.clone(), totals, 256, runtime.stream_ptr(dev)),
+    }
+    K.reset_launches()
+    caught = []
+    with sanitize.sanitizing():
+        for what, fn in seeded.items():
+            try:
+                fn()
+            except sanitize.MemoryFault as exc:
+                if what not in str(exc):
+                    raise
+                caught.append(str(exc))
+            else:
+                raise AssertionError(f"path (i): the seeded {what} fault "
+                                     f"was not caught")
+    if any(kk.launches for kk in K.KERNELS.values()):
+        raise AssertionError("path (i): a faulty launch reached the card")
+    visited = torch.zeros((1, g18.num_vertices), dtype=torch.bool,
+                          device=dev)
+    got = K.advance_filter_batch(g18.row_offsets, g18.col_indices, base,
+                                 sizes, visited, cap, g18.num_vertices,
+                                 g18.cache)
+    want = P.advance_filter_batch(g18.row_offsets, g18.col_indices, base,
+                                  sizes, visited, cap, g18.num_vertices)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("path (i): K1 after the seeded faults differs "
+                             "from its plain version")
+    print("path (i) seeded faults caught before the launch, the card "
+          "usable after them (K1 equal to its plain version):")
+    for msg in caught:
+        print(f"  {msg}")
+
+    # the set-up budgets over a warm serving stream, and a churn
+    kinds = ("bfs", "sssp", "pagerank", "reach")
+    deg16 = g16.degrees.cpu().numpy()
+    pool = [int(v) for v in rng.choice(np.flatnonzero(deg16 > 0), 16,
+                                       replace=False)]
+    queries = [(kinds[i % 4], pool[i // 4]) for i in range(64)]
+    GS.serve_mixed(g16, queries[:8], BATCH, "cuda", hops=HOPS)
+    reports = {}
+    with sanitize.retrace_guard("bfs") as reports["bfs"], \
+            sanitize.retrace_guard("sssp") as reports["sssp"], \
+            sanitize.retrace_guard("pagerank") as reports["pagerank"]:
+        stats = GS.serve_mixed(g16, queries, BATCH, "cuda", hops=HOPS)
+    if stats["status_counts"]["ok"] != len(queries):
+        raise AssertionError(f"path (i) warm stream: "
+                             f"{stats['status_counts']}")
+    try:
+        with sanitize.retrace_guard("bfs"):
+            for seed in (1, 2):
+                gf = G.rmat(int(math.log2(g16.num_vertices)), EDGE_FACTOR,
+                            seed=seed, weighted=True, device=dev)
+                GS.serve_mixed(gf, [("bfs", 0)], BATCH, "cuda", hops=HOPS)
+    except sanitize.RetraceError as exc:
+        churn = str(exc)
+    else:
+        raise AssertionError("path (i): the churning stream did not raise "
+                             "RetraceError")
+    print(f"path (i) warm serve_mixed stream (rmat scale "
+          f"{int(math.log2(g16.num_vertices))}, {len(queries)} queries, "
+          f"bfs / sssp / pagerank / reach, batch {BATCH}): traces "
+          f"{ {kk: r['traces'] for kk, r in reports.items()} } within the "
+          f"budgets { {kk: r['budget'] for kk, r in reports.items()} } "
+          f"(reach has no budget: no set-up of its own); a fresh graph a "
+          f"query: RetraceError ({churn[:70]}...)")
+    print(f"path (i) run and validated in {time.monotonic() - t_path:.1f} s")
+    return launches, variants
+
+
 def _kernel_api_names(torch, K, P, SR, g, sources, dev):
     """The reference's oracle names (kernels.ref) at path (a)'s shapes,
     each against the kernel it models, called through the reference's
@@ -2588,9 +2816,10 @@ def main(argv=None) -> int:
     longest = int((cdeg - cw).clamp(min=0).max())
     mhz = _sm_clock_mhz()
     floor_ms = longest * FADD_CYCLES / (mhz * 1e6) * 1e3
-    print(f"K4 spmv split: light rows ({int((~heavy_rows).sum())}, degree "
+    nheavy = int(heavy_rows.sum(dtype=torch.int64))
+    print(f"K4 spmv split: light rows ({heavy_rows.numel() - nheavy}, degree "
           f"<= {cw}) {split_ms['light']:.3f} ms, heavy rows "
-          f"({int(heavy_rows.sum())}) {split_ms['heavy']:.3f} ms; byte "
+          f"({nheavy}) {split_ms['heavy']:.3f} ms; byte "
           f"bound {_bound_ms(nbytes, 0)[0]:.3f} ms, serial-chain floor "
           f"{floor_ms:.3f} ms (the longest overflow, {longest} ordered adds "
           f"x {FADD_CYCLES} cycles at {mhz:.0f} MHz)")
@@ -2625,7 +2854,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     ms, pms = _timed(torch, k3t, 3), _timed(torch, p3t, 1)
     cap_in = int(base.shape[0])
-    live = int((sizes != 0).sum())
+    live = int((sizes != 0).sum(dtype=torch.int64))
     nbytes = cap_in * 4 + live * 8 + cap * 4 + cap * 21 + 4
     devops, dev_ms, bare = _device_ops(torch, k3t)
     print(f"K3 advance B=1 cap_out={cap} cap_in={cap_in} (TC shape): "
@@ -2667,7 +2896,7 @@ def main(argv=None) -> int:
             (keys[lpos[~hit].clamp(max=m_sub - 1)] == query[~hit]).any()):
         raise AssertionError("segment_search (locate) differs from "
                              "torch.searchsorted")
-    n_hit = int(hit.sum())
+    n_hit = int(hit.sum(dtype=torch.int64))
     del lpos, hit, pos
     ms, pms, lms = (_timed(torch, k5l, 10), _timed(torch, p5l, 1),
                     _timed(torch, lib5, 3))
@@ -2695,7 +2924,8 @@ def main(argv=None) -> int:
     pu = torch.index_select(g.row_seg, 0, e_ids)
     pv = torch.index_select(ci, 0, e_ids)
     mins = torch.minimum(g.degrees[pu.long()], g.degrees[pv.long()])
-    npairs = int((torch.cumsum(mins.long(), 0) <= 3 * 10 ** 8).sum())
+    npairs = int((torch.cumsum(mins.long(), 0, dtype=torch.int64)
+                  <= 3 * 10 ** 8).sum(dtype=torch.int64))
     need = int(mins[:npairs].sum())
     length = torch.tensor(npairs, dtype=torch.int32, device=dev)
     fa = F.SparseFrontier(ids=pu[:npairs].contiguous(), length=length)
@@ -2930,7 +3160,7 @@ def main(argv=None) -> int:
           f"plus_times bit-equal at every k on the "
           f"{int(unsplit.sum())} rows of at most {K.SPMM_SPLIT} edges, max "
           f"relative error {float_err:.3g} on the "
-          f"{int((~unsplit).sum())} split rows")
+          f"{int((~unsplit).sum(dtype=torch.int64))} split rows")
 
     rng = np.random.default_rng(0)
     sources = [hubs[0]] + [int(v) for v in rng.choice(
@@ -2974,7 +3204,8 @@ def main(argv=None) -> int:
     # offsets, mask, the live rows' columns, X once, Y once
     nbytes_r = (n + 1) * 4 + n + m_live * 4 + 2 * n * b * 4
     bound_r = _bound_ms(nbytes_r, 2 * m_live * b)[0]
-    print(f"K4m spmm or_and k={b} (reach's 2nd hop, {int(need.sum())} rows "
+    nneed = int(need.sum(dtype=torch.int64))
+    print(f"K4m spmm or_and k={b} (reach's 2nd hop, {nneed} rows "
           f"live, {m_live} edges): {ms_r:.3f} ms, plain {pms_r:.3f} ms, "
           f"torch.sparse.mm {lms_r:.3f} ms, bound {bound_r:.3f} ms")
     del a_csc, y_k, r_hop, need, reach_args
@@ -3038,7 +3269,8 @@ def main(argv=None) -> int:
           f"{gms:.4f} ms ({m16 * 128 / 1e6:.1f} MB of 128-byte rows), bound "
           f"{_bound_ms(nbytes, 2 * m16 * 32)[0]:.4f} ms; uniform floats "
           f"bit-equal to the plain version on the CPU on the "
-          f"{int(unsplit16.sum())} rows of at most {K.SPMM_SPLIT} edges")
+          f"{int(unsplit16.sum(dtype=torch.int64))} rows of at most "
+          f"{K.SPMM_SPLIT} edges")
     record("spmm", 0, ms, pms, nbytes, 2 * m16 * 32, lms)
     del a16, y_k, y_u, want_u, onehot, uniform, lp_args, lpu_args, cols16
     torch.cuda.empty_cache()
@@ -3203,7 +3435,7 @@ def main(argv=None) -> int:
         bc_err = max(bc_err, float((np.abs(got - want) / np.maximum(
             np.abs(want), 1.0)).max()))
     total = int(r_tc.total)
-    if (total != tc_want or total != int(r_tc.per_edge.long().sum())
+    if (total != tc_want or total != int(r_tc.per_edge.sum(dtype=torch.int64))
             or total != TRIANGLES.get(tc_scale, total)):
         raise AssertionError(f"triangle_count {total} differs from the "
                              f"oracle")
@@ -3420,6 +3652,14 @@ def main(argv=None) -> int:
     del single_h
     torch.cuda.empty_cache()
 
+    # ---- phase 3 (i): the ninth slice's path: the analysis layer on the
+    # card (the static checks, every primitive and the kernel API under
+    # the launch audit, seeded faults, the set-up budgets) ----
+    launches9, variants9 = _ninth_slice_path(torch, np, K, g_tc, g16,
+                                             sm_cap, dev, root)
+    tally(variants9)
+    torch.cuda.empty_cache()
+
     # ---- where the time goes: each slice's path once more under
     # torch.profiler (its overhead inflates the wall time; the device
     # time per kernel is what it is for) ----
@@ -3502,7 +3742,8 @@ def main(argv=None) -> int:
                         "launches": (launches[name] + launches2[name]
                                      + launches3[name] + launches4[name]
                                      + launches5[name] + launches6[name]
-                                     + launches7[name] + launches8[name]),
+                                     + launches7[name] + launches8[name]
+                                     + launches9[name]),
                         "variants": variant_totals[name],
                         **results[name]})
     for row in sorted(r for r in results if ":" in r):

@@ -83,6 +83,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..analysis import sanitize
 from . import backend as B
 from .partition import (Mesh, Partitioned2DGraph, check_mesh_axes,
                         check_mesh_axis)
@@ -252,6 +253,7 @@ def _local_slots(local_ro: torch.Tensor, local_ci: torch.Tensor, vpp: int,
     out = (src, valid)
     if cache is not None:
         cache[key] = out
+        sanitize.note_setup()
     return out
 
 
@@ -880,7 +882,7 @@ def distributed_cc(pg, mesh: Mesh, axis="graph") -> DistCCResult:
         n_live = int(all_reduce(counts, "sum")[0])    # one host read
         it += 1
     ncomp = int((cid == torch.arange(n, dtype=torch.int32,
-                                     device=dev)).sum())
+                                     device=dev)).sum(dtype=torch.int64))
     return DistCCResult(labels=cid, num_components=ncomp, iterations=it)
 
 

@@ -58,6 +58,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..analysis import sanitize
 from . import backend as B
 from . import storage as S
 from .frontier import (INVALID, BatchedDenseFrontier, BatchedSparseFrontier,
@@ -568,6 +569,7 @@ def _long_seg(graph: Graph) -> torch.Tensor:
         seg = (graph.csc_row_seg if graph.csc_row_seg is not None
                else row_segments_of(graph.csc_offsets)).long()
         graph.cache["csc_row_seg64"] = seg
+        sanitize.note_setup()
     return seg
 
 

@@ -398,7 +398,7 @@ def _slice_blocks(ro: np.ndarray, ci: np.ndarray, ev: Optional[np.ndarray],
             row_blocks.append((b_ro, b_ci,
                                c_ev[sel] if c_ev is not None else None,
                                epos[sel]))
-            ne = int(sel.sum())
+            ne = int(sel.sum(dtype=np.int64))
             be_max = max(be_max, ne)
             block_edges[i, j] = ne
             block_ell[i, j] = ell_width_for(cnt[cnt > 0])
@@ -407,7 +407,7 @@ def _slice_blocks(ro: np.ndarray, ci: np.ndarray, ev: Optional[np.ndarray],
             # which gives np.unique's count at a fraction of its time)
             dst = (np.count_nonzero(np.bincount(b_ci - j * vpc))
                    if ne else 0)
-            mirrors[i, j] = int((cnt > 0).sum()) + dst
+            mirrors[i, j] = int((cnt > 0).sum(dtype=np.int64)) + dst
         blocks.append(row_blocks)
     b_ro = np.stack([np.stack([b[0] for b in r]) for r in blocks])
     b_ci = np.full((rows, cols, be_max), -1, np.int32)

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ...analysis import sanitize
 from .. import backend as B
 from ..enactor import run_until_any
 from ..graph import Graph
@@ -86,7 +87,14 @@ def _level_pairs(depth, lvl, active, esrc, edst):
 def _bc_impl(graph: Graph, esrc: torch.Tensor, srcs: torch.Tensor,
              weights: torch.Tensor, telemetry: bool = False):
     """B Brandes passes in one batched program; ``weights`` (B,) scales
-    each lane's dependencies (0 masks a padding lane)."""
+    each lane's dependencies (0 masks a padding lane). One set-up scope
+    a batch width (a ragged chunk is a second one)."""
+    with sanitize.setup_probe("bc", graph.cache, (int(srcs.shape[0]),)):
+        return _bc_pass(graph, esrc, srcs, weights, telemetry)
+
+
+def _bc_pass(graph: Graph, esrc: torch.Tensor, srcs: torch.Tensor,
+             weights: torch.Tensor, telemetry: bool):
     n = graph.num_vertices
     dev = graph.device
     edst = graph.cols()

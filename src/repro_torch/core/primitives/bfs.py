@@ -41,6 +41,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ...analysis import sanitize
 from .. import backend as B
 from .. import operators as ops
 from ..direction import PULL, PUSH, DirectionParams, decide_direction
@@ -273,18 +274,22 @@ def bfs_batch(graph: Graph, srcs, *, direction: bool = True,
     bk = B.resolve(backend, graph.device)
     srcs = torch.as_tensor(srcs, dtype=torch.int32).reshape(-1).to(
         graph.device)
-    return _run(graph, srcs, float(do_a), float(do_b), direction,
-                idempotence, strategy, record_preds, bk, tiered, telemetry,
-                budget)
+    # one configuration: the batch width and the static options
+    key = (int(srcs.shape[0]), bk, direction, idempotence, strategy,
+           record_preds, tiered)
+    with sanitize.setup_probe("bfs", graph.cache, key):
+        return _run(graph, srcs, float(do_a), float(do_b), direction,
+                    idempotence, strategy, record_preds, bk, tiered,
+                    telemetry, budget)
 
 
 @B.draw_scope()
-def bfs(graph: Graph, src: int, **kw):
+def bfs(graph: Graph, src: int, *, telemetry: bool = False, **kw):
     """BFS from ``src`` — a squeezed batch-of-1 ``bfs_batch`` call. With
     ``telemetry=True``: ``(BFSResult, TelemetryBuffer)``, the buffer
     keeping its lane axis."""
-    r = bfs_batch(graph, [src], **kw)
-    if kw.get("telemetry"):
+    r = bfs_batch(graph, [src], telemetry=telemetry, **kw)
+    if telemetry:
         res, buf = r
         return BFSResult(*(t[0] for t in res)), buf
     return BFSResult(*(t[0] for t in r))

@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ...analysis import sanitize
 from .. import backend as B
 from ..graph import Graph, row_segments_of
 from ..operators import scatter_min
@@ -48,7 +49,12 @@ def connected_components(graph: Graph, *, backend: Optional[str] = None,
     uniform primitive interface: CC is scatter/gather algebra with no
     kernel of its own, on both backends. ``telemetry=True`` returns
     ``(CCResult, TelemetryBuffer)`` with the result unchanged."""
-    B.resolve(backend, graph.device)
+    bk = B.resolve(backend, graph.device)
+    with sanitize.setup_probe("cc", graph.cache, (bk,)):
+        return _cc(graph, telemetry)
+
+
+def _cc(graph: Graph, telemetry: bool):
     n = graph.num_vertices
     dev = graph.device
     src = (graph.row_seg if graph.row_seg is not None

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ...analysis import sanitize
 from ...linalg import semiring as SR
 from .. import backend as B
 from ..enactor import run_until
@@ -63,6 +64,7 @@ def _inv_out_degrees(graph: Graph) -> torch.Tensor:
                        np.float32(0.0)).astype(np.float32)
         cached = torch.from_numpy(inv).to(graph.device)
         graph.cache["inv_deg"] = cached
+        sanitize.note_setup()
     return cached
 
 
@@ -85,7 +87,8 @@ def pagerank(graph: Graph, *, damping: float = 0.85, tol: float = 0.0,
         raise ValueError("pagerank uses the CSC transpose")
     bk = B.resolve(backend, graph.device)
     pl, ctx = B.resolve_graph_placement(graph, placement)
-    with ctx:
+    with ctx, sanitize.setup_probe("pagerank", graph.cache,
+                                   (bk, pl, precision)):
         return _pagerank(graph, bk, pl, damping, tol, max_iter, precision,
                          telemetry, budget)
 

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ...analysis import sanitize
 from .. import backend as B
 from .. import operators as ops
 from ..enactor import run_until_any, select_lanes, tiered_step
@@ -226,16 +227,18 @@ def sssp_batch(graph: Graph, srcs, *, delta: Optional[float] = None,
     bk = B.resolve(backend, graph.device)
     srcs = torch.as_tensor(srcs, dtype=torch.int32).reshape(-1).to(
         graph.device)
-    return _run(graph, srcs, delta, use_delta, strategy, bk, tiered,
-                telemetry, budget)
+    key = (int(srcs.shape[0]), bk, delta, strategy, tiered)
+    with sanitize.setup_probe("sssp", graph.cache, key):
+        return _run(graph, srcs, delta, use_delta, strategy, bk, tiered,
+                    telemetry, budget)
 
 
 @B.draw_scope()
-def sssp(graph: Graph, src: int, **kw):
+def sssp(graph: Graph, src: int, *, telemetry: bool = False, **kw):
     """Delta-stepping SSSP — a squeezed batch-of-1 ``sssp_batch``. With
     ``telemetry=True``: ``(SSSPResult, TelemetryBuffer)``."""
-    r = sssp_batch(graph, [src], **kw)
-    if kw.get("telemetry"):
+    r = sssp_batch(graph, [src], telemetry=telemetry, **kw)
+    if telemetry:
         res, buf = r
         return SSSPResult(*(t[0] for t in res)), buf
     return SSSPResult(*(t[0] for t in r))

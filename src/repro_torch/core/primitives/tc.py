@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ... import linalg
+from ...analysis import sanitize
 from .. import backend as B
 from ..graph import Graph, edge_list, from_edge_list
 
@@ -57,7 +58,20 @@ def triangle_count(graph: Graph, *, backend: Optional[str] = None,
     ``(TCResult, TelemetryBuffer)``: TC has no BSP loop, so its one row
     records the oriented workload (the edges kept)."""
     bk = B.resolve(backend, graph.device)
+    # the orientation is per-call host work, as in the reference: the
+    # set-up scope covers the product (one oriented edge count, one key)
     sub, ssrc, sdst = _orient(graph)
+    with sanitize.setup_probe("tc", graph.cache, (bk, sub.num_edges)):
+        result = _count(graph, sub, ssrc, sdst, bk)
+    if not telemetry:
+        return result
+    from ...obs.telemetry import TelemetryBuffer
+    buf = TelemetryBuffer.make(1, {"oriented_edges": ((), torch.int32)},
+                               graph.device)
+    return result, buf.record(oriented_edges=sub.num_edges)
+
+
+def _count(graph: Graph, sub: Graph, ssrc, sdst, bk: str) -> TCResult:
     if sub.num_edges == 0:
         zero = torch.zeros((), dtype=torch.int32, device=graph.device)
         result = TCResult(zero, torch.zeros((0,), dtype=torch.int32,
@@ -69,12 +83,7 @@ def triangle_count(graph: Graph, *, backend: Optional[str] = None,
                             structural=True, backend=bk).to(torch.int32)
         result = TCResult(total=counts.sum(dtype=torch.int32),
                           per_edge=counts, edge_src=ssrc, edge_dst=sdst)
-    if not telemetry:
-        return result
-    from ...obs.telemetry import TelemetryBuffer
-    buf = TelemetryBuffer.make(1, {"oriented_edges": ((), torch.int32)},
-                               graph.device)
-    return result, buf.record(oriented_edges=sub.num_edges)
+    return result
 
 
 @B.draw_scope()
@@ -91,5 +100,5 @@ def triangle_count_full(graph: Graph, *,
     src, dst = edge_list(graph)
     counts = linalg.mxm(graph, graph, (src, dst), semiring=linalg.plus_and,
                         b_transpose=True, structural=True, backend=bk)
-    total = counts.to(torch.int64).sum() // 6
+    total = counts.sum(dtype=torch.int64) // 6
     return total.to(torch.int32)

@@ -91,7 +91,7 @@ def who_to_follow(graph: Graph, user: int, *, k: int = 1000,
     live_csc = torch.index_select(hubs, 0, esrc_csc)
     hub_deg = seg_sum(live_csr.to(torch.float32), src_all)
     auth_deg = seg_sum(live_csc.to(torch.float32), seg)
-    h = hubs.to(torch.float32) / max(int(hubs.sum()), 1)
+    h = hubs.to(torch.float32) / max(int(hubs.sum(dtype=torch.int64)), 1)
     a = torch.zeros((n,), dtype=torch.float32, device=dev)
     for _ in range(salsa_iters):
         # hub -> authority (gather per CSC slot, reduce by destination)

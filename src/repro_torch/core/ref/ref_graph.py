@@ -177,7 +177,7 @@ def tc_ref(graph, rows_per_chunk: int = 1 << 14) -> int:
     deg = np.diff(ro)
     src = np.repeat(np.arange(n), deg)
     keep = (deg[src] > deg[ci]) | ((deg[src] == deg[ci]) & (src > ci))
-    a = sp.csr_matrix((np.ones(int(keep.sum()), np.int64),
+    a = sp.csr_matrix((np.ones(int(keep.sum(dtype=np.int64)), np.int64),
                        (src[keep], ci[keep])), shape=(n, n))
     at = a.T.tocsr()
     total = 0
@@ -265,7 +265,7 @@ def salsa_ref(graph, hubs: np.ndarray, iters: int = 10):
         return np.zeros(n, np.float32), np.zeros(n, np.float32)
     hub_deg = np.bincount(e_hub, minlength=n).astype(np.float64)
     auth_deg = np.bincount(e_auth, minlength=n).astype(np.float64)
-    h = hubs / max(hubs.sum(), 1)
+    h = hubs / max(hubs.sum(dtype=np.int64), 1)
     a = np.zeros(n)
     for _ in range(iters):
         contrib = np.where(hub_deg > 0, h / np.maximum(hub_deg, 1), 0.0)

@@ -37,6 +37,8 @@ from typing import NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from ..analysis import sanitize
+
 INDEX_DTYPES = ("int16", "int32", "int64")
 ENCODINGS = ("dense", "delta")
 VALUE_DTYPES = ("fp32", "bf16")
@@ -234,6 +236,7 @@ def dense_view(store: ColStore, cache: Optional[dict]) -> torch.Tensor:
     hit = cache.get(("dense_cols", id(src)))
     if hit is None or hit[0] is not src:
         hit = cache[("dense_cols", id(src))] = (src, decode_cols(store))
+        sanitize.note_setup()
     return hit[1]
 
 

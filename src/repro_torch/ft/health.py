@@ -61,6 +61,7 @@ class StepWatchdog:
         self._t0 = time.monotonic()
 
     def stop(self) -> float:
+        # reprolint: disable=RL004 -- the caller fences the step first
         dt = time.monotonic() - self._t0
         med = self.median()
         if med is not None and dt > self.threshold * med:

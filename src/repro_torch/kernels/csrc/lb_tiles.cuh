@@ -140,7 +140,11 @@ lb_offsets(const int* __restrict__ sizes, const int* __restrict__ base,
       if (inc != exc || exc == INT_MAX) {
         offs[first + i] = exc;
         if (ebase != nullptr) {
-          ebase[b * cap_in + first + i] = row_offsets[bs[first + i]] - exc;
+          // past the saturation point an empty lane is written too, and
+          // its frontier id may be -1 (padding): it expands no slot, so
+          // its edge base is never read, and row_offsets[-1] must not be
+          const int s = bs[first + i];
+          ebase[b * cap_in + first + i] = (s >= 0 ? row_offsets[s] : 0) - exc;
         }
       }
     }

@@ -7,10 +7,17 @@ Each wrapper takes the registry op's arguments, and
     only because the tensors lie on the CPU;
   * on CUDA tensors checks device, dtype, shape and contiguity, allocates
     every output and scratch buffer, launches the kernel on PyTorch's
-    current stream, raises if the launch returned a CUDA error, and adds
-    one to the kernel's launch counter. It never falls back. (K1, K2, K3
-    and K6 also use the look-back words kept per device,
-    ``_lookback_state``.)
+    current stream through ``_launch``, raises if the launch returned a
+    CUDA error, and adds one to the kernel's launch counter. It never
+    falls back. (K1, K2, K3 and K6 also use the look-back words kept per
+    device, ``_lookback_state``.)
+
+``_launch`` takes the tensors themselves in the C signature's order
+(``_SIGNATURES``, named parameters); under ``analysis.sanitize``'s
+``REPRO_SANITIZE=1`` / ``sanitizing()`` it first audits the launch
+against its site's declaration (``_SITES``: the 11 launch sites' operands,
+extents, read-modify-write outputs and index operands) and raises
+``MemoryFault`` instead of launching a faulty one.
 
 ``KERNELS`` lists the ten kernels with their sources, the TPU kernels
 they replace and their launch counters (``chip_smoke.py`` reads and
@@ -54,6 +61,7 @@ from typing import Optional
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from ..analysis import sanitize
 from ..core import backend as B
 from ..core import storage as S
 from ..linalg.ops import make_mxm_impl
@@ -112,38 +120,85 @@ def reset_launches() -> None:
         k.variants = {}
 
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
-_U = ctypes.c_uint
-# every tuned launcher takes its threads per block just before the stream
+def _sig(spec: str) -> tuple:
+    """A C signature as (parameter, C type) pairs from ``"a b:i32* c:int"``:
+    each type applies to the names since the last one."""
+    out, names = [], []
+    for word in spec.split():
+        name, _, ctype = word.partition(":")
+        names.append(name)
+        if ctype:
+            out += [(nm, ctype) for nm in names]
+            names = []
+    return tuple(out)
+
+
+_LB_SCRATCH = ("counters live_end status:u64* status_cap:i64 epoch:u32")
+# every launcher's C signature (csrc/*.cu); every tuned launcher takes its
+# threads per block just before the stream
 _SIGNATURES = {
-    ("advance", "advance_batch"): (
-        [_P] * 5 + [_I] * 5 + [_P] * 3 + [_L] + [_P] * 3 + [_L, _U]
-        + [_P] * 7 + [_I, _P]),
-    ("advance", "advance_filter_batch"): (
-        [_P] * 5 + [_I] + [_P] + [_I] * 6 + [_P] * 4 + [_L, _P, _L]
-        + [_P] * 3 + [_L, _U] + [_P] * 4 + [_I, _P]),
-    ("compact", "compact_batch"): (
-        [_P, _L, _P, _I, _I, _P, _P, _L, _U, _P, _P, _I, _P]),
-    ("spmv", "spmv"): ([_I] + [_P] * 4 + [_I, _P, _I, _I, _P, _I, _I, _P,
-                                          _I, _P]),
-    ("spmv", "spmm"): ([_I] + [_P] * 4 + [_I, _I, _P, _I, _P, _I, _I, _I,
-                                          _P, _P]),
-    ("search", "segment_search_found"): (
-        [_P, _I, _I] + [_P] * 3 + [_L, _P, _I, _P]),
-    ("search", "segment_search_locate"): (
-        [_P, _I, _I] + [_P] * 3 + [_L, _P, _I, _P]),
-    ("lb_expand", "lb_expand"): (
-        [_P, _I, _I] + [_P] * 2 + [_L] + [_P] * 3 + [_L, _U] + [_P] * 4
-        + [_I, _P]),
-    ("attention", "flash_attention"): (
-        [_I] + [_P] * 6 + [_I, _I, _I, ctypes.c_float, _I, _I, _P]),
-    ("attention", "flash_attention_split"): (
-        [_I] + [_P] * 6 + [_I, _I, _I, ctypes.c_float, _I, _I, _P]),
-    ("attention", "attention_combine"): [_I] + [_P] * 3 + [_I] * 3 + [_P],
-    ("moe_gather", "moe_gather"): [_P, _I, _L, _I, _P, _L, _P, _P, _P],
+    ("advance", "advance_batch"): _sig(
+        "sizes base row_offsets:i32* cols:void* anchor:i32* "
+        "kind batch cap_in cap_out m:int offsets ebase tile_lane:i32* "
+        f"tile_lane_cap:i64 {_LB_SCRATCH} "
+        "src dst eid in_pos rank:i32* valid:u8* totals:i32* threads:int "
+        "stream:stream"),
+    ("advance", "advance_filter_batch"): _sig(
+        "sizes base row_offsets:i32* cols:void* anchor:i32* kind:int "
+        "visited:u8* batch n cap_in cap_out m cap_front:int "
+        "first offsets ebase tile_lane:i32* tile_lane_cap:i64 cand:u32* "
+        f"cand_cap:i64 {_LB_SCRATCH} ids srcs lengths totals:i32* "
+        "threads:int stream:stream"),
+    ("compact", "compact_batch"): _sig(
+        "values:i32* vstride:i64 mask:u8* batch cap:int counters status:u64* "
+        "status_cap:i64 epoch:u32 packed totals:i32* threads:int "
+        "stream:stream"),
+    ("spmv", "spmv"): _sig(
+        "semiring:int offsets cols:i32* vals x:f32* nx:int mask:u8* "
+        "n width:int heavy:i32* nheavy nvery:int y:f32* threads:int "
+        "stream:stream"),
+    ("spmv", "spmm"): _sig(
+        "semiring:int offsets cols:i32* vals x:f32* nx k:int mask:u8* n:int "
+        "long_rows:i32* nlong nsplit tlong:int y:f32* stream:stream"),
+    ("search", "segment_search_found"): _sig(
+        "hay:void* kind m:int lo hi needles:i32* cap:i64 found:u8* "
+        "threads:int stream:stream"),
+    ("search", "segment_search_locate"): _sig(
+        "hay:void* kind m:int lo hi needles:i32* cap:i64 pos:i32* "
+        "threads:int stream:stream"),
+    ("lb_expand", "lb_expand"): _sig(
+        "sizes:i32* cap_in cap_out:int offsets tile_lane:i32* "
+        f"tile_lane_cap:i64 {_LB_SCRATCH} in_pos rank:i32* valid:u8* "
+        "total:i32* threads:int stream:stream"),
+    ("attention", "flash_attention"): _sig(
+        "dtype:int q k v o:void* ws_acc ws_ml:f32* sq sk d:int scale:float "
+        "causal nsplit:int stream:stream"),
+    ("attention", "flash_attention_split"): _sig(
+        "dtype:int q k v o:void* ws_acc ws_ml:f32* sq sk d:int scale:float "
+        "causal nsplit:int stream:stream"),
+    ("attention", "attention_combine"): _sig(
+        "dtype:int ws_acc ws_ml:f32* o:void* sq d nsplit:int stream:stream"),
+    ("moe_gather", "moe_gather"): _sig(
+        "x:void* tokens:int row_bytes:i64 itemsize:int slot_token:i32* "
+        "slots:i64 scratch:i32* out:void* stream:stream"),
 }
+# the kernels each C function launches (chip_smoke.py holds the audits of
+# a sanitized run against the launch counters through it)
+FUNCTION_KERNELS = {
+    "advance_batch": ("advance_batch",),
+    "advance_filter_batch": ("advance_filter_batch",),
+    "compact_batch": ("compact",),
+    "spmv": ("spmv",), "spmm": ("spmm",),
+    "segment_search_found": ("segment_search",),
+    "segment_search_locate": ("segment_search",),
+    "lb_expand": ("lb_expand",),
+    "flash_attention": ("flash_attention",),
+    "flash_attention_split": ("flash_attention", "attention_combine"),
+    "attention_combine": ("attention_combine",),
+    "moe_gather": ("moe_gather",),
+}
+_CTYPES = {"int": ctypes.c_int, "i64": ctypes.c_longlong,
+           "u32": ctypes.c_uint, "float": ctypes.c_float}
 _fns: dict = {}
 
 
@@ -152,7 +207,8 @@ def _fn(lib_name: str, fn_name: str):
     if fn is None:
         lib = runtime.library(lib_name)
         fn = getattr(lib, fn_name)
-        fn.argtypes = _SIGNATURES[(lib_name, fn_name)]
+        fn.argtypes = [_CTYPES.get(ctype, ctypes.c_void_p)
+                       for _, ctype in _SIGNATURES[(lib_name, fn_name)]]
         fn.restype = ctypes.c_int
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
@@ -160,8 +216,26 @@ def _fn(lib_name: str, fn_name: str):
     return fn
 
 
-def _launch(lib_name: str, fn_name: str, *args) -> None:
-    code = _fn(lib_name, fn_name)(*args)
+def audit(site: str, lib_name: str, fn_name: str, *args) -> None:
+    """The launch audit of one call of ``site`` (``analysis.sanitize``):
+    ``args`` as ``_launch`` takes them, checked against the C signature
+    and the site's declaration (``_SITES``); raises ``MemoryFault``
+    without launching. Runs on CPU tensors too (the tests)."""
+    sig = _SIGNATURES[(lib_name, fn_name)]
+    sanitize.check_signature(fn_name, sig, args)
+    decl = _SITES[site](fn_name, {p: v for (p, _), v in zip(sig, args)})
+    sanitize.check_launch(fn_name, sig, args, decl, site=site)
+
+
+def _launch(site: str, lib_name: str, fn_name: str, *args) -> None:
+    """Call the C launcher ``fn_name`` of ``csrc/<lib_name>.cu`` with
+    ``args`` in its signature's order, tensors for pointers (None for a
+    null one); under ``sanitize.enabled()`` the launch is audited first.
+    Raises if the launcher returned a CUDA error."""
+    if sanitize.enabled():
+        audit(site, lib_name, fn_name, *args)
+    code = _fn(lib_name, fn_name)(
+        *[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args])
     if code != 0:
         msg = runtime.library(lib_name).kernel_error_string(code).decode()
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {code} "
@@ -261,6 +335,7 @@ def _first_table(cache: Optional[dict], b: int, n: int,
         table = torch.full((b, n), INT32_MAX, dtype=torch.int32, device=dev)
         if cache is not None:
             cache[key] = table
+            sanitize.note_setup()
     return table
 
 
@@ -320,10 +395,9 @@ def _lookback_state(dev: torch.device, lanes: int, tiles: int,
 def _lb_scratch(b: int, cap_in: int, cap_out: int, threads: int,
                 ebase: bool, dev: torch.device):
     """The scratch of the LB scan (csrc/lb_tiles.cuh) in one int32
-    allocation → (the allocation, its pointers: offsets (B, cap_in + 1),
-    ebase (B, cap_in; null unless ``ebase``), tile_lane (B, slot_tiles +
-    1), tile_lane's length), with the look-back words and the call's
-    epoch."""
+    allocation → (offsets (B·(cap_in + 1),), ebase (B·cap_in,); None
+    unless ``ebase``, tile_lane (B·(slot_tiles + 1),)): views of it, with
+    the look-back words and the call's epoch."""
     slot_tiles = max(_ceil_div(cap_out, lb_tile(threads)), 1)
     lb, epoch = _lookback_state(
         dev, b, b * max(_ceil_div(cap_in, SCAN_TILE), 1), 1)
@@ -331,11 +405,9 @@ def _lb_scratch(b: int, cap_in: int, cap_out: int, threads: int,
     n_tl = b * (slot_tiles + 1)
     flat = torch.empty((n_off + n_eb + n_tl,), dtype=torch.int32,
                        device=dev)
-    p = flat.data_ptr()
-    ptrs = (ctypes.c_void_p(p), ctypes.c_void_p(p + 4 * n_off if ebase
-                                                 else 0),
-            ctypes.c_void_p(p + 4 * (n_off + n_eb)), n_tl)
-    return flat, ptrs, lb, epoch
+    views = (flat[:n_off], flat[n_off:n_off + n_eb] if ebase else None,
+             flat[n_off + n_eb:])
+    return views, lb, epoch
 
 
 @B.register("advance_batch", B.CUDA, encodings=("dense", "delta"))
@@ -362,21 +434,18 @@ def advance_batch(row_offsets, col_indices, base, sizes, cap_out: int,
         raise ValueError(f"cap_out {cap_out:,} is outside int32")
     nthr = _threads("advance", cap_out, dev, threads, cols.encoding)
     # the scratch lives until the launches are enqueued on the stream
-    scratch, ptrs, lb, epoch = _lb_scratch(b, cap_in, cap_out, nthr, True,
-                                           dev)
+    (offsets, ebase, tile_lane), lb, epoch = _lb_scratch(
+        b, cap_in, cap_out, nthr, True, dev)
     rows = [torch.empty((b, cap_out), dtype=torch.int32, device=dev)
             for _ in range(5)]
     valid = torch.empty((b, cap_out), dtype=torch.bool, device=dev)
     totals = torch.empty((b,), dtype=torch.int32, device=dev)
-    _launch("advance", "advance_batch", runtime.ptr(sizes),
-            runtime.ptr(base), runtime.ptr(row_offsets),
-            runtime.ptr(cols.cols), runtime.ptr(cols.anchor), cols.kind, b,
-            cap_in, cap_out, cols.m, *ptrs, runtime.ptr(lb.counters),
-            runtime.ptr(lb.live_end), runtime.ptr(lb.status),
-            lb.status.numel(), epoch, *(runtime.ptr(t) for t in rows),
-            runtime.ptr(valid), runtime.ptr(totals), nthr,
-            runtime.stream_ptr(dev))
-    del scratch
+    _launch("advance_batch", "advance", "advance_batch", sizes, base,
+            row_offsets, cols.cols, cols.anchor, cols.kind, b, cap_in,
+            cap_out, cols.m, offsets, ebase, tile_lane, tile_lane.numel(),
+            lb.counters, lb.live_end, lb.status, lb.status.numel(), epoch,
+            *rows, valid, totals, nthr, runtime.stream_ptr(dev))
+    del offsets, ebase, tile_lane
     KERNELS["advance_batch"].count(cols.variant)
     return (*rows, valid, totals)
 
@@ -427,17 +496,12 @@ def advance_filter_batch(row_offsets, col_indices, base, sizes,
     cand = empty(b, slot_tiles * lb_tile(nthr) // 32)
     ids, srcs = empty(b, cap_front), empty(b, cap_front)
     lengths, totals = empty(b), empty(b)
-    _launch("advance", "advance_filter_batch", runtime.ptr(sizes),
-            runtime.ptr(base), runtime.ptr(row_offsets),
-            runtime.ptr(cols.cols), runtime.ptr(cols.anchor), cols.kind,
-            runtime.ptr(visited), b, n, cap_in, cap_out, cols.m, cap_front,
-            runtime.ptr(first), runtime.ptr(offsets), runtime.ptr(ebase),
-            runtime.ptr(tile_lane), tile_lane.numel(), runtime.ptr(cand),
-            cand.numel(),
-            runtime.ptr(lb.counters), runtime.ptr(lb.live_end),
-            runtime.ptr(lb.status), lb.status.numel(), epoch,
-            runtime.ptr(ids), runtime.ptr(srcs), runtime.ptr(lengths),
-            runtime.ptr(totals), nthr, runtime.stream_ptr(dev))
+    _launch("advance_filter_batch", "advance", "advance_filter_batch",
+            sizes, base, row_offsets, cols.cols, cols.anchor, cols.kind,
+            visited, b, n, cap_in, cap_out, cols.m, cap_front, first,
+            offsets, ebase, tile_lane, tile_lane.numel(), cand, cand.numel(),
+            lb.counters, lb.live_end, lb.status, lb.status.numel(), epoch,
+            ids, srcs, lengths, totals, nthr, runtime.stream_ptr(dev))
     KERNELS["advance_filter_batch"].count(cols.variant)
     return ids, srcs, lengths, totals
 
@@ -480,11 +544,9 @@ def compact(values: torch.Tensor, mask: torch.Tensor, *,
     lb, epoch = _lookback_state(dev, b, b * tiles, 1)
     packed = torch.empty((b, cap), dtype=torch.int32, device=dev)
     totals = torch.empty((b,), dtype=torch.int32, device=dev)
-    _launch("compact", "compact_batch", runtime.ptr(values), vstride,
-            runtime.ptr(mask), b, cap, runtime.ptr(lb.counters),
-            runtime.ptr(lb.status), lb.status.numel(), epoch,
-            runtime.ptr(packed), runtime.ptr(totals), nthr,
-            runtime.stream_ptr(dev))
+    _launch("compact", "compact", "compact_batch", values, vstride, mask, b,
+            cap, lb.counters, lb.status, lb.status.numel(), epoch, packed,
+            totals, nthr, runtime.stream_ptr(dev))
     KERNELS["compact"].count("int32")
     return packed, totals
 
@@ -521,8 +583,9 @@ def heavy_rows(offsets: torch.Tensor, above: int, split: int):
         rows = torch.nonzero(deg > above).squeeze(1)
         rows = rows[torch.sort(deg[rows], descending=True,
                                stable=True).indices]
-        nsplit = int((deg[rows] > split).sum())
+        nsplit = int((deg[rows] > split).sum(dtype=torch.int64))
         hit = per[key] = (rows.to(torch.int32).contiguous(), nsplit)
+        sanitize.note_setup()
     return hit
 
 
@@ -552,6 +615,7 @@ def _cached(cache: Optional[dict], name: str, src: torch.Tensor, make):
     hit = cache.get((name, id(src)))
     if hit is None or hit[0] is not src or hit[1] != src._version:
         hit = cache[(name, id(src))] = (src, src._version, make(src))
+        sanitize.note_setup()
     return hit[2]
 
 
@@ -603,11 +667,9 @@ def spmv(offsets, indices, values, x, sr, ell_width, mask, row_seg=None,
     nthr = _threads("spmv", n, dev, threads)
     heavy, nvery = spmv_heavy_rows(offsets, width)
     y = torch.empty((n,), dtype=torch.float32, device=dev)
-    _launch("spmv", "spmv", sr.code, runtime.ptr(offsets),
-            runtime.ptr(cols), runtime.ptr(values), runtime.ptr(x),
-            int(x.shape[0]), runtime.ptr(mask), n, width, runtime.ptr(heavy),
-            int(heavy.shape[0]), nvery, runtime.ptr(y), nthr,
-            runtime.stream_ptr(dev))
+    _launch("spmv", "spmv", "spmv", sr.code, offsets, cols, values, x,
+            int(x.shape[0]), mask, n, width, heavy, int(heavy.shape[0]),
+            nvery, y, nthr, runtime.stream_ptr(dev))
     KERNELS["spmv"].count(sr.precision)
     return y
 
@@ -642,11 +704,9 @@ def spmm(offsets, indices, values, x, sr, ell_width, mask, row_seg=None,
         raise ValueError("x is empty")
     long_rows, nsplit = heavy_rows(offsets, SPMM_LONG, SPMM_SPLIT)
     y = torch.empty((n, k), dtype=torch.float32, device=dev)
-    _launch("spmv", "spmm", sr.code, runtime.ptr(offsets),
-            runtime.ptr(cols), runtime.ptr(values), runtime.ptr(x), nx,
-            k, runtime.ptr(mask), n, runtime.ptr(long_rows),
-            int(long_rows.shape[0]), nsplit, SPMM_LONG, runtime.ptr(y),
-            runtime.stream_ptr(dev))
+    _launch("spmm", "spmv", "spmm", sr.code, offsets, cols, values, x, nx,
+            k, mask, n, long_rows, int(long_rows.shape[0]), nsplit,
+            SPMM_LONG, y, runtime.stream_ptr(dev))
     KERNELS["spmm"].count(sr.precision)
     return y
 
@@ -675,9 +735,8 @@ def _search(haystack, lo, hi, needles, locate: bool,
     else:
         out = torch.empty((cap,), dtype=torch.bool, device=dev)
         fn = "segment_search_found"
-    _launch("search", fn, runtime.ptr(haystack), kind,
-            int(haystack.shape[0]), runtime.ptr(lo), runtime.ptr(hi),
-            runtime.ptr(needles), cap, runtime.ptr(out), nthr,
+    _launch("segment_search", "search", fn, haystack, kind,
+            int(haystack.shape[0]), lo, hi, needles, cap, out, nthr,
             runtime.stream_ptr(dev))
     KERNELS["segment_search"].count(variant)
     return out
@@ -733,18 +792,16 @@ def lb_expand(sizes: torch.Tensor, cap_out: int, *,
     cap_in = int(sizes.shape[0])
     nthr = _threads("lb_expand", cap_out, dev, threads)
     # the scratch lives until the launches are enqueued on the stream
-    scratch, (offsets, _, tile_lane, n_tl), lb, epoch = _lb_scratch(
+    (offsets, _, tile_lane), lb, epoch = _lb_scratch(
         1, cap_in, cap_out, nthr, False, dev)
     out = torch.empty((2 * cap_out + 1,), dtype=torch.int32, device=dev)
     in_pos, rank, total = out[:cap_out], out[cap_out:-1], out[-1]
     valid = torch.empty((cap_out,), dtype=torch.bool, device=dev)
-    _launch("lb_expand", "lb_expand", runtime.ptr(sizes), cap_in, cap_out,
-            offsets, tile_lane, n_tl, runtime.ptr(lb.counters),
-            runtime.ptr(lb.live_end), runtime.ptr(lb.status),
-            lb.status.numel(), epoch, runtime.ptr(in_pos), runtime.ptr(rank),
-            runtime.ptr(valid), runtime.ptr(total), nthr,
-            runtime.stream_ptr(dev))
-    del scratch
+    _launch("lb_expand", "lb_expand", "lb_expand", sizes, cap_in, cap_out,
+            offsets, tile_lane, tile_lane.numel(), lb.counters, lb.live_end,
+            lb.status, lb.status.numel(), epoch, in_pos, rank, valid, total,
+            nthr, runtime.stream_ptr(dev))
+    del offsets, tile_lane
     KERNELS["lb_expand"].count("int32")
     return KExpansion(in_pos, rank, valid, total)
 
@@ -827,11 +884,9 @@ def attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     code, sq, sk, d, q, k, v = _attention_inputs(q, k, v)
     dev = q.device
     acc, ml = _attention_workspace(nsplit, sq, d, dev)
-    _launch("attention", "flash_attention", code, runtime.ptr(q),
-            runtime.ptr(k), runtime.ptr(v), runtime.ptr(None),
-            runtime.ptr(acc), runtime.ptr(ml), sq, sk, d,
-            ctypes.c_float(1.0 / math.sqrt(d)), int(bool(causal)), nsplit,
-            runtime.stream_ptr(dev))
+    _launch("attention_partials", "attention", "flash_attention", code, q,
+            k, v, None, acc, ml, sq, sk, d, 1.0 / math.sqrt(d),
+            int(bool(causal)), nsplit, runtime.stream_ptr(dev))
     KERNELS["flash_attention"].count(_dtype_name(q.dtype))
     return acc, ml
 
@@ -858,9 +913,9 @@ def attention_combine(acc: torch.Tensor, ml: torch.Tensor,
     if ml.data_ptr() % 8:
         ml = ml.clone()
     out = torch.empty((sq, d), dtype=dtype, device=dev)
-    _launch("attention", "attention_combine", _ATTN_DTYPES[dtype],
-            runtime.ptr(acc), runtime.ptr(ml), runtime.ptr(out), sq, d,
-            nsplit, runtime.stream_ptr(dev))
+    _launch("attention_combine", "attention", "attention_combine",
+            _ATTN_DTYPES[dtype], acc, ml, out, sq, d, nsplit,
+            runtime.stream_ptr(dev))
     KERNELS["attention_combine"].count(_dtype_name(dtype))
     return out
 
@@ -890,12 +945,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc = ml = None
     if nsplit > 1:
         acc, ml = _attention_workspace(nsplit, sq, d, dev)
-    _launch("attention",
+    _launch("flash_attention", "attention",
             "flash_attention_split" if nsplit > 1 else "flash_attention",
-            code, runtime.ptr(q), runtime.ptr(k), runtime.ptr(v),
-            runtime.ptr(out), runtime.ptr(acc), runtime.ptr(ml), sq, sk, d,
-            ctypes.c_float(1.0 / math.sqrt(d)), int(bool(causal)), nsplit,
-            runtime.stream_ptr(dev))
+            code, q, k, v, out, acc, ml, sq, sk, d, 1.0 / math.sqrt(d),
+            int(bool(causal)), nsplit, runtime.stream_ptr(dev))
     KERNELS["flash_attention"].count(_dtype_name(q.dtype))
     if nsplit > 1:
         KERNELS["attention_combine"].count(_dtype_name(q.dtype))
@@ -930,12 +983,276 @@ def moe_gather(x: torch.Tensor, slot_token: torch.Tensor) -> torch.Tensor:
     scratch = torch.empty((2 * (t + 1) + 1 + s,), dtype=torch.int32,
                           device=dev)
     out = torch.empty((s, d), dtype=x.dtype, device=dev)
-    _launch("moe_gather", "moe_gather", runtime.ptr(x), t,
-            d * x.element_size(), x.element_size(), runtime.ptr(slot_token),
-            s, runtime.ptr(scratch), runtime.ptr(out),
-            runtime.stream_ptr(dev))
+    _launch("moe_gather", "moe_gather", "moe_gather", x, t,
+            d * x.element_size(), x.element_size(), slot_token, s, scratch,
+            out, runtime.stream_ptr(dev))
     KERNELS["moe_gather"].count(_dtype_name(x.dtype))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The launch audit's declarations (analysis.sanitize): per launch site, every
+# pointer of its C signature with its rank, the extent the launch's grid
+# reads or writes, the read-modify-write outputs (``accumulate``) and the
+# index operands to check, from the arguments as ``_launch`` takes them.
+# ---------------------------------------------------------------------------
+
+_KIND_DTYPES = {0: "int32", 1: "int16", 2: "int64", _DELTA_KIND: "uint16"}
+_ATTN_NAMES = {0: "float32", 1: "bfloat16", 2: "float16"}
+_ITEM_DTYPES = {4: ("float32",), 2: ("bfloat16", "float16")}
+# the look-back words' invariant: no word of this launch's epoch yet
+_LOOKBACK = {"counters": sanitize.epoch_tagged(32, 32),
+             "live_end": sanitize.epoch_tagged(32, 32),
+             "status": sanitize.epoch_tagged(34)}
+
+
+def _rows(t) -> int:
+    """The rows of a CSR's offsets argument (0 if it is no tensor)."""
+    return t.numel() - 1 if isinstance(t, torch.Tensor) else 0
+
+
+def _lb_operands(a: dict, b: int, rank: int) -> dict:
+    """The operands K1, K3 and K6 share: the sizes (of ``rank``), the
+    offsets / tile-lane scratch (views of one allocation) and the
+    look-back words."""
+    cap_in = a["cap_in"]
+    return {"sizes": sanitize.In(rank, b * cap_in),
+            "offsets": sanitize.Out(1, b * (cap_in + 1)),
+            "tile_lane": sanitize.Out(1, a["tile_lane_cap"]),
+            "counters": sanitize.Out(1, b), "live_end": sanitize.Out(1, b),
+            "status": sanitize.Out(1, a["status_cap"])}
+
+
+def _lb_geometry(a: dict, b: int, slot_tiles: int, tiles: int) -> list:
+    return [("tile_lane_cap (B x (slot tiles + 1))", b * (slot_tiles + 1),
+             a["tile_lane_cap"]),
+            ("status_cap (B x tiles)", b * tiles, a["status_cap"])]
+
+
+def _graph_operands(a: dict, b: int) -> dict:
+    """K1's and K3's CSR, column store and frontier."""
+    n = _rows(a["row_offsets"])
+    kind = a["kind"]
+    return {"base": sanitize.In(2, b * a["cap_in"]),
+            "row_offsets": sanitize.In(1, n + 1),
+            "cols": sanitize.In(1, a["m"], _KIND_DTYPES.get(kind, "a column "
+                                                           "kind")),
+            "anchor": sanitize.In(1, n if kind == _DELTA_KIND else 0,
+                                  nullable=kind != _DELTA_KIND)}
+
+
+def _graph_checks(a: dict, n_cols: int) -> list:
+    """K1's and K3's index operands: the offsets, the frontier's lanes,
+    the column ids (in [0, ``n_cols``)) or the delta stream."""
+    ro, m = a["row_offsets"], a["m"]
+    n = _rows(ro)
+    out = (sanitize.offsets_check(ro, m)
+           + sanitize.lanes_check(a["base"], a["sizes"], ro, n, m))
+    if a["kind"] == _DELTA_KIND:
+        return out + sanitize.delta_check(ro, a["cols"], a["anchor"],
+                                          n_cols, m)
+    return out + sanitize.ids_check(a["cols"][:m], 0, n_cols, "column ids")
+
+
+def _decl_advance_batch(fn: str, a: dict) -> sanitize.Launch:
+    """K3: the frontier (B, cap_in), seven outputs (B, cap_out) and (B,)."""
+    b, cap_in, cap_out = a["batch"], a["cap_in"], a["cap_out"]
+    slot_tiles = max(_ceil_div(cap_out, lb_tile(a["threads"])), 1)
+    rows = {p: sanitize.Out(2, b * cap_out)
+            for p in ("src", "dst", "eid", "in_pos", "rank", "valid")}
+    return sanitize.Launch(
+        operands={**_lb_operands(a, b, 2), **_graph_operands(a, b),
+                  "ebase": sanitize.Out(1, b * cap_in), **rows,
+                  "totals": sanitize.Out(1, b)},
+        accumulate=_LOOKBACK,
+        geometry=_lb_geometry(a, b, slot_tiles,
+                              max(_ceil_div(cap_in, SCAN_TILE), 1)),
+        checks=(lambda a: _graph_checks(a, _rows(a["row_offsets"])),))
+
+
+def _decl_advance_filter_batch(fn: str, a: dict) -> sanitize.Launch:
+    """K1: the frontier, the visited bits and the first-slot table (B,
+    n), the frontier out (B, cap_front); column ids index the (B, n)
+    tables."""
+    b, n, cap_in = a["batch"], a["n"], a["cap_in"]
+    tile = lb_tile(a["threads"])
+    slot_tiles = max(_ceil_div(a["cap_out"], tile), 1)
+    return sanitize.Launch(
+        operands={**_lb_operands(a, b, 2), **_graph_operands(a, b),
+                  "offsets": sanitize.Out(2, b * (cap_in + 1)),
+                  "ebase": sanitize.Out(2, b * cap_in),
+                  "tile_lane": sanitize.Out(2, a["tile_lane_cap"]),
+                  "visited": sanitize.In(2, b * n),
+                  "first": sanitize.Out(2, b * n),
+                  "cand": sanitize.Out(2, a["cand_cap"]),
+                  "ids": sanitize.Out(2, b * a["cap_front"]),
+                  "srcs": sanitize.Out(2, b * a["cap_front"]),
+                  "lengths": sanitize.Out(1, b),
+                  "totals": sanitize.Out(1, b)},
+        accumulate={"first": sanitize.filled(INT32_MAX), **_LOOKBACK},
+        geometry=_lb_geometry(a, b, slot_tiles,
+                              max(_ceil_div(cap_in, SCAN_TILE), slot_tiles))
+        + [("cand_cap (B x slot tiles x slots / 32)",
+            b * slot_tiles * tile // 32, a["cand_cap"])],
+        checks=(lambda a: _graph_checks(a, a["n"]),))
+
+
+def _decl_compact(fn: str, a: dict) -> sanitize.Launch:
+    """K2: values rows vstride apart (one shared row at vstride 0), the
+    mask and the packed rows (B, cap)."""
+    b, cap = a["batch"], a["cap"]
+    tiles = max(_ceil_div(cap, COMPACT_ITEMS * a["threads"]), 1)
+    return sanitize.Launch(
+        operands={"values": sanitize.In(2, (b - 1) * a["vstride"] + cap),
+                  "mask": sanitize.In(2, b * cap),
+                  "counters": sanitize.Out(1, b),
+                  "status": sanitize.Out(1, a["status_cap"]),
+                  "packed": sanitize.Out(2, b * cap),
+                  "totals": sanitize.Out(1, b)},
+        accumulate={w: _LOOKBACK[w] for w in ("counters", "status")},
+        geometry=[("status_cap (B x tiles)", b * tiles, a["status_cap"]),
+                  ("vstride >= 0", 0, a["vstride"])])
+
+
+def _csr_checks(a: dict, rows: str) -> list:
+    """K4's and K4m's index operands: the offsets against the column
+    array (and the values), the column ids in [0, nx), the long rows in
+    [0, n)."""
+    m = a["cols"].numel()
+    if a["vals"] is not None:
+        m = min(m, a["vals"].numel())
+    return (sanitize.offsets_check(a["offsets"], m, "offsets")
+            + sanitize.ids_check(a["cols"], 0, a["nx"], "column ids")
+            + sanitize.ids_check(a[rows], 0, a["n"], rows))
+
+
+def _decl_spmv(fn: str, a: dict) -> sanitize.Launch:
+    """K4: y (n,) from x (nx,) over the CSR; the heavy rows' schedule."""
+    n = a["n"]
+    return sanitize.Launch(
+        operands={"offsets": sanitize.In(1, n + 1),
+                  "cols": sanitize.In(1, 0), "vals": sanitize.In(
+                      1, 0, nullable=True),
+                  "x": sanitize.In(1, a["nx"]),
+                  "mask": sanitize.In(1, n, nullable=True),
+                  "heavy": sanitize.In(1, a["nheavy"]),
+                  "y": sanitize.Out(1, n)},
+        geometry=[("nheavy (nvery of them split)", a["nvery"],
+                   a["nheavy"])],
+        checks=(lambda a: _csr_checks(a, "heavy"),))
+
+
+def _decl_spmm(fn: str, a: dict) -> sanitize.Launch:
+    """K4m: y (n, k) from x (nx, k) over the CSR; the long rows."""
+    n, k = a["n"], a["k"]
+    return sanitize.Launch(
+        operands={"offsets": sanitize.In(1, n + 1),
+                  "cols": sanitize.In(1, 0), "vals": sanitize.In(
+                      1, 0, nullable=True),
+                  "x": sanitize.In(2, a["nx"] * k),
+                  "mask": sanitize.In(1, n, nullable=True),
+                  "long_rows": sanitize.In(1, a["nlong"]),
+                  "y": sanitize.Out(2, n * k)},
+        geometry=[("nlong (nsplit of them split)", a["nsplit"],
+                   a["nlong"])],
+        checks=(lambda a: _csr_checks(a, "long_rows"),))
+
+
+def _decl_segment_search(fn: str, a: dict) -> sanitize.Launch:
+    """K5: cap lanes of (lo, hi, needle) over the haystack (m,); found
+    (bool) or pos (int32) out."""
+    cap = a["cap"]
+    out = "pos" if fn == "segment_search_locate" else "found"
+    return sanitize.Launch(
+        operands={"hay": sanitize.In(1, a["m"], _KIND_DTYPES.get(
+                      a["kind"], "a column kind")),
+                  "lo": sanitize.In(1, cap), "hi": sanitize.In(1, cap),
+                  "needles": sanitize.In(1, cap), out: sanitize.Out(1, cap)},
+        checks=(lambda a: sanitize.segments_check(a["hay"], a["lo"],
+                                                  a["hi"], a["m"]),))
+
+
+def _decl_lb_expand(fn: str, a: dict) -> sanitize.Launch:
+    """K6: sizes (cap_in,) ≥ 0, the geometry (cap_out,) each and the
+    total."""
+    cap_in, cap_out = a["cap_in"], a["cap_out"]
+    slot_tiles = max(_ceil_div(cap_out, lb_tile(a["threads"])), 1)
+    return sanitize.Launch(
+        operands={**_lb_operands(a, 1, 1),
+                  "in_pos": sanitize.Out(1, cap_out),
+                  "rank": sanitize.Out(1, cap_out),
+                  "valid": sanitize.Out(1, cap_out),
+                  "total": sanitize.Out(0, 1)},
+        accumulate=_LOOKBACK,
+        geometry=_lb_geometry(a, 1, slot_tiles,
+                              max(_ceil_div(cap_in, SCAN_TILE), 1)),
+        checks=(lambda a: sanitize.ids_check(a["sizes"], 0, INT32_MAX + 1,
+                                             "segment sizes"),))
+
+
+def _decl_attention(fn: str, a: dict) -> sanitize.Launch:
+    """K7 (and K7c behind it in the split form): q (Sq, D), k and v (Sk,
+    D) in the type of ``dtype``; o (Sq, D) written with one part or by
+    the combine, the parts' workspace with more than one."""
+    sq, sk, d, nsplit = a["sq"], a["sk"], a["d"], a["nsplit"]
+    t = _ATTN_NAMES.get(a["dtype"], "an attention dtype")
+    parts = nsplit > 1
+    writes_o = not parts or fn == "flash_attention_split"
+    return sanitize.Launch(
+        operands={"q": sanitize.In(2, sq * d, t),
+                  "k": sanitize.In(2, sk * d, t),
+                  "v": sanitize.In(2, sk * d, t),
+                  "o": sanitize.Out(2, sq * d if writes_o else 0, t,
+                                    nullable=not writes_o),
+                  "ws_acc": sanitize.Out(3, nsplit * sq * d if parts else 0,
+                                         nullable=not parts),
+                  "ws_ml": sanitize.Out(3, nsplit * sq * 2 if parts else 0,
+                                        nullable=not parts)})
+
+
+def _decl_attention_combine(fn: str, a: dict) -> sanitize.Launch:
+    """K7c: the parts (nsplit, Sq, D) and (nsplit, Sq, 2) in, o (Sq, D)
+    out in the type of ``dtype``."""
+    sq, d, nsplit = a["sq"], a["d"], a["nsplit"]
+    return sanitize.Launch(operands={
+        "ws_acc": sanitize.In(3, nsplit * sq * d),
+        "ws_ml": sanitize.In(3, nsplit * sq * 2),
+        "o": sanitize.Out(2, sq * d, _ATTN_NAMES.get(a["dtype"],
+                                                     "an attention dtype"))})
+
+
+def _decl_moe_gather(fn: str, a: dict) -> sanitize.Launch:
+    """K8: x (tokens, D) and out (slots, D) of ``itemsize``-byte
+    elements, D = row_bytes / itemsize; the counting sort's scratch. Any
+    slot id is in range: -1 and below give a zero row, one past the last
+    token reads the last row (the reference's clamp)."""
+    tokens, slots, item = a["tokens"], a["slots"], a["itemsize"]
+    width = a["row_bytes"] // item if item > 0 else 0
+    t = _ITEM_DTYPES.get(item, ("an element size",))
+    return sanitize.Launch(
+        operands={"x": sanitize.In(2, tokens * width, t),
+                  "slot_token": sanitize.In(1, slots),
+                  "scratch": sanitize.Out(1, 2 * (tokens + 1) + 1 + slots),
+                  "out": sanitize.Out(2, slots * width, t)},
+        geometry=[("row_bytes (a whole number of elements)",
+                   a["row_bytes"], width * item)])
+
+
+# launch site -> its declaration
+_SITES = {
+    "advance_batch": _decl_advance_batch,
+    "advance_filter_batch": _decl_advance_filter_batch,
+    "compact": _decl_compact,
+    "spmv": _decl_spmv,
+    "spmm": _decl_spmm,
+    "segment_search": _decl_segment_search,
+    "lb_expand": _decl_lb_expand,
+    "attention_partials": _decl_attention,
+    "attention_combine": _decl_attention_combine,
+    "flash_attention": _decl_attention,
+    "moe_gather": _decl_moe_gather,
+}
+SITES = tuple(_SITES)
 
 
 # ---------------------------------------------------------------------------

@@ -274,8 +274,10 @@ def main(argv=None) -> None:
     caps = [int(c) for c in args.caps.split(",")]
     picked = autotune_all(caps, args.ops.split(",") if args.ops else None)
     for (op, cap, enc), tile in sorted(picked.items()):
+        # reprolint: disable=RL005 -- CLI output channel
         print(f"{op:16s} cap={cap:<8d} {enc:5s} -> tile {tile:4d} "
               f"({entry(op, cap, encoding=enc)['ms']:.4f} ms)")
+    # reprolint: disable=RL005 -- CLI output channel
     print(f"cache: {cache_path()}")
 
 

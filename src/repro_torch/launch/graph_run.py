@@ -289,6 +289,7 @@ def main(argv=None) -> None:
             if trace is not None and trace.steps:
                 log.info(f"{name} per-iteration trajectory"
                          + (" (lane 0)" if sources else "") + ":")
+                # reprolint: disable=RL005 -- CLI output channel
                 print(trace.format_table(prefix="  "))
     if args.trace:
         n_ev = obs.export_chrome_trace(args.trace)

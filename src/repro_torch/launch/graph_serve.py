@@ -863,6 +863,7 @@ def _serve_main(args, kinds, dev, bk, plan, mesh_shape=None) -> dict:
     if args.metrics:
         text = metrics.render()
         if args.metrics == "-":
+            # reprolint: disable=RL005 -- CLI output channel
             print(text, end="")
         else:
             with open(args.metrics, "w") as f:

@@ -51,6 +51,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..analysis import sanitize
 from ..core import backend as B
 from ..core import operators as O
 from ..core import storage as St
@@ -117,6 +118,7 @@ def _masked_overflow(offsets, m: int, width: int, edge_valid, cache):
     out = (pos, seg[pos])
     if cache is not None:
         cache[key] = out
+        sanitize.note_setup()
     return out
 
 
@@ -379,7 +381,8 @@ def spmsv(a: Graph, ids, xvals=None, *, semiring=plus_times, mask=None,
     deg = (torch.index_select(off, 0, base + 1)
            - torch.index_select(off, 0, base))
     sizes = torch.where(valid_in, deg, 0).to(torch.int32)
-    cap = int(sizes.sum()) if cap_out is None else int(cap_out)
+    cap = (int(sizes.sum(dtype=torch.int64)) if cap_out is None
+           else int(cap_out))
     _, dst, eid, in_pos, _, valid, _ = B.dispatch("advance", bk)(
         off, idx, base, sizes, max(cap, 1), a.cache)
     sv = (torch.tensor(sr.one, dtype=torch.float32, device=a.device)

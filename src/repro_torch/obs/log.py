@@ -97,5 +97,6 @@ def get_logger(name: str = "") -> logging.Logger:
 
 def deprecated(message: str, *, stacklevel: int = 2) -> None:
     """A real ``DeprecationWarning`` plus a debug-level log line."""
+    # reprolint: disable=RL005 -- the deprecation channel itself
     warnings.warn(message, DeprecationWarning, stacklevel=stacklevel + 1)
     get_logger("deprecation").debug(message)

@@ -457,12 +457,11 @@ def test_flash_attention_kernel_refusals(card):
     # head width that is no multiple of 8 or past 256, fewer than 2
     # parts), and the wrapper's launch raises on the refusal
     ws = torch.empty((4 * 16 * 272,), device=card)
-    p = runtime.ptr
     for d, nsplit in ((12, 4), (264, 4), (6, 4), (16, 1)):
         with pytest.raises(RuntimeError, match="launch failed"):
-            K._launch("attention", "flash_attention_split", 0, p(q), p(q),
-                      p(q), p(q), p(ws), p(ws), 16, 16, d,
-                      ctypes.c_float(0.25), 1, nsplit,
+            K._launch("flash_attention", "attention",
+                      "flash_attention_split", 0, q, q, q, q, ws, ws, 16,
+                      16, d, ctypes.c_float(0.25), 1, nsplit,
                       runtime.stream_ptr(card))
 
 
@@ -1488,3 +1487,167 @@ def test_ordered_scatter_accum_on_the_card_is_the_cpu_fold(card, k):
         "linalg.ops.ordered_scatter_accum no longer adds in index order on "
         f"the card (k={k}, torch {torch.__version__}): its plus fold rests "
         "on index_put_(accumulate=True)'s undocumented internals")
+
+
+# ---- the launch audit on the card (analysis.sanitize) ---------------------
+
+def _site_calls(g):
+    """One call through each of the 11 launch sites, on the card: (site,
+    a thunk returning the call's outputs as a tuple)."""
+    from repro_torch.kernels.ref import ATTN_BQ
+    dev = g.device
+    front = _frontier(g, 2, seed=11)
+    base, sizes = O._base_and_sizes(g, front.ids, front.valid_mask, "vertex")
+    visited = torch.zeros((2, g.num_vertices), dtype=torch.bool, device=dev)
+    mask = torch.rand((2, 3000), device=dev) < 0.4
+    vals = torch.randint(0, 99, (2, 3000), dtype=torch.int32, device=dev)
+    x = torch.rand(g.num_vertices, device=dev)
+    xk = torch.rand((g.num_vertices, 5), device=dev)
+    ro, cols = g.row_offsets, g.col_indices
+    u = torch.arange(0, g.num_vertices, 7, device=dev)
+    lo, hi = ro[u], ro[u + 1]
+    needles = cols[lo.clamp(max=cols.numel() - 1).long()].to(torch.int32)
+    q, k, v = (torch.randn((n, 128), dtype=torch.bfloat16, device=dev)
+               for n in (ATTN_BQ, 4096, 4096))
+    slot = torch.randint(-1, 300, (900,), dtype=torch.int32, device=dev)
+    xt = torch.randn((256, 64), dtype=torch.bfloat16, device=dev)
+    return [
+        ("advance_batch", lambda: K.advance_batch(ro, cols, base, sizes,
+                                                  4096)),
+        ("advance_filter_batch", lambda: K.advance_filter_batch(
+            ro, cols, base, sizes, visited, 4096, 500, g.cache)),
+        ("compact", lambda: K.compact(vals, mask)),
+        ("spmv", lambda: (K.spmv(ro, cols, g.edge_values, x, SR.plus_times,
+                                 g.ell_width, None, cache=g.cache),)),
+        ("spmm", lambda: (K.spmm(ro, cols, None, xk, SR.plus_times, None,
+                                 None, cache=g.cache),)),
+        ("segment_search", lambda: (K.segment_locate(cols, lo, hi, needles),
+                                    K.segment_search(cols, lo, hi,
+                                                     needles))),
+        ("lb_expand", lambda: tuple(K.lb_expand(g.degrees, 5000))),
+        ("attention_partials", lambda: K.attention_partials(q, k, v, True,
+                                                            4)),
+        ("attention_combine", lambda: (K.attention_combine(
+            *K.attention_partials(q, k, v, True, 4), torch.bfloat16),)),
+        ("flash_attention", lambda: (K.flash_attention(q, k, v),
+                                     K.flash_attention(k, k, v))),
+        ("moe_gather", lambda: (K.moe_gather(xt, slot),)),
+    ]
+
+
+def test_every_launch_site_audited_clean_on_the_card(graph):
+    """Each of the 11 sites under sanitizing(): audited once a launch
+    (the audits, by C function, equal the launch counters), no fault, and
+    bit-equal to the same call unsanitized."""
+    from repro_torch.analysis import sanitize
+    calls = _site_calls(graph)
+    assert sorted(s for s, _ in calls) == sorted(K.SITES)
+    for site, call in calls:
+        plain = call()
+        K.reset_launches()
+        sanitize.reset_audits()
+        with sanitize.sanitizing():
+            got = call()
+        torch.cuda.synchronize()
+        assert sanitize.audit_count(site) >= 1, site
+        audited = {}
+        for (_, fn), c in sanitize.audits().items():
+            for kern in K.FUNCTION_KERNELS[fn]:
+                audited[kern] = audited.get(kern, 0) + c
+        launched = {n: k.launches for n, k in K.KERNELS.items()
+                    if k.launches}
+        assert audited == launched, site
+        for a, b in zip(plain, got):
+            assert torch.equal(a, b), site
+
+
+def test_each_fault_class_caught_before_launch(graph):
+    """A K3 launch with a column id equal to n, a K2 launch whose output
+    aliases its input, and a K2 launch with a float mask each raise
+    MemoryFault before the kernel runs; the card stays usable."""
+    from repro_torch.analysis import sanitize
+    g = graph
+    front = _frontier(g, 2, seed=12)
+    base, sizes = O._base_and_sizes(g, front.ids, front.valid_mask, "vertex")
+    cols = g.col_indices.clone()
+    cols[-1] = g.num_vertices
+    K.reset_launches()
+    with sanitize.sanitizing():
+        with pytest.raises(sanitize.MemoryFault, match="column ids outside"):
+            K.advance_batch(g.row_offsets, cols, base, sizes, 4096)
+        vals = torch.arange(6000, dtype=torch.int32,
+                            device=g.device).reshape(2, 3000)
+        mask = vals % 3 == 0
+        lb, epoch = K._lookback_state(g.device, 2, 2, 1)
+        with pytest.raises(sanitize.MemoryFault, match="write-write race"):
+            K._launch("compact", "compact", "compact_batch", vals, 3000,
+                      mask, 2, 3000, lb.counters, lb.status,
+                      lb.status.numel(), epoch, vals,
+                      torch.empty((2,), dtype=torch.int32, device=g.device),
+                      256, runtime.stream_ptr(g.device))
+        with pytest.raises(sanitize.MemoryFault, match="dtype mismatch"):
+            K._launch("compact", "compact", "compact_batch", vals, 3000,
+                      mask.float(), 2, 3000, lb.counters, lb.status,
+                      lb.status.numel(), epoch, vals.clone(),
+                      torch.empty((2,), dtype=torch.int32, device=g.device),
+                      256, runtime.stream_ptr(g.device))
+    assert all(k.launches == 0 for k in K.KERNELS.values())
+    visited = torch.zeros((2, g.num_vertices), dtype=torch.bool,
+                          device=g.device)
+    got = K.advance_filter_batch(g.row_offsets, g.col_indices, base, sizes,
+                                 visited, 4096, 100, g.cache)
+    want = P.advance_filter_batch(g.row_offsets, g.col_indices, base, sizes,
+                                  visited, 4096, 100)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_sanitizing_off_adds_no_read_or_sync(graph):
+    """With sanitizing off a launch makes no synchronizing call and the
+    loops their one host read a step; the audit's one read a launch is
+    the only difference sanitizing makes."""
+    from repro_torch.analysis import sanitize
+    from repro_torch.core import enactor
+    g = graph
+    front = _frontier(g, 2, seed=13)
+    base, sizes = O._base_and_sizes(g, front.ids, front.valid_mask, "vertex")
+    k3 = lambda: K.advance_batch(g.row_offsets, g.col_indices, base, sizes,
+                                 4096)
+    _syncs(k3)
+    with sanitize.sanitizing(False):
+        _, off = _syncs(k3)
+    with sanitize.sanitizing():
+        _, on = _syncs(k3)
+    assert off == 0 and on >= 1
+    hub = int(torch.argmax(g.degrees))
+    run = lambda: bfs_batch(g, [hub, 3], backend="cuda")
+    _syncs(run)
+    enactor.reset_host_reads()
+    plain, syncs = _syncs(run)
+    reads = enactor.host_reads()
+    enactor.reset_host_reads()
+    with sanitize.sanitizing(False):
+        again, syncs_off = _syncs(run)
+    assert enactor.host_reads() == reads and syncs_off == syncs
+    assert all(torch.equal(x, y) for x, y in zip(plain, again))
+
+
+def test_saturated_scan_reads_no_offset_of_a_padding_lane(card):
+    """Past the scan's saturation every lane's offset is written, empty
+    ones too: a padding lane (frontier id -1) must not read
+    row_offsets[-1]. The offsets sit at the start of an allocation of
+    their own, so such a read would fall before it."""
+    g = G.rmat(10, 8, seed=3, device=card)
+    hub = int(torch.argmax(g.degrees))
+    big = torch.empty((1 << 24,), dtype=torch.int32, device=card)
+    ro = big[:g.num_vertices + 1]
+    ro.copy_(g.row_offsets)
+    lanes = -(-(2 ** 31) // int(g.degrees[hub])) + 5
+    base = torch.full((1, lanes + 64), -1, dtype=torch.int32, device=card)
+    base[0, :lanes] = hub
+    sizes = torch.where(base >= 0, g.degrees[hub], 0).to(torch.int32)
+    for cap in (4096, g.num_edges):
+        got = K.advance_batch(ro, g.col_indices, base, sizes, cap)
+        want = P.advance_batch(ro, g.col_indices, base, sizes, cap)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        assert got[6].tolist()[0] == 2 ** 31 - 1

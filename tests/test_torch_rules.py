@@ -117,12 +117,25 @@ def _env_reads(path: Path):
                         if a.name in ("environ", "getenv"))
 
 
+# the one variable the port reads, as the reference does: it only adds
+# the sanitizers' checks and changes no result
+_ENV_ALLOWED = {"src/repro_torch/analysis/sanitize.py": "REPRO_SANITIZE"}
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_reads_no_environment_variable(path):
     """The reference's REPRO_* variables are arguments here (the fault
-    plan, the log level, the backend)."""
+    plan, the log level, the backend); REPRO_SANITIZE alone is read, by
+    ``analysis.sanitize.enabled()``."""
     bad = list(_env_reads(path))
+    allowed = _ENV_ALLOWED.get(str(path.relative_to(ROOT)))
+    if allowed is not None:
+        text = path.read_text()
+        assert bad == ["environ"] and text.count("environ") == 1
+        assert f'ENV_VAR = "{allowed}"' in text
+        assert "os.environ.get(ENV_VAR" in text
+        return
     assert not bad, f"{path} reads the environment: {bad}"
 
 

@@ -102,7 +102,8 @@ def _checksum(torch, outs) -> int:
         for a in range(0, flat.numel(), 1 << 26):
             part = flat[a:a + (1 << 26)].to(torch.int64)
             w = torch.arange(a, a + part.numel(), device=part.device) % 8191
-            total += int((part * (w + 1)).sum()) + 7 * int(part.numel())
+            total += (int((part * (w + 1)).sum(dtype=torch.int64))
+                      + 7 * int(part.numel()))
     return total
 
 
@@ -230,7 +231,8 @@ def worker(reps: int, grid_depth: int, only) -> None:
         pu = torch.index_select(g.row_seg, 0, e_ids)
         pv = torch.index_select(ci, 0, e_ids)
         mins = torch.minimum(g.degrees[pu.long()], g.degrees[pv.long()])
-        npairs = int((torch.cumsum(mins.long(), 0) <= 3 * 10 ** 8).sum())
+        npairs = int((torch.cumsum(mins.long(), 0, dtype=torch.int64)
+                      <= 3 * 10 ** 8).sum(dtype=torch.int64))
         length = torch.tensor(npairs, dtype=torch.int32, device=dev)
         needles, lo, hi, _, _ = O._intersect_probes(
             g, F.SparseFrontier(ids=pu[:npairs].contiguous(), length=length),

@@ -190,7 +190,8 @@ def _shapes(torch, names):
         pu = torch.index_select(g.row_seg, 0, e_ids)
         pv = torch.index_select(g.col_indices, 0, e_ids)
         mins = torch.minimum(g.degrees[pu.long()], g.degrees[pv.long()])
-        npairs = int((torch.cumsum(mins.long(), 0) <= 3 * 10 ** 8).sum())
+        npairs = int((torch.cumsum(mins.long(), 0, dtype=torch.int64)
+                      <= 3 * 10 ** 8).sum(dtype=torch.int64))
         need = int(mins[:npairs].sum())
         length = torch.tensor(npairs, dtype=torch.int32, device=dev)
         fa = F.SparseFrontier(ids=pu[:npairs].contiguous(), length=length)

@@ -151,7 +151,8 @@ def worker(reps: int) -> None:
                          rows[:6] if c >= 1)
 
     print(f"n={n} m={m} slots={slot.numel()} "
-          f"filled={int((slot >= 0).sum())}", file=sys.stderr, flush=True)
+          f"filled={int((slot >= 0).sum(dtype=torch.int64))}",
+          file=sys.stderr, flush=True)
     print("ready", flush=True)
     for line in sys.stdin:
         name = line.strip()

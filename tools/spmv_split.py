@@ -69,7 +69,8 @@ def main(argv=None) -> int:
     over = (deg - width).clamp(min=0)
     print(f"rmat scale {args.scale}: n={n} m={m} csc_ell_width={width} "
           f"max degree {int(deg.max())}; heavy rows "
-          f"{int((deg > width).sum())} hold {int(over.sum())} overflow "
+          f"{int((deg > width).sum(dtype=torch.int64))} hold "
+          f"{int(over.sum())} overflow "
           f"edges ({float(over.sum()) / m:.3f} of m)")
     for label, mask in masks.items():
         run(mask)
@@ -80,7 +81,7 @@ def main(argv=None) -> int:
         end.record()
         end.synchronize()
         rows = n if mask is None else int(mask.sum())
-        edges = m if mask is None else int(deg[mask].sum())
+        edges = m if mask is None else int(deg[mask].sum(dtype=torch.int64))
         print(f"K4 spmv {label:15s} rows {rows:9d} edges {edges:10d}: "
               f"{start.elapsed_time(end) / args.reps:.4f} ms")
     mhz = float(_smi("clocks.max.sm").split()[0])
