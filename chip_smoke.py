@@ -1359,7 +1359,9 @@ def _fifth_slice_path(torch, np, K, R, G, S, graphs, g, sources, dev):
 
 def _count_syncs(torch, fn):
     """(fn's result, the synchronizing CUDA calls it made), counted by
-    PyTorch's sync debug mode (one warning a synchronizing call)."""
+    PyTorch's sync debug mode: one warning a synchronizing call, "called
+    a synchronizing CUDA operation"; the mode's one-time notice that it
+    is a prototype is not counted."""
     import warnings
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
@@ -1369,7 +1371,8 @@ def _count_syncs(torch, fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    return out, sum("called a synchronizing" in str(w.message)
+                    for w in caught)
 
 
 def _sixth_slice_path(torch, np, K, g, g16, sources, hub, oracle, dev,
@@ -2355,6 +2358,323 @@ def _ninth_slice_path(torch, np, K, g18, g16, sm_cap, dev, root):
           f"query: RetraceError ({churn[:70]}...)")
     print(f"path (i) run and validated in {time.monotonic() - t_path:.1f} s")
     return launches, variants
+
+
+# path (j): the LM serving path. The seven archs of the dense / moe / vlm
+# families, the reference's bounds: decode against direct at the SMOKE
+# configs (tests/test_models_smoke.py), a lossy path's relative L2
+# (tests/test_perf_flags.py), MoE against a dense computation
+# (tests/test_moe.py)
+LM_ARCHS = ("kimi-k2-1t-a32b", "qwen3-moe-235b-a22b", "yi-6b", "llama3-405b",
+            "starcoder2-15b", "minicpm-2b", "qwen2-vl-2b")
+LM_SMOKE_ATOL = 2e-3
+LM_LOSSY_REL = 5e-2
+MOE_REL = 1e-4
+MOE_LAYERS = 2         # Qwen3-MoE at full width, 2 of its 94 layers
+MOE_CHECK_TOKENS = 2048
+
+
+def _rel_l2(torch, a, b) -> float:
+    a, b = a.float(), b.float()
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def _decode_syncs(torch, model, params, batch) -> int:
+    """The host syncs of one decode step after a prefill of ``batch``
+    (a decode step reads nothing back to the host)."""
+    lg, cache = model.prefill(params, batch,
+                              cache_len=batch["tokens"].shape[1] + 2)
+    tok = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+    syncs = _count_syncs(torch, lambda: model.decode_step(
+        params, cache, {"tokens": tok}))[1]
+    if syncs:
+        raise AssertionError(f"path (j) {model.cfg.name}: a decode step "
+                             f"made {syncs} host syncs")
+    return syncs
+
+
+def _prefill_bound(cfg, b: int, s: int, smax: int, nbytes: int) -> tuple:
+    """(bound ms, bf16 ms, fp32 ms) of a dense prefill of B × S tokens
+    into a cache of Smax rows: the larger of ``nbytes`` over HBM and the
+    operations over their peak rates — the layers' bf16 matmuls at B·S
+    tokens and the unembed at the B last positions, plus the attention
+    einsums (q·kᵀ and p·v over all Smax cache rows, fp32 without TF32).
+    The two kinds are added: each layer's attention waits on its
+    projections and they on it. The embedding lookup is a gather."""
+    d, hd = cfg.d_model, cfg.hd
+    per_layer = (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * d * hd \
+        + 3 * d * cfg.d_ff
+    vp = -(-cfg.vocab // 256) * 256
+    bf16_ms = (2 * cfg.n_layers * per_layer * b * s + 2 * d * vp * b) \
+        / BF16_OPS_PER_S * 1e3
+    fp32_ms = 4 * b * cfg.n_heads * s * smax * hd * cfg.n_layers \
+        / FP32_OPS_PER_S * 1e3
+    return (max(nbytes / HBM_BYTES_PER_S * 1e3, bf16_ms + fp32_ms),
+            bf16_ms, fp32_ms)
+
+
+def _tenth_slice_path(torch, np, K, dev):
+    """Path (j): the LM serving path on the card, plain PyTorch (the
+    reference's LM path reaches no Pallas kernel: ``_sdpa`` is plain
+    jnp, ``moe_ffn``'s ``use_kernel`` is read nowhere). ``launch.serve``
+    at the SMOKE configs of the seven dense / moe / vlm archs, its CLI
+    on the card and ``generate`` on params drawn once on the CPU (fp32)
+    against the same run on the CPU: logits within LM_SMOKE_ATOL, greedy
+    ids equal, a decode step with no host sync (the sync debug mode).
+    MiniCPM-2B whole (bf16): 8 requests at batch 4, prompt
+    512, gen 32 (tok/s), prefill ms and decode ms a step beside their
+    bounds, peak memory, decode against direct and the int8 KV cache
+    against the plain one (relative L2 < LM_LOSSY_REL). Qwen3-MoE at
+    full width cut to MOE_LAYERS layers: 4 requests at batch 4, prompt
+    512, gen 16, its drop fraction at the default capacity, and one
+    fp32 ``moe_ffn`` layer over MOE_CHECK_TOKENS tokens drop-free
+    against a per-expert dense computation (MOE_REL of max|y|), its
+    experts equal to a host top-k, two runs bit-equal. Qwen2-VL-2B whole
+    (bf16): prefill from input embeddings with 3-D positions, decode,
+    and positions × 3 changing the logits. No kernel launches. Returns
+    16 of MiniCPM-2B's decode steps, for the profile."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as M
+    from repro_torch.models.api import count_params, tree_leaves, tree_map
+    from repro_torch.models.transformer import forward
+
+    t_path = time.monotonic()
+    K.reset_launches()
+
+    def to_dev(tree):
+        return tree_map(lambda t: t.to(dev), tree)
+
+    # ---- the SMOKE configs: the CLI on the card, the card against the CPU
+    for arch in LM_ARCHS:
+        report = SV.main(["--arch", arch, "--smoke", "--requests", "4",
+                          "--batch", "2", "--prompt-len", "16",
+                          "--gen-len", "8"])
+        if report["tokens"] != 32 or report["requests"] != 4:
+            raise AssertionError(f"path (j) serve {arch}: {report}")
+        model = build_model(get_smoke_config(arch))
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        batch = SV.prompt_batch(model.cfg, np.random.default_rng(1), 4, 32,
+                                "cpu")
+        ids, logits = SV.generate(model, params, batch, 16, cache_len=48)
+        ids_c, logits_c = SV.generate(model, to_dev(params), to_dev(batch),
+                                      16, cache_len=48)
+        err = float((logits_c.cpu() - logits).abs().max())
+        if err >= LM_SMOKE_ATOL or not torch.equal(ids_c.cpu(), ids):
+            raise AssertionError(f"path (j) {arch} SMOKE card vs CPU: max "
+                                 f"|logit diff| {err:.3e}, ids equal "
+                                 f"{torch.equal(ids_c.cpu(), ids)}")
+        syncs = _decode_syncs(torch, model, to_dev(params), to_dev(batch))
+        print(f"path (j) {arch} SMOKE: serve CLI {report['tokens']} tokens "
+              f"({report['tok_per_s']:.1f} tok/s); card vs CPU over 16 "
+              f"greedy tokens at batch 4: max |logit diff| {err:.2e} "
+              f"(< {LM_SMOKE_ATOL:g}), ids equal; a decode step made "
+              f"{syncs} host syncs")
+
+    # ---- MiniCPM-2B, whole, bf16
+    cfg = get_config("minicpm-2b")
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30      # earlier paths' graphs
+    t0 = time.monotonic()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    torch.cuda.synchronize()
+    n = count_params(params)
+    pbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"path (j) minicpm-2b: {n:,} params ({pbytes / 1e9:.2f} GB bf16) "
+          f"drawn on the card in {time.monotonic() - t0:.2f} s")
+    b, s, gen = 4, 512, 32
+    smax = s + gen
+    warm = SV.prompt_batch(cfg, np.random.default_rng(9), b, s, dev)
+    SV.generate(model, params, warm, 2, cache_len=smax)       # warm-up
+    report = SV.serve(model, params, requests=8, batch=b, prompt_len=s,
+                      gen_len=gen, seed=0, device=dev)
+    batch = SV.prompt_batch(cfg, np.random.default_rng(2), b, s, dev)
+    prefill_ms = _timed(torch, lambda: model.prefill(params, batch,
+                                                     cache_len=smax), 3)
+    lg, cache = model.prefill(params, batch, cache_len=smax)
+    tok = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+    decode_ms = _timed(torch, lambda: model.decode_step(params, cache,
+                                                        {"tokens": tok}), 10)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    kv_bytes = sum(cache[k].numel() * cache[k].element_size()
+                   for k in ("k", "v"))
+    dec_bound = (pbytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    pre_bound, pre_bf16_ms, pre_fp32_ms = _prefill_bound(cfg, b, s, smax,
+                                                         pbytes + kv_bytes)
+    dec_syncs = _count_syncs(torch, lambda: model.decode_step(
+        params, cache, {"tokens": tok}))[1]
+    if dec_syncs:
+        raise AssertionError(f"path (j) minicpm-2b: a decode step made "
+                             f"{dec_syncs} host syncs")
+    # decode against direct: prefill S, decode one token, vs prefill S + 1
+    nxt = torch.randint(0, cfg.vocab, (b, 1), dtype=torch.int32, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+    lg_dec, _ = model.decode_step(params, cache, {"tokens": nxt})
+    lg_dir, _ = model.prefill(params, {"tokens": torch.cat(
+        [batch["tokens"], nxt], 1)})
+    rel_dd = _rel_l2(torch, lg_dec, lg_dir)
+    # the int8 KV cache against the plain one, the same decode step
+    model_q = build_model(cfg.replace(kv_quant=True))
+    _, cache_q = model_q.prefill(params, batch, cache_len=smax)
+    lg_q, _ = model_q.decode_step(params, cache_q, {"tokens": nxt})
+    rel_q = _rel_l2(torch, lg_q, lg_dec)
+    del cache_q, lg_q, lg_dir
+    for what, rel in (("decode vs direct", rel_dd), ("kv_quant", rel_q)):
+        if not rel < LM_LOSSY_REL:
+            raise AssertionError(f"path (j) minicpm-2b {what}: relative L2 "
+                                 f"{rel:.3e} >= {LM_LOSSY_REL}")
+    print(f"path (j) minicpm-2b serve: {report['requests']} requests at "
+          f"batch {b}, prompt {s}, gen {gen}: {report['tokens']} tokens in "
+          f"{report['seconds']:.2f} s ({report['tok_per_s']:.1f} tok/s); "
+          f"prefill (B={b}, S={s}) {prefill_ms:.2f} ms (bound "
+          f"{pre_bound:.2f} ms: the layers' bf16 matmuls at B·S tokens and "
+          f"the unembed at B over 989 TFLOP/s, {pre_bf16_ms:.2f} ms, plus "
+          f"the fp32 attention einsums, 4·B·H·S·Smax·hd a layer, over 67 "
+          f"TFLOP/s, {pre_fp32_ms:.2f} ms); decode "
+          f"{decode_ms:.2f} ms a step, 0 host syncs (bound "
+          f"{dec_bound:.3f} ms: "
+          f"{pbytes / 1e9:.2f} GB weights + {kv_bytes / 1e9:.3f} GB KV at "
+          f"Smax {smax} over 3.35 TB/s); peak {peak:.2f} GiB, of which "
+          f"{held:.2f} held by earlier paths; decode vs "
+          f"direct rel L2 {rel_dd:.2e}, kv_quant vs plain {rel_q:.2e} "
+          f"(< {LM_LOSSY_REL:g})")
+
+    def minicpm_decode():
+        c, t = cache, tok
+        for _ in range(16):
+            lgd, c = model.decode_step(params, c, {"tokens": t})
+            t = torch.argmax(lgd[:, -1], -1).to(torch.int32)[:, None]
+        return t
+
+    # ---- Qwen3-MoE, full width, MOE_LAYERS layers, bf16
+    full = build_model(get_config("qwen3-moe-235b-a22b"))
+    n_full = full.param_count(full.init(device="meta"))
+    cfg_m = full.cfg.replace(n_layers=MOE_LAYERS)
+    model_m = build_model(cfg_m)
+    t0 = time.monotonic()
+    params_m = model_m.init(torch.Generator(device=dev).manual_seed(1),
+                            device=dev)
+    torch.cuda.synchronize()
+    nm = count_params(params_m)
+    print(f"path (j) qwen3-moe-235b-a22b cut to {MOE_LAYERS} of "
+          f"{full.cfg.n_layers} layers at full width (d {cfg_m.d_model}, "
+          f"{cfg_m.n_heads}/{cfg_m.n_kv_heads} heads of {cfg_m.hd}, "
+          f"{cfg_m.n_experts} experts top-{cfg_m.top_k} of width "
+          f"{cfg_m.d_expert}): {nm:,} params drawn in "
+          f"{time.monotonic() - t0:.2f} s (the whole model, {n_full:,} "
+          f"params, does not fit one card)")
+    warm = SV.prompt_batch(cfg_m, np.random.default_rng(9), 4, 512, dev)
+    SV.generate(model_m, params_m, warm, 2, cache_len=528)
+    report_m = SV.serve(model_m, params_m, requests=4, batch=4,
+                        prompt_len=512, gen_len=16, seed=0, device=dev)
+    _, aux = forward(cfg_m, params_m, warm["tokens"])
+    drop = float(aux["moe_drop_frac"])
+    print(f"path (j) qwen3-moe ({MOE_LAYERS} layers) serve: 4 requests at "
+          f"batch 4, prompt 512, gen 16: {report_m['tokens']} tokens in "
+          f"{report_m['seconds']:.2f} s ({report_m['tok_per_s']:.1f} "
+          f"tok/s); moe_drop_frac at capacity factor "
+          f"{cfg_m.capacity_factor} over 2048 tokens {drop:.4f}")
+    del params_m, model_m, warm
+    torch.cuda.empty_cache()
+
+    # one fp32 moe_ffn layer at full width, drop-free, against a dense
+    # per-expert computation
+    cfg32 = cfg_m.replace(capacity_factor=8.0)
+    g32 = torch.Generator(device=dev).manual_seed(2)
+    p32 = M.moe_init(g32, cfg32, torch.float32, device=dev)
+    x = torch.randn((1, MOE_CHECK_TOKENS, cfg32.d_model), device=dev,
+                    generator=g32)
+    y1, aux1 = M.moe_ffn(p32, x, cfg32)
+    y2, _ = M.moe_ffn(p32, x, cfg32)
+    if not torch.equal(y1, y2):
+        raise AssertionError("path (j) moe_ffn: two runs differ")
+    if float(aux1["moe_drop_frac"]) != 0.0:
+        raise AssertionError(f"path (j) moe_ffn at capacity factor 8: drop "
+                             f"{float(aux1['moe_drop_frac'])}")
+    t = MOE_CHECK_TOKENS
+    x2 = x.reshape(t, -1)
+    cap = M._capacity(t, cfg32)
+    probs, flat_e, _, _, _, _ = M.route(p32, x2[None], cfg32, cap)
+    host = probs[0].cpu().numpy()
+    want_e = np.argsort(-host, axis=-1, kind="stable")[:, :cfg32.top_k]
+    if not np.array_equal(flat_e.reshape(t, -1).cpu().numpy(), want_e):
+        raise AssertionError("path (j) moe_ffn: experts differ from a host "
+                             "top-k of the same probs")
+    gate = torch.gather(probs[0], -1, torch.from_numpy(want_e).to(dev))
+    gate = gate / gate.sum(-1, keepdim=True)
+    eid = torch.from_numpy(want_e).to(dev)
+    yref = torch.zeros_like(x2)
+    for e in range(cfg32.n_experts):
+        tok_i, j = torch.nonzero(eid == e, as_tuple=True)
+        xe = x2[tok_i]
+        h = torch.nn.functional.silu(xe @ p32["w1"][e]) * (xe @ p32["w3"][e])
+        yref.index_add_(0, tok_i, (h @ p32["w2"][e]) * gate[tok_i, j, None])
+    rel_m = float((y1.reshape(t, -1) - yref).abs().max() / yref.abs().max())
+    if not rel_m < MOE_REL:
+        raise AssertionError(f"path (j) moe_ffn vs dense: {rel_m:.3e} of "
+                             f"max|y|")
+    print(f"path (j) moe_ffn fp32 at full width ({t} tokens, capacity "
+          f"factor 8, cap {cap}): max|y - dense| {rel_m:.2e} of max|y| "
+          f"(< {MOE_REL:g}), experts = host top-k, two runs bit-equal")
+    del p32, x, y1, y2, yref
+    torch.cuda.empty_cache()
+
+    # ---- Qwen2-VL-2B, whole, bf16: input embeddings, 3-D positions
+    cfg_v = get_config("qwen2-vl-2b")
+    model_v = build_model(cfg_v)
+    params_v = model_v.init(torch.Generator(device=dev).manual_seed(4),
+                            device=dev)
+    bv, sv, side = 4, 256, 16
+    gv = torch.Generator(device=dev).manual_seed(5)
+    emb = (torch.randn((bv, sv, cfg_v.d_model), device=dev, generator=gv)
+           * 0.02).to(torch.bfloat16)
+    ar = torch.arange(sv, dtype=torch.int32, device=dev)
+    pos = torch.stack([ar, ar // side, ar % side])[:, None].expand(
+        3, bv, sv).contiguous()                     # frame, row, column
+    lg_v, cache_v = model_v.prefill(
+        params_v, {"input_embeds": emb, "positions": pos},
+        cache_len=sv + 8)
+    ids_v, lgs_v = [], []
+    tok_v = torch.argmax(lg_v[:, -1], -1).to(torch.int32)[:, None]
+    syncs_v = _count_syncs(torch, lambda: model_v.decode_step(
+        params_v, cache_v, {"tokens": tok_v}))[1]
+    if syncs_v:
+        raise AssertionError(f"path (j) qwen2-vl-2b: a decode step made "
+                             f"{syncs_v} host syncs")
+    for _ in range(8):
+        lgd, cache_v = model_v.decode_step(params_v, cache_v,
+                                           {"tokens": tok_v})
+        tok_v = torch.argmax(lgd[:, -1], -1).to(torch.int32)[:, None]
+        lgs_v.append(lgd)
+    lg_v3, _ = model_v.prefill(params_v, {"input_embeds": emb,
+                                          "positions": pos * 3})
+    moved = float((lg_v3.float() - lg_v.float()).abs().max())
+    finite = all(bool(torch.isfinite(t).all()) for t in [lg_v, *lgs_v])
+    vp = -(-cfg_v.vocab // 256) * 256
+    if not finite or lg_v.shape != (bv, 1, vp) or not moved > 0:
+        raise AssertionError(f"path (j) qwen2-vl-2b: finite {finite}, "
+                             f"shape {tuple(lg_v.shape)}, positions x 3 "
+                             f"moved the logits by {moved}")
+    print(f"path (j) qwen2-vl-2b: {count_params(params_v):,} params; "
+          f"prefill from input embeddings (B={bv}, S={sv}) with 3-D "
+          f"positions (frame, row, column of a {side}-wide grid), 8 decode "
+          f"steps (0 host syncs a step): finite logits (B, 1, {vp}); "
+          f"positions x 3 moved them by up to {moved:.3f}")
+    del params_v, cache_v, model_v
+    torch.cuda.empty_cache()
+
+    launched = {k: c for k, c in _launch_counts(K).items() if c}
+    if launched:
+        raise AssertionError(f"path (j) launched kernels: {launched}")
+    print("path (j) launches: 0 for every kernel — the reference's LM path "
+          "reaches no Pallas kernel (_sdpa is plain jnp, moe_ffn's "
+          "use_kernel is read nowhere), so K7 and K8 have no caller here")
+    print(f"path (j) run and validated in {time.monotonic() - t_path:.1f} s")
+    return minicpm_decode
 
 
 def _kernel_api_names(torch, K, P, SR, g, sources, dev):
@@ -3660,6 +3980,10 @@ def main(argv=None) -> int:
     tally(variants9)
     torch.cuda.empty_cache()
 
+    # ---- phase 3 (j): the tenth slice's path: LM serving (plain PyTorch
+    # on the card; no kernel launches) ----
+    minicpm_decode = _tenth_slice_path(torch, np, K, dev)
+
     # ---- where the time goes: each slice's path once more under
     # torch.profiler (its overhead inflates the wall time; the device
     # time per kernel is what it is for) ----
@@ -3686,7 +4010,8 @@ def main(argv=None) -> int:
                 and e.self_device_time_total > 0]
         busy = sum(r[0] for r in rows) / 1e3
         print(f"profiled {label}: wall {wall * 1e3:.1f} ms, device busy "
-              f"{busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}")
+              f"{busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}, "
+              f"{sum(r[1] for r in rows)} device operations")
         for us, count, key in sorted(rows, reverse=True)[:top]:
             print(f"  {us / 1e3:10.3f} ms {count:6d}x  {key[:90]}")
 
@@ -3731,7 +4056,9 @@ def main(argv=None) -> int:
              lambda: bfs_batch(g, sources, direction=False,
                                idempotence=False, strategy="TWC",
                                backend="cuda"), 12)
-    del g_tc, g16, graphs5, g_prof
+    # path (j): MiniCPM-2B's decode (B = 4, Smax 544), 16 steps
+    profiled("minicpm-2b decode, 16 steps", minicpm_decode, 12)
+    del g_tc, g16, graphs5, g_prof, minicpm_decode
 
     # each kernel, then the column or precision variants this slice timed
     # as rows of their own, launches those of the main path's run

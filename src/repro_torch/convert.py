@@ -1,4 +1,4 @@
-"""Carry a graph across from the reference package.
+"""Carry a graph, or a model's params, across from the reference package.
 
 ``graph_from_arrays`` builds a port :class:`~repro_torch.core.graph.Graph`
 from the reference Graph's fields given as host numpy arrays
@@ -15,6 +15,12 @@ A delta-encoded graph has no dense columns; its encoded parts come in
 :class:`~repro_torch.core.storage.EncodedCols` fields. ``plan``, the
 reference plan's three fields as a dict, is taken as given; without one
 it is read off the arrays.
+
+``params_from_arrays`` carries a model's params tree — the reference's
+initialized params as nested dicts of host numpy arrays
+(``jax.tree.map(np.asarray, params)``) — to the port's tree on a
+device: the same key paths, shapes and dtypes, bfloat16 bit for bit,
+int8 as int8.
 """
 from __future__ import annotations
 
@@ -33,12 +39,39 @@ _NARROW = {np.dtype(np.int16): "int16", np.dtype(np.int32): "int32",
            np.dtype(np.int64): "int64"}
 
 
+def _bf16(a: np.ndarray, dev) -> torch.Tensor:
+    bits = np.ascontiguousarray(a).view(np.int16).copy()
+    return torch.from_numpy(bits).view(torch.bfloat16).to(dev)
+
+
 def _values(a: np.ndarray, dev) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
-        bits = np.ascontiguousarray(a).view(np.int16).copy()
-        return torch.from_numpy(bits).view(torch.bfloat16).to(dev)
+        return _bf16(a, dev)
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+
+_PARAM_DTYPES = (np.dtype(np.float32), np.dtype(np.int8),
+                 np.dtype(np.int32))
+
+
+def params_from_arrays(tree: Mapping, device=None) -> dict:
+    """The port's params tree from the reference's as nested dicts of
+    numpy arrays: each leaf a tensor on ``device`` (None: the card) of
+    the same shape and dtype (bfloat16 — numpy's ``ml_dtypes`` type —
+    bit for bit; float32, int8, int32 as they are)."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return _bf16(a, dev)
+        if a.dtype not in _PARAM_DTYPES:
+            raise ValueError(f"unsupported param dtype {a.dtype}")
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    return {k: params_from_arrays(v, dev) if isinstance(v, Mapping)
+            else leaf(v) for k, v in tree.items()}
 
 
 def _encoded(parts: Mapping[str, np.ndarray], dev) -> S.EncodedCols:

@@ -1651,3 +1651,75 @@ def test_saturated_scan_reads_no_offset_of_a_padding_lane(card):
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(got, want))
         assert got[6].tolist()[0] == 2 ** 31 - 1
+
+
+# ---- the LM serving path (no kernel: plain PyTorch on the card) -----------
+
+LM_ARCHS = ("kimi-k2-1t-a32b", "qwen3-moe-235b-a22b", "yi-6b", "llama3-405b",
+            "starcoder2-15b", "minicpm-2b", "qwen2-vl-2b")
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_smoke_on_the_card_equals_the_cpu(card, arch):
+    """The SMOKE config in fp32: params drawn once on the CPU and moved,
+    the same prompts; logits within the reference's decode-vs-direct
+    2e-3, greedy ids equal, and no kernel launched."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import generate, prompt_batch
+    from repro_torch.models import build_model
+    from repro_torch.models.api import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model(get_smoke_config(arch))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = prompt_batch(model.cfg, np.random.default_rng(0), 2, 16, "cpu")
+    ids, logits = generate(model, params, batch, 8, cache_len=24)
+    before = {k: v.launches for k, v in K.KERNELS.items()}
+    ids_c, logits_c = generate(
+        model, tree_map(lambda t: t.to(card), params),
+        {k: v.to(card) for k, v in batch.items()}, 8, cache_len=24)
+    assert {k: v.launches for k, v in K.KERNELS.items()} == before
+    assert float((logits_c.cpu() - logits).abs().max()) < 2e-3, arch
+    assert torch.equal(ids_c.cpu(), ids), arch
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_decode_step_reads_nothing_back_on_the_card(card, arch):
+    """One decode step under the sync debug mode "error": a host read or
+    a blocking copy anywhere in it (the M-RoPE table, the cache write,
+    the MoE routing) raises."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import build_model
+    model = build_model(get_smoke_config(arch))
+    params = model.init(0, device=card)
+    batch = prompt_batch(model.cfg, np.random.default_rng(0), 2, 16, card)
+    lg, cache = model.prefill(params, batch, cache_len=18)
+    tok = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lg, cache = model.decode_step(params, cache, {"tokens": tok})
+        torch.argmax(lg[:, -1], -1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(cache["len"]) == 17
+    assert bool(torch.isfinite(lg).all())
+
+
+def test_moe_combine_is_deterministic_on_the_card(card):
+    """The fixed-order combine: two runs of one batch give the same bits
+    (index_add_ would add with atomics in no order)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe as M
+    cfg = get_smoke_config("kimi-k2-1t-a32b").replace(
+        d_model=256, n_experts=64, top_k=8, d_expert=128,
+        capacity_factor=0.5)
+    params = M.moe_init(torch.Generator(device=card).manual_seed(0), cfg,
+                        torch.float32, device=card)
+    x = torch.randn((4, 256, 256), device=card,
+                    generator=torch.Generator(device=card).manual_seed(1))
+    y1, aux1 = M.moe_ffn(params, x, cfg)
+    y2, aux2 = M.moe_ffn(params, x, cfg)
+    assert torch.equal(y1, y2)
+    assert torch.equal(aux1["moe_aux_loss"], aux2["moe_aux_loss"])
+    assert float(aux1["moe_drop_frac"]) > 0.0

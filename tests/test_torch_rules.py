@@ -5,6 +5,7 @@ replaces."""
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -177,3 +178,29 @@ def test_placement_entry_points_need_the_card():
                  ["--scale", "4", "--mesh", "2x2"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             graph_serve.main(argv)
+
+
+def test_lm_entry_points_need_the_card():
+    """The LM serving path's entry points default to the card and raise
+    without one; ``meta`` builds shapes anywhere."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is valid here")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.gunrock_graphs import make_paper_dataset
+    from repro_torch.convert import params_from_arrays
+    from repro_torch.data import SyntheticLMDataset, make_batch_for
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    cfg = get_smoke_config("minicpm-2b")
+    model = build_model(cfg)
+    for call in (lambda: model.init(device=None),
+                 lambda: model.init(),
+                 lambda: serve.main(["--arch", "minicpm-2b", "--smoke"]),
+                 lambda: make_batch_for(cfg, {"global_batch": 2,
+                                              "seq_len": 8}, "train"),
+                 lambda: SyntheticLMDataset(cfg.vocab, 8, 2),
+                 lambda: params_from_arrays({"w": np.zeros(2, np.float32)}),
+                 lambda: make_paper_dataset("roadnet_USA")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert model.param_count(model.init(device="meta")) > 0
