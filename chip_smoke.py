@@ -147,7 +147,14 @@ Phases:
      it) with no kernel launched under a placement; graph_serve
      ``--parts 4`` and ``--mesh 2x2`` at scale 16 with ``--validate``,
      and a chaos stream on the 2 x 2 mesh under ``shard_loss@0.2``
-     (every degraded answer from a declared placement rung) —
+     (every degraded answer from a declared placement rung); (i) the
+     ninth slice's: the analysis layer on the card; (j) the tenth
+     slice's: LM serving of the seven dense / moe / vlm archs; (k) the
+     eleventh slice's: the ssm, hybrid and encdec archs — their SMOKE
+     configs card against CPU, Mamba2-780m, Zamba2-2.7B and
+     Whisper-large-v3 (1,500 frames) whole in bf16, decode against
+     direct, 0 host syncs a decode step, the chunked SSD against its
+     recurrence at full width; (j) and (k) launch no kernel —
      all on the cuda backend, validated
      against host oracles (numpy BFS hop counts, scipy Dijkstra, a numpy
      power iteration, scipy components, numpy Brandes, scipy products
@@ -156,9 +163,10 @@ Phases:
      and every kernel of it must have launched;
   4. where the time goes — path (a)'s batched primitives, then paths
      (b) and (c), path (e) on the delta grid (its BFS and SSSP at
-     side 256, device events only; PageRank at 2048) and path (g)'s TWC
-     bfs_batch, once more under torch.profiler: device busy time, idle
-     share, top kernels.
+     side 256, device events only; PageRank at 2048), path (g)'s TWC
+     bfs_batch and 16 decode steps of MiniCPM-2B (path (j)) and of
+     Mamba2-780m (path (k)), once more under torch.profiler: device busy
+     time, idle share, device operations, top kernels.
 
 Prints one JSON line of kernel numbers (each kernel with its launches by
 variant — column storage or precision — and a row of its own for each
@@ -2379,7 +2387,7 @@ def _rel_l2(torch, a, b) -> float:
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
-def _decode_syncs(torch, model, params, batch) -> int:
+def _decode_syncs(torch, model, params, batch, path="j") -> int:
     """The host syncs of one decode step after a prefill of ``batch``
     (a decode step reads nothing back to the host)."""
     lg, cache = model.prefill(params, batch,
@@ -2388,9 +2396,47 @@ def _decode_syncs(torch, model, params, batch) -> int:
     syncs = _count_syncs(torch, lambda: model.decode_step(
         params, cache, {"tokens": tok}))[1]
     if syncs:
-        raise AssertionError(f"path (j) {model.cfg.name}: a decode step "
-                             f"made {syncs} host syncs")
+        raise AssertionError(f"path ({path}) {model.cfg.name}: a decode "
+                             f"step made {syncs} host syncs")
     return syncs
+
+
+def _lm_smoke(torch, np, dev, arch, path):
+    """One arch at its SMOKE config (fp32): the serve CLI on the card (4
+    requests), then ``generate`` on params drawn once on the CPU, card
+    against CPU over 16 greedy tokens at batch 4 (logits within
+    LM_SMOKE_ATOL, ids equal), and a decode step's host syncs (0)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import build_model
+    from repro_torch.models.api import tree_map
+
+    def to_dev(tree):
+        return tree_map(lambda t: t.to(dev), tree)
+
+    report = SV.main(["--arch", arch, "--smoke", "--requests", "4",
+                      "--batch", "2", "--prompt-len", "16",
+                      "--gen-len", "8"])
+    if report["tokens"] != 32 or report["requests"] != 4:
+        raise AssertionError(f"path ({path}) serve {arch}: {report}")
+    model = build_model(get_smoke_config(arch))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = SV.prompt_batch(model.cfg, np.random.default_rng(1), 4, 32,
+                            "cpu")
+    ids, logits = SV.generate(model, params, batch, 16, cache_len=48)
+    ids_c, logits_c = SV.generate(model, to_dev(params), to_dev(batch),
+                                  16, cache_len=48)
+    err = float((logits_c.cpu() - logits).abs().max())
+    if err >= LM_SMOKE_ATOL or not torch.equal(ids_c.cpu(), ids):
+        raise AssertionError(f"path ({path}) {arch} SMOKE card vs CPU: max "
+                             f"|logit diff| {err:.3e}, ids equal "
+                             f"{torch.equal(ids_c.cpu(), ids)}")
+    syncs = _decode_syncs(torch, model, to_dev(params), to_dev(batch), path)
+    print(f"path ({path}) {arch} SMOKE: serve CLI {report['tokens']} tokens "
+          f"({report['tok_per_s']:.1f} tok/s); card vs CPU over 16 "
+          f"greedy tokens at batch 4: max |logit diff| {err:.2e} "
+          f"(< {LM_SMOKE_ATOL:g}), ids equal; a decode step made "
+          f"{syncs} host syncs")
 
 
 def _prefill_bound(cfg, b: int, s: int, smax: int, nbytes: int) -> tuple:
@@ -2433,44 +2479,19 @@ def _tenth_slice_path(torch, np, K, dev):
     (bf16): prefill from input embeddings with 3-D positions, decode,
     and positions × 3 changing the logits. No kernel launches. Returns
     16 of MiniCPM-2B's decode steps, for the profile."""
-    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve as SV
     from repro_torch.models import build_model
     from repro_torch.models import moe as M
-    from repro_torch.models.api import count_params, tree_leaves, tree_map
+    from repro_torch.models.api import count_params
     from repro_torch.models.transformer import forward
 
     t_path = time.monotonic()
     K.reset_launches()
 
-    def to_dev(tree):
-        return tree_map(lambda t: t.to(dev), tree)
-
     # ---- the SMOKE configs: the CLI on the card, the card against the CPU
     for arch in LM_ARCHS:
-        report = SV.main(["--arch", arch, "--smoke", "--requests", "4",
-                          "--batch", "2", "--prompt-len", "16",
-                          "--gen-len", "8"])
-        if report["tokens"] != 32 or report["requests"] != 4:
-            raise AssertionError(f"path (j) serve {arch}: {report}")
-        model = build_model(get_smoke_config(arch))
-        params = model.init(torch.Generator().manual_seed(0), device="cpu")
-        batch = SV.prompt_batch(model.cfg, np.random.default_rng(1), 4, 32,
-                                "cpu")
-        ids, logits = SV.generate(model, params, batch, 16, cache_len=48)
-        ids_c, logits_c = SV.generate(model, to_dev(params), to_dev(batch),
-                                      16, cache_len=48)
-        err = float((logits_c.cpu() - logits).abs().max())
-        if err >= LM_SMOKE_ATOL or not torch.equal(ids_c.cpu(), ids):
-            raise AssertionError(f"path (j) {arch} SMOKE card vs CPU: max "
-                                 f"|logit diff| {err:.3e}, ids equal "
-                                 f"{torch.equal(ids_c.cpu(), ids)}")
-        syncs = _decode_syncs(torch, model, to_dev(params), to_dev(batch))
-        print(f"path (j) {arch} SMOKE: serve CLI {report['tokens']} tokens "
-              f"({report['tok_per_s']:.1f} tok/s); card vs CPU over 16 "
-              f"greedy tokens at batch 4: max |logit diff| {err:.2e} "
-              f"(< {LM_SMOKE_ATOL:g}), ids equal; a decode step made "
-              f"{syncs} host syncs")
+        _lm_smoke(torch, np, dev, arch, "j")
 
     # ---- MiniCPM-2B, whole, bf16
     cfg = get_config("minicpm-2b")
@@ -2483,7 +2504,7 @@ def _tenth_slice_path(torch, np, K, dev):
                         device=dev)
     torch.cuda.synchronize()
     n = count_params(params)
-    pbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    pbytes = _nbytes(params)
     print(f"path (j) minicpm-2b: {n:,} params ({pbytes / 1e9:.2f} GB bf16) "
           f"drawn on the card in {time.monotonic() - t0:.2f} s")
     b, s, gen = 4, 512, 32
@@ -2500,8 +2521,7 @@ def _tenth_slice_path(torch, np, K, dev):
     decode_ms = _timed(torch, lambda: model.decode_step(params, cache,
                                                         {"tokens": tok}), 10)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    kv_bytes = sum(cache[k].numel() * cache[k].element_size()
-                   for k in ("k", "v"))
+    kv_bytes = _nbytes({k: cache[k] for k in ("k", "v")})
     dec_bound = (pbytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
     pre_bound, pre_bf16_ms, pre_fp32_ms = _prefill_bound(cfg, b, s, smax,
                                                          pbytes + kv_bytes)
@@ -2675,6 +2695,314 @@ def _tenth_slice_path(torch, np, K, dev):
           "use_kernel is read nowhere), so K7 and K8 have no caller here")
     print(f"path (j) run and validated in {time.monotonic() - t_path:.1f} s")
     return minicpm_decode
+
+
+# path (k): the ssm, hybrid and encdec families (Mamba2-780m, Zamba2-2.7B,
+# Whisper-large-v3), plain PyTorch as the reference's LM path is plain jnp
+LM_SSM_ARCHS = ("mamba2-780m", "zamba2-2.7b", "whisper-large-v3")
+SSD_CHECK_TOKENS = 256
+# the chunked SSD's final state against its token-by-token recurrence:
+# the reference's tolerance for the two forms (tests/test_mamba2.py, 1e-4
+# on O(1) values), as a relative L2
+SSD_STATE_REL = 1e-4
+WHISPER_FRAMES = 1500  # max_source_len: 30 s of audio
+
+
+def _ssd_flops(cfg, b: int, s: int) -> tuple:
+    """(bf16, fp32) operations of one layer's chunked SSD over B × S
+    tokens: the C·Bᵀ scores in the compute dtype; the intra-chunk
+    product, the chunk states and the inter-chunk output in fp32 (each
+    2·B·nc·Q·H·P·(Q or N)). Elementwise work is left out."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    h, p, n = d_inner // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state
+    q = min(cfg.ssm_chunk, s)
+    nc = -(-s // q)
+    return (2 * b * nc * q * q * n,
+            2 * b * nc * q * h * p * (q + 2 * n))
+
+
+def _ssm_prefill_bound(cfg, b: int, s: int, smax: int, nbytes: int) -> tuple:
+    """(bound ms, bf16 ms, fp32 ms) of an ssm or hybrid prefill of B × S
+    tokens, as ``_prefill_bound`` counts a dense one: every Mamba2
+    layer's in_proj and out_proj at B·S tokens and the unembed at the B
+    last positions in bf16 over 989 TFLOP/s, plus the SSD's fp32 einsums
+    (``_ssd_flops``) over 67 TFLOP/s; for the hybrid each of the G
+    applications of the shared block adds its projections and SwiGLU in
+    bf16 and its attention einsums (4·B·H·S·Smax·hd) in fp32."""
+    d = cfg.d_model
+    d_inner = cfg.ssm_expand * d
+    nh = d_inner // cfg.ssm_head_dim
+    in_dim = 2 * d_inner + 2 * cfg.ssm_state + nh
+    vp = -(-cfg.vocab // 256) * 256
+    ssd16, ssd32 = _ssd_flops(cfg, b, s)
+    bf16 = cfg.n_layers * (2 * b * s * (d * in_dim + d_inner * d) + ssd16) \
+        + 2 * d * vp * b
+    fp32 = cfg.n_layers * ssd32
+    if cfg.family == "hybrid":
+        g = cfg.n_layers // cfg.attn_every
+        shared = (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * d * cfg.hd \
+            + 3 * d * cfg.d_ff
+        bf16 += g * 2 * b * s * shared
+        fp32 += g * 4 * b * cfg.n_heads * s * smax * cfg.hd
+    bf16_ms = bf16 / BF16_OPS_PER_S * 1e3
+    fp32_ms = fp32 / FP32_OPS_PER_S * 1e3
+    return (max(nbytes / HBM_BYTES_PER_S * 1e3, bf16_ms + fp32_ms),
+            bf16_ms, fp32_ms)
+
+
+def _encoder_bound(cfg, b: int, s: int, nbytes: int) -> tuple:
+    """(bound ms, bf16 ms, fp32 ms) of Whisper's encoder over B × S
+    frames: each layer's q/k/v/o projections and GELU MLP in bf16 over
+    989 TFLOP/s, its bidirectional attention einsums (4·B·H·S²·hd) in
+    fp32 over 67 TFLOP/s, against ``nbytes`` over HBM."""
+    d = cfg.d_model
+    per_layer = 4 * cfg.n_heads * cfg.hd * d + 2 * d * cfg.d_ff
+    n = cfg.n_enc_layers or cfg.n_layers
+    bf16_ms = 2 * n * per_layer * b * s / BF16_OPS_PER_S * 1e3
+    fp32_ms = 4 * b * cfg.n_heads * s * s * cfg.hd * n \
+        / FP32_OPS_PER_S * 1e3
+    return (max(nbytes / HBM_BYTES_PER_S * 1e3, bf16_ms + fp32_ms),
+            bf16_ms, fp32_ms)
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.models.api import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _draw(torch, model, seed, dev, label):
+    """A full config's params drawn on the card (bf16), with the peak
+    memory counter reset; prints the count, the time and the memory that
+    earlier paths hold."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    t0 = time.monotonic()
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    torch.cuda.synchronize()
+    n = model.param_count(params)
+    print(f"path (k) {label}: {n:,} params ({_nbytes(params) / 1e9:.2f} GB "
+          f"bf16) drawn on the card in {time.monotonic() - t0:.2f} s; "
+          f"{held:.2f} GiB held by earlier paths")
+    return params
+
+
+def _lm_timings(torch, model, params, batch, smax, label):
+    """(prefill ms, decode ms a step, the prefill's cache, the decode
+    step's token) of ``batch``, the decode step checked for host syncs
+    (0) and against a direct prefill of the prompt plus its token
+    (relative L2 < LM_LOSSY_REL). Returns the relative L2 too."""
+    prefill_ms = _timed(torch, lambda: model.prefill(params, batch,
+                                                     cache_len=smax), 3)
+    lg, cache = model.prefill(params, batch, cache_len=smax)
+    tok = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+    decode_ms = _timed(torch, lambda: model.decode_step(params, cache,
+                                                        {"tokens": tok}), 10)
+    syncs = _count_syncs(torch, lambda: model.decode_step(
+        params, cache, {"tokens": tok}))[1]
+    if syncs:
+        raise AssertionError(f"path (k) {label}: a decode step made {syncs} "
+                             f"host syncs")
+    nxt = torch.randint(0, model.cfg.vocab, tok.shape, dtype=torch.int32,
+                        device=tok.device,
+                        generator=torch.Generator(device=tok.device)
+                        .manual_seed(3))
+    lg_dec, _ = model.decode_step(params, cache, {"tokens": nxt})
+    lg_dir, _ = model.prefill(params, {**batch, "tokens": torch.cat(
+        [batch["tokens"], nxt], 1)})
+    rel = _rel_l2(torch, lg_dec, lg_dir)
+    if not rel < LM_LOSSY_REL:
+        raise AssertionError(f"path (k) {label} decode vs direct: relative "
+                             f"L2 {rel:.3e} >= {LM_LOSSY_REL}")
+    return prefill_ms, decode_ms, cache, tok, rel
+
+
+def _eleventh_slice_path(torch, np, K, dev):
+    """Path (k): the ssm, hybrid and encdec families on the card, plain
+    PyTorch (the reference's Mamba2 has no kernel of its own: its SSD is
+    einsums and a scan). The three archs at SMOKE as path (j) runs its
+    seven (``_lm_smoke``). Mamba2-780m whole (bf16, 48 layers): 8
+    requests at batch 4, prompt 512, gen 32 (tok/s), prefill and decode
+    ms beside their bounds, peak memory, decode against direct, and at
+    its full width the chunked SSD's final state against a token-by-token
+    ``ssd_decode`` over SSD_CHECK_TOKENS tokens (relative L2 <
+    SSD_STATE_REL). Zamba2-2.7B whole (54 Mamba2 layers, the shared
+    block applied 9 times): 4 requests at batch 4, prompt 512, gen 16,
+    prefill and decode ms beside bounds, decode against direct.
+    Whisper-large-v3 whole (32 + 32 layers): a prefill of batch 4 over
+    WHISPER_FRAMES frames and a 4-token decoder prompt, 32 greedy decode
+    steps, the encoder's ms and a decode step's beside their bounds,
+    decode against direct. Each decode step makes 0 host syncs; no kernel
+    launches. Each model is freed before the next. Returns 16 of
+    Mamba2-780m's decode steps, for the profile."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import build_model
+    from repro_torch.models import encdec as E
+    from repro_torch.models import mamba2 as M2
+
+    t_path = time.monotonic()
+    K.reset_launches()
+    for arch in LM_SSM_ARCHS:
+        _lm_smoke(torch, np, dev, arch, "k")
+
+    # ---- Mamba2-780m, whole, bf16
+    cfg = get_config("mamba2-780m")
+    model = build_model(cfg)
+    params = _draw(torch, model, 0, dev, "mamba2-780m")
+    pbytes = _nbytes(params)
+    b, s, gen = 4, 512, 32
+    smax = s + gen
+    warm = SV.prompt_batch(cfg, np.random.default_rng(9), b, s, dev)
+    SV.generate(model, params, warm, 2, cache_len=smax)       # warm-up
+    report = SV.serve(model, params, requests=8, batch=b, prompt_len=s,
+                      gen_len=gen, seed=0, device=dev)
+    batch = SV.prompt_batch(cfg, np.random.default_rng(2), b, s, dev)
+    prefill_ms, decode_ms, cache, tok, rel = _lm_timings(
+        torch, model, params, batch, smax, "mamba2-780m")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    state = _nbytes({k: cache[k] for k in ("ssm", "conv")})
+    dec_bound = (pbytes + 2 * state) / HBM_BYTES_PER_S * 1e3
+    pre_bound, pre16, pre32 = _ssm_prefill_bound(cfg, b, s, smax,
+                                                 pbytes + state)
+    print(f"path (k) mamba2-780m serve: {report['requests']} requests at "
+          f"batch {b}, prompt {s}, gen {gen}: {report['tokens']} tokens in "
+          f"{report['seconds']:.2f} s ({report['tok_per_s']:.1f} tok/s); "
+          f"prefill (B={b}, S={s}) {prefill_ms:.2f} ms (bound "
+          f"{pre_bound:.2f} ms: in_proj / out_proj at B·S tokens, the C·Bᵀ "
+          f"scores and the unembed in bf16 over 989 TFLOP/s, "
+          f"{pre16:.2f} ms, plus the SSD's fp32 einsums over 67 TFLOP/s, "
+          f"{pre32:.2f} ms); decode {decode_ms:.2f} ms a step, 0 host syncs "
+          f"(bound {dec_bound:.3f} ms: {pbytes / 1e9:.2f} GB weights + the "
+          f"{state / 1e9:.3f} GB SSM and conv state read and written, over "
+          f"3.35 TB/s); peak {peak:.2f} GiB; decode vs direct rel L2 "
+          f"{rel:.2e} (< {LM_LOSSY_REL:g})")
+    # the chunked form against the recurrence at full width: the first
+    # layer's head count and state size, bf16 streams, f32 dt and state
+    d_inner, nh, ds, _ = M2._dims(cfg)
+    g = torch.Generator(device=dev).manual_seed(5)
+    t = SSD_CHECK_TOKENS
+    x = torch.randn((b, t, nh, cfg.ssm_head_dim), generator=g,
+                    device=dev).to(torch.bfloat16)
+    bm, cm = (torch.randn((b, t, ds), generator=g, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, t, nh), generator=g, device=dev)
+        + params["layers"]["dt_bias"][0])
+    a = -torch.exp(params["layers"]["A_log"][0])
+    _, h_chunk = M2.ssd_chunked(x, dt, a, bm, cm, cfg.ssm_chunk)
+    h_rec = torch.zeros_like(h_chunk)
+    for i in range(t):
+        _, h_rec = M2.ssd_decode(x[:, i:i + 1], dt[:, i:i + 1], a,
+                                 bm[:, i:i + 1], cm[:, i:i + 1], h_rec)
+    rel_ssd = _rel_l2(torch, h_chunk, h_rec)
+    if not rel_ssd < SSD_STATE_REL:
+        raise AssertionError(f"path (k) ssd_chunked vs the recurrence: "
+                             f"relative L2 {rel_ssd:.3e}")
+    print(f"path (k) mamba2-780m SSD at full width (B={b}, {nh} heads of "
+          f"{cfg.ssm_head_dim}, state {ds}, chunk {cfg.ssm_chunk}): the "
+          f"chunked final state over {t} tokens vs {t} ssd_decode steps, "
+          f"rel L2 {rel_ssd:.2e} (< {SSD_STATE_REL:g})")
+    del x, bm, cm, dt, h_chunk, h_rec, warm
+
+    def mamba2_decode():
+        c, tk = cache, tok
+        for _ in range(16):
+            lgd, c = model.decode_step(params, c, {"tokens": tk})
+            tk = torch.argmax(lgd[:, -1], -1).to(torch.int32)[:, None]
+        return tk
+
+    # ---- Zamba2-2.7B, whole, bf16
+    cfg_z = get_config("zamba2-2.7b")
+    model_z = build_model(cfg_z)
+    params_z = _draw(torch, model_z, 1, dev, "zamba2-2.7b")
+    pbytes_z = _nbytes(params_z)
+    gen_z = 16
+    smax_z = s + gen_z
+    warm = SV.prompt_batch(cfg_z, np.random.default_rng(9), b, s, dev)
+    SV.generate(model_z, params_z, warm, 2, cache_len=smax_z)
+    report_z = SV.serve(model_z, params_z, requests=4, batch=b,
+                        prompt_len=s, gen_len=gen_z, seed=0, device=dev)
+    batch = SV.prompt_batch(cfg_z, np.random.default_rng(2), b, s, dev)
+    prefill_z, decode_z, cache_z, _, rel_z = _lm_timings(
+        torch, model_z, params_z, batch, smax_z, "zamba2-2.7b")
+    peak_z = torch.cuda.max_memory_allocated() / 2**30
+    state_z = _nbytes({k: cache_z[k] for k in ("ssm", "conv")})
+    kv_z = _nbytes({k: cache_z[k] for k in ("kv_k", "kv_v")})
+    dec_bound_z = (pbytes_z + 2 * state_z + kv_z) / HBM_BYTES_PER_S * 1e3
+    pre_bound_z, pre16_z, pre32_z = _ssm_prefill_bound(
+        cfg_z, b, s, smax_z, pbytes_z + state_z + kv_z)
+    print(f"path (k) zamba2-2.7b serve: {report_z['requests']} requests at "
+          f"batch {b}, prompt {s}, gen {gen_z}: {report_z['tokens']} tokens "
+          f"in {report_z['seconds']:.2f} s ({report_z['tok_per_s']:.1f} "
+          f"tok/s); prefill {prefill_z:.2f} ms (bound {pre_bound_z:.2f} ms: "
+          f"bf16 {pre16_z:.2f} ms, the SSD's and the shared attention's "
+          f"fp32 einsums {pre32_z:.2f} ms); decode {decode_z:.2f} ms a step, "
+          f"0 host syncs (bound {dec_bound_z:.3f} ms: {pbytes_z / 1e9:.2f} "
+          f"GB weights, {state_z / 1e9:.3f} GB state read and written, "
+          f"{kv_z / 1e9:.3f} GB KV at Smax {smax_z} read); peak "
+          f"{peak_z:.2f} GiB; decode vs direct rel L2 {rel_z:.2e} "
+          f"(< {LM_LOSSY_REL:g})")
+    del params_z, model_z, cache_z, warm, batch
+    torch.cuda.empty_cache()
+
+    # ---- Whisper-large-v3, whole, bf16: 30 s of audio
+    cfg_w = get_config("whisper-large-v3")
+    model_w = build_model(cfg_w)
+    params_w = _draw(torch, model_w, 2, dev, "whisper-large-v3")
+    gw = torch.Generator(device=dev).manual_seed(6)
+    frames = (torch.randn((b, WHISPER_FRAMES, cfg_w.d_model), generator=gw,
+                          device=dev) * 0.02).to(torch.bfloat16)
+    prompt_w = torch.randint(0, cfg_w.vocab, (b, 4), dtype=torch.int32,
+                             generator=gw, device=dev)
+    batch_w = {"frames": frames, "tokens": prompt_w}
+    steps = 32
+    smax_w = 4 + steps + 1
+    t0 = time.monotonic()
+    ids_w, lgs_w = SV.generate(model_w, params_w, batch_w, steps + 1,
+                               cache_len=smax_w)
+    torch.cuda.synchronize()
+    gen_s = time.monotonic() - t0
+    enc_ms = _timed(torch, lambda: E.encode(cfg_w, params_w, frames), 3)
+    _, decode_w, cache_w, _, rel_w = _lm_timings(
+        torch, model_w, params_w, batch_w, smax_w, "whisper-large-v3")
+    peak_w = torch.cuda.max_memory_allocated() / 2**30
+    enc_bytes = _nbytes({k: params_w[k] for k in ("enc_layers",
+                                                   "enc_final_norm")})
+    dec_bytes = _nbytes({k: params_w[k] for k in ("dec_embed", "dec_layers",
+                                                   "dec_final_norm")})
+    kv_w = _nbytes({k: cache_w[k] for k in ("k", "v", "cross_k",
+                                            "cross_v")})
+    enc_bound, enc16, enc32 = _encoder_bound(
+        cfg_w, b, WHISPER_FRAMES, enc_bytes + _nbytes(frames))
+    dec_bound_w = (dec_bytes + kv_w) / HBM_BYTES_PER_S * 1e3
+    vp = -(-cfg_w.vocab // 256) * 256
+    finite = bool(torch.isfinite(lgs_w.float()).all())
+    if not finite or tuple(lgs_w.shape) != (b, steps + 1, vp):
+        raise AssertionError(f"path (k) whisper-large-v3: finite {finite}, "
+                             f"logits {tuple(lgs_w.shape)}")
+    print(f"path (k) whisper-large-v3: prefill of B={b} x {WHISPER_FRAMES} "
+          f"frames and a 4-token prompt, then {steps} greedy steps, in "
+          f"{gen_s:.2f} s ({b * (steps + 1) / gen_s:.1f} tok/s); encoder "
+          f"{enc_ms:.2f} ms (bound {enc_bound:.2f} ms: projections and MLP "
+          f"in bf16 {enc16:.2f} ms, attention einsums in fp32 {enc32:.2f} "
+          f"ms); decode {decode_w:.2f} ms a step, 0 host syncs (bound "
+          f"{dec_bound_w:.3f} ms: {dec_bytes / 1e9:.2f} GB decoder weights "
+          f"and table + {kv_w / 1e9:.3f} GB self and cross KV read); peak "
+          f"{peak_w:.2f} GiB; decode vs direct rel L2 {rel_w:.2e} "
+          f"(< {LM_LOSSY_REL:g})")
+    del params_w, model_w, cache_w, frames, batch_w, lgs_w
+    torch.cuda.empty_cache()
+
+    launched = {k: c for k, c in _launch_counts(K).items() if c}
+    if launched:
+        raise AssertionError(f"path (k) launched kernels: {launched}")
+    print("path (k) launches: 0 for every kernel — the reference's Mamba2, "
+          "hybrid and encdec models reach no Pallas kernel (the SSD is "
+          "einsums and a lax.scan, _sdpa plain jnp)")
+    print(f"path (k) run and validated in {time.monotonic() - t_path:.1f} s")
+    return mamba2_decode
 
 
 def _kernel_api_names(torch, K, P, SR, g, sources, dev):
@@ -3984,6 +4312,10 @@ def main(argv=None) -> int:
     # on the card; no kernel launches) ----
     minicpm_decode = _tenth_slice_path(torch, np, K, dev)
 
+    # ---- phase 3 (k): the eleventh slice's path: the ssm, hybrid and
+    # encdec families (plain PyTorch on the card; no kernel launches) ----
+    mamba2_decode = _eleventh_slice_path(torch, np, K, dev)
+
     # ---- where the time goes: each slice's path once more under
     # torch.profiler (its overhead inflates the wall time; the device
     # time per kernel is what it is for) ----
@@ -4058,7 +4390,9 @@ def main(argv=None) -> int:
                                backend="cuda"), 12)
     # path (j): MiniCPM-2B's decode (B = 4, Smax 544), 16 steps
     profiled("minicpm-2b decode, 16 steps", minicpm_decode, 12)
-    del g_tc, g16, graphs5, g_prof, minicpm_decode
+    # path (k): Mamba2-780m's decode (B = 4, after a 512-token prompt)
+    profiled("mamba2-780m decode, 16 steps", mamba2_decode, 12)
+    del g_tc, g16, graphs5, g_prof, minicpm_decode, mamba2_decode
 
     # each kernel, then the column or precision variants this slice timed
     # as rows of their own, launches those of the main path's run

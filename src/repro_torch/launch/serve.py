@@ -46,10 +46,17 @@ def generate(model, params, batch: dict, gen_len: int,
 
 def prompt_batch(cfg, rng: np.random.Generator, batch: int, prompt_len: int,
                  device) -> dict:
-    """One batch of prompts: the reference's draw from ``rng``."""
+    """One batch of prompts: the reference's draw from ``rng`` — the
+    tokens, then for the encdec family 32 stub frames (B, 32, d) × 0.02
+    in the compute dtype."""
     ids = rng.integers(0, cfg.vocab, (batch, prompt_len))
-    return {"tokens": torch.from_numpy(ids).to(device=device,
-                                               dtype=torch.int32)}
+    out = {"tokens": torch.from_numpy(ids).to(device=device,
+                                              dtype=torch.int32)}
+    if cfg.family == "encdec":
+        frames = rng.standard_normal((batch, 32, cfg.d_model)) * 0.02
+        out["frames"] = torch.from_numpy(frames).to(
+            device=device, dtype=cfg.compute_dtype)
+    return out
 
 
 def serve(model, params, *, requests: int, batch: int, prompt_len: int,

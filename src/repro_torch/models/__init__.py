@@ -1,5 +1,5 @@
-"""LM model zoo (counterpart of ``repro.models``): the dense, MoE and VLM
-backbones on one decoder skeleton, each exposing the Model protocol
+"""LM model zoo (counterpart of ``repro.models``): the dense / MoE / SSM /
+hybrid / enc-dec / VLM backbones, each exposing the Model protocol
 (api.py), so the launchers are family-agnostic."""
 from .api import Model, build_model
 

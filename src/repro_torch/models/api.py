@@ -71,6 +71,7 @@ class ArchConfig:
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.float32
     # serving
+    max_cache_len: int = 32768       # encdec: the decoder's position table
     kv_quant: bool = False           # int8 KV cache
     weight_quant: bool = False       # int8 MoE expert weights (serving)
     # notes for DESIGN/EXPERIMENTS
@@ -147,8 +148,13 @@ def build_model(cfg: ArchConfig) -> Model:
         # MoE FFN plugs into the same skeleton
         from .transformer import make_dense_model
         return make_dense_model(cfg)
-    if cfg.family in ("ssm", "hybrid", "encdec"):
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) is not ported yet: it "
-            f"comes with ROADMAP A16-2")
+    if cfg.family == "ssm":
+        from .mamba2 import make_mamba2_model
+        return make_mamba2_model(cfg)
+    if cfg.family == "hybrid":
+        from .hybrid import make_hybrid_model
+        return make_hybrid_model(cfg)
+    if cfg.family == "encdec":
+        from .encdec import make_encdec_model
+        return make_encdec_model(cfg)
     raise ValueError(f"unknown family {cfg.family}")

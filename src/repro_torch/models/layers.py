@@ -136,16 +136,26 @@ def apply_mrope(x, positions, sections, theta: float = 10000.0):
                                  tuple(sections)))
 
 
-def sinusoidal_positions(s: int, d: int, device=None):
-    """Whisper-style fixed sinusoidal embeddings: (s, d)."""
-    pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
+def sinusoidal_rows(positions, d: int):
+    """Rows ``positions`` ((n,) integer tensor) of the sinusoidal table:
+    (n, d) fp32 on the positions' device, each row the same elementwise
+    arithmetic as ``sinusoidal_positions``'s, so equal to it bit for
+    bit."""
+    device = positions.device
+    pos = positions.to(torch.float32)[:, None]
     div = torch.exp(-math.log(10000.0)
                     * torch.arange(0, d, 2, dtype=torch.float32,
                                    device=device) / d)
-    pe = torch.zeros((s, d), dtype=torch.float32, device=device)
+    pe = torch.zeros((pos.shape[0], d), dtype=torch.float32, device=device)
     pe[:, 0::2] = torch.sin(pos * div)
     pe[:, 1::2] = torch.cos(pos * div)
     return pe
+
+
+def sinusoidal_positions(s: int, d: int, device=None):
+    """Whisper-style fixed sinusoidal embeddings: (s, d)."""
+    return sinusoidal_rows(torch.arange(s, dtype=torch.int32,
+                                        device=device), d)
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +262,7 @@ def _write_rows(cache, new, index):
 
 def attention(params, x, *, n_heads: int, n_kv_heads: int, head_dim: int,
               rope=None, causal: bool = True, kv_cache=None,
-              cache_index=None):
+              cache_index=None, kv_override=None):
     """GQA attention.
 
     x: (B, S, d). rope: the ``rope_table`` of x's positions (built once
@@ -260,22 +270,29 @@ def attention(params, x, *, n_heads: int, n_kv_heads: int, head_dim: int,
     kv_cache: optional dict {k, v}: (B, Smax, KV, hd) (+ k_scale /
     v_scale under kv_quant) and cache_index (an int or a 0-d int32
     tensor) — decode appends at cache_index and attends to the prefix.
-    Returns (out, new_kv_cache).
+    kv_override: (k, v), each (B, Sk, KV, hd), for cross-attention: the
+    keys and values are taken as given, not projected from x (nor
+    rotated). Returns (out, new_kv_cache).
     """
     b, s, _ = x.shape
     q = x @ params["wq"].to(x.dtype)
-    k = x @ params["wk"].to(x.dtype)
-    v = x @ params["wv"].to(x.dtype)
     if "bq" in params:
         q = q + params["bq"].to(x.dtype)
-        k = k + params["bk"].to(x.dtype)
-        v = v + params["bv"].to(x.dtype)
     q = q.reshape(b, s, n_heads, head_dim)
-    k = k.reshape(b, s, n_kv_heads, head_dim)
-    v = v.reshape(b, s, n_kv_heads, head_dim)
     if rope is not None:
         q = _rotate(q, rope)
-        k = _rotate(k, rope)
+    if kv_override is None:
+        k = x @ params["wk"].to(x.dtype)
+        v = x @ params["wv"].to(x.dtype)
+        if "bk" in params:
+            k = k + params["bk"].to(x.dtype)
+            v = v + params["bv"].to(x.dtype)
+        k = k.reshape(b, s, n_kv_heads, head_dim)
+        v = v.reshape(b, s, n_kv_heads, head_dim)
+        if rope is not None:
+            k = _rotate(k, rope)
+    else:
+        k, v = kv_override
 
     new_cache = None
     valid_len = None

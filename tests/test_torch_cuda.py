@@ -1656,7 +1656,8 @@ def test_saturated_scan_reads_no_offset_of_a_padding_lane(card):
 # ---- the LM serving path (no kernel: plain PyTorch on the card) -----------
 
 LM_ARCHS = ("kimi-k2-1t-a32b", "qwen3-moe-235b-a22b", "yi-6b", "llama3-405b",
-            "starcoder2-15b", "minicpm-2b", "qwen2-vl-2b")
+            "starcoder2-15b", "minicpm-2b", "qwen2-vl-2b", "mamba2-780m",
+            "zamba2-2.7b", "whisper-large-v3")
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
@@ -1704,6 +1705,36 @@ def test_lm_decode_step_reads_nothing_back_on_the_card(card, arch):
         torch.cuda.set_sync_debug_mode("default")
     assert int(cache["len"]) == 17
     assert bool(torch.isfinite(lg).all())
+
+
+def test_whisper_position_clamp_reads_nothing_back_on_the_card(card):
+    """Whisper's decode step at SMOKE with max_cache_len below the decode
+    position: the clamped row is taken on the card (no host read of the
+    cache length), and the step equals the CPU's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import build_model
+    from repro_torch.models.api import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model(get_smoke_config("whisper-large-v3").replace(
+        max_cache_len=8))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = prompt_batch(model.cfg, np.random.default_rng(0), 2, 16, "cpu")
+    lg, cache = model.prefill(params, batch, cache_len=18)
+    tok = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+    want, _ = model.decode_step(params, cache, {"tokens": tok})
+    params_c = tree_map(lambda t: t.to(card), params)
+    cache_c = tree_map(lambda t: t.to(card), cache)
+    tok_c = tok.to(card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, cache_c = model.decode_step(params_c, cache_c,
+                                         {"tokens": tok_c})
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(cache_c["len"]) == 17
+    assert float((got.cpu() - want).abs().max()) < 2e-3
 
 
 def test_moe_combine_is_deterministic_on_the_card(card):

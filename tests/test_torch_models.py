@@ -13,27 +13,27 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_lm as T
+
 from repro.configs import get_config as ref_get_config
 from repro.configs import get_smoke_config as ref_get_smoke_config
-from repro.configs import shapes_for as ref_shapes_for
 from repro.data import make_batch_for as ref_make_batch_for
 from repro.models import build_model as ref_build_model
-from repro_torch.configs import (ARCH_IDS, get_config, get_smoke_config,
-                                 shapes_for)
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.convert import params_from_arrays
 from repro_torch.data import make_batch_for
 from repro_torch.launch.serve import generate
 from repro_torch.models import build_model
 from repro_torch.models.api import tree_leaves
 
-# the seven archs of the dense / moe / vlm families; the other three are
-# A16-2's
+# the seven archs of the dense / moe / vlm families; the ssm, hybrid and
+# encdec archs have files of their own (tests/test_torch_{mamba2,hybrid,
+# encdec}.py)
 ARCHS = tuple(a for a in ARCH_IDS
               if ref_get_config(a).family in ("dense", "moe", "vlm"))
 B, S, GEN = 2, 16, 8
 LOGIT_ATOL = 1e-4
 LOSS_RTOL = 1e-5
-AXES = ({"pod": 2, "data": 16, "model": 16}, {"data": 2, "model": 4})
 
 
 def _np_tree(tree):
@@ -163,35 +163,12 @@ def test_vlm_mrope_positions_affect_output():
 
 # ---- the full configs, on meta ---------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _ref_shapes(arch):
-    sds = jax.eval_shape(ref_build_model(ref_get_config(arch)).init,
-                         jax.random.PRNGKey(0))
-    return jax.tree.map(lambda x: (tuple(x.shape), np.dtype(x.dtype).name),
-                        sds)
-
-
-def _shape_tree(params):
-    return jax.tree.map(lambda x: (tuple(x.shape),
-                                   str(x.dtype).replace("torch.", "")),
-                        params)
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_full_config_on_meta_matches_reference(arch):
     """Every leaf's path, shape and dtype equal the reference's
     ``eval_shape`` tree; param counts and active counts equal; nothing
     is allocated (Kimi K2 has ~1e12 params)."""
-    model = build_model(get_config(arch))
-    params = model.init(device="meta")
-    assert all(x.device.type == "meta" for x in tree_leaves(params))
-    assert _shape_tree(params) == _ref_shapes(arch)
-    ref_model = ref_build_model(ref_get_config(arch))
-    want = sum(int(np.prod(s)) for s, _ in jax.tree.leaves(
-        _ref_shapes(arch), is_leaf=lambda x: isinstance(x, tuple)
-        and isinstance(x[1], str)))
-    assert model.param_count(params) == want > 1e8
-    assert model.active_param_count() == ref_model.active_param_count()
+    T.check_full_config_on_meta(arch)
 
 
 def test_yi_param_count_matches_billing():
@@ -202,39 +179,14 @@ def test_yi_param_count_matches_billing():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_input_specs_match_reference(arch):
-    model = build_model(get_config(arch))
-    ref_model = ref_build_model(ref_get_config(arch))
-    shapes = shapes_for(model.cfg)
-    assert shapes == ref_shapes_for(ref_model.cfg)
-    for name, shp in shapes.items():
-        got = model.input_specs(shp, shp["kind"])
-        want = ref_model.input_specs(shp, shp["kind"])
-        assert sorted(got) == sorted(want), (arch, name)
-        for k, v in got.items():
-            assert v.device.type == "meta"
-            assert tuple(v.shape) == tuple(want[k].shape), (arch, name, k)
-            assert str(v.dtype).replace("torch.", "") == \
-                np.dtype(want[k].dtype).name, (arch, name, k)
+    T.check_input_specs(arch)
 
 
-def _spec_tuples(tree):
-    return jax.tree.map(tuple, tree, is_leaf=lambda x: isinstance(
-        x, jax.sharding.PartitionSpec))
-
-
-@pytest.mark.parametrize("axes", AXES, ids=("pod2-data16-model16",
-                                            "data2-model4"))
+@pytest.mark.parametrize("axes", T.AXES, ids=T.AXES_IDS)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_and_cache_specs_match_reference(arch, axes):
     for quant in (False, True):
-        cfg = get_config(arch).replace(weight_quant=quant, kv_quant=quant)
-        model = build_model(cfg)
-        ref_model = ref_build_model(ref_get_config(arch).replace(
-            weight_quant=quant, kv_quant=quant))
-        assert model.param_specs(axes) == _spec_tuples(
-            ref_model.param_specs(axes))
-        assert model.cache_specs(axes) == _spec_tuples(
-            ref_model.cache_specs(axes))
+        T.check_specs(arch, axes, weight_quant=quant, kv_quant=quant)
 
 
 # ---- the port's own init -------------------------------------------------
@@ -258,7 +210,7 @@ def test_port_init_matches_reference_tree(arch):
     cfg = get_smoke_config(arch)
     params = build_model(cfg).init(torch.Generator().manual_seed(0),
                                    device="cpu")
-    assert _shape_tree(params) == jax.tree.map(
+    assert T.shape_tree(params) == jax.tree.map(
         lambda x: (x.shape, x.dtype.name), ref["params"])
     scales = _scales(cfg)
     flat, _ = jax.tree_util.tree_flatten_with_path(ref["params"])
@@ -284,13 +236,6 @@ def test_init_generator_reproducible_and_seeded():
     assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
                                                  tree_leaves(b)))
     assert not torch.equal(a["embed"]["table"], c["embed"]["table"])
-
-
-@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b",
-                                  "whisper-large-v3"])
-def test_other_families_wait_for_a16_2(arch):
-    with pytest.raises(NotImplementedError, match="A16-2"):
-        build_model(get_smoke_config(arch))
 
 
 # ---- the layers, one by one ------------------------------------------------
