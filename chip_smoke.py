@@ -154,7 +154,16 @@ Phases:
      configs card against CPU, Mamba2-780m, Zamba2-2.7B and
      Whisper-large-v3 (1,500 frames) whole in bf16, decode against
      direct, 0 host syncs a decode step, the chunked SSD against its
-     recurrence at full width; (j) and (k) launch no kernel —
+     recurrence at full width; (l) the twelfth slice's: LM training —
+     a make_train_step step of the ten archs' SMOKE configs card
+     against CPU (loss, gradients, params), MiniCPM-2B whole in bf16
+     (B = 4, S = 512: 8 AdamW steps with fp32 moments, 2 under remat
+     "dots" and "full", 4 with int8 moments; ms a step, tok/s and peak
+     memory beside the bound, one step profiled), a checkpoint of its
+     2-layer cut at full width saved and restored bit-equal,
+     launch.train with an injected fault, the GPipe pipeline over a
+     4-part mesh; run last, after the profiles below, when the earlier
+     paths' graphs are freed; (j), (k) and (l) launch no kernel —
      all on the cuda backend, validated
      against host oracles (numpy BFS hop counts, scipy Dijkstra, a numpy
      power iteration, scipy components, numpy Brandes, scipy products
@@ -166,7 +175,8 @@ Phases:
      side 256, device events only; PageRank at 2048), path (g)'s TWC
      bfs_batch and 16 decode steps of MiniCPM-2B (path (j)) and of
      Mamba2-780m (path (k)), once more under torch.profiler: device busy
-     time, idle share, device operations, top kernels.
+     time, idle share, device operations, top kernels; path (l) profiles
+     one MiniCPM-2B train step itself.
 
 Prints one JSON line of kernel numbers (each kernel with its launches by
 variant — column storage or precision — and a row of its own for each
@@ -1363,6 +1373,36 @@ def _fifth_slice_path(torch, np, K, R, G, S, graphs, g, sources, dev):
           f"relative), in "
           f"{time.monotonic() - t0:.1f} s")
     return launches, variants
+
+
+def _profiled(torch, label, fn, top, host_ops=True):
+    """``fn`` once under torch.profiler: wall, device busy time, idle
+    share, device operations and the ``top`` device operations.
+    ``host_ops=False`` traces the device alone (its busy time is all
+    this reads), for a run of many thousand steps whose host events the
+    profiler cannot summarise within the time limit."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CUDA]
+    if host_ops:
+        acts.insert(0, ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    # device-side events only: a host op's row repeats its kernels'
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy = sum(r[0] for r in rows) / 1e3
+    print(f"profiled {label}: wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}, "
+          f"{sum(r[1] for r in rows)} device operations")
+    for us, count, key in sorted(rows, reverse=True)[:top]:
+        print(f"  {us / 1e3:10.3f} ms {count:6d}x  {key[:90]}")
 
 
 def _count_syncs(torch, fn):
@@ -3005,6 +3045,449 @@ def _eleventh_slice_path(torch, np, K, dev):
     return mamba2_decode
 
 
+# path (l): LM training, plain PyTorch as the reference's training path is
+# plain jnp (no Pallas kernel has a backward in the reference)
+TRAIN_TOL = 2e-3       # card vs CPU: path (j)'s bound on the loss, × the
+                       # global norm on each gradient leaf, rel L2 on params
+TRAIN_B, TRAIN_S = 4, 512
+TRAIN_STEPS = 8        # MiniCPM-2B, fp32 moments, remat "none"
+REMAT_STEPS = 2        # ... under "dots" and under "full"
+QUANT_STEPS = 4        # ... with int8 moments, at lr 1e-3 and QUANT_LR
+QUANT_LR = 1e-5        # a peak lr where the int8 moments' loss falls
+QUANT_DROP = 0.5       # ... by at least this share of fp32 moments' drop
+REMAT_PEAK_LAYERS = 8  # MiniCPM-2B's width: the backward's peak per remat
+REMAT_LOSS_RTOL = 1e-3
+CKPT_LAYERS = 2        # the checkpoint's MiniCPM-2B cut, at full width
+PIPE_ATOL = 1e-6       # the reference's pipeline test
+
+
+def _train_smoke(torch, arch, dev):
+    """One arch at its SMOKE config (fp32): ``value_and_grad`` and one
+    ``make_train_step`` step from params drawn once on the CPU, on the
+    CPU and on ``dev``. Returns (|loss diff|, the worst gradient leaf's
+    max |diff| over the global norm, the params' relative L2 after the
+    step)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import make_batch_for
+    from repro_torch.models import build_model
+    from repro_torch.models.api import tree_map
+    from repro_torch.pytree import leaves
+    from repro_torch.train import adamw, make_schedule, make_train_step
+    from repro_torch.train.trainstep import value_and_grad
+
+    model = build_model(get_smoke_config(arch))
+    host = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = make_batch_for(model.cfg, {"global_batch": 2, "seq_len": 32},
+                           "train", seed=3, device="cpu")
+    out = []
+    for where in ("cpu", dev):
+        params = tree_map(lambda t: t.to(where, copy=True), host)
+        b = {k: v.to(where) for k, v in batch.items()}
+        _, _, grads = value_and_grad(model, params, b)
+        opt_init, opt_update = adamw(make_schedule("cosine", 1e-3, 10,
+                                                   warmup_steps=2))
+        params, _, metrics = make_train_step(model, opt_update)(
+            params, opt_init(params), b)
+        out.append((float(metrics["loss"]),
+                    [g.double().cpu() for g in leaves(grads)],
+                    torch.cat([p.double().cpu().ravel()
+                               for p in leaves(params)])))
+    (loss, grads, params), (loss_c, grads_c, params_c) = out
+    norm = float(torch.sqrt(sum(torch.sum(g * g) for g in grads)))
+    grad_err = max(float((a - b).abs().max()) for a, b in zip(grads_c, grads))
+    rel = float(torch.linalg.norm(params_c - params)
+                / torch.linalg.norm(params))
+    return abs(loss_c - loss), grad_err / norm, rel
+
+
+def _cref15_codes(torch, opt) -> tuple:
+    """(entries of the int8 moments whose v code is 0 while their m code
+    is not, entries of the int8 moments): an update reads such an
+    entry's v as 0 and moves its param by lr·m̂ / eps (C-ref-15)."""
+    from repro_torch.pytree import leaves
+    from repro_torch.train.optimizer import QTensor
+
+    def is_q(x):
+        return isinstance(x, QTensor)
+
+    pairs = [(m.codes, v.codes) for m, v in zip(leaves(opt.m, is_q),
+                                                leaves(opt.v, is_q))
+             if is_q(v)]
+    hit = sum(int(((v == 0) & (m != 0)).sum(dtype=torch.int64))
+              for m, v in pairs)
+    return hit, sum(v.numel() for _, v in pairs)
+
+
+def _moved(torch, params, old, lr) -> int:
+    """Params that moved from ``old`` (their leaves, on the host) by more
+    than 10 lr plus one bf16 quantum of their old value in a step
+    (AdamW's own move is lr·|m̂| / (√v̂ + eps) plus the decay, under 2
+    lr)."""
+    from repro_torch.pytree import leaves
+    n = 0
+    for p, o in zip(leaves(params), old):
+        o = o.to(p.device).float()
+        n += int(((p.float() - o).abs() > 10 * lr + o.abs() * 2.0 ** -7)
+                 .sum(dtype=torch.int64))
+    return n
+
+
+def _train_run(torch, cfg, batch, dev, *, remat, quant, steps,
+               lr=1e-3, diagnose=0, profiled=None):
+    """``steps`` train steps of ``cfg`` under ``remat``, with int8
+    moments or fp32 ones, from the init drawn from seed 0 on the card,
+    on one repeated batch, AdamW under the WSD schedule of TRAIN_STEPS
+    steps to ``lr``. Returns (rows of (loss, grad_norm, seconds), the
+    step's peak GiB above what was held before, the GiB a forward then
+    holds for its backward, the moments' bytes, the params' bytes); each
+    of the first ``diagnose`` rows also holds, before its step,
+    ``_cref15_codes`` and, after it, ``_moved`` (untimed, the old params
+    on the host); with ``profiled``, one more step runs under the
+    profiler."""
+    from repro_torch.models import build_model
+    from repro_torch.pytree import flatten, leaves, unflatten
+    from repro_torch.train import adamw, make_schedule, make_train_step
+
+    model = build_model(cfg.replace(remat=remat))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    opt_init, opt_update = adamw(
+        make_schedule("wsd", lr, TRAIN_STEPS, warmup_steps=2),
+        quantize_moments=quant)
+    opt = opt_init(params)
+    step = make_train_step(model, opt_update)
+    rows = []
+    for i in range(steps):
+        if i < diagnose:
+            codes = _cref15_codes(torch, opt)
+            old = [p.to("cpu") for p in leaves(params)]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        rows.append((float(metrics["loss"]), float(metrics["grad_norm"]),
+                     time.monotonic() - t0))
+        if i < diagnose:
+            rows[-1] += (codes, _moved(torch, params, old,
+                                       float(metrics["lr"])))
+            del old
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    moment_bytes = _nbytes((opt.m, opt.v))
+    pbytes = _nbytes(params)
+    # what remat acts on: the activations a forward keeps for its
+    # backward (the step's peak comes later, at the end of the backward,
+    # with every gradient and the embedding's backward beside the state)
+    flat, tdef = flatten(params)
+    live = [p.detach().requires_grad_(True) for p in flat]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    loss, _ = model.loss(unflatten(tdef, live), batch)
+    torch.cuda.synchronize()
+    saved = (torch.cuda.memory_allocated() - before) / 2**30
+    del loss, live, flat
+    if profiled is not None:
+        profiled(f"{cfg.name} train step (B = {TRAIN_B}, S = {TRAIN_S}, "
+                 f"remat {remat}, {'int8' if quant else 'fp32'} moments)",
+                 lambda: step(params, opt, batch), 12)
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return rows, peak, saved, moment_bytes, pbytes
+
+
+def _remat_backward_peaks(torch, cfg, batch, dev) -> tuple:
+    """({remat: a backward's peak GiB above the params}, {remat: loss}):
+    ``value_and_grad`` of ``cfg`` cut to REMAT_PEAK_LAYERS layers, from
+    the init drawn from seed 0 on the card, under each remat."""
+    from repro_torch.models import build_model
+    from repro_torch.train.trainstep import value_and_grad
+
+    peaks, losses = {}, {}
+    for remat in ("none", "dots", "full"):
+        model = build_model(cfg.replace(n_layers=REMAT_PEAK_LAYERS,
+                                        remat=remat))
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _, grads = value_and_grad(model, params, batch)
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        losses[remat] = float(loss)
+        del params, grads, loss
+        torch.cuda.empty_cache()
+    return peaks, losses
+
+
+def _train_bound(cfg, n_params, tokens, pbytes, moment_bytes) -> tuple:
+    """(bound ms, its FLOP term, its byte term, the fp32 attention
+    term): 6·N·T over the bf16 peak, plus the optimizer's bytes (params
+    read and written, grads read, moments read and written) over HBM.
+    The model's attention einsums run in fp32 without TF32, outside
+    6·N·T: 3 × 4·T·H·S·hd a layer for the forward and backward, over the
+    fp32 peak, printed beside the bound."""
+    flop_ms = 6 * n_params * tokens / BF16_OPS_PER_S * 1e3
+    byte_ms = (3 * pbytes + 2 * moment_bytes) / HBM_BYTES_PER_S * 1e3
+    attn_ms = 3 * 4 * tokens * cfg.n_heads * TRAIN_S * cfg.hd \
+        * cfg.n_layers / FP32_OPS_PER_S * 1e3
+    return flop_ms + byte_ms, flop_ms, byte_ms, attn_ms
+
+
+def _twelfth_slice_path(torch, np, K, dev, profiled):
+    """Path (l): LM training on the card, plain PyTorch (the reference's
+    training path reaches no Pallas kernel: ``_sdpa`` is plain jnp, the
+    MoE dispatch a jnp gather, the Mamba2 SSD einsums and a scan, and no
+    kernel of the reference has a backward). The ten archs at SMOKE
+    (fp32): one ``make_train_step`` step on the card against the CPU
+    from the same params (loss within TRAIN_TOL, every gradient leaf
+    within TRAIN_TOL × the global norm, params within TRAIN_TOL relative
+    L2). MiniCPM-2B whole (bf16, B = TRAIN_B, S = TRAIN_S, one repeated
+    batch, AdamW under WSD to lr 1e-3): TRAIN_STEPS steps with fp32
+    moments (finite, the last loss below the first, no param moved past
+    10 lr in a step), then one step under torch.profiler; REMAT_STEPS
+    under "dots" and under "full" from the same init (step-1 loss within
+    REMAT_LOSS_RTOL of "none"'s; the step's peak and the activations a
+    forward keeps printed), and a backward at REMAT_PEAK_LAYERS layers
+    under each (its peak lower under "dots" and again under "full", the
+    loss equal); QUANT_STEPS with int8 moments (finite, the same step-1
+    loss, the peak lower by the moments' saved bytes; per step the
+    entries read with v code 0 under an m code and the params moved past
+    10 lr, printed: the reference's linear int8 v turns such updates into
+    m / eps, C-ref-15), and QUANT_STEPS more at lr QUANT_LR, with int8
+    moments and with fp32 ones (finite; int8's loss below the last at
+    each step, and falling by QUANT_DROP of fp32's drop or more); ms a
+    step, tok/s and peak of each beside the bound. A checkpoint of MiniCPM-2B's width at CKPT_LAYERS
+    layers with int8 moments, saved and restored bit-equal.
+    ``launch.train`` with an injected fault (1 restart). The GPipe
+    pipeline over a 4-part mesh on the card against the sequential
+    product. No kernel launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core.partition import Mesh
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch import train as TR
+    from repro_torch.models import build_model
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.pytree import leaves
+    from repro_torch.train import adamw, make_schedule, make_train_step
+
+    t_path = time.monotonic()
+    K.reset_launches()
+
+    # ---- the SMOKE configs: a train step on the card against the CPU
+    for arch in LM_ARCHS + LM_SSM_ARCHS:
+        d_loss, d_grad, rel = _train_smoke(torch, arch, dev)
+        if not (d_loss < TRAIN_TOL and d_grad <= TRAIN_TOL
+                and rel < TRAIN_TOL):
+            raise AssertionError(
+                f"path (l) {arch} SMOKE train step, card vs CPU: loss "
+                f"{d_loss:.2e}, gradient {d_grad:.2e} of the global norm, "
+                f"params rel L2 {rel:.2e} (each < {TRAIN_TOL:g})")
+        print(f"path (l) {arch} SMOKE train step, card vs CPU: |loss diff| "
+              f"{d_loss:.2e}, max |grad diff| {d_grad:.2e} of the global "
+              f"norm, params after the step rel L2 {rel:.2e} "
+              f"(each < {TRAIN_TOL:g})")
+
+    # ---- MiniCPM-2B, whole, bf16
+    cfg = get_config("minicpm-2b")
+    n = build_model(cfg).param_count(build_model(cfg).init(device="meta"))
+    batch = SyntheticLMDataset(cfg.vocab, TRAIN_S, TRAIN_B, seed=0,
+                               device=dev).next_batch()
+    tokens = TRAIN_B * TRAIN_S
+    stable, stable32 = f"int8, lr {QUANT_LR:g}", f"fp32, lr {QUANT_LR:g}"
+    runs = {"none": _train_run(torch, cfg, batch, dev, remat="none",
+                               quant=False, steps=TRAIN_STEPS,
+                               diagnose=QUANT_STEPS, profiled=profiled)}
+    for remat in ("dots", "full"):
+        runs[remat] = _train_run(torch, cfg, batch, dev, remat=remat,
+                                 quant=False, steps=REMAT_STEPS)
+    runs["int8"] = _train_run(torch, cfg, batch, dev, remat="none",
+                              quant=True, steps=QUANT_STEPS,
+                              diagnose=QUANT_STEPS)
+    for label, quant in ((stable, True), (stable32, False)):
+        runs[label] = _train_run(torch, cfg, batch, dev, remat="none",
+                                 quant=quant, steps=QUANT_STEPS, lr=QUANT_LR)
+    held = torch.cuda.memory_allocated() / 2**30
+    for label, (rows, peak, saved, mbytes, pbytes) in runs.items():
+        ms = statistics.median(r[2] for r in rows[1:]) * 1e3
+        bound, flop_ms, byte_ms, attn_ms = _train_bound(cfg, n, tokens,
+                                                        pbytes, mbytes)
+        print(f"path (l) minicpm-2b train, {label} ({n:,} params, B="
+              f"{TRAIN_B}, S={TRAIN_S}): loss "
+              f"{', '.join(f'{r[0]:.4f}' for r in rows)}; grad_norm "
+              f"{', '.join(f'{r[1]:.3f}' for r in rows)}; {ms:.2f} ms a "
+              f"step (median of steps 2-{len(rows)}; step 1 "
+              f"{rows[0][2] * 1e3:.1f} ms), {tokens / ms * 1e3:.0f} tok/s; "
+              f"bound {bound:.1f} ms (6·N·T = {6 * n * tokens:.3e} FLOP "
+              f"over 989 TFLOP/s, {flop_ms:.1f} ms, + the optimizer's "
+              f"{(3 * pbytes + 2 * mbytes) / 1e9:.1f} GB over 3.35 TB/s, "
+              f"{byte_ms:.1f} ms; the fp32 attention einsums outside 6·N·T "
+              f"add {attn_ms:.1f} ms over 67 TFLOP/s); peak {peak:.2f} GiB "
+              f"above the {held:.2f} GiB held, a forward keeps "
+              f"{saved:.2f} GiB for its backward; moments "
+              f"{mbytes / 1e9:.2f} GB")
+        diag = [r for r in rows if len(r) > 3]
+        if diag:
+            print(f"path (l) minicpm-2b train, {label}, steps 1-{len(diag)}: "
+                  f"read v code 0 under an m code != 0 at "
+                  f"{', '.join(f'{r[3][0]:,}' for r in diag)} of "
+                  f"{diag[0][3][1]:,} int8 entries; params moved past 10 lr "
+                  f"{', '.join(f'{r[4]:,}' for r in diag)}")
+        if not all(math.isfinite(r[0]) and math.isfinite(r[1])
+                   for r in rows):
+            raise AssertionError(f"path (l) minicpm-2b {label}: a loss or "
+                                 f"grad_norm is not finite: {rows}")
+    losses = [r[0] for r in runs["none"][0]]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"path (l) minicpm-2b none: the loss did not "
+                             f"fall: {losses}")
+    if any(r[4] for r in runs["none"][0] if len(r) > 3):
+        raise AssertionError(f"path (l) minicpm-2b none: fp32 moments moved "
+                             f"params past 10 lr: {runs['none'][0]}")
+    # every run starts from the same init on the same batch, so the step-1
+    # loss is the same; the int8 moments follow the reference's linear v,
+    # whose small entries round to code 0 and turn updates into m / eps
+    # (ROADMAP C-ref-15): at lr 1e-3 that is printed, at QUANT_LR the loss
+    # must fall
+    first = runs["none"][0][0][0]
+    for label in ("dots", "full", "int8", stable, stable32):
+        got = runs[label][0][0][0]
+        if not abs(got - first) <= REMAT_LOSS_RTOL * abs(first):
+            raise AssertionError(f"path (l) minicpm-2b {label}: step-1 loss "
+                                 f"{got} against none's {first}")
+    int8_losses = [r[0] for r in runs["int8"][0]]
+    stable_losses = [r[0] for r in runs[stable][0]]
+    fp32_losses = [r[0] for r in runs[stable32][0]]
+    drop = stable_losses[0] - stable_losses[-1]
+    drop32 = fp32_losses[0] - fp32_losses[-1]
+    if not (all(b < a for a, b in zip(stable_losses, stable_losses[1:]))
+            and drop >= QUANT_DROP * drop32):
+        raise AssertionError(f"path (l) minicpm-2b {stable}: the loss "
+                             f"{stable_losses} does not fall at every step "
+                             f"or by {QUANT_DROP:g} of fp32's {fp32_losses}")
+    bwd, bwd_losses = _remat_backward_peaks(torch, cfg, batch, dev)
+    if not (bwd["none"] > bwd["dots"] > bwd["full"]
+            and bwd_losses["none"] == bwd_losses["dots"]
+            == bwd_losses["full"]):
+        raise AssertionError(f"path (l) minicpm-2b at {REMAT_PEAK_LAYERS} "
+                             f"layers: a backward's peak {bwd} (GiB) does "
+                             f"not fall from none to dots to full, or the "
+                             f"loss differs: {bwd_losses}")
+    peaks = {k: v[1] for k, v in runs.items()}
+    kept = {k: v[2] for k, v in runs.items()}
+    saved = (runs["none"][3] - runs["int8"][3]) / 2**30
+    # the allocator rounds each block up, so the drop is held to 99 % of
+    # the moments' bytes
+    if not peaks["none"] - peaks["int8"] >= 0.99 * saved:
+        raise AssertionError(f"path (l) minicpm-2b int8 moments: peak "
+                             f"{peaks['int8']:.2f} GiB against none's "
+                             f"{peaks['none']:.2f}, less than the moments' "
+                             f"{saved:.2f} GiB saved")
+    print(f"path (l) minicpm-2b: step-1 loss under dots / full / int8 "
+          f"within {REMAT_LOSS_RTOL:g} of none's; at lr 1e-3 int8's loss "
+          f"{'falls' if int8_losses[-1] < int8_losses[0] else 'does not fall'}"
+          f" over its {QUANT_STEPS} steps ({int8_losses[0]:.4f} -> "
+          f"{int8_losses[-1]:.4f}; C-ref-15), at lr {QUANT_LR:g} it falls "
+          f"at every step, by {drop:.4f} against fp32 moments' "
+          f"{drop32:.4f}; a backward's peak at "
+          f"{REMAT_PEAK_LAYERS} layers, GiB: none {bwd['none']:.2f} > dots "
+          f"{bwd['dots']:.2f} > full {bwd['full']:.2f} (the same loss); at "
+          f"{cfg.n_layers} layers a forward keeps none {kept['none']:.2f}, "
+          f"dots {kept['dots']:.2f}, full {kept['full']:.2f} for its "
+          f"backward, and the step's peak is none {peaks['none']:.2f}, "
+          f"dots {peaks['dots']:.2f}, full {peaks['full']:.2f}, int8 "
+          f"moments {peaks['int8']:.2f} ({peaks['none'] - peaks['int8']:.2f}"
+          f" below none; the moments save {saved:.2f})")
+
+    # ---- a checkpoint at full width: MiniCPM-2B cut to CKPT_LAYERS layers
+    cfg_c = cfg.replace(n_layers=CKPT_LAYERS)
+    model_c = build_model(cfg_c)
+    params = model_c.init(torch.Generator(device=dev).manual_seed(1),
+                          device=dev)
+    opt_init, opt_update = adamw(make_schedule("wsd", 1e-3, TRAIN_STEPS,
+                                               warmup_steps=2),
+                                 quantize_moments=True)
+    state = make_train_step(model_c, opt_update)(params, opt_init(params),
+                                                 batch)[:2]
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        path = save_checkpoint(ckpt_dir, 1, state)
+        save_s = time.monotonic() - t0
+        on_disk = sum(p.stat().st_size for p in Path(path).iterdir())
+        t0 = time.monotonic()
+        got, _ = restore_checkpoint(ckpt_dir, 1, state, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    pairs = list(zip(leaves(state), leaves(got)))
+    if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+        raise AssertionError("path (l) checkpoint: the restored tree "
+                             "differs from the saved one")
+    print(f"path (l) checkpoint of {cfg_c.name} at full width, "
+          f"{CKPT_LAYERS} layers ({model_c.param_count(state[0]):,} params "
+          f"in bf16, int8 moments after one step): {len(pairs)} leaves, "
+          f"{on_disk / 1e9:.2f} GB on disk; save {save_s:.2f} s, restore "
+          f"{restore_s:.2f} s; bit-equal")
+    del params, state, got, pairs
+    torch.cuda.empty_cache()
+
+    # ---- the launcher with an injected fault
+    launch_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        report = TR.main(["--arch", "minicpm-2b", "--smoke", "--steps", "12",
+                          "--batch", "4", "--seq", "64",
+                          "--ckpt-dir", launch_dir, "--ckpt-every", "5",
+                          "--simulate-failure", "7"])
+    finally:
+        shutil.rmtree(launch_dir, ignore_errors=True)
+    losses = [h["loss"] for h in report["history"]]
+    if not (report["completed"] and report["restarts"] == 1
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"path (l) launch.train: completed "
+                             f"{report['completed']}, restarts "
+                             f"{report['restarts']}, losses {losses}")
+    print(f"path (l) launch.train minicpm-2b --smoke, 12 steps, a fault at "
+          f"step 7: completed, 1 restart (resumed from step 5), loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+
+    # ---- the GPipe pipeline over a 4-part mesh on the one card
+    rng = np.random.default_rng(0)
+    ws = torch.from_numpy((rng.standard_normal((4, 16, 16)) * 0.3)
+                          .astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((16, 16)).astype(np.float32)
+                         ).to(dev)
+    y = pipeline_apply(lambda w, h: torch.tanh(h @ w), ws, x,
+                       Mesh.on(dev, (4,), ("stage",)), n_microbatches=8)
+    want = x
+    for i in range(4):
+        want = torch.tanh(want @ ws[i])
+    pipe_err = float((y - want).abs().max())
+    if not pipe_err < PIPE_ATOL:
+        raise AssertionError(f"path (l) pipeline: {pipe_err:.2e} from the "
+                             f"sequential product")
+    print(f"path (l) pipeline_apply, 4 stages x 8 microbatches (11 ticks) "
+          f"on the card: max |y - sequential| {pipe_err:.2e} "
+          f"(< {PIPE_ATOL:g})")
+
+    launched = {k: c for k, c in _launch_counts(K).items() if c}
+    if launched:
+        raise AssertionError(f"path (l) launched kernels: {launched}")
+    print("path (l) launches: 0 for every kernel — the reference's training "
+          "path reaches no Pallas kernel, and none of its kernels has a "
+          "backward")
+    print(f"path (l) run and validated in {time.monotonic() - t_path:.1f} s")
+
+
 def _kernel_api_names(torch, K, P, SR, g, sources, dev):
     """The reference's oracle names (kernels.ref) at path (a)'s shapes,
     each against the kernel it models, called through the reference's
@@ -4319,33 +4802,8 @@ def main(argv=None) -> int:
     # ---- where the time goes: each slice's path once more under
     # torch.profiler (its overhead inflates the wall time; the device
     # time per kernel is what it is for) ----
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def profiled(label, fn, top, host_ops=True):
-        """``host_ops=False`` traces the device alone (its busy time is
-        all this reads), for a run of many thousand steps whose host
-        events the profiler cannot summarise within the time limit."""
-        torch.cuda.synchronize()
-        acts = [ProfilerActivity.CUDA]
-        if host_ops:
-            acts.insert(0, ProfilerActivity.CPU)
-        with profile(activities=acts) as prof:
-            t0 = time.monotonic()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.monotonic() - t0
-        # device-side events only: a host op's row repeats its kernels'
-        rows = [(e.self_device_time_total, e.count, e.key)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        busy = sum(r[0] for r in rows) / 1e3
-        print(f"profiled {label}: wall {wall * 1e3:.1f} ms, device busy "
-              f"{busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}, "
-              f"{sum(r[1] for r in rows)} device operations")
-        for us, count, key in sorted(rows, reverse=True)[:top]:
-            print(f"  {us / 1e3:10.3f} ms {count:6d}x  {key[:90]}")
+        _profiled(torch, label, fn, top, host_ops)
 
     def path_a():
         bfs_batch(g, sources, backend="cuda")
@@ -4393,6 +4851,13 @@ def main(argv=None) -> int:
     # path (k): Mamba2-780m's decode (B = 4, after a 512-token prompt)
     profiled("mamba2-780m decode, 16 steps", mamba2_decode, 12)
     del g_tc, g16, graphs5, g_prof, minicpm_decode, mamba2_decode
+    torch.cuda.empty_cache()
+
+    # ---- phase 3 (l): the twelfth slice's path: LM training (plain
+    # PyTorch on the card; no kernel launches), last, once the earlier
+    # paths' graphs and models are freed: MiniCPM-2B's step holds ~60 GB.
+    # Its profile is taken inside it, with its state ----
+    _twelfth_slice_path(torch, np, K, dev, profiled)
 
     # each kernel, then the column or precision variants this slice timed
     # as rows of their own, launches those of the main path's run

@@ -1,0 +1,4 @@
+"""Atomic, mesh-elastic checkpoints (counterpart of ``repro.ckpt``)."""
+from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]

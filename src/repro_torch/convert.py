@@ -21,6 +21,14 @@ initialized params as nested dicts of host numpy arrays
 (``jax.tree.map(np.asarray, params)``) — to the port's tree on a
 device: the same key paths, shapes and dtypes, bfloat16 bit for bit,
 int8 as int8.
+
+``opt_state_from_arrays`` carries an optimizer state — the reference's
+``AdamWState(step, m, v)`` as host numpy (``jax.tree.map(np.asarray,
+state)``), its quantized moments ``QTensor(codes, scale)`` leaves — to
+the port's ``train.optimizer.AdamWState`` on a device, and
+``opt_state_to_arrays`` carries the port's back to numpy (the port's
+NamedTuples holding numpy leaves). Both read the NamedTuples by their
+field names, so either package's classes will do.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import torch
 from .core import storage as S
 from .core.graph import TENSOR_FIELDS, Graph
 from .kernels.runtime import resolve_device
+from .train.optimizer import AdamWState, QTensor
 
 _VALUE_FIELDS = ("edge_values", "csc_edge_values")
 _COL_FIELDS = ("col_indices", "csc_indices")
@@ -72,6 +81,37 @@ def params_from_arrays(tree: Mapping, device=None) -> dict:
 
     return {k: params_from_arrays(v, dev) if isinstance(v, Mapping)
             else leaf(v) for k, v in tree.items()}
+
+
+def _moments(tree, fn):
+    if isinstance(tree, Mapping):
+        return {k: _moments(v, fn) for k, v in tree.items()}
+    if hasattr(tree, "codes") and hasattr(tree, "scale"):
+        return QTensor(codes=fn(tree.codes), scale=fn(tree.scale))
+    return fn(tree)
+
+
+def opt_state_from_arrays(state, device=None) -> AdamWState:
+    """The port's ``AdamWState`` from an ``AdamWState``-like of numpy
+    arrays (``step``, ``m``, ``v``; ``codes`` / ``scale`` leaves for the
+    quantized moments): each a tensor on ``device`` (None: the card) of
+    the same shape and dtype."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    return AdamWState(step=leaf(state.step), m=_moments(state.m, leaf),
+                      v=_moments(state.v, leaf))
+
+
+def opt_state_to_arrays(state: AdamWState) -> AdamWState:
+    """The port's ``AdamWState`` with every leaf a host numpy array."""
+    def leaf(t):
+        return t.detach().cpu().numpy()
+
+    return AdamWState(step=leaf(state.step), m=_moments(state.m, leaf),
+                      v=_moments(state.v, leaf))
 
 
 def _encoded(parts: Mapping[str, np.ndarray], dev) -> S.EncodedCols:

@@ -25,9 +25,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
-from torch.utils._pytree import tree_leaves, tree_map
-
 from ..kernels.runtime import resolve_device
+from ..pytree import flatten, leaves as tree_leaves, tree_map, unflatten
 
 
 @dataclass(frozen=True)
@@ -67,9 +66,10 @@ class ArchConfig:
     max_source_len: int = 1500       # whisper: 30 s → 1500 frames
     # VLM (qwen2-vl)
     mrope_sections: Optional[tuple] = None
-    # dtypes
+    # dtypes / optimization
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.float32
+    remat: str = "none"              # none | dots | full
     # serving
     max_cache_len: int = 32768       # encdec: the decoder's position table
     kv_quant: bool = False           # int8 KV cache
@@ -111,11 +111,15 @@ def maybe_scan(body, carry, xs):
     """The reference's ``lax.scan`` over the stacked layer axis, as a
     Python loop (eager PyTorch has no trace to keep depth-independent).
     ``body(carry, x_i) -> (carry, y_i)``; the ``y_i`` (tensors or dicts
-    of them, or None) are stacked."""
-    n = int(tree_leaves(xs)[0].shape[0])
+    of them, or None) are stacked. Each stacked leaf is split once with
+    ``unbind(0)``: its backward stacks the L layer gradients in one
+    write, where indexing ``a[i]`` would write a zero-filled stack for
+    every layer (L² bytes)."""
+    flat, spec = flatten(xs)
+    layers = [a.unbind(0) for a in flat]
     ys = []
-    for i in range(n):
-        carry, y = body(carry, tree_map(lambda a: a[i], xs))
+    for i in range(len(layers[0])):
+        carry, y = body(carry, unflatten(spec, [u[i] for u in layers]))
         ys.append(y)
     if not ys or ys[0] is None:
         return carry, None

@@ -22,7 +22,8 @@ from ..parallel.sharding import constrain
 from . import layers as L
 from .api import (ArchConfig, Model, count_params, init_device,
                   init_generator, maybe_scan)
-from .transformer import _norm, _norm_init, _vocab_padded, xent_loss
+from .transformer import (_norm, _norm_init, _remat, _vocab_padded,
+                          xent_loss)
 
 BATCH = ("pod", "data")
 
@@ -82,7 +83,7 @@ def encode(cfg, params, frames):
         x = x + L.gelu_mlp(lp["mlp"], h)
         return constrain(x, BATCH, None, None), None
 
-    x, _ = maybe_scan(body, x, params["enc_layers"])
+    x, _ = maybe_scan(_remat(cfg, body), x, params["enc_layers"])
     return _norm(cfg, params["enc_final_norm"], x)
 
 
@@ -126,7 +127,7 @@ def decode_train(cfg, params, enc_out, tokens):
     def body(carry, lp):
         return _dec_block(cfg, lp, carry, enc_out, None, None)[0], None
 
-    x, _ = maybe_scan(body, x, params["dec_layers"])
+    x, _ = maybe_scan(_remat(cfg, body), x, params["dec_layers"])
     return _norm(cfg, params["dec_final_norm"], x)
 
 

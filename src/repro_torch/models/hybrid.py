@@ -23,8 +23,8 @@ from .api import (ArchConfig, Model, count_params, init_device,
                   init_generator, maybe_scan, tree_map)
 from .mamba2 import _dims, _token_input_specs, mamba2_block, \
     mamba2_layer_init
-from .transformer import (_default_positions, _norm, _norm_init, _rope,
-                          _vocab_padded, logits_fn, xent_loss)
+from .transformer import (_default_positions, _norm, _norm_init, _remat,
+                          _rope, _vocab_padded, logits_fn, xent_loss)
 
 BATCH = ("pod", "data")
 
@@ -138,7 +138,7 @@ def make_hybrid_model(cfg: ArchConfig) -> Model:
             x, states = maybe_scan(outer, x, (params["mamba"], ssm0, conv0,
                                               kv0["k"], kv0["v"]))
         else:
-            x, states = maybe_scan(outer, x, params["mamba"])
+            x, states = maybe_scan(_remat(cfg, outer), x, params["mamba"])
         return _norm(cfg, params["final_norm"], x), states
 
     def loss(params, batch):

@@ -27,8 +27,8 @@ from ..parallel.sharding import constrain
 from . import layers as L
 from .api import (ArchConfig, Model, count_params, init_device,
                   init_generator, maybe_scan)
-from .transformer import (_norm, _norm_init, _vocab_padded, logits_fn,
-                          xent_loss)
+from .transformer import (_norm, _norm_init, _remat, _vocab_padded,
+                          logits_fn, xent_loss)
 
 BATCH = ("pod", "data")
 
@@ -252,7 +252,7 @@ def make_mamba2_model(cfg: ArchConfig) -> Model:
         def body(carry, lp):
             return mamba2_block(cfg, lp, carry)[0], None
 
-        x, _ = maybe_scan(body, x, params["layers"])
+        x, _ = maybe_scan(_remat(cfg, body), x, params["layers"])
         return _norm(cfg, params["final_norm"], x)
 
     def loss(params, batch):

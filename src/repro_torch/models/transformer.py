@@ -6,15 +6,17 @@ Layers are stacked (leading L axis) and run by ``maybe_scan``, a Python
 loop over that axis. KV caches are stacked (L, B, Smax, KV, hd), and
 ``cache["len"]`` is a 0-d int32 tensor on the cache's device, so a
 decode step reads nothing back to the host. ``loss`` is the forward pass
-and the cross-entropy; gradients and the train step come with the
-training slice.
+and the cross-entropy; ``train.make_train_step`` differentiates it, and
+``cfg.remat`` picks what a layer's backward recomputes (``_remat``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as CK
 
 from ..parallel.sharding import constrain
 from . import layers as L
@@ -104,6 +106,41 @@ def _block(cfg: ArchConfig, lp, x, rope, kv_cache, cache_index):
     return x, aux, new_cache
 
 
+# the weight matmuls: ``x @ W`` reaches autograd as ``aten.mm`` (a 2-D W
+# folds the batch into rows), the attention and expert einsums as
+# ``aten.bmm`` — the dots the reference's
+# ``dots_with_no_batch_dims_saveable`` keeps and recomputes
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CK.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CK.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg, fn):
+    """``fn`` (a layer loop's body) under ``cfg.remat``: "none" keeps
+    every activation for the backward, "full" keeps the layer's inputs
+    and recomputes the rest (``jax.checkpoint``), "dots" also keeps the
+    outputs of the weight matmuls. Under ``no_grad`` (serving) it is
+    ``fn``."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("dots", "full"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            CK.create_selective_checkpoint_contexts, _dots_policy)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return CK.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
+
+
 def _default_positions(cfg, b: int, s: int, device, start=0):
     """(B, S) positions start .. start + S - 1, or (3, B, S) under
     M-RoPE; ``start`` an int or a 0-d tensor."""
@@ -143,7 +180,7 @@ def forward(cfg: ArchConfig, params, tokens, positions=None,
         x, aux, _ = _block(cfg, lp, carry, rope, None, None)
         return x, aux
 
-    x, auxs = maybe_scan(body, x, params["layers"])
+    x, auxs = maybe_scan(_remat(cfg, body), x, params["layers"])
     x = _norm(cfg, params["final_norm"], x)
     return x, tree_map(torch.mean, auxs)
 
@@ -253,7 +290,7 @@ def make_dense_model(cfg: ArchConfig) -> Model:
                 "v": torch.zeros(shp, dtype=cfg.compute_dtype,
                                  device=device)}
 
-    def _run_cached(params, x, positions, cache, index):
+    def _run_cached(params, x, positions, cache, index, remat=False):
         rope = _rope(cfg, positions)
 
         def body(carry, xs):
@@ -261,7 +298,8 @@ def make_dense_model(cfg: ArchConfig) -> Model:
             x, _, nc = _block(cfg, lp, carry, rope, cache_l, index)
             return x, nc
 
-        x, caches = maybe_scan(body, x, (params["layers"], cache))
+        x, caches = maybe_scan(_remat(cfg, body) if remat else body, x,
+                               (params["layers"], cache))
         return _norm(cfg, params["final_norm"], x), caches
 
     def prefill(params, batch, cache_len: Optional[int] = None):
@@ -279,7 +317,7 @@ def make_dense_model(cfg: ArchConfig) -> Model:
             positions = _default_positions(cfg, b, s, x.device)
         x = constrain(x, BATCH, None, None)
         cache0 = _empty_cache(b, cache_len or s, x.device)
-        x, caches = _run_cached(params, x, positions, cache0, 0)
+        x, caches = _run_cached(params, x, positions, cache0, 0, remat=True)
         lg = logits_fn(cfg, params, x[:, -1:, :])
         return lg, {**caches, "len": torch.full((), s, dtype=torch.int32,
                                                 device=x.device)}

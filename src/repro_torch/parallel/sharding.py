@@ -14,14 +14,21 @@ the mesh made active by ``use_mesh`` (a ``core.partition.Mesh``), 1 for
 an axis it lacks or when none is active; ``models.moe`` reads the data
 axes off it, as the reference reads its abstract mesh.
 
-``fit_sharding`` / ``tree_shardings`` (the checkpoint layer's) come with
-the training slice.
+A "sharding" (``NamedSharding``) is a record of the mesh and a spec
+fitted to it: ``fit_sharding`` drops an axis wherever the dimension is
+not divisible, exactly as the reference fits its ``PartitionSpec``, so
+the per-device sizes it implies are the reference's. The tensor itself
+stays whole on the mesh's root device (single-controller).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
+from dataclasses import dataclass
 from typing import Optional
+
+from ..pytree import tree_map
 
 BATCH_AXES = ("pod", "data")      # batch dim shards over both when present
 FSDP_AXIS = "data"
@@ -82,3 +89,71 @@ def constrain(x, *spec_entries):
     """The reference's ``with_sharding_constraint``: the identity here,
     where every tensor is whole on its device."""
     return x
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """``mesh`` (a ``core.partition.Mesh``) and a spec fitted to it."""
+    mesh: object
+    spec: tuple
+
+    @property
+    def device(self):
+        """Where the (whole) tensor lives: the mesh's root."""
+        return self.mesh.root
+
+    def shard_shape(self, shape) -> tuple:
+        """The per-device block of a tensor of ``shape`` under the spec."""
+        sizes = dict(zip(self.mesh.axis_names, self.mesh.shape))
+        out = []
+        for i, dim in enumerate(shape):
+            entry = self.spec[i] if i < len(self.spec) else None
+            axes = () if entry is None else (
+                entry if isinstance(entry, tuple) else (entry,))
+            out.append(dim // math.prod(sizes[a] for a in axes))
+        return tuple(out)
+
+
+def make_sharding(mesh, spec: tuple) -> NamedSharding:
+    return NamedSharding(mesh, spec_for_mesh(spec, mesh))
+
+
+def fit_sharding(mesh, shape, spec: tuple) -> NamedSharding:
+    """A sharding with axes dropped wherever the dim isn't divisible by
+    the mesh-axis product (e.g. batch=1 long-context cells, odd block
+    counts of quantized optimizer moments)."""
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    spec = spec_for_mesh(spec, mesh)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    for dim, entry in zip(shape, entries):
+        if entry is None:
+            out.append(None)
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        kept, prod = [], 1
+        for a in axes:
+            if dim % (prod * sizes[a]) == 0:
+                kept.append(a)
+                prod *= sizes[a]
+        out.append(tuple(kept) if len(kept) > 1
+                   else (kept[0] if kept else None))
+    return NamedSharding(mesh, tuple(out))
+
+
+def is_spec(x) -> bool:
+    """A spec: a plain tuple of entries (None, an axis name or a tuple
+    of them). A NamedTuple such as ``QTensor``, or a tuple of trees, is
+    a node of the tree, not a spec."""
+    def entry(e):
+        return e is None or isinstance(e, str) or (
+            isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+
+    return (isinstance(x, tuple) and not hasattr(x, "_fields")
+            and all(entry(e) for e in x))
+
+
+def tree_shardings(mesh, spec_tree):
+    """Map a tree of specs to shardings on ``mesh``."""
+    return tree_map(lambda s: make_sharding(mesh, s), spec_tree,
+                    is_leaf=is_spec)

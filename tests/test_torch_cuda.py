@@ -1754,3 +1754,101 @@ def test_moe_combine_is_deterministic_on_the_card(card):
     assert torch.equal(y1, y2)
     assert torch.equal(aux1["moe_aux_loss"], aux2["moe_aux_loss"])
     assert float(aux1["moe_drop_frac"]) > 0.0
+
+
+# ---- LM training (no kernel: plain PyTorch on the card) -------------------
+
+def _smoke_train(arch, device, **kw):
+    """One SMOKE train step (fp32, B = 2, S = 32) on ``device`` from
+    params drawn once on the CPU: (loss, grads, params after the step)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import make_batch_for
+    from repro_torch.models import build_model
+    from repro_torch.models.api import tree_map
+    from repro_torch.train import adamw, make_schedule, make_train_step
+    from repro_torch.train.trainstep import value_and_grad
+    model = build_model(get_smoke_config(arch).replace(**kw))
+    params = tree_map(lambda t: t.to(device), model.init(
+        torch.Generator().manual_seed(0), device="cpu"))
+    batch = {k: v.to(device) for k, v in make_batch_for(
+        model.cfg, {"global_batch": 2, "seq_len": 32}, "train", seed=3,
+        device="cpu").items()}
+    _, _, grads = value_and_grad(model, params, batch)
+    opt_init, opt_update = adamw(make_schedule("cosine", 1e-3, 10,
+                                               warmup_steps=2))
+    step = make_train_step(model, opt_update)
+    params, _, metrics = step(params, opt_init(params), batch)
+    return metrics["loss"], grads, params
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_train_step_on_the_card_equals_the_cpu(card, arch):
+    """A SMOKE train step on the card against the CPU's from the same
+    params: loss within 2e-3, every gradient leaf within 2e-3 × the
+    global norm, params within 2e-3 relative L2; no kernel launched."""
+    from repro_torch.pytree import leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    loss, grads, params = _smoke_train(arch, "cpu")
+    before = {k: v.launches for k, v in K.KERNELS.items()}
+    loss_c, grads_c, params_c = _smoke_train(arch, card)
+    assert {k: v.launches for k, v in K.KERNELS.items()} == before
+    assert abs(float(loss_c) - float(loss)) < 2e-3, arch
+    norm = float(torch.sqrt(sum(torch.sum(g.double() ** 2)
+                                for g in leaves(grads))))
+    for g, gc in zip(leaves(grads), leaves(grads_c)):
+        assert float((gc.cpu() - g).abs().max()) <= 2e-3 * norm, arch
+    a = torch.cat([t.ravel() for t in leaves(params)])
+    b = torch.cat([t.cpu().ravel() for t in leaves(params_c)])
+    assert float(torch.linalg.norm(a - b) / torch.linalg.norm(a)) < 2e-3
+
+
+def test_remat_lowers_peak_memory_on_the_card(card):
+    """MiniCPM-2B's width at 8 layers, B = 4, S = 512, bf16: a
+    backward's peak falls from "none" to "dots" to "full", and the loss
+    is the same."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch_for
+    from repro_torch.models import build_model
+    from repro_torch.train.trainstep import value_and_grad
+    peaks, losses = {}, {}
+    for remat in ("none", "dots", "full"):
+        model = build_model(get_config("minicpm-2b").replace(
+            n_layers=8, remat=remat))
+        params = model.init(0, device=card)
+        batch = make_batch_for(model.cfg, {"global_batch": 4,
+                                           "seq_len": 512}, "train",
+                               seed=1, device=card)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _, grads = value_and_grad(model, params, batch)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() - base
+        losses[remat] = float(loss)
+        del params, grads
+        torch.cuda.empty_cache()
+    assert peaks["none"] > peaks["dots"] > peaks["full"], peaks
+    assert losses["dots"] == losses["none"] == losses["full"], losses
+
+
+def test_checkpoint_from_the_card_restores_on_the_cpu(card, tmp_path):
+    """A bf16 params tree and int8 moments saved from the card, restored
+    on the CPU bit for bit."""
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.api import tree_map
+    from repro_torch.pytree import leaves
+    from repro_torch.train import adamw, make_schedule
+    model = build_model(get_smoke_config("minicpm-2b").replace(
+        param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16))
+    params = model.init(0, device=card)
+    opt_init, _ = adamw(make_schedule("constant", 1e-3, 10),
+                        quantize_moments=True)
+    state = (params, opt_init(params))
+    save_checkpoint(str(tmp_path), 1, state)
+    like = tree_map(lambda t: torch.zeros_like(t, device="cpu"), state)
+    got, _ = restore_checkpoint(str(tmp_path), 1, like, device="cpu")
+    for a, b in zip(leaves(state), leaves(got)):
+        assert b.device.type == "cpu" and a.dtype == b.dtype
+        assert torch.equal(a.cpu(), b)

@@ -204,3 +204,22 @@ def test_lm_entry_points_need_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert model.param_count(model.init(device="meta")) > 0
+
+
+def test_training_entry_points_need_the_card():
+    """The training path's entry points default to the card and raise
+    without one: the launcher, the test mesh, the restartable trainer
+    and a restore with no device named."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is valid here")
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.ft import RestartableTrainer
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
+    for call in (lambda: train.main(["--arch", "minicpm-2b", "--smoke"]),
+                 lambda: make_test_mesh(2, 4),
+                 lambda: RestartableTrainer("unused"),
+                 lambda: restore_checkpoint("unused", 0, {})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert make_production_mesh().devices[0].type == "meta"
